@@ -1,0 +1,9 @@
+"""seaweedfs_tpu_torch — the PyTorch/CUDA port of seaweedfs_tpu.
+
+The port keeps the JAX package's module paths (``ops/``, ``storage/``,
+``commands/``, ``cli``) so each module's counterpart is found by name.  It
+imports torch and numpy and nothing of seaweedfs_tpu; the GF(2^8) matrix
+apply runs in a hand-written CUDA kernel (``csrc/gf_apply.cu``) built at
+first use.  Entry points run on the CUDA device unless the caller passes
+``device="cpu"`` (``-device cpu`` on the CLI).
+"""

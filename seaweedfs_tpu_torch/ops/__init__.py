@@ -1,0 +1,2 @@
+"""GF(2^8) arithmetic and the Reed-Solomon codecs: the plain PyTorch codec
+(rs_torch) and the hand-written CUDA kernel behind it (rs_cuda)."""

@@ -1,0 +1,125 @@
+"""Build the port's CUDA sources with nvcc at first use and load them.
+
+Each ``csrc/<name>.cu`` becomes a shared library with a plain C interface,
+compiled for Hopper (``sm_90a``) into ``build/kernels/`` at the repo root
+(listed in .gitignore) under a name keyed by a hash of the sources and
+flags, so an edited source rebuilds and concurrent builders never share a
+half-written file.  Only the sources in the checkout are built; nothing is
+fetched.  ``nvcc`` is taken from ``$CUDA_HOME/bin``, else the standard
+``/usr/local/cuda/bin``, else ``$PATH``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list[str]:
+    """Names of the kernels in csrc/ (one .cu each)."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def nvcc() -> str:
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for path in candidates:
+        if os.access(path, os.X_OK):
+            return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels are built from "
+            "csrc/ at first use"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cu*")):  # .cu and shared .cuh headers
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+    """Start nvcc for one source; None if its library is already built."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> str:
+    """Wait for a started build and move its library into place; returns
+    the compiler's output (ptxas -v: registers, shared memory, spills)."""
+    if started is None:
+        return ""
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all(names: list[str] | None = None) -> dict[str, dict]:
+    """Build every kernel at once, one nvcc process per source, all started
+    together.  Returns {name: {"path", "seconds", "log"}}."""
+    names = sources() if names is None else names
+    t0 = time.perf_counter()
+    started, logs, errors = {}, {}, []
+    try:
+        for name in names:
+            started[name] = _start(name)
+    finally:
+        # every process started is waited for, even when one fails
+        for name, s in started.items():
+            try:
+                logs[name] = _finish(name, s)
+            except RuntimeError as e:
+                errors.append(e)
+    if errors:
+        raise errors[0]
+    dt = time.perf_counter() - t0
+    return {
+        name: {"path": str(library_path(name)), "seconds": dt, "log": logs[name]}
+        for name in names
+    }
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(library_path(name)))
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,72 @@
+"""EC scheme: shard counts and block geometry, configurable RS(k, m).
+
+The port's copy of seaweedfs_tpu/storage/erasure_coding/scheme.py (the
+geometry and the repair plan; placement helpers are not ported).
+
+The reference hard-codes RS(10,4) with 1GB/1MB blocks
+(weed/storage/erasure_coding/ec_encoder.go:17-24) even though its task
+protos model configurable shard counts; here the scheme is a first-class
+value threaded through encode/locate/rebuild (BASELINE.json config #5
+requires RS(6,3) and RS(12,4) variants).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class EcScheme:
+    data_shards: int = 10
+    parity_shards: int = 4
+    large_block_size: int = 1024 * 1024 * 1024  # 1GB
+    small_block_size: int = 1024 * 1024  # 1MB
+
+    def __post_init__(self):
+        if self.data_shards <= 0 or self.parity_shards <= 0:
+            raise ValueError("shard counts must be positive")
+        if self.data_shards + self.parity_shards > 32:
+            # ShardBits packs shard ids into a uint32 bitset
+            raise ValueError("at most 32 total shards supported")
+        if self.large_block_size % self.small_block_size:
+            raise ValueError("large block must be a multiple of small block")
+
+    @property
+    def total_shards(self) -> int:
+        return self.data_shards + self.parity_shards
+
+    def repair_plan(
+        self, present: tuple[bool, ...], targets: tuple[int, ...]
+    ) -> tuple["object", tuple[int, ...], str]:
+        """(matrix, input shard ids, mode) rebuilding ``targets`` from
+        survivors.  RS is MDS with one repair class: mode "global", the
+        first k present shards (reference Reconstruct convention) — the
+        full-width read the LRC sibling exists to avoid."""
+        from seaweedfs_tpu_torch.ops import rs_matrix
+
+        mat, inputs = rs_matrix.reconstruction_matrix(
+            self.data_shards, self.parity_shards, present, targets
+        )
+        return mat, inputs, "global"
+
+    def shard_ext(self, shard_id: int) -> str:
+        return f".ec{shard_id:02d}"
+
+    def shard_file_size(self, dat_size: int) -> int:
+        """Size of each .ecNN file for a .dat of dat_size bytes.
+
+        Rows are full-size even when the tail is zero-padded: large rows
+        while remaining > k*large, then small rows while remaining > 0.
+        """
+        large_row = self.large_block_size * self.data_shards
+        small_row = self.small_block_size * self.data_shards
+        remaining = dat_size
+        n_large = 0
+        while remaining > large_row:
+            n_large += 1
+            remaining -= large_row
+        n_small = (remaining + small_row - 1) // small_row if remaining > 0 else 0
+        return n_large * self.large_block_size + n_small * self.small_block_size
+
+
+DEFAULT_SCHEME = EcScheme()

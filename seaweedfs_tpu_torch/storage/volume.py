@@ -1,0 +1,12 @@
+"""Volume file naming (the port's copy of seaweedfs_tpu/storage/volume.py's
+``volume_file_name``; the volume object itself is not ported)."""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+
+
+def volume_file_name(directory: str | os.PathLike, collection: str, vid: int) -> str:
+    base = f"{collection}_{vid}" if collection else str(vid)
+    return str(Path(directory) / base)
