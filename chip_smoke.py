@@ -8,18 +8,42 @@ Phases, each printing what it found; any failure exits non-zero:
 1. Device and build: the card's name and power limit, and an nvcc build of
    every kernel in seaweedfs_tpu_torch/csrc (one process per source, all
    started together), with ptxas's register report.
-2. Kernel against its plain version on the card: the CUDA GF(2^8) apply
-   against rs_torch.apply_matrix_reference, byte-exact, for the RS(10,4)
-   encode matrix, a 1-loss and a 4-loss RS(10,4) rebuild matrix, RS(6,3),
-   RS(12,4) and Cauchy(10,4), at ragged widths, the main-path width, an
-   all-byte-values input and an unaligned strided view; then both timed with
-   CUDA events at (10 x 6 MiB -> 4) and (10 x 64 MiB -> 4).
+2. Kernels against their plain versions on the card, byte-exact:
+   - K1, the CUDA GF(2^8) apply, against rs_torch.apply_matrix_reference,
+     for the RS(10,4) encode matrix, a 1-loss and a 4-loss RS(10,4) rebuild
+     matrix, RS(6,3), RS(12,4) and Cauchy(10,4), at ragged widths, the
+     main-path width, an all-byte-values input and an unaligned strided
+     view; then both timed with CUDA events at (10 x 6 MiB -> 4) and
+     (10 x 64 MiB -> 4).
+   - K3 pack, K2 plane apply and K4 unpack against their plain versions in
+     rs_torch, for the RS(10,4) encode, 1-loss and 4-loss matrices, RS(6,3),
+     Cauchy(10,4) and the stack of five RS(10,4) target sets, at 1, 2 and 3
+     blocks and on an all-byte-values input, with unpack(pack(x)) == x;
+     then at the widths of phase 4's chunks (64 MiB and the 39 MiB tail):
+     pack of 10 rows, K2 -> 4 rows and -> 8 rows (the 5-set stack), and
+     unpack of 10 rows and of each target set's slice of the 8; then each
+     timed at 10 x 64 MiB, and pack + K2 + unpack against K1 at
+     (10 x 64 MiB -> 4).
 3. Main path at real size: a G GiB volume (a version-3 superblock, payload
    and a strict-valid .idx from --seed) goes through the port's own CLI,
    ``ec.encode.local`` on the card; parity is checked on the CPU over the
    first, a middle and the tail row; 4 shards (2 data, 2 parity) are deleted
    and ``ec.rebuild.local`` must regenerate them hash-identically.  The
    kernel's launch counter is zeroed just before and read just after each.
+4. Plane-resident rebuild hop at real size, on the volume of phase 3: with
+   shards 0, 3, 10 and 13 taken as absent, the plan's 10 survivors are read
+   in the rebuild pipeline's chunks, uploaded, and
+   ``ReedSolomonCuda.reconstruct_words_multi`` rebuilds the target sets
+   (0), (3), (10), (13) and (0, 3, 10, 13) at once; every result must equal
+   the shard files' bytes.  K3, K2 and K4 must launch in it, K1 must not.
+
+Bounds: the larger of the bytes a function must move over the memory rate
+and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
+count and its clocks.max.sm.  The operations are those of the cheapest
+formulation the port has: K2 one word XOR per set bit of the GF(2) matrix,
+K3/K4 the 72-op transpose, and K1 (the same GF(2^8) apply) pack, those XORs
+and unpack.  K1's own design, shared-memory byte lookups, costs more; its
+bound counts the function's work, not the design's.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  It needs CUDA: without it, or without the
@@ -42,7 +66,9 @@ import time
 
 MIB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
+LOGIC_OPS_PER_CLOCK_PER_SM = 64  # 32-bit integer logic ops, compute capability 9.0
+TRANSPOSE_OPS_PER_32_BYTES = 72  # gf_planes.cu: 3 delta-swap stages of 4 x 6 ops
+HOP_SETS = [(0,), (3,), (10,), (13,), (0, 3, 10, 13)]
 
 
 class SmokeFailure(Exception):
@@ -54,12 +80,41 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def gpu_identity() -> str:
+def nvidia_smi(query: str, *fmt: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader" + "".join(fmt)],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def gpu_identity() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def card_rates() -> dict:
+    """Logic-op rate of card 0: the per-SM rate times SMs times the most the
+    SM clock may run (clocks.max.sm)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(nvidia_smi("clocks.max.sm", ",nounits")) * 1e6
+    return dict(sms=sms, clock_hz=clock_hz,
+                logic_ops_per_s=sms * LOGIC_OPS_PER_CLOCK_PER_SM * clock_hz)
+
+
+def zero_launch_counts() -> None:
+    from seaweedfs_tpu_torch.ops import rs_cuda
+
+    rs_cuda.launches = rs_cuda.pack_launches = rs_cuda.unpack_launches = 0
+    rs_cuda.plane_launches = 0
+
+
+def launch_counts() -> dict:
+    from seaweedfs_tpu_torch.ops import rs_cuda
+
+    return {"gf_apply": rs_cuda.launches, "gf_pack": rs_cuda.pack_launches,
+            "gf_planes_apply": rs_cuda.plane_launches, "gf_unpack": rs_cuda.unpack_launches}
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -76,13 +131,40 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(r: int, s: int, n: int) -> tuple[float, str]:
-    """Least time for one (r, s) apply over n-byte rows: the bytes moved
-    (inputs read once, outputs written once) over the memory rate, against
-    r*s*n multiply-accumulates (a lookup and an XOR each) over the peak."""
-    t_bytes = (s + r) * n / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * r * s * n / NON_TENSOR_OPS_PER_S * 1e3
+def bound_ms(n_bytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """Least time for work that moves n_bytes (inputs read once, outputs
+    written once) and does ops operations on a unit of ops_per_s."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def xors_per_32_bytes(matrix) -> int:
+    """Word XORs of the matrix's GF(2) program per 32 bytes of row: one per
+    set bit (a plane word holds 4 bytes of each of 8 planes)."""
+    from seaweedfs_tpu_torch.ops import gf256
+
+    return int(gf256.matrix_to_gf2(matrix).sum())
+
+
+def k1_bound(matrix, n: int, rates: dict) -> tuple[float, str]:
+    """K1 over n-byte rows: (s + r) n bytes; as logic ops, the bit-slice
+    form of the same apply: pack s rows, the XORs, unpack r rows."""
+    r, s = matrix.shape
+    ops = ((s + r) * TRANSPOSE_OPS_PER_32_BYTES + xors_per_32_bytes(matrix)) * n / 32
+    return bound_ms((s + r) * n, ops, rates["logic_ops_per_s"])
+
+
+def k2_bound(matrix, n: int, rates: dict) -> tuple[float, str]:
+    """K2 over n-byte plane rows: (s + r) n bytes; the XORs as logic ops."""
+    r, s = matrix.shape
+    return bound_ms((s + r) * n, xors_per_32_bytes(matrix) * n / 32, rates["logic_ops_per_s"])
+
+
+def transpose_bound(rows: int, n: int, rates: dict) -> tuple[float, str]:
+    """K3 or K4 over n-byte rows: 2 rows n bytes; the transpose's logic ops."""
+    return bound_ms(2 * rows * n, TRANSPOSE_OPS_PER_32_BYTES * rows * n / 32,
+                    rates["logic_ops_per_s"])
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -105,7 +187,7 @@ def kernel_cases():
     ]
 
 
-def phase_kernel(rng, dev) -> dict:
+def phase_kernel(rng, dev, rates) -> dict:
     import numpy as np
     import torch
 
@@ -149,12 +231,143 @@ def phase_kernel(rng, dev) -> dict:
         x = torch.from_numpy(rng.integers(0, 256, (10, width), dtype=np.uint8)).to(dev)
         ms = time_ms(lambda: rs_cuda.apply_matrix_cuda(enc, x), iters=20)
         plain_ms = time_ms(lambda: apply_matrix_reference(enc, x), iters=3, warmup=1)
-        b_ms, b_by = bound_ms(4, 10, width)
+        b_ms, b_by = k1_bound(enc, width, rates)
         timings[width] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         print(f"timing 10x{width // MIB}MiB->4: kernel {ms:.6f} ms "
               f"({(14 * width) / ms / 1e6:.1f} GB/s), plain {plain_ms:.6f} ms, "
               f"bound {b_ms:.6f} ms ({b_by}), kernel at {100 * b_ms / ms:.1f}% of bound")
     return dict(max_err=max_err, timings=timings)
+
+
+def plane_cases() -> dict:
+    """K2's matrices: K1's cases but RS(12,4), and the stack of the five
+    RS(10,4) target sets of phase 4 (8 output rows)."""
+    from seaweedfs_tpu_torch.ops import rs_matrix, xor_sched
+
+    cases = {name: mat for name, mat in kernel_cases() if name != "rs12_4_encode"}
+    present = tuple(i not in HOP_SETS[-1] for i in range(14))
+    cases["rs10_4_5set_stack"], _rows = xor_sched.stack_matrices(
+        [rs_matrix.reconstruction_matrix(10, 4, present, ts)[0] for ts in HOP_SETS])
+    return cases
+
+
+def max_abs_err(got, want) -> int:
+    import torch
+
+    return int((got.view(torch.uint8).int() - want.view(torch.uint8).int()).abs().max().item())
+
+
+def shard_chunks(dat_size: int) -> list[tuple[int, int]]:
+    """(offset, bytes) of the rebuild pipeline's chunks over one shard of a
+    volume of small rows only."""
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_encoder import DEFAULT_CHUNK
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME as sc
+
+    blk = sc.small_block_size
+    shard = -(-dat_size // (blk * sc.data_shards)) * blk
+    return [(off, min(DEFAULT_CHUNK, shard - off)) for off in range(0, shard, DEFAULT_CHUNK)]
+
+
+def phase_planes(rng, dev, rates, ident: str, widths: list[int]) -> dict:
+    import numpy as np
+    import torch
+
+    from seaweedfs_tpu_torch.ops import rs_cuda, rs_torch
+
+    bw = rs_torch.BLOCK_WORDS
+    errs = {"pack": 0, "unpack": 0, "apply": 0}
+    n_checked = 0
+
+    def held(kind: str, got, want, label: str) -> None:
+        nonlocal n_checked
+        err = max_abs_err(got, want)
+        errs[kind] = max(errs[kind], err)
+        n_checked += 1
+        check(err == 0 and got.shape == want.shape and got.dtype == torch.uint32,
+              f"{kind} kernel != plain: {label} (max abs err {err})")
+
+    cases = plane_cases()
+    for name, mat in cases.items():
+        r, s = mat.shape
+        inputs = [(f"random {b} block(s)", torch.from_numpy(
+            rng.integers(0, 2**32, (s, b * bw), dtype=np.uint32)).to(dev)) for b in (1, 2, 3)]
+        ramp = (np.arange(2 * bw * 4)[None, :] + 37 * np.arange(s)[:, None]) % 256
+        inputs.append(("all byte values, 2 blocks",
+                       torch.from_numpy(ramp.astype(np.uint8)).to(dev).view(torch.uint32)))
+        for label, x in inputs:
+            planes = rs_cuda.pack_words(x)
+            held("pack", planes, rs_torch.pack_words_reference(x), f"{name} {label}")
+            held("unpack", rs_cuda.unpack_words(planes), x, f"{name} {label}: unpack(pack(x))")
+            out = rs_cuda.apply_matrix_planes(mat, planes)
+            held("apply", out, rs_torch.apply_matrix_planes_reference(mat, planes), f"{name} {label}")
+            held("unpack", rs_cuda.unpack_words(out), rs_torch.unpack_words_reference(out),
+                 f"{name} {label}")
+        print(f"  {name} ({r}x{s}): pack, plane apply, unpack byte-exact on {len(inputs)} inputs")
+    print(f"plane kernel checks: {n_checked} byte-exact, launches pack={rs_cuda.pack_launches} "
+          f"apply={rs_cuda.plane_launches} unpack={rs_cuda.unpack_launches}, max_abs_err={errs}")
+
+    # The hop's shapes: each chunk width, 10 survivor rows, the 8-row stack
+    # and its per-set slices, as reconstruct_words_multi launches them.
+    enc, stack = cases["rs10_4_encode"], cases["rs10_4_5set_stack"]
+    widest = torch.from_numpy(
+        rng.integers(0, 2**32, (10, max(64 * MIB, *widths) // 4), dtype=np.uint32)).to(dev)
+    for width in widths:
+        x = widest[:, : width // 4].contiguous()
+        label = f"10x{width / MIB:g}MiB"
+        planes = rs_cuda.pack_words(x)
+        held("pack", planes, rs_torch.pack_words_reference(x), label)
+        back = rs_cuda.unpack_words(planes)
+        held("unpack", back, rs_torch.unpack_words_reference(planes), label)
+        check(torch.equal(back, x), f"unpack(pack(x)) != x at {label}")
+        held("apply", rs_cuda.apply_matrix_planes(enc, planes),
+             rs_torch.apply_matrix_planes_reference(enc, planes), f"{label} -> 4")
+        out = rs_cuda.apply_matrix_planes(stack, planes)
+        held("apply", out, rs_torch.apply_matrix_planes_reference(stack, planes), f"{label} -> 8")
+        row = 0
+        for ts in HOP_SETS:
+            part = out[row : row + len(ts)]
+            held("unpack", rs_cuda.unpack_words(part), rs_torch.unpack_words_reference(part),
+                 f"{label} set {ts}")
+            row += len(ts)
+        print(f"  {label}: pack, K2 -> 4 and -> 8, unpack of 10 rows and of the "
+              f"{len(HOP_SETS)} sets' slices byte-exact")
+    print(f"plane kernel checks at the hop's widths: {n_checked} byte-exact in all, "
+          f"max_abs_err={errs}")
+
+    width = 64 * MIB
+    x = widest[:, : width // 4].contiguous()
+    planes = rs_cuda.pack_words(x)
+    timings = {}
+    for key, fn, plain, (b_ms, b_by) in [
+        ("pack", lambda: rs_cuda.pack_words(x), lambda: rs_torch.pack_words_reference(x),
+         transpose_bound(10, width, rates)),
+        ("unpack", lambda: rs_cuda.unpack_words(planes),
+         lambda: rs_torch.unpack_words_reference(planes), transpose_bound(10, width, rates)),
+        ("apply_4", lambda: rs_cuda.apply_matrix_planes(enc, planes),
+         lambda: rs_torch.apply_matrix_planes_reference(enc, planes), k2_bound(enc, width, rates)),
+        ("apply_8", lambda: rs_cuda.apply_matrix_planes(stack, planes),
+         lambda: rs_torch.apply_matrix_planes_reference(stack, planes),
+         k2_bound(stack, width, rates)),
+    ]:
+        ms = time_ms(fn, iters=20)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        timings[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"timing {key} 10x64MiB on {ident}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+              f"bound {b_ms:.6f} ms ({b_by}), kernel at {100 * b_ms / ms:.1f}% of bound")
+
+    def hop():
+        return rs_cuda.unpack_words(rs_cuda.apply_matrix_planes(enc, rs_cuda.pack_words(x)))
+
+    def k1():
+        return rs_cuda.apply_matrix_cuda(enc, x)
+
+    check(torch.equal(hop(), k1()), "pack + K2 + unpack != K1 at 10x64MiB->4")
+    runs = [time_ms(k1, 20), time_ms(hop, 20), time_ms(hop, 20), time_ms(k1, 20)]
+    k1_ms, hop_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+    print(f"pack + K2 + unpack vs K1 at 10x64MiB->4 on {ident}: {hop_ms:.6f} ms vs "
+          f"{k1_ms:.6f} ms (runs K1, hop, hop, K1: {', '.join(f'{t:.6f}' for t in runs)}), "
+          f"ratio {hop_ms / k1_ms:.3f}")
+    return dict(errs=errs, timings=timings, hop_ms=hop_ms, k1_ms=k1_ms)
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -247,7 +460,7 @@ def check_parity(base: str, dat_size: int) -> int:
     return n_rows
 
 
-def phase_main_path(args, ident: str) -> dict:
+def phase_main_path(args, ident: str, dev) -> dict:
     from seaweedfs_tpu_torch.ops import rs_cuda
 
     size = int(args.gib * (1 << 30))
@@ -259,7 +472,7 @@ def phase_main_path(args, ident: str) -> dict:
         base = os.path.join(tmp, "1")
         argv = ["-dir", tmp, "-volumeId", "1", "-device", "cuda"]
 
-        rs_cuda.launches = 0
+        zero_launch_counts()
         enc = run_cli(["ec.encode.local", *argv])
         enc_launches = rs_cuda.launches
         check(enc_launches > 0, "ec.encode.local launched no kernel")
@@ -271,13 +484,14 @@ def phase_main_path(args, ident: str) -> dict:
         for sid in lost:
             os.remove(base + f".ec{sid:02d}")
 
-        rs_cuda.launches = 0
+        zero_launch_counts()
         reb = run_cli(["ec.rebuild.local", *argv])
         reb_launches = rs_cuda.launches
         check(reb_launches > 0, "ec.rebuild.local launched no kernel")
         for sid in lost:
             check(sha256(base + f".ec{sid:02d}") == hashes[sid], f"rebuilt shard {sid} differs")
         print(f"rebuild: shards {list(lost)} hash-identical to the encoded ones")
+        hop = phase_hop(base, ident, dev, shard_chunks(size))
         shard_size = os.path.getsize(base + ".ec00")
         enc_gbs = size / enc["wall_s"] / 1e9
         reb_gbs = len(lost) * shard_size / reb["wall_s"] / 1e9
@@ -288,9 +502,74 @@ def phase_main_path(args, ident: str) -> dict:
               f"stages setup {reb['setup_s']:.4f}s read {reb['read_s']:.4f}s dispatch {reb['dispatch_s']:.4f}s "
               f"fetch {reb['fetch_s']:.4f}s write {reb['write_s']:.4f}s wall {reb['wall_s']:.4f}s")
         return dict(launches=enc_launches + reb_launches, encode=enc, rebuild=reb,
-                    encode_gbs=enc_gbs, rebuild_gbs=reb_gbs)
+                    encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- phase 4 ------------------------------------------------------------------
+
+
+def phase_hop(base: str, ident: str, dev, chunks: list[tuple[int, int]]) -> dict:
+    """The plane-resident rebuild hop over the volume's survivors, chunk by
+    chunk as the rebuild pipeline reads them; each result held against the
+    shard files on disk.  The five target sets are a synthetic mix that
+    drives the kernels at the stack's 8 rows; they rebuild 4 distinct
+    shards, so GB/s is given both ways."""
+    import numpy as np
+    import torch
+
+    from seaweedfs_tpu_torch.ops.rs_cuda import ReedSolomonCuda
+    from seaweedfs_tpu_torch.ops.rs_torch import BLOCK_WORDS
+
+    lost = HOP_SETS[-1]
+    present = tuple(i not in lost for i in range(14))
+    codec = ReedSolomonCuda(10, 4, device=dev)
+    _mat, inputs, _mode = codec.recon_plan(present, lost)
+    shard_size = os.path.getsize(base + ".ec00")
+    check(shard_size == sum(n for _off, n in chunks), f"shard of {shard_size} bytes, chunks {chunks}")
+    generated_rows = sum(len(ts) for ts in HOP_SETS)
+    distinct = len(lost)
+    results = []
+    with contextlib.ExitStack() as stack:
+        files = {sid: stack.enter_context(open(base + f".ec{sid:02d}", "rb"))
+                 for sid in (*inputs, *lost)}
+        zero_launch_counts()
+        for off, n in chunks:
+            check(n % (4 * BLOCK_WORDS) == 0, f"chunk of {n} bytes is not whole 128 KB blocks")
+            host = torch.empty((len(inputs), n), dtype=torch.uint8,
+                               pin_memory=dev.type == "cuda")
+            rows = host.numpy()
+            for i, sid in enumerate(inputs):
+                got = os.preadv(files[sid].fileno(), [memoryview(rows[i])], off)
+                check(got == n, f"short read of shard {sid} at {off}")
+            words = host.to(dev, non_blocking=True).view(torch.uint32)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs = codec.reconstruct_words_multi(present, HOP_SETS, words)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            want = {sid: np.frombuffer(os.pread(files[sid].fileno(), n, off), dtype=np.uint8)
+                    for sid in lost}
+            for ts, out in zip(HOP_SETS, outs):
+                got = out.view(torch.uint8).cpu().numpy()
+                check(got.shape == (len(ts), n), f"hop result for {ts} has shape {got.shape}")
+                for row, sid in enumerate(ts):
+                    check(np.array_equal(got[row], want[sid]),
+                          f"hop: shard {sid} of set {ts} differs in [{off}, {off + n})")
+            gbs, gbs_distinct = generated_rows * n / ms / 1e6, distinct * n / ms / 1e6
+            results.append(dict(bytes=n, ms=ms, gbs=gbs, gbs_distinct=gbs_distinct))
+            print(f"hop chunk [{off}, {off + n}) of 10 survivors on {ident}: {ms:.6f} ms, "
+                  f"{gbs_distinct:.3f} GB/s of {distinct} distinct shards rebuilt "
+                  f"({gbs:.3f} GB/s over all {generated_rows} rows); 5 sets equal the shard files")
+        launches = launch_counts()
+    check(launches["gf_apply"] == 0, f"the hop launched K1 {launches['gf_apply']} times")
+    for name in ("gf_pack", "gf_planes_apply", "gf_unpack"):
+        check(launches[name] > 0, f"the hop launched no {name}")
+    print(f"hop: {len(results)} chunks over {shard_size} bytes per shard, launches {launches}")
+    return dict(chunks=results, launches=launches)
 
 
 def main() -> int:
@@ -320,32 +599,68 @@ def main() -> int:
         for ln in ptxas:
             print(f"  ptxas: {ln}")
 
+    rates = card_rates()
+    print(f"rates: {rates['sms']} SMs at clocks.max.sm {rates['clock_hz'] / 1e6:.0f} MHz: "
+          f"{rates['logic_ops_per_s']:.6g} logic ops/s, {HBM_BYTES_PER_S:.6g} B/s of device memory")
+    rng = np.random.default_rng(args.seed)
     try:
-        kern = phase_kernel(np.random.default_rng(args.seed), dev)
-        main_path = phase_main_path(args, ident)
+        kern = phase_kernel(rng, dev, rates)
+        planes = phase_planes(rng, dev, rates, ident,
+                              sorted({n for _off, n in shard_chunks(int(args.gib * (1 << 30)))}))
+        main_path = phase_main_path(args, ident, dev)
     except SmokeFailure as e:
         print(f"FAIL: {e}")
         return 1
-    t6 = kern["timings"][6 * MIB]
-    record = {"kernels": [{
-        "name": "gf_apply",
-        "route": "cuda",
-        "source": "seaweedfs_tpu_torch/csrc/gf_apply.cu",
-        "replaces": "seaweedfs_tpu/ops/rs_pallas.py:52",
-        "launches": main_path["launches"],
-        "max_abs_err": kern["max_err"],
-        "ms": t6["ms"],
-        "plain_ms": t6["plain_ms"],
-        "bound_ms": t6["bound_ms"],
-        "bound_by": t6["bound_by"],
-        "library_ms": None,
-        "shape": "10x6MiB->4",
-        "ms_10x64MiB": kern["timings"][64 * MIB]["ms"],
-        "plain_ms_10x64MiB": kern["timings"][64 * MIB]["plain_ms"],
-        "bound_ms_10x64MiB": kern["timings"][64 * MIB]["bound_ms"],
-        "encode_gbs": main_path["encode_gbs"],
-        "rebuild_gbs": main_path["rebuild_gbs"],
-    }]}
+    t6, t64 = kern["timings"][6 * MIB], kern["timings"][64 * MIB]
+    pt, hop = planes["timings"], main_path["hop"]
+
+    def plane_entry(name: str, line: int, key: str, err: str, shape: str) -> dict:
+        return {
+            "name": name, "route": "cuda", "source": "seaweedfs_tpu_torch/csrc/gf_planes.cu",
+            "replaces": f"seaweedfs_tpu/ops/rs_pallas.py:{line}",
+            "launches": hop["launches"][name], "max_abs_err": planes["errs"][err],
+            "ms": pt[key]["ms"], "plain_ms": pt[key]["plain_ms"],
+            "bound_ms": pt[key]["bound_ms"], "bound_by": pt[key]["bound_by"],
+            "library_ms": None, "shape": shape,
+        }
+
+    record = {"kernels": [
+        {
+            "name": "gf_apply",
+            "route": "cuda",
+            "source": "seaweedfs_tpu_torch/csrc/gf_apply.cu",
+            "replaces": "seaweedfs_tpu/ops/rs_pallas.py:52",
+            "launches": main_path["launches"],
+            "max_abs_err": kern["max_err"],
+            "ms": t6["ms"],
+            "plain_ms": t6["plain_ms"],
+            "bound_ms": t6["bound_ms"],
+            "bound_by": t6["bound_by"],
+            "library_ms": None,
+            "shape": "10x6MiB->4",
+            "ms_10x64MiB": t64["ms"],
+            "plain_ms_10x64MiB": t64["plain_ms"],
+            "bound_ms_10x64MiB": t64["bound_ms"],
+            "bound_by_10x64MiB": t64["bound_by"],
+            "encode_gbs": main_path["encode_gbs"],
+            "rebuild_gbs": main_path["rebuild_gbs"],
+        },
+        {
+            **plane_entry("gf_planes_apply", 184, "apply_4", "apply",
+                          "10x64MiB->4 (RS(10,4) encode)"),
+            "ms_10x64MiB_to_8": pt["apply_8"]["ms"],
+            "plain_ms_10x64MiB_to_8": pt["apply_8"]["plain_ms"],
+            "bound_ms_10x64MiB_to_8": pt["apply_8"]["bound_ms"],
+            "bound_by_10x64MiB_to_8": pt["apply_8"]["bound_by"],
+            "pack_apply_unpack_ms_10x64MiB_to_4": planes["hop_ms"],
+            "k1_ms_10x64MiB_to_4": planes["k1_ms"],
+            "hop_chunk_ms": [c["ms"] for c in hop["chunks"]],
+            "hop_chunk_gbs_all_rows": [c["gbs"] for c in hop["chunks"]],
+            "hop_chunk_gbs_distinct_shards": [c["gbs_distinct"] for c in hop["chunks"]],
+        },
+        plane_entry("gf_pack", 240, "pack", "pack", "10x64MiB"),
+        plane_entry("gf_unpack", 260, "unpack", "unpack", "10x64MiB"),
+    ]}
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)
     print(json.dumps(record))

@@ -3,7 +3,8 @@
 The port keeps the JAX package's module paths (``ops/``, ``storage/``,
 ``commands/``, ``cli``) so each module's counterpart is found by name.  It
 imports torch and numpy and nothing of seaweedfs_tpu; the GF(2^8) matrix
-apply runs in a hand-written CUDA kernel (``csrc/gf_apply.cu``) built at
-first use.  Entry points run on the CUDA device unless the caller passes
+apply runs in hand-written CUDA kernels (``csrc/gf_apply.cu``, and
+``csrc/gf_planes.cu`` for the plane-resident rebuild hop) built at first
+use.  Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (``-device cpu`` on the CLI).
 """

@@ -7,8 +7,10 @@
 //
 // Bound: device memory.  Each input byte is read once and each output byte
 // written once, so the least time is (s + r) * n bytes / 3.35 TB/s.  On the
-// shared-memory side the kernel does r * s byte lookups per byte column
-// (40 for RS(10,4) encode), which stays under that bound at these shapes.
+// shared-memory side this design does r * s byte lookups per byte column
+// (40 for RS(10,4) encode); at 32 a clock per SM they take about 1.14 times
+// that bound, so the design itself cannot reach it.  The bit-slice form
+// (pack, XORs, unpack) stays under it.
 //
 // Design: the TPU kernel bit-sliced the bytes because its vector unit has no
 // cheap gathers; Hopper's shared memory does.  The matrix is a runtime

@@ -10,8 +10,9 @@ these tables replicate that construction.
 Everything here is NumPy-only and serves as the host-side oracle.  This is
 the port's own copy of seaweedfs_tpu/ops/gf256.py (the port imports nothing
 of the JAX package); the CUDA kernel (csrc/gf_apply.cu) builds its product
-rows from the same field, and ops/rs_torch.apply_matrix_reference gathers
-from MUL_TABLE.
+rows from the same field, ops/rs_torch.apply_matrix_reference gathers
+from MUL_TABLE, and ``matrix_to_gf2`` gives the GF(2) bit matrix that the
+plane kernel (csrc/gf_planes.cu) and its plain version execute.
 """
 
 from __future__ import annotations
@@ -117,3 +118,32 @@ def mat_inv(m: np.ndarray) -> np.ndarray:
 
 def mat_identity(n: int) -> np.ndarray:
     return np.eye(n, dtype=np.uint8)
+
+
+def coeff_to_gf2_block(c: int) -> np.ndarray:
+    """Expand a GF(2^8) constant into its 8x8 GF(2) multiplication matrix.
+
+    Multiplication by a constant is GF(2)-linear on the bit representation:
+    c * sum_j(b_j * 2^j) = XOR_j b_j * (c * 2^j).  Block[i, j] = bit i of
+    (c * 2^j), so out_bit[i] = XOR_j Block[i, j] & in_bit[j].  This is the
+    bridge from the byte-wise matrices to the bit-plane kernels.
+    """
+    block = np.zeros((8, 8), dtype=np.uint8)
+    for j in range(8):
+        prod = gf_mul(c, gf_exp(2, j))
+        for i in range(8):
+            block[i, j] = (prod >> i) & 1
+    return block
+
+
+def matrix_to_gf2(matrix: np.ndarray) -> np.ndarray:
+    """Expand an (r, c) GF(2^8) matrix into its (8r, 8c) GF(2) bit matrix."""
+    matrix = np.asarray(matrix, dtype=np.uint8)
+    r, c = matrix.shape
+    out = np.zeros((8 * r, 8 * c), dtype=np.uint8)
+    for i in range(r):
+        for j in range(c):
+            out[8 * i : 8 * i + 8, 8 * j : 8 * j + 8] = coeff_to_gf2_block(
+                int(matrix[i, j])
+            )
+    return out

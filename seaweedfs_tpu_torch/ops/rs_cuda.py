@@ -1,30 +1,47 @@
-"""CUDA GF(2^8) matrix apply: the port of seaweedfs_tpu/ops/rs_pallas.py
-(byte path, kernel K1 ``_make_kernel``).
+"""CUDA GF(2^8) kernels: the port of seaweedfs_tpu/ops/rs_pallas.py.
 
-``apply_matrix_cuda`` launches the hand-written kernel of csrc/gf_apply.cu
-(built by ops/_build.py at first use, bound through ctypes) on PyTorch's
-current stream.  A CPU tensor goes to the plain version,
-``rs_torch.apply_matrix_reference``; a CUDA tensor launches the kernel or
-raises.  ``launches`` counts the kernel launches, so a run can show that
-its main path went through the kernel.
+- ``apply_matrix_cuda`` launches the byte-path kernel of csrc/gf_apply.cu
+  (kernel K1 ``_make_kernel``).
+- ``pack_words`` / ``unpack_words`` (K3 / K4) and ``apply_matrix_planes``
+  / ``apply_matrices_planes`` (K2) launch the kernels of csrc/gf_planes.cu:
+  the plane-resident rebuild hop that ``ReedSolomonCuda.
+  reconstruct_words_multi`` wires together.
+
+The sources are built by ops/_build.py at first use and bound through
+ctypes; kernels run on PyTorch's current stream.  A CPU tensor goes to the
+plain version in ops/rs_torch.py; a CUDA tensor launches the kernel or
+raises.  Each kernel has a launch counter (``launches`` for K1,
+``pack_launches``, ``unpack_launches``, ``plane_launches``), so a run can
+show that its path went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 from collections import OrderedDict
-from functools import cache
+from functools import cache, lru_cache
 
 import numpy as np
 import torch
 
-from seaweedfs_tpu_torch.ops import _build
-from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch, apply_matrix_reference
+from seaweedfs_tpu_torch.ops import _build, gf256, xor_sched
+from seaweedfs_tpu_torch.ops.rs_torch import (
+    BLOCK_WORDS,
+    ReedSolomonTorch,
+    apply_matrix_planes_reference,
+    apply_matrix_reference,
+    check_plane_words,
+    pack_words_reference,
+    unpack_words_reference,
+)
 
 MAX_SHARED_BYTES = 232448  # the most dynamic shared memory a block may use
 _MATRIX_CACHE_SIZE = 64
 
-launches = 0
+launches = 0  # K1, gf_apply
+pack_launches = 0  # K3
+unpack_launches = 0  # K4
+plane_launches = 0  # K2
 _matrices: OrderedDict[tuple, torch.Tensor] = OrderedDict()
 
 
@@ -36,6 +53,20 @@ def _lib() -> ctypes.CDLL:
     lib.sw_gf_apply.restype = ctypes.c_int
     lib.sw_gf_error_string.argtypes = [ctypes.c_int]
     lib.sw_gf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@cache
+def _planes_lib() -> ctypes.CDLL:
+    lib = _build.load("gf_planes")
+    i64, ptr = ctypes.c_int64, ctypes.c_void_p
+    for fn in (lib.sw_gf_pack, lib.sw_gf_unpack):
+        fn.argtypes = [ptr, i64, ptr, i64, i64, i64, ptr]
+        fn.restype = ctypes.c_int
+    lib.sw_gf_planes_apply.argtypes = [ptr, i64, i64, ptr, i64, ptr, i64, i64, ptr]
+    lib.sw_gf_planes_apply.restype = ctypes.c_int
+    lib.sw_gf_planes_error_string.argtypes = [ctypes.c_int]
+    lib.sw_gf_planes_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -101,10 +132,155 @@ def apply_matrix_cuda(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     return out.view(torch.uint32) if words else out
 
 
+# ---- plane-resident path (K2-K4) --------------------------------------------
+
+
+def pad_width_words(width: int) -> int:
+    """Round a word count up to the plane kernels' block granularity."""
+    return -(-width // BLOCK_WORDS) * BLOCK_WORDS
+
+
+def _check_device_rows(x: torch.Tensor) -> None:
+    """What the plane kernels take: (rows, W) uint32 on a CUDA device, W a
+    multiple of BLOCK_WORDS, rows contiguous and 16-byte aligned."""
+    check_plane_words(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.numel() and (x.stride(1) != 1 or x.stride(0) % 4 or x.data_ptr() % 16):
+        raise ValueError("rows must be contiguous and 16-byte aligned")
+
+
+def _launch(fn: str, *args, device: torch.device) -> None:
+    lib = _planes_lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib, fn)(*args, stream)
+    if err:
+        raise RuntimeError(
+            f"{fn} launch failed: {lib.sw_gf_planes_error_string(err).decode()}"
+        )
+
+
+def _transpose(fn: str, words: torch.Tensor) -> torch.Tensor:
+    """Launch K3 or K4 (one transpose kernel) on device rows."""
+    _check_device_rows(words)
+    out = torch.empty(words.shape, dtype=torch.uint32, device=words.device)
+    if words.numel():
+        _launch(fn, words.data_ptr(), words.stride(0), out.data_ptr(),
+                out.stride(0), words.shape[0], words.shape[1], device=words.device)
+    return out
+
+
+def pack_words(words: torch.Tensor) -> torch.Tensor:
+    """(s, W) byte-layout uint32 rows -> (s, W) plane-interleaved rows (the
+    layout apply_matrix_planes consumes).  W a BLOCK_WORDS multiple."""
+    global pack_launches
+    if words.device.type == "cpu":
+        return pack_words_reference(words)
+    out = _transpose("sw_gf_pack", words)
+    if words.numel():
+        pack_launches += 1
+    return out
+
+
+def unpack_words(planes: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_words`."""
+    global unpack_launches
+    if planes.device.type == "cpu":
+        return unpack_words_reference(planes)
+    out = _transpose("sw_gf_unpack", planes)
+    if planes.numel():
+        unpack_launches += 1
+    return out
+
+
+@lru_cache(maxsize=_MATRIX_CACHE_SIZE)
+def _plane_masks(key: bytes, r: int, s: int) -> np.ndarray:
+    """The plane kernel's matrix: (8r, s) uint8 whose [i, j] bit c is bit
+    [i, 8j + c] of the matrix's GF(2) lowering."""
+    bits = gf256.matrix_to_gf2(np.frombuffer(key, dtype=np.uint8).reshape(r, s))
+    packed = np.packbits(bits.reshape(8 * r, s, 8), axis=2, bitorder="little")
+    return np.ascontiguousarray(packed[:, :, 0])
+
+
+def apply_matrix_planes(matrix: np.ndarray, planes: torch.Tensor) -> torch.Tensor:
+    """GF(2^8) apply on PLANE-RESIDENT data: ``planes`` is (s, W) uint32
+    rows in the plane-interleaved layout, the result (r, W) in the same
+    layout, so chained applies never pack or unpack.  W must be a multiple
+    of BLOCK_WORDS (pad via pad_width_words)."""
+    global plane_launches
+    matrix = np.ascontiguousarray(matrix, dtype=np.uint8)
+    if matrix.ndim != 2:
+        raise ValueError(f"matrix must be 2-D, got shape {matrix.shape}")
+    if planes.device.type == "cpu":
+        return apply_matrix_planes_reference(matrix, planes)
+    _check_device_rows(planes)
+    r, s = matrix.shape
+    if planes.shape[0] != s:
+        raise ValueError(f"matrix takes {s} rows, planes has {planes.shape[0]}")
+    width = planes.shape[1]
+    out = torch.empty((r, width), dtype=torch.uint32, device=planes.device)
+    if r and width:
+        masks = _device_matrix(_plane_masks(matrix.tobytes(), r, s), planes.device)
+        _launch("sw_gf_planes_apply", masks.data_ptr(), r, s, planes.data_ptr(),
+                planes.stride(0), out.data_ptr(), out.stride(0), width,
+                device=planes.device)
+        plane_launches += 1
+    return out
+
+
+def apply_matrices_planes(
+    matrices: list[np.ndarray], planes: torch.Tensor
+) -> list[torch.Tensor]:
+    """Apply SEVERAL GF(2^8) matrices over the same inputs to one
+    plane-resident survivor stream in one kernel launch: the matrices are
+    stacked (xor_sched.stack_matrices) and the result is sliced back into
+    the per-matrix (r_i, W) plane-layout results."""
+    stacked, row_counts = xor_sched.stack_matrices(matrices)
+    out = apply_matrix_planes(stacked, planes)
+    outs, row = [], 0
+    for r in row_counts:
+        outs.append(out[row : row + r])
+        row += r
+    return outs
+
+
 class ReedSolomonCuda(ReedSolomonTorch):
-    """ReedSolomonTorch with the CUDA kernel as the matrix apply (the
-    counterpart of seaweedfs_tpu.ops.rs_pallas.ReedSolomonPallas).  Rows
-    pad only to whole 4-byte words, not to the Pallas 128 KB block."""
+    """ReedSolomonTorch with the CUDA kernels (the counterpart of
+    seaweedfs_tpu.ops.rs_pallas.ReedSolomonPallas).  Rows pad only to whole
+    4-byte words, not to the Pallas 128 KB block; the plane hop
+    (``reconstruct_words_multi``) takes whole blocks."""
 
     def _apply(self, matrix: np.ndarray, words: torch.Tensor) -> torch.Tensor:
         return apply_matrix_cuda(matrix, words)
+
+    def reconstruct_words_multi(
+        self,
+        present: tuple[bool, ...],
+        target_sets: list[tuple[int, ...]],
+        words,
+    ) -> list[torch.Tensor]:
+        """Plane-resident rebuild hop: pack the survivors once, apply the
+        stacked reconstruction matrices of several target sets in one
+        plane kernel, unpack each result once.  ``words`` rows are the
+        plan's input shards in plan order (identical for every target set,
+        enforced), (s, W) uint32 with W a multiple of BLOCK_WORDS; returns
+        one (len(targets), W) uint32 byte-layout tensor per target set, on
+        self.device."""
+        if not target_sets:
+            return []
+        plans = [self.recon_plan(tuple(present), tuple(ts)) for ts in target_sets]
+        inputs0 = plans[0][1]
+        for _mat, inputs, _mode in plans[1:]:
+            if tuple(inputs) != tuple(inputs0):
+                raise ValueError(
+                    "reconstruct_words_multi needs every plan to consume "
+                    f"the same inputs: {inputs} != {inputs0}"
+                )
+        if int(words.shape[0]) != len(inputs0):
+            raise ValueError(
+                f"words has {words.shape[0]} rows, plans consume {len(inputs0)}"
+            )
+        planes = pack_words(torch.as_tensor(words, device=self.device))
+        outs = apply_matrices_planes([mat for mat, _inputs, _mode in plans], planes)
+        return [unpack_words(o) for o in outs]

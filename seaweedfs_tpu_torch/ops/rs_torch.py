@@ -6,6 +6,10 @@ codec's hooks (``recon_plan``, ``_apply``, ``_padded_width``) and API, and
 the plain PyTorch version of the matrix apply, ``apply_matrix_reference``:
 table gathers from ``gf256.MUL_TABLE`` and XOR on uint8.  It is the CPU
 path and the yardstick the CUDA kernel (ops/rs_cuda.py) is held against.
+The plane-resident rebuild hop's plain versions sit beside it:
+``pack_words_reference`` / ``unpack_words_reference`` (byte-words to
+GF(2) bit-planes and back) and ``apply_matrix_planes_reference`` (the
+GF(2) bit-matrix of a GF(2^8) matrix, applied plane by plane with XORs).
 
 Layouts follow the JAX package at the word-level functions: shard rows are
 (s, W) uint32 words, little-endian views of the (s, 4W) bytes.  Arithmetic
@@ -20,6 +24,11 @@ import torch
 from seaweedfs_tpu_torch.ops import gf256, rs_matrix
 
 WORD_BYTES = 4
+# the plane layout of seaweedfs_tpu/ops/rs_pallas.py: rows are cut into
+# blocks of BLOCK_WORDS words (128 KB), and within a block the plane-
+# interleaved layout holds bit-plane b in words [b*PLANE_WORDS, (b+1)*PLANE_WORDS)
+PLANE_WORDS = 4096
+BLOCK_WORDS = 8 * PLANE_WORDS
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -68,6 +77,72 @@ def apply_matrix_reference(matrix: np.ndarray, data: torch.Tensor) -> torch.Tens
             if c:
                 out[o] ^= table[c][idx]
     return out
+
+
+def check_plane_words(words: torch.Tensor) -> None:
+    """What the plane functions take: (rows, W) uint32, W a multiple of
+    BLOCK_WORDS."""
+    if words.dtype != torch.uint32 or words.dim() != 2:
+        raise ValueError(f"need (rows, W) uint32 words, got {tuple(words.shape)} {words.dtype}")
+    if words.shape[1] % BLOCK_WORDS:
+        raise ValueError(
+            f"width {words.shape[1]} not a multiple of {BLOCK_WORDS} words "
+            "(pad with pad_width_words)"
+        )
+
+
+def _plane_blocks(words: torch.Tensor) -> torch.Tensor:
+    """(rows, W) uint32 -> (rows, W // BLOCK_WORDS, 8, 4 * PLANE_WORDS)
+    uint8: each block's eight word groups (or planes) as bytes."""
+    check_plane_words(words)
+    rows, width = words.shape
+    return words.contiguous().view(torch.uint8).reshape(
+        rows, width // BLOCK_WORDS, 8, WORD_BYTES * PLANE_WORDS
+    )
+
+
+def _transpose_bits(words: torch.Tensor) -> torch.Tensor:
+    """Per byte lane, the 8x8 bit transpose across a block's eight word
+    groups: out group b, bit q = in group q, bit b.  It is its own inverse."""
+    x = _plane_blocks(words)
+    out = torch.zeros_like(x)
+    for b in range(8):
+        acc = out[:, :, b]
+        for q in range(8):
+            acc |= ((x[:, :, q] >> b) & 1) << q
+    return out.view(words.shape[0], -1).view(torch.uint32)
+
+
+def pack_words_reference(words: torch.Tensor) -> torch.Tensor:
+    """(rows, W) byte-layout uint32 words -> (rows, W) plane-interleaved
+    rows: within each block, plane b word g is
+    OR_q ((x[q*PLANE_WORDS + g] >> b) & 0x01010101) << q.
+    W must be a multiple of BLOCK_WORDS."""
+    return _transpose_bits(words)
+
+
+def unpack_words_reference(planes: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_words_reference`: word q*PLANE_WORDS + g is
+    OR_b ((plane_b[g] >> q) & 0x01010101) << b, the same transpose."""
+    return _transpose_bits(planes)
+
+
+def apply_matrix_planes_reference(matrix: np.ndarray, planes: torch.Tensor) -> torch.Tensor:
+    """(r, s) GF(2^8) matrix applied to (s, W) plane-interleaved rows ->
+    (r, W) plane-interleaved rows: output plane (o, b) is the XOR of the
+    input planes (j, c) wherever matrix_to_gf2(matrix)[8o+b, 8j+c] is
+    set, block by block."""
+    matrix = np.asarray(matrix, dtype=np.uint8)
+    if matrix.ndim != 2:
+        raise ValueError(f"matrix must be 2-D, got shape {matrix.shape}")
+    r, s = matrix.shape
+    x = _plane_blocks(planes)
+    if x.shape[0] != s:
+        raise ValueError(f"matrix takes {s} rows, planes has {x.shape[0]}")
+    out = torch.zeros((r, *x.shape[1:]), dtype=torch.uint8, device=x.device)
+    for i, j in zip(*np.nonzero(gf256.matrix_to_gf2(matrix))):
+        out[i // 8, :, i % 8] ^= x[j // 8, :, j % 8]
+    return out.view(r, -1).view(torch.uint32)
 
 
 class ReedSolomonTorch:
