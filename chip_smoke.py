@@ -7,18 +7,25 @@ Phases, each printing what it found; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit, and an nvcc build of
    every kernel in seaweedfs_tpu_torch/csrc (one process per source, all
-   started together), with ptxas's register report.
+   started together), with ptxas's registers and spills for every kernel
+   instantiation; a spill in K1 or K2 fails the run.
 2. Kernels against their plain versions on the card, byte-exact:
    - K1, the CUDA GF(2^8) apply, against rs_torch.apply_matrix_reference,
      for the RS(10,4) encode matrix, a 1-loss and a 4-loss RS(10,4) rebuild
-     matrix, RS(6,3), RS(12,4) and Cauchy(10,4), at ragged widths, the
-     main-path width, an all-byte-values input and an unaligned strided
-     view; then both timed with CUDA events at (10 x 6 MiB -> 4) and
-     (10 x 64 MiB -> 4).
+     matrix, RS(6,3), RS(12,4), Cauchy(10,4) and a stack of three 4-loss
+     RS(10,4) rebuild matrices (12 output rows: two grid.y groups), at
+     ragged widths, the main-path width, an all-byte-values input and an
+     unaligned strided view; then timed with CUDA events at
+     (10 x 6 MiB -> 4) and (10 x 64 MiB -> 4) with the encode matrix, and
+     at (10 x 64 MiB -> 4) with the 4-loss rebuild matrix, the rebuild's
+     own launch: once through the wrapper call by call, and once as 20
+     calls captured in a CUDA graph and replayed, which leaves out the
+     host's work between launches.
    - K3 pack, K2 plane apply and K4 unpack against their plain versions in
      rs_torch, for the RS(10,4) encode, 1-loss and 4-loss matrices, RS(6,3),
-     Cauchy(10,4) and the stack of five RS(10,4) target sets, at 1, 2 and 3
-     blocks and on an all-byte-values input, with unpack(pack(x)) == x;
+     Cauchy(10,4), the 12-row stack and the stack of five RS(10,4) target
+     sets, at 1, 2 and 3 blocks and on an all-byte-values input, with
+     unpack(pack(x)) == x;
      then at the widths of phase 4's chunks (64 MiB and the 39 MiB tail):
      pack of 10 rows, K2 -> 4 rows and -> 8 rows (the 5-set stack), and
      unpack of 10 rows and of each target set's slice of the 8; then each
@@ -40,10 +47,13 @@ Phases, each printing what it found; any failure exits non-zero:
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
 count and its clocks.max.sm.  The operations are those of the cheapest
-formulation the port has: K2 one word XOR per set bit of the GF(2) matrix,
-K3/K4 the 72-op transpose, and K1 (the same GF(2^8) apply) pack, those XORs
-and unpack.  K1's own design, shared-memory byte lookups, costs more; its
-bound counts the function's work, not the design's.
+formulation the port has.  K2's are the GF(2) matrix's word XORs: the
+lesser of one per set bit and the table apply's count (csrc/gf_table.cuh:
+11 per input row and half to build its table, then one per output plane,
+input row and half; 860 against 1224 set bits per 32 bytes at 10 -> 4 with
+the RS(10,4) encode matrix).  K3/K4's are the 72-op transpose, and K1's
+(the same GF(2^8) apply) pack, those XORs and unpack.  Bytes set every
+bound here.
 
 The line before the last holds the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  It needs CUDA: without it, or without the
@@ -58,6 +68,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -103,6 +114,34 @@ def card_rates() -> dict:
                 logic_ops_per_s=sms * LOGIC_OPS_PER_CLOCK_PER_SM * clock_hz)
 
 
+def demangle(mangled: str) -> str:
+    """'_ZN12_GLOBAL__N_115gf_apply_kernelILi4EEEv...' -> 'gf_apply_kernel<4>'."""
+    i, name = 0, mangled
+    while m := re.compile(r"(\d+)").search(mangled, i):
+        start, size = m.end(), int(m.group(1))
+        part = mangled[start : start + size]
+        if part.endswith("_kernel"):
+            args = re.match(r"I((?:Li\d+E)+)E", mangled[start + size :])
+            values = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+            name = part + (f"<{','.join(values)}>" if values else "")
+            break
+        i = start + max(size, 1)
+    return name
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Registers and spill bytes of every kernel in an `nvcc -Xptxas -v` log."""
+    kernels = []
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            kernels.append(dict(kernel=demangle(m.group(1)), registers=None, spill_bytes=0))
+        elif kernels and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            kernels[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif kernels and (m := re.search(r"Used (\d+) registers", line)):
+            kernels[-1]["registers"] = int(m.group(1))
+    return kernels
+
+
 def zero_launch_counts() -> None:
     from seaweedfs_tpu_torch.ops import rs_cuda
 
@@ -131,6 +170,26 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Device time of one call: iters calls captured in a CUDA graph (after
+    one call outside it, which uploads and caches what the call needs) and
+    replayed once warm and once between CUDA events."""
+    import torch
+
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound_ms(n_bytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
     """Least time for work that moves n_bytes (inputs read once, outputs
     written once) and does ops operations on a unit of ops_per_s."""
@@ -140,11 +199,14 @@ def bound_ms(n_bytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
 
 
 def xors_per_32_bytes(matrix) -> int:
-    """Word XORs of the matrix's GF(2) program per 32 bytes of row: one per
-    set bit (a plane word holds 4 bytes of each of 8 planes)."""
+    """Word XORs of the matrix's cheapest GF(2) program per 32 bytes of row
+    (a plane word holds 4 bytes of each of 8 planes): the lesser of one per
+    set bit and the table apply's 11 per (input row, half) plus one per
+    (output plane, input row, half)."""
     from seaweedfs_tpu_torch.ops import gf256
 
-    return int(gf256.matrix_to_gf2(matrix).sum())
+    r, s = matrix.shape
+    return min(int(gf256.matrix_to_gf2(matrix).sum()), 2 * s * (11 + 8 * r))
 
 
 def k1_bound(matrix, n: int, rates: dict) -> tuple[float, str]:
@@ -170,20 +232,28 @@ def transpose_bound(rows: int, n: int, rates: dict) -> tuple[float, str]:
 # -- phase 2 ------------------------------------------------------------------
 
 
-def kernel_cases():
+def loss4_matrix(lost: tuple[int, ...]):
     from seaweedfs_tpu_torch.ops import rs_matrix
+
+    present = tuple(i not in lost for i in range(14))
+    return rs_matrix.reconstruction_matrix(10, 4, present, lost)[0]
+
+
+def kernel_cases():
+    from seaweedfs_tpu_torch.ops import rs_matrix, xor_sched
 
     enc = rs_matrix.build_encode_matrix(10, 4)
     one = tuple(i != 3 for i in range(14))
-    four = tuple(i not in (0, 3, 10, 13) for i in range(14))
+    stack12, _rows = xor_sched.stack_matrices(
+        [loss4_matrix(lost) for lost in [(0, 3, 10, 13), (1, 2, 11, 12), (4, 5, 6, 7)]])
     return [
         ("rs10_4_encode", enc[10:]),
         ("rs10_4_rebuild_1loss", rs_matrix.reconstruction_matrix(10, 4, one, (3,))[0]),
-        ("rs10_4_rebuild_4loss",
-         rs_matrix.reconstruction_matrix(10, 4, four, (0, 3, 10, 13))[0]),
+        ("rs10_4_rebuild_4loss", loss4_matrix((0, 3, 10, 13))),
         ("rs6_3_encode", rs_matrix.build_encode_matrix(6, 3)[6:]),
         ("rs12_4_encode", rs_matrix.build_encode_matrix(12, 4)[12:]),
         ("cauchy10_4_encode", rs_matrix.build_cauchy_matrix(10, 4)[10:]),
+        ("rs10_4_3x4loss_stack", stack12),
     ]
 
 
@@ -225,23 +295,28 @@ def phase_kernel(rng, dev, rates) -> dict:
     print(f"kernel checks: {n_checked} byte-exact, launches={rs_cuda.launches}, "
           f"max_abs_err={max_err}")
 
-    enc = kernel_cases()[0][1]
+    cases = dict(kernel_cases())
     timings = {}
-    for width in (6 * MIB, 64 * MIB):
+    for key, name, width in [(6 * MIB, "rs10_4_encode", 6 * MIB),
+                             (64 * MIB, "rs10_4_encode", 64 * MIB),
+                             ("rebuild_4loss", "rs10_4_rebuild_4loss", 64 * MIB)]:
+        mat = cases[name]
         x = torch.from_numpy(rng.integers(0, 256, (10, width), dtype=np.uint8)).to(dev)
-        ms = time_ms(lambda: rs_cuda.apply_matrix_cuda(enc, x), iters=20)
-        plain_ms = time_ms(lambda: apply_matrix_reference(enc, x), iters=3, warmup=1)
-        b_ms, b_by = k1_bound(enc, width, rates)
-        timings[width] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        print(f"timing 10x{width // MIB}MiB->4: kernel {ms:.6f} ms "
-              f"({(14 * width) / ms / 1e6:.1f} GB/s), plain {plain_ms:.6f} ms, "
-              f"bound {b_ms:.6f} ms ({b_by}), kernel at {100 * b_ms / ms:.1f}% of bound")
+        ms = time_ms(lambda: rs_cuda.apply_matrix_cuda(mat, x), iters=20)
+        g_ms = graph_ms(lambda: rs_cuda.apply_matrix_cuda(mat, x), iters=20)
+        plain_ms = time_ms(lambda: apply_matrix_reference(mat, x), iters=3, warmup=1)
+        b_ms, b_by = k1_bound(mat, width, rates)
+        timings[key] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"timing {name} 10x{width // MIB}MiB->4: kernel {ms:.6f} ms "
+              f"({(14 * width) / ms / 1e6:.1f} GB/s), in a CUDA graph {g_ms:.6f} ms, "
+              f"plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), kernel at "
+              f"{100 * b_ms / ms:.1f}% of bound ({100 * b_ms / g_ms:.1f}% in the graph)")
     return dict(max_err=max_err, timings=timings)
 
 
 def plane_cases() -> dict:
-    """K2's matrices: K1's cases but RS(12,4), and the stack of the five
-    RS(10,4) target sets of phase 4 (8 output rows)."""
+    """K2's matrices: K1's cases but RS(12,4) (with the 12-row stack), and
+    the stack of the five RS(10,4) target sets of phase 4 (8 output rows)."""
     from seaweedfs_tpu_torch.ops import rs_matrix, xor_sched
 
     cases = {name: mat for name, mat in kernel_cases() if name != "rs12_4_encode"}
@@ -593,11 +668,19 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} ({ident}), torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
     built = _build.build_all()
+    ptxas = {}
     for name, info in built.items():
-        ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
         print(f"build: {name} in {info['seconds']:.3f}s -> {info['path']}")
-        for ln in ptxas:
-            print(f"  ptxas: {ln}")
+        for k in ptxas_report(info["log"]):
+            ptxas[k["kernel"]] = k
+            print(f"  ptxas: {k['kernel']}: {k['registers']} registers, "
+                  f"{k['spill_bytes']} bytes of spill stores and loads")
+    table_kernels = [k for name, k in ptxas.items()
+                     if name.startswith(("gf_apply_kernel", "planes_apply_kernel"))]
+    if len(table_kernels) != 8 or any(k["spill_bytes"] for k in table_kernels):
+        print(f"FAIL: ptxas should report 4 K1 and 4 K2 instantiations, none spilling: "
+              f"{table_kernels}")
+        return 1
 
     rates = card_rates()
     print(f"rates: {rates['sms']} SMs at clocks.max.sm {rates['clock_hz'] / 1e6:.0f} MHz: "
@@ -612,7 +695,11 @@ def main() -> int:
         print(f"FAIL: {e}")
         return 1
     t6, t64 = kern["timings"][6 * MIB], kern["timings"][64 * MIB]
+    t_reb = kern["timings"]["rebuild_4loss"]
     pt, hop = planes["timings"], main_path["hop"]
+
+    def registers(kernel: str) -> dict:
+        return {name: k["registers"] for name, k in ptxas.items() if name.startswith(kernel)}
 
     def plane_entry(name: str, line: int, key: str, err: str, shape: str) -> dict:
         return {
@@ -638,10 +725,18 @@ def main() -> int:
             "bound_by": t6["bound_by"],
             "library_ms": None,
             "shape": "10x6MiB->4",
+            "ms_graph": t6["graph_ms"],
             "ms_10x64MiB": t64["ms"],
+            "ms_graph_10x64MiB": t64["graph_ms"],
             "plain_ms_10x64MiB": t64["plain_ms"],
             "bound_ms_10x64MiB": t64["bound_ms"],
             "bound_by_10x64MiB": t64["bound_by"],
+            "ms_10x64MiB_rebuild_4loss": t_reb["ms"],
+            "ms_graph_10x64MiB_rebuild_4loss": t_reb["graph_ms"],
+            "plain_ms_10x64MiB_rebuild_4loss": t_reb["plain_ms"],
+            "bound_ms_10x64MiB_rebuild_4loss": t_reb["bound_ms"],
+            "bound_by_10x64MiB_rebuild_4loss": t_reb["bound_by"],
+            "registers": registers("gf_apply_kernel"),
             "encode_gbs": main_path["encode_gbs"],
             "rebuild_gbs": main_path["rebuild_gbs"],
         },
@@ -652,6 +747,7 @@ def main() -> int:
             "plain_ms_10x64MiB_to_8": pt["apply_8"]["plain_ms"],
             "bound_ms_10x64MiB_to_8": pt["apply_8"]["bound_ms"],
             "bound_by_10x64MiB_to_8": pt["apply_8"]["bound_by"],
+            "registers": registers("planes_apply_kernel"),
             "pack_apply_unpack_ms_10x64MiB_to_4": planes["hop_ms"],
             "k1_ms_10x64MiB_to_4": planes["k1_ms"],
             "hop_chunk_ms": [c["ms"] for c in hop["chunks"]],

@@ -14,60 +14,47 @@
 // Pack and unpack.  The transpose is its own inverse, so K3 and K4 are one
 // kernel body behind two launchers.  One thread per (row, block, 4
 // consecutive g): eight 16-byte loads (coalesced along g), the transpose by
-// three delta-swap stages (4 swaps of 6 logic ops each: 72 ops per 8 words,
-// where the TPU kernel's shift-mask-or form takes 4 ops per bit pair, 256),
-// eight 16-byte stores.  Bound: device memory, 2 * rows * n bytes over
-// 3.35 TB/s; the 72 ops per 32 bytes stay well under it.
+// three delta-swap stages (gf_table.cuh: 72 logic ops per 8 words, where
+// the TPU kernel's shift-mask-or form takes 256), eight 16-byte stores.
+// Bound: device memory, 2 * rows * n bytes over 3.35 TB/s; the 72 ops per
+// 32 bytes stay well under it.
 //
 // Plane apply.  The GF(2) matrix is runtime data, as in gf_apply.cu, so one
 // build serves the encode matrix, every reconstruction matrix and every
 // stack of them, with no nvcc at rebuild time.  It arrives as
 // masks[i * s + j], one byte per output plane i and input row j whose bit c
-// is bits[i][8j + c] (8r * s bytes); each block copies its output group's
-// masks into shared memory.  One thread per V consecutive g keeps the
-// 8 * R * V <= 64 accumulators of its R output rows in registers.  For each
-// input row j it loads that row's eight plane words and XORs each into the
-// accumulators whose mask bit is set; the masks are the same for every
-// thread, so the tests never diverge.  More than 8 output rows go to
-// grid.y groups that each re-read the inputs.  Bound: the larger of
-// (s + r) * n bytes over 3.35 TB/s and popcount(bits) * n / 32 word XORs
-// at 64 logic ops per clock per SM.  The kernel executes every set bit as
-// one XOR; the JAX package's CSE'd schedule (xor_sched.plan_schedule: 499
-// instead of 1224 XORs for the RS(10,4) encode) is left for a later
-// redesign of this kernel.
+// is bits[i][8j + c] (8r * s bytes).  Its bound is device memory,
+// (s + r) * n bytes; the work it must do is one word XOR per set bit at
+// most.  A kernel that tests every bit of the mask instead issues 8r * 8s
+// tests per word group whatever the matrix, which held the first version
+// of this kernel to a quarter of its bound at 8 output rows.  This one runs
+// the table apply of gf_table.cuh: each block turns its output group's mask
+// nibbles into table offsets in shared memory; one thread per V consecutive
+// g keeps the 8 * R * V accumulators of its R output rows in registers and,
+// for each (input row, half), loads the half's four plane words (prefetched
+// one step ahead), builds its 16-entry table and does one shared load and
+// one XOR per output plane: 8 * R loads per (row, half), no test.  Per
+// 32 bytes of column at 4 output rows that is 220 + 640 XORs (fewer than
+// the 1224 set bits of the RS(10,4) encode) and 300 + 640 shared accesses;
+// at 8 rows, 300 + 1280.  Shared-memory traffic now bounds it: at the
+// rate the H100 reaches on it, about 70% of one 128-byte wavefront a clock
+// per SM, 10 x 64 MiB takes about 0.37 ms at 4 rows and 0.63 ms at 8,
+// against byte times of 0.28 and 0.36 ms.  Blocks of 128 threads and
+// V = 2 at 8 rows (half the shared instructions per byte of V = 1) keep
+// enough blocks resident at these register counts.  More than 8 output
+// rows go to grid.y groups that each re-read the inputs.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "gf_table.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // K3/K4's block size; K2 takes gf::kThreads
 constexpr int64_t kPlaneWords = 4096;
 constexpr int64_t kBlockWords = 8 * kPlaneWords;
-constexpr int kMaxMaskBytes = 48 * 1024;  // shared memory a block gets without opting in
-
-// Swap the bits of a selected by mask << shift with the bits of b selected
-// by mask.
-__device__ __forceinline__ void delta_swap(uint32_t& a, uint32_t& b, int shift,
-                                           uint32_t mask) {
-  const uint32_t t = ((a >> shift) ^ b) & mask;
-  b ^= t;
-  a ^= t << shift;
-}
-
-// Per byte lane, the 8x8 bit transpose x[q] bit b <-> x[b] bit q: swap the
-// off-diagonal 4x4 blocks, then the 2x2 blocks inside each, then the bits.
-__device__ __forceinline__ void transpose8(uint32_t* x) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) delta_swap(x[q], x[q + 4], 4, 0x0F0F0F0Fu);
-  delta_swap(x[0], x[2], 2, 0x33333333u);
-  delta_swap(x[1], x[3], 2, 0x33333333u);
-  delta_swap(x[4], x[6], 2, 0x33333333u);
-  delta_swap(x[5], x[7], 2, 0x33333333u);
-#pragma unroll
-  for (int q = 0; q < 8; q += 2) delta_swap(x[q], x[q + 1], 1, 0x55555555u);
-}
 
 // grid (ceil(width / 32 / kThreads), rows): thread t of row blockIdx.y takes
 // g = 4 * (t % 1024) of block t / 1024.
@@ -91,7 +78,7 @@ __global__ void __launch_bounds__(kThreads)
     w[3][q] = v.w;
   }
 #pragma unroll
-  for (int k = 0; k < 4; ++k) transpose8(w[k]);
+  for (int k = 0; k < 4; ++k) gf::transpose8(w[k]);
 #pragma unroll
   for (int b = 0; b < 8; ++b)
     *reinterpret_cast<uint4*>(dst + b * kPlaneWords) =
@@ -122,19 +109,42 @@ __device__ __forceinline__ void store_vec(uint32_t* p, const uint32_t* v) {
   }
 }
 
-// grid (ceil(width / 8 / V / kThreads), ceil(r / R)): block row blockIdx.y
-// computes output rows [R * blockIdx.y, R * blockIdx.y + R) of r.
+// Planes 4h .. 4h+3 of input row j, for step u = 2j + h.
+template <int V>
+__device__ __forceinline__ void load_half(const uint32_t* in, int64_t in_stride,
+                                          int64_t base, int u, uint32_t (&p)[4][V]) {
+  const uint32_t* src = in + (u >> 1) * in_stride + base + 4 * (u & 1) * kPlaneWords;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) load_vec<V>(src + c * kPlaneWords, p[c]);
+}
+
 template <int R, int V>
-__global__ void __launch_bounds__(kThreads)
+constexpr int apply_shared_bytes(int s) {
+  return gf::table_bytes<V>() + 2 * s * 8 * R * 4;
+}
+
+// grid (ceil(width / 8 / V / gf::kThreads), ceil(r / R)): block row blockIdx.y
+// computes output rows [R * blockIdx.y, R * blockIdx.y + R) of r.  Dynamic
+// shared memory: the table, then offs[u * 8R + i] for step u = 2j + h and
+// output plane i of the group.
+template <int R, int V>
+__global__ void __launch_bounds__(gf::kThreads)
     planes_apply_kernel(const uint8_t* __restrict__ masks, int r, int s,
                         const uint32_t* __restrict__ in, int64_t in_stride,
                         uint32_t* __restrict__ out, int64_t out_stride,
                         int64_t width) {
-  extern __shared__ uint8_t group_masks[];  // [i * s + j], i < 8R, 0 past r
+  constexpr int P = 8 * R;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* offs = reinterpret_cast<uint32_t*>(smem + gf::table_bytes<V>());
   const int o0 = blockIdx.y * R;
   const int planes = 8 * min(R, r - o0);
-  for (int e = threadIdx.x; e < 8 * R * s; e += blockDim.x)
-    group_masks[e] = e < planes * s ? masks[int64_t(8 * o0) * s + e] : 0;
+  for (int e = threadIdx.x; e < 2 * s * P; e += blockDim.x) {
+    const int u = e / P, i = e % P;
+    const uint32_t m = i < planes ? masks[int64_t(8 * o0 + i) * s + (u >> 1)] : 0;
+    offs[e] = ((m >> (4 * (u & 1))) & 15u) * gf::slot_stride<V>();
+  }
+  uint8_t* slots = smem + threadIdx.x * 4 * V;
+  gf::clear_slot0<V>(slots);
   __syncthreads();
 
   const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -142,29 +152,25 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t per_block = kPlaneWords / V;
   const int64_t base = (t / per_block) * kBlockWords + (t % per_block) * V;
 
-  uint32_t acc[8 * R][V];
+  uint32_t acc[P][V];
 #pragma unroll
-  for (int i = 0; i < 8 * R; ++i)
+  for (int i = 0; i < P; ++i)
 #pragma unroll
     for (int k = 0; k < V; ++k) acc[i][k] = 0;
-  for (int j = 0; j < s; ++j) {
-    const uint32_t* src = in + j * in_stride + base;
-    uint32_t v[8][V];
+  uint32_t next[4][V];
+  load_half<V>(in, in_stride, base, 0, next);
+  for (int u = 0; u < 2 * s; ++u) {
+    uint32_t cur[4][V];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) load_vec<V>(src + c * kPlaneWords, v[c]);
+    for (int c = 0; c < 4; ++c)
 #pragma unroll
-    for (int i = 0; i < 8 * R; ++i) {
-      const uint32_t m = group_masks[i * s + j];
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        if (m & (1u << c)) {
-#pragma unroll
-          for (int k = 0; k < V; ++k) acc[i][k] ^= v[c][k];
-        }
-    }
+      for (int k = 0; k < V; ++k) cur[c][k] = next[c][k];
+    if (u + 1 < 2 * s) load_half<V>(in, in_stride, base, u + 1, next);
+    gf::build_table<V>(slots, cur);
+    gf::apply_table<P, V>(slots, offs + u * P, acc);
   }
 #pragma unroll
-  for (int i = 0; i < 8 * R; ++i)
+  for (int i = 0; i < P; ++i)
     if (i < planes)
       store_vec<V>(out + (o0 + i / 8) * out_stride + (i % 8) * kPlaneWords + base,
                    acc[i]);
@@ -174,10 +180,17 @@ template <int R, int V>
 cudaError_t launch_apply(const uint8_t* masks, int r, int s, const uint32_t* in,
                          int64_t in_stride, uint32_t* out, int64_t out_stride,
                          int64_t width, cudaStream_t stream) {
+  const int smem = apply_shared_bytes<R, V>(s);
+  if (smem > gf::kMaxSharedBytes) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        planes_apply_kernel<R, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
   const int64_t threads = width / 8 / V;
-  const dim3 grid(unsigned((threads + kThreads - 1) / kThreads),
+  const dim3 grid(unsigned((threads + gf::kThreads - 1) / gf::kThreads),
                   unsigned((r + R - 1) / R));
-  planes_apply_kernel<R, V><<<grid, kThreads, 8 * R * s, stream>>>(
+  planes_apply_kernel<R, V><<<grid, gf::kThreads, smem, stream>>>(
       masks, r, s, in, in_stride, out, out_stride, width);
   return cudaGetLastError();
 }
@@ -219,13 +232,15 @@ extern "C" int sw_gf_unpack(const void* in, int64_t in_stride, void* out,
 
 // out (r plane-interleaved rows) = the GF(2) matrix given by masks (8r x s
 // bytes, device memory) applied to in (s plane-interleaved rows) (K2).
-// Strides and width in uint32 words, as for sw_gf_pack.
+// Strides and width in uint32 words, as for sw_gf_pack.  A block's shared
+// memory (its table and 64 * R * s bytes of offsets, R <= 8 output rows a
+// group) must fit in 227 KB: s <= 422 inputs from 5 output rows up.
 extern "C" int sw_gf_planes_apply(const void* masks, int64_t r, int64_t s,
                                   const void* in, int64_t in_stride, void* out,
                                   int64_t out_stride, int64_t width,
                                   void* stream) {
-  if (r <= 0 || s <= 0 || 64 * s > kMaxMaskBytes || (r + 7) / 8 > 65535 ||
-      width <= 0 || width % kBlockWords)
+  if (r <= 0 || s <= 0 || s > 65535 || (r + 7) / 8 > 65535 || width <= 0 ||
+      width % kBlockWords)
     return int(cudaErrorInvalidValue);
   if (!aligned16(in, in_stride) || !aligned16(out, out_stride))
     return int(cudaErrorMisalignedAddress);
@@ -237,7 +252,7 @@ extern "C" int sw_gf_planes_apply(const void* masks, int64_t r, int64_t s,
   if (r == 1) return int(launch_apply<1, 4>(m, ri, si, in_p, in_stride, out_p, out_stride, width, st));
   if (r == 2) return int(launch_apply<2, 4>(m, ri, si, in_p, in_stride, out_p, out_stride, width, st));
   if (r <= 4) return int(launch_apply<4, 2>(m, ri, si, in_p, in_stride, out_p, out_stride, width, st));
-  return int(launch_apply<8, 1>(m, ri, si, in_p, in_stride, out_p, out_stride, width, st));
+  return int(launch_apply<8, 2>(m, ri, si, in_p, in_stride, out_p, out_stride, width, st));
 }
 
 extern "C" const char* sw_gf_planes_error_string(int err) {

@@ -61,6 +61,10 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _log_path(library: Path) -> Path:
+    return library.with_name(library.name + ".log")
+
+
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     """Start nvcc for one source; None if its library is already built."""
     out = library_path(name)
@@ -77,14 +81,18 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
 
 def _finish(name: str, started) -> str:
     """Wait for a started build and move its library into place; returns
-    the compiler's output (ptxas -v: registers, shared memory, spills)."""
+    the compiler's output (ptxas -v: registers, shared memory, spills),
+    kept beside the library for a later call that finds it built."""
     if started is None:
-        return ""
+        log_path = _log_path(library_path(name))
+        return log_path.read_text() if log_path.exists() else ""
     proc, tmp, out = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    _log_path(tmp).write_text(log)
+    os.replace(_log_path(tmp), _log_path(out))
     os.replace(tmp, out)
     return log
 

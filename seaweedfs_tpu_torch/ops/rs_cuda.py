@@ -35,7 +35,6 @@ from seaweedfs_tpu_torch.ops.rs_torch import (
     unpack_words_reference,
 )
 
-MAX_SHARED_BYTES = 232448  # the most dynamic shared memory a block may use
 _MATRIX_CACHE_SIZE = 64
 
 launches = 0  # K1, gf_apply
@@ -90,7 +89,9 @@ def apply_matrix_cuda(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     uint8, or (s, W) uint32 words -> (r, W) uint32 words.
 
     Rows must be contiguous; the row stride is free (views of a larger
-    buffer are fine).  The output is a new contiguous tensor."""
+    buffer are fine).  The output is a new contiguous tensor.  A matrix
+    past the kernel's limits (sw_gf_apply in csrc/gf_apply.cu: its table
+    offsets in shared memory, its grid rows) raises RuntimeError."""
     global launches
     matrix = np.ascontiguousarray(matrix, dtype=np.uint8)
     if matrix.ndim != 2:
@@ -112,8 +113,6 @@ def apply_matrix_cuda(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"matrix takes {s} rows, data has {raw.shape[0]}")
     if raw.shape[1] > 1 and raw.stride(1) != 1:
         raise ValueError("rows must be contiguous (unit stride along the row)")
-    if r * s * 256 > MAX_SHARED_BYTES:
-        raise ValueError(f"a {r}x{s} matrix's product rows exceed shared memory")
     n = raw.shape[1]
     out = torch.empty((r, n), dtype=torch.uint8, device=raw.device)
     if r and n:

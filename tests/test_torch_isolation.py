@@ -1,5 +1,6 @@
-"""The port stands alone: no module of seaweedfs_tpu_torch, and not
-chip_smoke.py, imports jax or anything of the JAX package."""
+"""The port stands alone: no module of seaweedfs_tpu_torch, and none of
+its chip scripts (chip_smoke.py, chip_table_variants.py), imports jax or
+anything of the JAX package."""
 
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "seaweedfs_tpu")
 
 
 def port_sources() -> list[Path]:
-    return sorted((REPO / "seaweedfs_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted((REPO / "seaweedfs_tpu_torch").rglob("*.py")) + sorted(REPO.glob("chip_*.py"))
 
 
 def _imported(tree: ast.AST) -> list[str]:
@@ -36,7 +37,7 @@ def _imported(tree: ast.AST) -> list[str]:
 
 def test_scan_finds_the_port():
     names = {p.relative_to(REPO).as_posix() for p in port_sources()}
-    assert {"chip_smoke.py", "seaweedfs_tpu_torch/ops/rs_cuda.py",
+    assert {"chip_smoke.py", "chip_table_variants.py", "seaweedfs_tpu_torch/ops/rs_cuda.py",
             "seaweedfs_tpu_torch/storage/erasure_coding/ec_encoder.py"} <= names
 
 
