@@ -12,37 +12,53 @@ Phases, each printing what it found; any failure exits non-zero:
 2. Kernels against their plain versions on the card, byte-exact:
    - K1, the CUDA GF(2^8) apply, against rs_torch.apply_matrix_reference,
      for the RS(10,4) encode matrix, a 1-loss and a 4-loss RS(10,4) rebuild
-     matrix, RS(6,3), RS(12,4), Cauchy(10,4) and a stack of three 4-loss
-     RS(10,4) rebuild matrices (12 output rows: two grid.y groups), at
-     ragged widths, the main-path width, an all-byte-values input and an
-     unaligned strided view; then timed with CUDA events at
-     (10 x 6 MiB -> 4) and (10 x 64 MiB -> 4) with the encode matrix, and
-     at (10 x 64 MiB -> 4) with the 4-loss rebuild matrix, the rebuild's
-     own launch: once through the wrapper call by call, and once as 20
-     calls captured in a CUDA graph and replayed, which leaves out the
-     host's work between launches.
+     matrix, RS(6,3), RS(12,4), Cauchy(10,4), a stack of three 4-loss
+     RS(10,4) rebuild matrices (12 output rows: two grid.y groups), and the
+     LRC(10,2,2) matrices: its encode rows (4 x 10), the local repair of
+     shard 3 (1 x 5, all ones), the two-group local repair of {3, 7}
+     (2 x 10) and the global rebuild of {0, 5, 12, 13} (4 x 10); at ragged
+     widths, the main-path width, an all-byte-values input and an unaligned
+     strided view; then timed with CUDA events at (10 x 6 MiB -> 4) and
+     (10 x 64 MiB -> 4) with the encode matrix, at (10 x 64 MiB -> 4) with
+     the 4-loss rebuild matrix, the rebuild's own launch, and at the LRC
+     local repairs' shapes (5 x 64 MiB -> 1, 10 x 64 MiB -> 2): once
+     through the wrapper call by call, and once as 20 calls captured in a
+     CUDA graph and replayed, which leaves out the host's work between
+     launches.
    - K3 pack, K2 plane apply and K4 unpack against their plain versions in
-     rs_torch, for the RS(10,4) encode, 1-loss and 4-loss matrices, RS(6,3),
-     Cauchy(10,4), the 12-row stack and the stack of five RS(10,4) target
-     sets, at 1, 2 and 3 blocks and on an all-byte-values input, with
-     unpack(pack(x)) == x;
-     then at the widths of phase 4's chunks (64 MiB and the 39 MiB tail):
-     pack of 10 rows, K2 -> 4 rows and -> 8 rows (the 5-set stack), and
+     rs_torch, for K1's matrices but RS(12,4), the stack of five RS(10,4)
+     target sets and the stack of the LRC hop's four target sets, at 1, 2
+     and 3 blocks and on an all-byte-values input, with unpack(pack(x)) ==
+     x; then at the widths of phase 4's chunks (64 MiB and the 39 MiB
+     tail): pack of 10 rows, K2 -> 4 rows and -> 8 rows (both stacks), and
      unpack of 10 rows and of each target set's slice of the 8; then each
-     timed at 10 x 64 MiB, and pack + K2 + unpack against K1 at
-     (10 x 64 MiB -> 4).
+     timed at 10 x 64 MiB (K2 -> 8 with both stacks), and pack + K2 +
+     unpack against K1 at (10 x 64 MiB -> 4).
 3. Main path at real size: a G GiB volume (a version-3 superblock, payload
-   and a strict-valid .idx from --seed) goes through the port's own CLI,
-   ``ec.encode.local`` on the card; parity is checked on the CPU over the
-   first, a middle and the tail row; 4 shards (2 data, 2 parity) are deleted
-   and ``ec.rebuild.local`` must regenerate them hash-identically.  The
-   kernel's launch counter is zeroed just before and read just after each.
+   and a strict-valid .idx from --seed whose last live needle ends at the
+   .dat's end) goes through the port's own CLI, ``ec.encode.local`` on the
+   card; parity is checked on the CPU over the first, a middle and the tail
+   row; 4 shards (2 data, 2 parity) are deleted and ``ec.rebuild.local``
+   must regenerate them hash-identically.  The kernel's launch counter is
+   zeroed just before and read just after each.
 4. Plane-resident rebuild hop at real size, on the volume of phase 3: with
    shards 0, 3, 10 and 13 taken as absent, the plan's 10 survivors are read
    in the rebuild pipeline's chunks, uploaded, and
    ``ReedSolomonCuda.reconstruct_words_multi`` rebuilds the target sets
    (0), (3), (10), (13) and (0, 3, 10, 13) at once; every result must equal
    the shard files' bytes.  K3, K2 and K4 must launch in it, K1 must not.
+   Then ``ec.decode.local`` reassembles the volume from its data shards:
+   the .dat must have the original's sha256 and the .idx the .ecx's bytes.
+5. The LRC main path: the same .dat and .idx are encoded as LRC(10,2,2)
+   by ``ec.encode.local -code lrc`` on the card (parity checked on the CPU
+   by LrcTorch, localGroups 2 in the .vif); three flag-less
+   ``ec.rebuild.local`` runs (the storage class read from the .vif)
+   regenerate {3} locally from 5 shards, {3, 7} locally from 10 and
+   {0, 5, 12, 13} globally, hash-identically, each launching K1; the LRC
+   plane hop rebuilds the sets (12), (13), (12, 13) and (0, 5, 12, 13) over
+   the global plan's 10 survivors through K3, K2 and K4 (not K1);
+   ``ec.decode.local`` restores the .dat; and the loss {0, 1, 10, 13} must
+   fail as unrecoverable, with no launch and no shard file written.
 
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
@@ -80,6 +96,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 LOGIC_OPS_PER_CLOCK_PER_SM = 64  # 32-bit integer logic ops, compute capability 9.0
 TRANSPOSE_OPS_PER_32_BYTES = 72  # gf_planes.cu: 3 delta-swap stages of 4 x 6 ops
 HOP_SETS = [(0,), (3,), (10,), (13,), (0, 3, 10, 13)]
+LRC_HOP_SETS = [(12,), (13,), (12, 13), (0, 5, 12, 13)]
+LRC_REBUILDS = [  # lost shards, plan mode, plan inputs
+    ((3,), "local", (0, 1, 2, 4, 10)),
+    ((3, 7), "local", (0, 1, 2, 4, 5, 6, 8, 9, 10, 11)),
+    ((0, 5, 12, 13), "global", (1, 2, 3, 4, 6, 7, 8, 9, 10, 11)),
+]
+LRC_UNRECOVERABLE = (0, 1, 10, 13)
 
 
 class SmokeFailure(Exception):
@@ -239,8 +262,17 @@ def loss4_matrix(lost: tuple[int, ...]):
     return rs_matrix.reconstruction_matrix(10, 4, present, lost)[0]
 
 
+def lrc_plan(lost: tuple[int, ...], targets: tuple[int, ...] | None = None):
+    """(matrix, inputs, mode) of LRC(10,2,2) rebuilding ``targets`` (default:
+    all of ``lost``) with ``lost`` absent."""
+    from seaweedfs_tpu_torch.ops import lrc_matrix
+
+    present = tuple(i not in lost for i in range(14))
+    return lrc_matrix.reconstruction_plan(10, 2, 2, present, targets or lost)
+
+
 def kernel_cases():
-    from seaweedfs_tpu_torch.ops import rs_matrix, xor_sched
+    from seaweedfs_tpu_torch.ops import lrc_matrix, rs_matrix, xor_sched
 
     enc = rs_matrix.build_encode_matrix(10, 4)
     one = tuple(i != 3 for i in range(14))
@@ -254,6 +286,10 @@ def kernel_cases():
         ("rs12_4_encode", rs_matrix.build_encode_matrix(12, 4)[12:]),
         ("cauchy10_4_encode", rs_matrix.build_cauchy_matrix(10, 4)[10:]),
         ("rs10_4_3x4loss_stack", stack12),
+        ("lrc10_2_2_encode", lrc_matrix.build_lrc_matrix(10, 2, 2)[10:]),
+        ("lrc10_2_2_local_1loss", lrc_plan((3,))[0]),
+        ("lrc10_2_2_local_2groups", lrc_plan((3, 7))[0]),
+        ("lrc10_2_2_global_4loss", lrc_plan((0, 5, 12, 13))[0]),
     ]
 
 
@@ -299,30 +335,36 @@ def phase_kernel(rng, dev, rates) -> dict:
     timings = {}
     for key, name, width in [(6 * MIB, "rs10_4_encode", 6 * MIB),
                              (64 * MIB, "rs10_4_encode", 64 * MIB),
-                             ("rebuild_4loss", "rs10_4_rebuild_4loss", 64 * MIB)]:
+                             ("rebuild_4loss", "rs10_4_rebuild_4loss", 64 * MIB),
+                             ("lrc_local_1loss", "lrc10_2_2_local_1loss", 64 * MIB),
+                             ("lrc_local_2groups", "lrc10_2_2_local_2groups", 64 * MIB)]:
         mat = cases[name]
-        x = torch.from_numpy(rng.integers(0, 256, (10, width), dtype=np.uint8)).to(dev)
+        r, s = mat.shape
+        x = torch.from_numpy(rng.integers(0, 256, (s, width), dtype=np.uint8)).to(dev)
         ms = time_ms(lambda: rs_cuda.apply_matrix_cuda(mat, x), iters=20)
         g_ms = graph_ms(lambda: rs_cuda.apply_matrix_cuda(mat, x), iters=20)
         plain_ms = time_ms(lambda: apply_matrix_reference(mat, x), iters=3, warmup=1)
         b_ms, b_by = k1_bound(mat, width, rates)
         timings[key] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        print(f"timing {name} 10x{width // MIB}MiB->4: kernel {ms:.6f} ms "
-              f"({(14 * width) / ms / 1e6:.1f} GB/s), in a CUDA graph {g_ms:.6f} ms, "
+        print(f"timing {name} {s}x{width // MIB}MiB->{r}: kernel {ms:.6f} ms "
+              f"({((s + r) * width) / ms / 1e6:.1f} GB/s), in a CUDA graph {g_ms:.6f} ms, "
               f"plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), kernel at "
               f"{100 * b_ms / ms:.1f}% of bound ({100 * b_ms / g_ms:.1f}% in the graph)")
     return dict(max_err=max_err, timings=timings)
 
 
 def plane_cases() -> dict:
-    """K2's matrices: K1's cases but RS(12,4) (with the 12-row stack), and
-    the stack of the five RS(10,4) target sets of phase 4 (8 output rows)."""
+    """K2's matrices: K1's cases but RS(12,4) (with the 12-row stack), the
+    stack of the five RS(10,4) target sets of phase 4 and the stack of the
+    four LRC(10,2,2) target sets of phase 5 (8 output rows each)."""
     from seaweedfs_tpu_torch.ops import rs_matrix, xor_sched
 
     cases = {name: mat for name, mat in kernel_cases() if name != "rs12_4_encode"}
     present = tuple(i not in HOP_SETS[-1] for i in range(14))
     cases["rs10_4_5set_stack"], _rows = xor_sched.stack_matrices(
         [rs_matrix.reconstruction_matrix(10, 4, present, ts)[0] for ts in HOP_SETS])
+    cases["lrc10_2_2_4set_stack"], _rows = xor_sched.stack_matrices(
+        [lrc_plan(LRC_HOP_SETS[-1], ts)[0] for ts in LRC_HOP_SETS])
     return cases
 
 
@@ -384,6 +426,7 @@ def phase_planes(rng, dev, rates, ident: str, widths: list[int]) -> dict:
     # The hop's shapes: each chunk width, 10 survivor rows, the 8-row stack
     # and its per-set slices, as reconstruct_words_multi launches them.
     enc, stack = cases["rs10_4_encode"], cases["rs10_4_5set_stack"]
+    lrc_stack = cases["lrc10_2_2_4set_stack"]
     widest = torch.from_numpy(
         rng.integers(0, 2**32, (10, max(64 * MIB, *widths) // 4), dtype=np.uint32)).to(dev)
     for width in widths:
@@ -396,16 +439,18 @@ def phase_planes(rng, dev, rates, ident: str, widths: list[int]) -> dict:
         check(torch.equal(back, x), f"unpack(pack(x)) != x at {label}")
         held("apply", rs_cuda.apply_matrix_planes(enc, planes),
              rs_torch.apply_matrix_planes_reference(enc, planes), f"{label} -> 4")
-        out = rs_cuda.apply_matrix_planes(stack, planes)
-        held("apply", out, rs_torch.apply_matrix_planes_reference(stack, planes), f"{label} -> 8")
-        row = 0
-        for ts in HOP_SETS:
-            part = out[row : row + len(ts)]
-            held("unpack", rs_cuda.unpack_words(part), rs_torch.unpack_words_reference(part),
-                 f"{label} set {ts}")
-            row += len(ts)
-        print(f"  {label}: pack, K2 -> 4 and -> 8, unpack of 10 rows and of the "
-              f"{len(HOP_SETS)} sets' slices byte-exact")
+        for stack_name, mat, sets in [("RS", stack, HOP_SETS), ("LRC", lrc_stack, LRC_HOP_SETS)]:
+            out = rs_cuda.apply_matrix_planes(mat, planes)
+            held("apply", out, rs_torch.apply_matrix_planes_reference(mat, planes),
+                 f"{label} -> 8 ({stack_name} stack)")
+            row = 0
+            for ts in sets:
+                part = out[row : row + len(ts)]
+                held("unpack", rs_cuda.unpack_words(part), rs_torch.unpack_words_reference(part),
+                     f"{label} {stack_name} set {ts}")
+                row += len(ts)
+        print(f"  {label}: pack, K2 -> 4 and -> 8 (RS and LRC stacks), unpack of 10 rows and "
+              f"of the {len(HOP_SETS)} RS and {len(LRC_HOP_SETS)} LRC sets' slices byte-exact")
     print(f"plane kernel checks at the hop's widths: {n_checked} byte-exact in all, "
           f"max_abs_err={errs}")
 
@@ -423,6 +468,9 @@ def phase_planes(rng, dev, rates, ident: str, widths: list[int]) -> dict:
         ("apply_8", lambda: rs_cuda.apply_matrix_planes(stack, planes),
          lambda: rs_torch.apply_matrix_planes_reference(stack, planes),
          k2_bound(stack, width, rates)),
+        ("apply_8_lrc", lambda: rs_cuda.apply_matrix_planes(lrc_stack, planes),
+         lambda: rs_torch.apply_matrix_planes_reference(lrc_stack, planes),
+         k2_bound(lrc_stack, width, rates)),
     ]:
         ms = time_ms(fn, iters=20)
         plain_ms = time_ms(plain, iters=3, warmup=1)
@@ -451,11 +499,15 @@ def phase_planes(rng, dev, rates, ident: str, widths: list[int]) -> dict:
 def make_volume(directory: str, size: int, seed: int) -> bytes:
     """A version-3 .dat of ``size`` bytes (superblock + seeded payload) and
     a strict-valid .idx of a few thousand entries (with some deletions)
-    inside it.  Returns the .ecx bytes the encode must produce."""
+    inside it, the last live needle ending at the .dat's last byte, so a
+    decode restores the .dat whole.  Returns the .ecx bytes the encode must
+    produce."""
     import numpy as np
 
     from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE, SuperBlock
+    from seaweedfs_tpu_torch.storage.types import Version, get_actual_size
 
+    check(size % 8 == 0, f"a volume of {size} bytes does not end on a needle boundary")
     rng = np.random.default_rng(seed)
     with open(os.path.join(directory, "1.dat"), "wb") as f:
         f.write(SuperBlock().to_bytes())  # version 3
@@ -466,11 +518,14 @@ def make_volume(directory: str, size: int, seed: int) -> bytes:
             left -= piece
     n = 4096
     ids = rng.permutation(np.unique(rng.integers(1, 1 << 40, 2 * n, dtype=np.uint64))[:n])
-    offsets = np.sort(rng.integers(1, (size - 4096) // 8, n)).astype(np.uint32)
+    # every needle ends below size - 4096 (the largest is 4131 bytes long)
+    offsets = np.sort(rng.integers(1, (size - 8192) // 8, n)).astype(np.uint32)
     sizes = rng.integers(1, 4096, n).astype(np.int32)
     entry = np.dtype([("id", ">u8"), ("off", ">u4"), ("size", ">i4")])
-    puts = np.empty(n, entry)
-    puts["id"], puts["off"], puts["size"] = ids, offsets, sizes
+    puts = np.empty(n + 1, entry)
+    puts["id"][:n], puts["off"][:n], puts["size"][:n] = ids, offsets, sizes
+    last = 1000  # bytes of the needle that ends the volume
+    puts[n] = (1 << 40, (size - get_actual_size(last, Version.V3)) // 8, last)
     dead = rng.choice(n, 64, replace=False)
     tombs = np.empty(64, entry)
     tombs["id"], tombs["off"], tombs["size"] = ids[dead], 0, -1
@@ -480,9 +535,9 @@ def make_volume(directory: str, size: int, seed: int) -> bytes:
     return live[np.argsort(live["id"].astype(np.uint64))].tobytes()
 
 
-def run_cli(argv: list[str]) -> dict:
+def run_cli(argv: list[str], stages: bool = True) -> dict:
     """Run the port's CLI in this process; echo its output and return the
-    stage breakdown it printed."""
+    stage breakdown it printed (or {} when ``stages`` is false)."""
     from seaweedfs_tpu_torch import cli
 
     buf = io.StringIO()
@@ -491,9 +546,12 @@ def run_cli(argv: list[str]) -> dict:
     out = buf.getvalue()
     print("".join(f"  | {line}\n" for line in out.splitlines()), end="")
     check(rc == 0, f"{argv[0]} exited {rc}")
-    stages = [line[len("stages: "):] for line in out.splitlines() if line.startswith("stages: ")]
-    check(len(stages) == 1, f"{argv[0]} printed no stage breakdown")
-    return json.loads(stages[0])
+    found = [line[len("stages: "):] for line in out.splitlines() if line.startswith("stages: ")]
+    if not stages:
+        check(not found, f"{argv[0]} printed a stage breakdown")
+        return {}
+    check(len(found) == 1, f"{argv[0]} printed no stage breakdown")
+    return json.loads(found[0])
 
 
 def sha256(path: str) -> str:
@@ -504,39 +562,66 @@ def sha256(path: str) -> str:
     return h.hexdigest()
 
 
-def check_parity(base: str, dat_size: int) -> int:
+def check_parity(base: str, dat_size: int, codec) -> int:
     """Parity of the first, a middle and the tail small row, recomputed on
-    the CPU by the plain version over whole 1 MiB blocks."""
+    the CPU by ``codec`` (the plain PyTorch codec of the volume's storage
+    class, on the CPU) over whole 1 MiB blocks."""
     import numpy as np
-    import torch
 
-    from seaweedfs_tpu_torch.ops import rs_matrix
-    from seaweedfs_tpu_torch.ops.rs_torch import apply_matrix_reference
     from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME as sc
 
-    k, m, blk = sc.data_shards, sc.parity_shards, sc.small_block_size
+    k, m, blk = codec.data_shards, codec.parity_shards, sc.small_block_size
+    check(codec.device.type == "cpu", f"parity reference on {codec.device}")
     check(dat_size <= sc.large_block_size * k, "volume has large rows; sampler assumes small rows")
     n_rows = -(-dat_size // (blk * k))
-    enc = rs_matrix.build_encode_matrix(k, m)[k:]
     with open(base + ".dat", "rb") as dat:
         for row in sorted({0, n_rows // 2, n_rows - 1}):
             data = np.zeros((k, blk), dtype=np.uint8)
             for i in range(k):
                 got = os.preadv(dat.fileno(), [memoryview(data[i])], (row * k + i) * blk)
                 check(got == blk or (row == n_rows - 1), f"short .dat read in row {row}")
-            want = apply_matrix_reference(enc, torch.from_numpy(data)).numpy()
+            want = codec.encode(data)
             for sid in range(k + m):
                 with open(base + f".ec{sid:02d}", "rb") as f:
                     f.seek(row * blk)
                     shard = np.frombuffer(f.read(blk), dtype=np.uint8)
                 expect = data[sid] if sid < k else want[sid - k]
                 check(np.array_equal(shard, expect), f"shard {sid} wrong in row {row}")
-            print(f"  row {row}/{n_rows}: 10 data + 4 parity blocks of 1 MiB match the CPU plain version")
+            print(f"  row {row}/{n_rows}: {k} data + {m} parity blocks of 1 MiB match the CPU "
+                  f"plain version ({type(codec).__name__})")
     return n_rows
+
+
+def stage_line(st: dict) -> str:
+    return (f"stages setup {st['setup_s']:.4f}s read {st['read_s']:.4f}s "
+            f"dispatch {st['dispatch_s']:.4f}s fetch {st['fetch_s']:.4f}s "
+            f"write {st['write_s']:.4f}s wall {st['wall_s']:.4f}s")
+
+
+def phase_decode(directory: str, dat_sha: str, ecx: bytes, label: str) -> float:
+    """``ec.decode.local`` of the volume in ``directory`` with its .dat and
+    .idx removed: the .dat must come back with the original sha256, the
+    .idx with the .ecx's bytes (no .ecj exists), no staged file behind."""
+    base = os.path.join(directory, "1")
+    for ext in (".dat", ".idx"):
+        os.remove(base + ext)
+    t = time.perf_counter()
+    run_cli(["ec.decode.local", "-dir", directory, "-volumeId", "1", "-device", "cuda"],
+            stages=False)
+    dt = time.perf_counter() - t
+    check(sha256(base + ".dat") == dat_sha, f"{label}: decoded .dat differs from the original")
+    with open(base + ".idx", "rb") as f:
+        check(f.read() == ecx, f"{label}: decoded .idx differs from the .ecx")
+    check(not [f for f in os.listdir(directory) if f.endswith(".tmp")],
+          f"{label}: staged files left behind")
+    print(f"decode ({label}): .dat sha256-identical to the original, .idx == .ecx, in {dt:.3f}s")
+    return dt
 
 
 def phase_main_path(args, ident: str, dev) -> dict:
     from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.ops.rs_cuda import ReedSolomonCuda
+    from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
 
     size = int(args.gib * (1 << 30))
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
@@ -545,6 +630,12 @@ def phase_main_path(args, ident: str, dev) -> dict:
         want_ecx = make_volume(tmp, size, args.seed)
         print(f"volume: {size} bytes + .idx in {time.perf_counter() - t:.3f}s under {tmp}")
         base = os.path.join(tmp, "1")
+        dat_sha = sha256(base + ".dat")
+        # phase 5's volume: the same .dat and .idx, as links
+        lrc_dir = os.path.join(tmp, "lrc")
+        os.mkdir(lrc_dir)
+        for ext in (".dat", ".idx"):
+            os.link(base + ext, os.path.join(lrc_dir, "1" + ext))
         argv = ["-dir", tmp, "-volumeId", "1", "-device", "cuda"]
 
         zero_launch_counts()
@@ -553,7 +644,7 @@ def phase_main_path(args, ident: str, dev) -> dict:
         check(enc_launches > 0, "ec.encode.local launched no kernel")
         with open(base + ".ecx", "rb") as f:
             check(f.read() == want_ecx, ".ecx differs from the sorted live .idx entries")
-        n_rows = check_parity(base, size)
+        n_rows = check_parity(base, size, ReedSolomonTorch(10, 4, device="cpu"))
         hashes = {sid: sha256(base + f".ec{sid:02d}") for sid in range(14)}
         lost = (0, 3, 10, 13)
         for sid in lost:
@@ -566,18 +657,22 @@ def phase_main_path(args, ident: str, dev) -> dict:
         for sid in lost:
             check(sha256(base + f".ec{sid:02d}") == hashes[sid], f"rebuilt shard {sid} differs")
         print(f"rebuild: shards {list(lost)} hash-identical to the encoded ones")
-        hop = phase_hop(base, ident, dev, shard_chunks(size))
+        hop = phase_hop(base, ident, dev, shard_chunks(size), ReedSolomonCuda(10, 4, device=dev),
+                        HOP_SETS)
+        decode_s = phase_decode(tmp, dat_sha, want_ecx, "RS(10,4)")
         shard_size = os.path.getsize(base + ".ec00")
         enc_gbs = size / enc["wall_s"] / 1e9
         reb_gbs = len(lost) * shard_size / reb["wall_s"] / 1e9
-        print(f"encode on {ident}: {n_rows} rows, launches={enc_launches}, {enc_gbs:.3f} GB/s of .dat; "
-              f"stages setup {enc['setup_s']:.4f}s read {enc['read_s']:.4f}s dispatch {enc['dispatch_s']:.4f}s "
-              f"fetch {enc['fetch_s']:.4f}s write {enc['write_s']:.4f}s wall {enc['wall_s']:.4f}s")
+        print(f"encode on {ident}: {n_rows} rows, launches={enc_launches}, {enc_gbs:.3f} GB/s of "
+              f".dat; {stage_line(enc)}")
         print(f"rebuild on {ident}: launches={reb_launches}, {reb_gbs:.3f} GB/s generated; "
-              f"stages setup {reb['setup_s']:.4f}s read {reb['read_s']:.4f}s dispatch {reb['dispatch_s']:.4f}s "
-              f"fetch {reb['fetch_s']:.4f}s write {reb['write_s']:.4f}s wall {reb['wall_s']:.4f}s")
+              f"{stage_line(reb)}")
+        for sid in range(14):  # room for phase 5's shards
+            os.remove(base + f".ec{sid:02d}")
+        lrc = phase_lrc(lrc_dir, size, ident, dev, dat_sha, want_ecx)
         return dict(launches=enc_launches + reb_launches, encode=enc, rebuild=reb,
-                    encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop)
+                    encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
+                    lrc=lrc)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -585,26 +680,27 @@ def phase_main_path(args, ident: str, dev) -> dict:
 # -- phase 4 ------------------------------------------------------------------
 
 
-def phase_hop(base: str, ident: str, dev, chunks: list[tuple[int, int]]) -> dict:
+def phase_hop(base: str, ident: str, dev, chunks: list[tuple[int, int]], codec,
+              sets: list[tuple[int, ...]]) -> dict:
     """The plane-resident rebuild hop over the volume's survivors, chunk by
     chunk as the rebuild pipeline reads them; each result held against the
-    shard files on disk.  The five target sets are a synthetic mix that
-    drives the kernels at the stack's 8 rows; they rebuild 4 distinct
+    shard files on disk.  The target sets (all planned on the same inputs,
+    the last one the union of the others) are a synthetic mix that drives
+    the kernels at the stack's 8 rows; they rebuild the last set's distinct
     shards, so GB/s is given both ways."""
     import numpy as np
     import torch
 
-    from seaweedfs_tpu_torch.ops.rs_cuda import ReedSolomonCuda
     from seaweedfs_tpu_torch.ops.rs_torch import BLOCK_WORDS
 
-    lost = HOP_SETS[-1]
-    present = tuple(i not in lost for i in range(14))
-    codec = ReedSolomonCuda(10, 4, device=dev)
+    lost = sets[-1]
+    present = tuple(i not in lost for i in range(codec.total_shards))
     _mat, inputs, _mode = codec.recon_plan(present, lost)
     shard_size = os.path.getsize(base + ".ec00")
     check(shard_size == sum(n for _off, n in chunks), f"shard of {shard_size} bytes, chunks {chunks}")
-    generated_rows = sum(len(ts) for ts in HOP_SETS)
+    generated_rows = sum(len(ts) for ts in sets)
     distinct = len(lost)
+    name = type(codec).__name__
     results = []
     with contextlib.ExitStack() as stack:
         files = {sid: stack.enter_context(open(base + f".ec{sid:02d}", "rb"))
@@ -622,13 +718,13 @@ def phase_hop(base: str, ident: str, dev, chunks: list[tuple[int, int]]) -> dict
             torch.cuda.synchronize()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            outs = codec.reconstruct_words_multi(present, HOP_SETS, words)
+            outs = codec.reconstruct_words_multi(present, sets, words)
             end.record()
             end.synchronize()
             ms = start.elapsed_time(end)
             want = {sid: np.frombuffer(os.pread(files[sid].fileno(), n, off), dtype=np.uint8)
                     for sid in lost}
-            for ts, out in zip(HOP_SETS, outs):
+            for ts, out in zip(sets, outs):
                 got = out.view(torch.uint8).cpu().numpy()
                 check(got.shape == (len(ts), n), f"hop result for {ts} has shape {got.shape}")
                 for row, sid in enumerate(ts):
@@ -636,15 +732,103 @@ def phase_hop(base: str, ident: str, dev, chunks: list[tuple[int, int]]) -> dict
                           f"hop: shard {sid} of set {ts} differs in [{off}, {off + n})")
             gbs, gbs_distinct = generated_rows * n / ms / 1e6, distinct * n / ms / 1e6
             results.append(dict(bytes=n, ms=ms, gbs=gbs, gbs_distinct=gbs_distinct))
-            print(f"hop chunk [{off}, {off + n}) of 10 survivors on {ident}: {ms:.6f} ms, "
-                  f"{gbs_distinct:.3f} GB/s of {distinct} distinct shards rebuilt "
-                  f"({gbs:.3f} GB/s over all {generated_rows} rows); 5 sets equal the shard files")
+            print(f"hop ({name}) chunk [{off}, {off + n}) of {len(inputs)} survivors on {ident}: "
+                  f"{ms:.6f} ms, {gbs_distinct:.3f} GB/s of {distinct} distinct shards rebuilt "
+                  f"({gbs:.3f} GB/s over all {generated_rows} rows); {len(sets)} sets equal the "
+                  f"shard files")
         launches = launch_counts()
     check(launches["gf_apply"] == 0, f"the hop launched K1 {launches['gf_apply']} times")
-    for name in ("gf_pack", "gf_planes_apply", "gf_unpack"):
-        check(launches[name] > 0, f"the hop launched no {name}")
-    print(f"hop: {len(results)} chunks over {shard_size} bytes per shard, launches {launches}")
+    for kernel in ("gf_pack", "gf_planes_apply", "gf_unpack"):
+        check(launches[kernel] > 0, f"the hop launched no {kernel}")
+    print(f"hop ({name}): {len(results)} chunks over {shard_size} bytes per shard, "
+          f"launches {launches}")
     return dict(chunks=results, launches=launches)
+
+
+# -- phase 5 ------------------------------------------------------------------
+
+
+def phase_lrc(directory: str, size: int, ident: str, dev, dat_sha: str, want_ecx: bytes) -> dict:
+    """The LRC(10,2,2) main path on the volume of phase 3 (see the module
+    docstring): encode, three flag-less rebuilds, the LRC plane hop, the
+    decode, and an unrecoverable loss that must touch nothing."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import cli
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.ops.lrc_codec import LrcCuda, LrcTorch
+    from seaweedfs_tpu_torch.ops.rs_torch import BLOCK_WORDS
+    from seaweedfs_tpu_torch.storage.volume_info import maybe_load_volume_info
+
+    base = os.path.join(directory, "1")
+    argv = ["-dir", directory, "-volumeId", "1", "-device", "cuda"]
+
+    zero_launch_counts()
+    enc = run_cli(["ec.encode.local", *argv, "-code", "lrc"])
+    enc_launches = rs_cuda.launches
+    check(enc_launches > 0, "ec.encode.local -code lrc launched no kernel")
+    check(enc["engine"] == "LrcCuda", f"LRC encode ran {enc['engine']}")
+    with open(base + ".ecx", "rb") as f:
+        check(f.read() == want_ecx, "LRC .ecx differs from the sorted live .idx entries")
+    n_rows = check_parity(base, size, LrcTorch(10, 2, 2, device="cpu"))
+    info = maybe_load_volume_info(base + ".vif")
+    check(info is not None and (info.data_shards, info.parity_shards, info.local_groups)
+          == (10, 4, 2), f".vif records {info}")
+    hashes = {sid: sha256(base + f".ec{sid:02d}") for sid in range(14)}
+    shard_size = os.path.getsize(base + ".ec00")
+    enc_gbs = size / enc["wall_s"] / 1e9
+    print(f"LRC encode on {ident}: {n_rows} rows, launches={enc_launches}, {enc_gbs:.3f} GB/s of "
+          f".dat, .vif localGroups 2; {stage_line(enc)}")
+
+    rebuilds = []
+    for lost, mode, inputs in LRC_REBUILDS:
+        for sid in lost:
+            os.remove(base + f".ec{sid:02d}")
+        zero_launch_counts()
+        reb = run_cli(["ec.rebuild.local", *argv])  # no -code: the class comes from the .vif
+        launches = rs_cuda.launches
+        check(launches > 0, f"LRC rebuild of {lost} launched no kernel")
+        check((reb["mode"], tuple(reb["inputs"]), reb["read_bytes"])
+              == (mode, inputs, len(inputs) * shard_size),
+              f"LRC rebuild of {lost}: plan {reb['mode']} {reb['inputs']} read {reb['read_bytes']}")
+        for sid in lost:
+            check(sha256(base + f".ec{sid:02d}") == hashes[sid], f"LRC rebuilt shard {sid} differs")
+        gbs = len(lost) * shard_size / reb["wall_s"] / 1e9
+        rebuilds.append(dict(lost=lost, mode=mode, launches=launches, gbs=gbs, stages=reb))
+        print(f"LRC rebuild {list(lost)} on {ident}: {mode} from {len(inputs)} shards "
+              f"({reb['read_bytes']} bytes read), launches={launches}, hash-identical, "
+              f"{gbs:.3f} GB/s generated; {stage_line(reb)}")
+
+    # the hop: every set plans globally on the same 10 inputs; (0,) alone
+    # would plan locally on others, which the hop refuses before launching
+    codec = LrcCuda(10, 2, 2, device=dev)
+    present = tuple(i not in LRC_HOP_SETS[-1] for i in range(14))
+    zero_launch_counts()
+    try:
+        codec.reconstruct_words_multi(present, [(12,), (0,)],
+                                      np.zeros((10, BLOCK_WORDS), np.uint32))
+        check(False, "the LRC hop took target sets with different inputs")
+    except ValueError as e:
+        check("same inputs" in str(e), f"the LRC hop refused mixed sets with: {e}")
+    check(not any(launch_counts().values()), "the refused LRC hop launched a kernel")
+    hop = phase_hop(base, ident, dev, shard_chunks(size), codec, LRC_HOP_SETS)
+    decode_s = phase_decode(directory, dat_sha, want_ecx, "LRC(10,2,2)")
+
+    for sid in LRC_UNRECOVERABLE:
+        os.remove(base + f".ec{sid:02d}")
+    before = sorted(os.listdir(directory))
+    zero_launch_counts()
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+        rc = cli.main(["ec.rebuild.local", *argv])
+    print(f"  | {err.getvalue().strip()}")
+    check(rc == 1 and "rank 9 < 10" in err.getvalue(),
+          f"rebuild of {LRC_UNRECOVERABLE} exited {rc}: {err.getvalue()}")
+    check(not any(launch_counts().values()), f"the unrecoverable rebuild launched {launch_counts()}")
+    check(sorted(os.listdir(directory)) == before, "the unrecoverable rebuild wrote a file")
+    print(f"LRC rebuild {list(LRC_UNRECOVERABLE)}: unrecoverable, no launch, no file written")
+    return dict(launches=enc_launches + sum(r["launches"] for r in rebuilds), encode=enc,
+                encode_gbs=enc_gbs, rebuilds=rebuilds, hop=hop, decode_s=decode_s)
 
 
 def main() -> int:
@@ -696,7 +880,16 @@ def main() -> int:
         return 1
     t6, t64 = kern["timings"][6 * MIB], kern["timings"][64 * MIB]
     t_reb = kern["timings"]["rebuild_4loss"]
-    pt, hop = planes["timings"], main_path["hop"]
+    pt, hop, lrc = planes["timings"], main_path["hop"], main_path["lrc"]
+    lrc_hop = lrc["hop"]
+
+    def timing_keys(t: dict, suffix: str) -> dict:
+        return {f"ms_{suffix}": t["ms"], f"ms_graph_{suffix}": t["graph_ms"],
+                f"plain_ms_{suffix}": t["plain_ms"], f"bound_ms_{suffix}": t["bound_ms"],
+                f"bound_by_{suffix}": t["bound_by"]}
+
+    def lrc_rebuild_gbs(mode: str, n_lost: int) -> float:
+        return next(r["gbs"] for r in lrc["rebuilds"] if (r["mode"], len(r["lost"])) == (mode, n_lost))
 
     def registers(kernel: str) -> dict:
         return {name: k["registers"] for name, k in ptxas.items() if name.startswith(kernel)}
@@ -705,7 +898,9 @@ def main() -> int:
         return {
             "name": name, "route": "cuda", "source": "seaweedfs_tpu_torch/csrc/gf_planes.cu",
             "replaces": f"seaweedfs_tpu/ops/rs_pallas.py:{line}",
-            "launches": hop["launches"][name], "max_abs_err": planes["errs"][err],
+            "launches": hop["launches"][name] + lrc_hop["launches"][name],
+            "launches_rs_hop": hop["launches"][name], "launches_lrc_hop": lrc_hop["launches"][name],
+            "max_abs_err": planes["errs"][err],
             "ms": pt[key]["ms"], "plain_ms": pt[key]["plain_ms"],
             "bound_ms": pt[key]["bound_ms"], "bound_by": pt[key]["bound_by"],
             "library_ms": None, "shape": shape,
@@ -717,7 +912,9 @@ def main() -> int:
             "route": "cuda",
             "source": "seaweedfs_tpu_torch/csrc/gf_apply.cu",
             "replaces": "seaweedfs_tpu/ops/rs_pallas.py:52",
-            "launches": main_path["launches"],
+            "launches": main_path["launches"] + lrc["launches"],
+            "launches_rs": main_path["launches"],
+            "launches_lrc": lrc["launches"],
             "max_abs_err": kern["max_err"],
             "ms": t6["ms"],
             "plain_ms": t6["plain_ms"],
@@ -739,6 +936,14 @@ def main() -> int:
             "registers": registers("gf_apply_kernel"),
             "encode_gbs": main_path["encode_gbs"],
             "rebuild_gbs": main_path["rebuild_gbs"],
+            **timing_keys(kern["timings"]["lrc_local_1loss"], "5x64MiB_to_1_lrc_local"),
+            **timing_keys(kern["timings"]["lrc_local_2groups"], "10x64MiB_to_2_lrc_local"),
+            "lrc_encode_gbs": lrc["encode_gbs"],
+            "lrc_rebuild_local_gbs": lrc_rebuild_gbs("local", 1),
+            "lrc_rebuild_local_2groups_gbs": lrc_rebuild_gbs("local", 2),
+            "lrc_rebuild_global_gbs": lrc_rebuild_gbs("global", 4),
+            "decode_s": main_path["decode_s"],
+            "lrc_decode_s": lrc["decode_s"],
         },
         {
             **plane_entry("gf_planes_apply", 184, "apply_4", "apply",
@@ -753,6 +958,12 @@ def main() -> int:
             "hop_chunk_ms": [c["ms"] for c in hop["chunks"]],
             "hop_chunk_gbs_all_rows": [c["gbs"] for c in hop["chunks"]],
             "hop_chunk_gbs_distinct_shards": [c["gbs_distinct"] for c in hop["chunks"]],
+            "ms_10x64MiB_to_8_lrc": pt["apply_8_lrc"]["ms"],
+            "plain_ms_10x64MiB_to_8_lrc": pt["apply_8_lrc"]["plain_ms"],
+            "bound_ms_10x64MiB_to_8_lrc": pt["apply_8_lrc"]["bound_ms"],
+            "bound_by_10x64MiB_to_8_lrc": pt["apply_8_lrc"]["bound_by"],
+            "lrc_hop_chunk_ms": [c["ms"] for c in lrc_hop["chunks"]],
+            "lrc_hop_chunk_gbs_distinct_shards": [c["gbs_distinct"] for c in lrc_hop["chunks"]],
         },
         plane_entry("gf_pack", 240, "pack", "pack", "10x64MiB"),
         plane_entry("gf_unpack", 260, "unpack", "unpack", "10x64MiB"),

@@ -1,8 +1,9 @@
 """The port's dispatching binary: ``python -m seaweedfs_tpu_torch.cli <cmd>``.
 
 The counterpart of seaweedfs_tpu/cli.py for the commands ported so far
-(``ec.encode.local``, ``ec.rebuild.local``); ``<cmd> -h`` shows each
-command's flags.  A missing CUDA device is not caught here: it raises.
+(``ec.encode.local``, ``ec.rebuild.local``, ``ec.decode.local``, for the RS
+and LRC storage classes); ``<cmd> -h`` shows each command's flags.  A
+missing CUDA device is not caught here: it raises.
 """
 
 from __future__ import annotations

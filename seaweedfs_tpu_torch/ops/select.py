@@ -1,10 +1,14 @@
 """Codec selection: the port of seaweedfs_tpu/ops/select.py.
 
-Bulk encode and rebuild run the CUDA kernel (ReedSolomonCuda); with
-``device="cpu"`` they run the plain PyTorch codec (ReedSolomonTorch) on the
-host.  Unlike the JAX package there is no link probe and no fallback to a
-host engine: a missing CUDA device raises (rs_torch.resolve_device), it is
-never hidden.
+Bulk encode and rebuild run the CUDA kernels (ReedSolomonCuda, or LrcCuda
+for the LRC storage class); with ``device="cpu"`` they run the plain
+PyTorch codec (ReedSolomonTorch / LrcTorch) on the host.  Unlike the JAX
+package there is no link probe and no fallback to a host engine: a missing
+CUDA device raises (rs_torch.resolve_device), it is never hidden.
+
+The scheme carries the storage class (EcScheme = RS, LrcScheme = LRC via
+its ``local_groups``); ``pipeline_codec_for`` and ``small_read_codec_for``
+are the one dispatch point, so call sites never branch on the class.
 """
 
 from __future__ import annotations
@@ -55,20 +59,34 @@ def small_read_codec(data_shards: int, parity_shards: int, cauchy: bool = False)
     return _bulk_codec(data_shards, parity_shards, cauchy, torch.device("cpu"))
 
 
-def _check_rs(scheme) -> None:
-    if getattr(scheme, "local_groups", 0):
-        raise NotImplementedError(
-            "LRC schemes are not ported yet (ROADMAP.md, 'Still to port': LRC)"
-        )
+def _lrc_params(scheme) -> tuple[int, int, int] | None:
+    l = getattr(scheme, "local_groups", 0)  # noqa: E741 — LRC term of art
+    if not l:
+        return None
+    return scheme.data_shards, l, scheme.parity_shards - l
+
+
+@lru_cache(maxsize=16)
+def _lrc_codec(k: int, l: int, r: int, device: torch.device):  # noqa: E741
+    from seaweedfs_tpu_torch.ops import lrc_codec
+
+    if device.type == "cuda":
+        return lrc_codec.LrcCuda(k, l, r, device)
+    return lrc_codec.LrcTorch(k, l, r, device)
 
 
 def pipeline_codec_for(scheme, device: str | torch.device | None = None):
-    """pipeline_codec for the scheme's geometry (RS only in this port)."""
-    _check_rs(scheme)
-    return pipeline_codec(scheme.data_shards, scheme.parity_shards, device=device)
+    """pipeline_codec for the scheme's geometry and storage class."""
+    params = _lrc_params(scheme)
+    if params is None:
+        return pipeline_codec(scheme.data_shards, scheme.parity_shards, device=device)
+    return _lrc_codec(*params, resolve_device(device))
 
 
 def small_read_codec_for(scheme):
-    """small_read_codec for the scheme's geometry (RS only in this port)."""
-    _check_rs(scheme)
-    return small_read_codec(scheme.data_shards, scheme.parity_shards)
+    """small_read_codec for the scheme's geometry and storage class: the
+    host codec, LRC- or RS-planned per the scheme."""
+    params = _lrc_params(scheme)
+    if params is None:
+        return small_read_codec(scheme.data_shards, scheme.parity_shards)
+    return _lrc_codec(*params, torch.device("cpu"))

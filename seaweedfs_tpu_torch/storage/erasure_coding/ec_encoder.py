@@ -8,7 +8,7 @@ same ``stats`` stage keys.
 Layout invariant shared with the reference: the .dat is consumed in rows of
 k consecutive blocks (1GB rows while more than one full large row remains,
 then 1MB rows), block i of each row goes to shard i verbatim (systematic),
-parity shards are the RS combination; every shard file is written to full
+parity shards are the RS (or LRC) combination; every shard file is written to full
 block multiples, zero-padded past EOF.  Because the column math is
 position-independent, many small rows batch into one (k, R*S) dispatch.
 
@@ -320,13 +320,19 @@ def rebuild_ec_files(
 ) -> list[int]:
     """Regenerate every missing .ecNN from the surviving ones.
 
-    Returns the list of generated shard ids.  ``scheme.repair_plan``
-    decides which survivors feed the math (for RS the first k present,
-    the reference's Reconstruct convention); the survivors stream through
-    the device pipeline ``chunk`` bytes per shard at a time.  ``stats``
-    (optional) collects {read_bytes, written_bytes, mode, inputs} and the
-    same stage timings as write_ec_files.  The repair rate budget and the
-    ec_repair plane billing of the JAX package are not ported."""
+    Returns the list of generated shard ids.  Reads are PLAN-driven:
+    ``scheme.repair_plan`` decides which survivors feed the math and only
+    those are opened — for RS the first k present (the reference's
+    Reconstruct convention), for an LRC single loss the lost shard's local
+    group (group_size files instead of k), for other LRC patterns k
+    rank-selected survivors.  The plan is made before any file is opened
+    and any kernel runs, so an unrecoverable pattern
+    (lrc_matrix.UnrecoverableError, a ValueError) raises here and leaves
+    no file behind.  The survivors stream through the device pipeline
+    ``chunk`` bytes per shard at a time.  ``stats`` (optional) collects
+    {read_bytes = len(inputs) x shard size, written_bytes, mode, inputs}
+    and the same stage timings as write_ec_files.  The repair rate budget
+    and the ec_repair plane billing of the JAX package are not ported."""
     from seaweedfs_tpu_torch.ops.select import pipeline_codec_for
 
     codec = codec or pipeline_codec_for(scheme, device)

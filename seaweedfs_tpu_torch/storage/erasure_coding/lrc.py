@@ -1,0 +1,145 @@
+"""LRC storage class: the locally-repairable sibling of RS(k, m).
+
+The port's copy of seaweedfs_tpu/storage/erasure_coding/lrc.py.
+``LrcScheme(k, l, r)`` — k data shards in l local groups (one XOR local
+parity each) plus r global RS parities — is an :class:`EcScheme`: the
+striped shard layout, .ecNN naming and .ecx index are inherited unchanged,
+because the data shards are systematic in both codes.  What changes is the
+repair algebra (ops/lrc_matrix): a single lost shard rebuilds from its
+local group (``group_size`` reads instead of k), and multi-loss patterns
+fall back to a rank-selected global decode.
+
+The storage class is recorded as ``local_groups`` in the .vif (0 = plain
+RS); :func:`make_scheme` is the one constructor every reader of it uses.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+from itertools import combinations
+
+from seaweedfs_tpu_torch.ops import lrc_matrix
+from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME, EcScheme
+
+
+@dataclass(frozen=True)
+class LrcScheme(EcScheme):
+    """LRC(k, l, r) with ``data_shards=k``, ``parity_shards=l+r``.
+
+    ``parity_shards`` stays the combined parity count, so every
+    total-shard consumer works unmodified; ``local_groups`` carries l and
+    the global parity count is derived."""
+
+    local_groups: int = 2
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.local_groups <= 0:
+            raise ValueError("LRC needs at least one local group")
+        if self.data_shards % self.local_groups:
+            raise ValueError(
+                f"data shards {self.data_shards} not divisible into "
+                f"{self.local_groups} local groups"
+            )
+        if self.parity_shards <= self.local_groups:
+            raise ValueError(
+                "LRC needs at least one global parity beyond the "
+                f"{self.local_groups} local ones"
+            )
+
+    @property
+    def code_name(self) -> str:
+        return "lrc"
+
+    @property
+    def global_parities(self) -> int:
+        return self.parity_shards - self.local_groups
+
+    @property
+    def group_size(self) -> int:
+        return self.data_shards // self.local_groups
+
+    @property
+    def max_shards_per_disk(self) -> int:
+        """LRC is not MDS: the bound is the largest loss count with NO
+        unrecoverable pattern, from the matrix algebra (3 for LRC(10,2,2):
+        four losses inside one group out-count its local parity and both
+        globals)."""
+        return _max_safe_losses(
+            self.data_shards, self.local_groups, self.global_parities
+        )
+
+    def group_of(self, shard_id: int) -> int | None:
+        return lrc_matrix.group_of(self.data_shards, self.local_groups, shard_id)
+
+    def group_members(self, group: int) -> tuple[int, ...]:
+        return lrc_matrix.group_members(self.data_shards, self.local_groups, group)
+
+    def loss_recoverable(self, lost: tuple[int, ...]) -> bool:
+        """Exact (rank-based) recoverability of a loss pattern: {0,1,2,3}
+        (four shards of one group) is fatal while many 4-loss spreads are
+        fine."""
+        lost_set = set(lost)
+        present = tuple(i not in lost_set for i in range(self.total_shards))
+        return lrc_matrix.recoverable(
+            self.data_shards, self.local_groups, self.global_parities, present
+        )
+
+    def repair_plan(
+        self, present: tuple[bool, ...], targets: tuple[int, ...]
+    ) -> tuple["object", tuple[int, ...], str]:
+        """(matrix, inputs, mode): mode "local" reads only the targets'
+        group co-members; "global" reads k rank-selected survivors.
+        Raises lrc_matrix.UnrecoverableError when rank < k."""
+        return lrc_matrix.reconstruction_plan(
+            self.data_shards,
+            self.local_groups,
+            self.global_parities,
+            tuple(present),
+            tuple(targets),
+        )
+
+
+@lru_cache(maxsize=64)
+def _max_safe_losses(k: int, l: int, r: int) -> int:  # noqa: E741
+    total = k + l + r
+    for n in range(1, l + r + 1):
+        for lost in combinations(range(total), n):
+            present = tuple(i not in lost for i in range(total))
+            if not lrc_matrix.recoverable(k, l, r, present):
+                return n - 1
+    return l + r
+
+
+def make_scheme(
+    data_shards: int = 0,
+    parity_shards: int = 0,
+    local_groups: int = 0,
+    large_block_size: int | None = None,
+    small_block_size: int | None = None,
+) -> EcScheme:
+    """The one deserialization constructor: (data, parity, local_groups)
+    with 0 meaning default/absent; local_groups > 0 selects the LRC storage
+    class, 0 the RS one."""
+    kw = dict(
+        data_shards=data_shards or DEFAULT_SCHEME.data_shards,
+        parity_shards=parity_shards or DEFAULT_SCHEME.parity_shards,
+    )
+    if large_block_size is not None:
+        kw["large_block_size"] = large_block_size
+    if small_block_size is not None:
+        kw["small_block_size"] = small_block_size
+    if local_groups > 0:
+        return LrcScheme(local_groups=local_groups, **kw)
+    return EcScheme(**kw)
+
+
+def scheme_local_groups(scheme: EcScheme) -> int:
+    """local_groups for serialization (0 = RS)."""
+    return getattr(scheme, "local_groups", 0)
+
+
+# LRC(10,2,2): RS(10,4)'s footprint (14 shards, 40% overhead) with
+# single-loss repair reads halved (5 instead of 10)
+DEFAULT_LRC_SCHEME = LrcScheme(data_shards=10, parity_shards=4, local_groups=2)

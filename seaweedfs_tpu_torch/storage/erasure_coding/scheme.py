@@ -1,7 +1,9 @@
 """EC scheme: shard counts and block geometry, configurable RS(k, m).
 
-The port's copy of seaweedfs_tpu/storage/erasure_coding/scheme.py (the
-geometry and the repair plan; placement helpers are not ported).
+The port's copy of seaweedfs_tpu/storage/erasure_coding/scheme.py: the
+geometry, the repair plan and the placement bounds (``max_shards_per_disk``,
+``min_total_disks``, ``loss_recoverable``) that the LRC sibling
+(storage/erasure_coding/lrc.py) overrides.
 
 The reference hard-codes RS(10,4) with 1GB/1MB blocks
 (weed/storage/erasure_coding/ec_encoder.go:17-24) even though its task
@@ -34,6 +36,29 @@ class EcScheme:
     @property
     def total_shards(self) -> int:
         return self.data_shards + self.parity_shards
+
+    @property
+    def code_name(self) -> str:
+        """Storage-class tag ("rs" | "lrc")."""
+        return "rs"
+
+    @property
+    def max_shards_per_disk(self) -> int:
+        """Largest shard count one disk may hold such that losing that
+        disk is ALWAYS a decodable pattern.  RS(k, m) is MDS: any m
+        losses decode, so the bound is m."""
+        return self.parity_shards
+
+    @property
+    def min_total_disks(self) -> int:
+        """Disks needed to place all shards at <= max_shards_per_disk per
+        disk (ceiling division)."""
+        return -(-self.total_shards // self.max_shards_per_disk)
+
+    def loss_recoverable(self, lost: tuple[int, ...]) -> bool:
+        """Would losing exactly these shards still decode?  RS is MDS: any
+        <= m losses do."""
+        return len(set(lost)) <= self.parity_shards
 
     def repair_plan(
         self, present: tuple[bool, ...], targets: tuple[int, ...]

@@ -1,7 +1,8 @@
 """Core on-disk scalar types and constants of the needle store.
 
 The port's copy of the index-facing part of seaweedfs_tpu/storage/types.py:
-sizes, the offset encoding and index entries.
+sizes, the offset encoding, index entries and a needle record's size on
+disk (what the EC decoder needs to recover a .dat's length).
 
 Byte-layout contract with the reference formats (so volumes and indexes
 interoperate): sizes/offsets per weed/storage/types/needle_types.go:33-42,
@@ -85,6 +86,23 @@ def size_is_deleted(size: int) -> bool:
 
 def size_is_valid(size: int) -> bool:
     return size > 0 and size != TOMBSTONE_FILE_SIZE
+
+
+def padding_length(needle_size: int, version: Version) -> int:
+    tail = NEEDLE_CHECKSUM_SIZE + (TIMESTAMP_SIZE if version == Version.V3 else 0)
+    return NEEDLE_PADDING_SIZE - (
+        (NEEDLE_HEADER_SIZE + needle_size + tail) % NEEDLE_PADDING_SIZE
+    )
+
+
+def needle_body_length(needle_size: int, version: Version) -> int:
+    tail = NEEDLE_CHECKSUM_SIZE + (TIMESTAMP_SIZE if version == Version.V3 else 0)
+    return needle_size + tail + padding_length(needle_size, version)
+
+
+def get_actual_size(needle_size: int, version: Version) -> int:
+    """Total bytes a needle record occupies on disk (header + body + pad)."""
+    return NEEDLE_HEADER_SIZE + needle_body_length(needle_size, version)
 
 
 def pack_index_entry(

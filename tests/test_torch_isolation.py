@@ -38,7 +38,11 @@ def _imported(tree: ast.AST) -> list[str]:
 def test_scan_finds_the_port():
     names = {p.relative_to(REPO).as_posix() for p in port_sources()}
     assert {"chip_smoke.py", "chip_table_variants.py", "seaweedfs_tpu_torch/ops/rs_cuda.py",
-            "seaweedfs_tpu_torch/storage/erasure_coding/ec_encoder.py"} <= names
+            "seaweedfs_tpu_torch/storage/erasure_coding/ec_encoder.py",
+            "seaweedfs_tpu_torch/ops/lrc_matrix.py", "seaweedfs_tpu_torch/ops/lrc_codec.py",
+            "seaweedfs_tpu_torch/storage/erasure_coding/lrc.py",
+            "seaweedfs_tpu_torch/storage/erasure_coding/ec_decoder.py",
+            "seaweedfs_tpu_torch/storage/erasure_coding/ec_volume.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())
@@ -71,6 +75,8 @@ def test_importing_the_port_and_encoding_loads_no_jax(tmp_path):
         assert cli.main(["ec.encode.local", "-dir", d, "-volumeId", "1", "-device", "cpu"]) == 0
         os.remove(os.path.join(d, "1.ec11"))
         assert cli.main(["ec.rebuild.local", "-dir", d, "-volumeId", "1", "-device", "cpu"]) == 0
+        os.remove(os.path.join(d, "1.dat"))
+        assert cli.main(["ec.decode.local", "-dir", d, "-volumeId", "1"]) == 0
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "seaweedfs_tpu"))
         print("LOADED", loaded)
