@@ -59,6 +59,21 @@ Phases, each printing what it found; any failure exits non-zero:
    the global plan's 10 survivors through K3, K2 and K4 (not K1);
    ``ec.decode.local`` restores the .dat; and the loss {0, 1, 10, 13} must
    fail as unrecoverable, with no launch and no shard file written.
+6. The multi-device EC codec (parallel/): the mesh over the card's own
+   devices (its size printed); a logical (2, 2) mesh over cuda:0 x 4 (one
+   stream per position) at 10 x 64 MiB, where sharded_encode,
+   sharded_reconstruct (4 losses), ReedSolomonMesh in width and rows mode
+   (encode and rebuild) and ec_round_trip_step (residual 0) must equal the
+   plain GF(2^8) apply on the card, launching K1-K4; K1-K4 at the
+   positions' shapes against their plain versions, and timed, with the
+   mesh encodes against one K1 and the upload of a pinned buffer in column
+   slices two ways; phase 3's volume through ``ec.encode.local`` and
+   ``ec.rebuild.local`` under SEAWEEDFS_TPU_EC_MESH=1 and through the
+   pipeline with the logical mesh in both modes, hash-identical to phase
+   3's shards; one RS rebuild under a WEED_REPAIR_RATE_MB whose 1 s burst
+   covers half its reads, which must wait about a second
+   (weedtpu_repair_wait_seconds_total) and ride the cuda schedule cache;
+   and measure_scaling for the device counts present.
 
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
@@ -618,7 +633,7 @@ def phase_decode(directory: str, dat_sha: str, ecx: bytes, label: str) -> float:
     return dt
 
 
-def phase_main_path(args, ident: str, dev) -> dict:
+def phase_main_path(args, ident: str, dev, rates) -> dict:
     from seaweedfs_tpu_torch.ops import rs_cuda
     from seaweedfs_tpu_torch.ops.rs_cuda import ReedSolomonCuda
     from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
@@ -670,9 +685,11 @@ def phase_main_path(args, ident: str, dev) -> dict:
         for sid in range(14):  # room for phase 5's shards
             os.remove(base + f".ec{sid:02d}")
         lrc = phase_lrc(lrc_dir, size, ident, dev, dat_sha, want_ecx)
+        shutil.rmtree(lrc_dir)  # room for phase 6's shards
+        mesh = phase_mesh(args, tmp, hashes, ident, dev, rates)
         return dict(launches=enc_launches + reb_launches, encode=enc, rebuild=reb,
                     encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
-                    lrc=lrc)
+                    lrc=lrc, mesh=mesh)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -831,6 +848,259 @@ def phase_lrc(directory: str, size: int, ident: str, dev, dat_sha: str, want_ecx
                 encode_gbs=enc_gbs, rebuilds=rebuilds, hop=hop, decode_s=decode_s)
 
 
+# -- phase 6 ------------------------------------------------------------------
+
+
+def k2_bits_bound(bits, n: int, rates: dict) -> tuple[float, str]:
+    """K2 with a GF(2) bit-matrix over n-byte plane rows: (s + r) n bytes;
+    the lesser of its set bits and the table apply's XORs as logic ops."""
+    r, s = bits.shape[0] // 8, bits.shape[1] // 8
+    xors = min(int(bits.sum()), 2 * s * (11 + 8 * r))
+    return bound_ms((s + r) * n, xors * n / 32, rates["logic_ops_per_s"])
+
+
+def best_host_ms(fn, iters: int = 3) -> float:
+    """Host-clock ms of fn() through a synchronize, best of iters."""
+    import torch
+
+    best = float("inf")
+    for _ in range(iters + 1):  # the first call warms
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t) * 1e3)
+    return best
+
+
+def phase_mesh_ops(args, dev, rates, ident, lmesh) -> dict:
+    """The logical (2, 2) mesh over cuda:0 x 4 at 10 x 64 MiB: every entry
+    point of parallel/ held byte for byte against the plain GF(2^8) apply
+    on the card (residual 0 for the round trip), with the launch counts of
+    that run; then K1-K4 at the positions' shapes against their plain
+    versions, and timed."""
+    import torch
+
+    from seaweedfs_tpu_torch.ops import rs_cuda, rs_matrix, rs_torch
+    from seaweedfs_tpu_torch.parallel import distributed_ec as de
+    from seaweedfs_tpu_torch.parallel import gf2
+
+    width = 64 * MIB
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    data = torch.randint(0, 256, (10, width), dtype=torch.uint8, device=dev, generator=gen)
+    words = data.view(torch.uint32)
+    enc = rs_matrix.matrix_for(10, 4)[10:]
+    parity_ref = rs_torch.apply_matrix_reference(enc, data)
+    shards = torch.cat([data, parity_ref])
+    present = tuple(i not in HOP_SETS[-1] for i in range(14))
+    _recon, inputs = rs_matrix.reconstruction_matrix(10, 4, present, HOP_SETS[-1])
+    survivors = shards[list(inputs)]
+    lost_ref = shards[list(HOP_SETS[-1])]
+
+    def exact(got, want, label: str) -> None:
+        check(torch.equal(got.view(torch.uint8), want),
+              f"mesh: {label} differs from the plain version ({tuple(got.shape)})")
+
+    zero_launch_counts()
+    exact(de.sharded_encode(words, lmesh, 10, 4), parity_ref, "sharded_encode")
+    exact(de.sharded_reconstruct(survivors.view(torch.uint32), present, HOP_SETS[-1], lmesh,
+                                 10, 4), lost_ref, "sharded_reconstruct of 4 losses")
+    for mode in ("width", "rows"):
+        codec = de.ReedSolomonMesh(10, 4, mesh=lmesh, mode=mode)
+        exact(codec.encode_device(data)[:, : width // 4], parity_ref, f"{mode} encode")
+        exact(codec.reconstruct_device(present, HOP_SETS[-1], survivors)[:, : width // 4],
+              lost_ref, f"{mode} rebuild of 4 losses")
+    parity, residual = de.ec_round_trip_step(lmesh, 10, 4)(words)
+    residual = int(residual)
+    check(residual == 0, f"round trip residual {residual}")
+    exact(parity, parity_ref, "round-trip parity")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    for kernel, n in launches.items():
+        check(n > 0, f"the mesh's entry points launched no {kernel}")
+    print(f"mesh (2, 2) over {lmesh.size} x {dev} at 10x64MiB: sharded_encode, sharded_reconstruct "
+          f"{HOP_SETS[-1]}, ReedSolomonMesh width and rows (encode, 4-loss rebuild) and "
+          f"ec_round_trip_step (residual {residual}) byte-exact against the plain apply; "
+          f"launches {launches}")
+
+    # K1-K4 at the positions' shapes, against their plain versions (not counted)
+    bits = gf2.expand_bits(enc)
+    k1_x = words[:, : width // 16]  # a width-mode position: 10 x 16 MiB
+    stripe = words[:, : width // 8]  # a rows-mode stripe slice: 10 x 32 MiB
+    errs = {"gf_apply": max_abs_err(rs_cuda.apply_matrix_cuda(enc, k1_x),
+                                    rs_torch.apply_matrix_reference(enc, k1_x.view(torch.uint8)))}
+    planes = rs_cuda.pack_words(stripe)
+    errs["gf_pack"] = max_abs_err(planes, rs_torch.pack_words_reference(stripe))
+    outs = [rs_cuda.apply_bits_planes(bits[16 * i : 16 * (i + 1)], planes) for i in range(2)]
+    errs["gf_planes_apply"] = max(
+        max_abs_err(o, rs_torch.apply_bits_planes_reference(bits[16 * i : 16 * (i + 1)], planes))
+        for i, o in enumerate(outs))
+    errs["gf_unpack"] = max(max_abs_err(rs_cuda.unpack_words(o), rs_torch.unpack_words_reference(o))
+                            for o in outs)
+    odd = words[:, 1 : 1 + 3 * rs_torch.BLOCK_WORDS // 2]  # misaligned, 1.5 blocks: padded
+    errs["apply_bits_padded"] = max_abs_err(gf2.apply_bits(bits, odd),
+                                            gf2.apply_bits_reference(bits, odd))
+    for name, err in errs.items():
+        check(err == 0, f"{name} at the mesh positions' shapes: max abs err {err}")
+    print(f"K1-K4 at the mesh positions' shapes (K1 10x16MiB->4, K3 10x32MiB, K2 -> 2 rows of "
+          f"each shard owner, K4 2x32MiB, gf2.apply_bits at a misaligned 1.5-block width) "
+          f"byte-exact: {errs}")
+
+    timings = {}
+    for key, fn, plain, (b_ms, b_by) in [
+        ("k1_10x16MiB_to_4", lambda: rs_cuda.apply_matrix_cuda(enc, k1_x),
+         lambda: rs_torch.apply_matrix_reference(enc, k1_x.view(torch.uint8)),
+         k1_bound(enc, width // 4, rates)),
+        ("pack_10x32MiB", lambda: rs_cuda.pack_words(stripe),
+         lambda: rs_torch.pack_words_reference(stripe), transpose_bound(10, width // 2, rates)),
+        ("apply_bits_32MiB_to_2", lambda: rs_cuda.apply_bits_planes(bits[:16], planes),
+         lambda: rs_torch.apply_bits_planes_reference(bits[:16], planes),
+         k2_bits_bound(bits[:16], width // 2, rates)),
+        ("unpack_2x32MiB", lambda: rs_cuda.unpack_words(outs[0]),
+         lambda: rs_torch.unpack_words_reference(outs[0]), transpose_bound(2, width // 2, rates)),
+    ]:
+        ms = time_ms(fn, iters=20)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        timings[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"timing mesh position {key} on {ident}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+              f"bound {b_ms:.6f} ms ({b_by}), kernel at {100 * b_ms / ms:.1f}% of bound")
+
+    width_codec = de.ReedSolomonMesh(10, 4, mesh=lmesh, mode="width")
+    rows_codec = de.ReedSolomonMesh(10, 4, mesh=lmesh, mode="rows")
+    ops = {"single_k1": lambda: rs_cuda.apply_matrix_cuda(enc, words),
+           "mesh_width": lambda: width_codec.encode_words(words),
+           "mesh_rows": lambda: rows_codec.encode_words(words)}
+    runs = {name: [] for name in ops}
+    for name in ["single_k1", "mesh_width", "mesh_rows", "mesh_rows", "mesh_width", "single_k1"]:
+        runs[name].append(time_ms(ops[name], iters=10))
+    whole = {name: sum(t) / len(t) for name, t in runs.items()}
+    print(f"encode 10x64MiB->4 on {ident}, CUDA-event ms (runs in the order single, width, rows, "
+          f"rows, width, single): single-device K1 {runs['single_k1']}, mesh width "
+          f"{runs['mesh_width']}, mesh rows {runs['mesh_rows']}")
+
+    host = torch.empty((10, width), dtype=torch.uint8, pin_memory=True)
+    host.copy_(data.cpu())
+    cols = [slice(p * width // 4, (p + 1) * width // 4) for p in range(4)]
+    upload = {
+        "per_position_strided": best_host_ms(lambda: [host[:, c].to(dev) for c in cols]),
+        "one_upload_then_d2d": best_host_ms(
+            lambda: [x[:, c].contiguous() for x in [host.to(dev, non_blocking=True)] for c in cols]),
+    }
+    print(f"upload of a pinned 10x64MiB buffer in 4 column slices on {ident}, best host ms: "
+          f"{upload}")
+    return dict(launches=launches, errs=errs, timings=timings, whole_ms=whole, whole_runs=runs,
+                upload_ms=upload)
+
+
+def phase_mesh_pipeline(directory: str, hashes: dict, ident: str, dev, lmesh) -> dict:
+    """The 1 GiB volume of phase 3 through the mesh codec: ``ec.encode.local``
+    and ``ec.rebuild.local`` under SEAWEEDFS_TPU_EC_MESH=1 (the card's own
+    devices), then write_ec_files / rebuild_ec_files with the logical (2, 2)
+    mesh in both modes, and one RS rebuild under a WEED_REPAIR_RATE_MB that
+    must wait about a second; every shard hash-identical to phase 3's."""
+    from seaweedfs_tpu_torch import stats
+    from seaweedfs_tpu_torch.ops import repair_budget, select
+    from seaweedfs_tpu_torch.parallel.distributed_ec import ReedSolomonMesh
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+
+    base = os.path.join(directory, "1")
+    argv = ["-dir", directory, "-volumeId", "1", "-device", "cuda"]
+    lost = HOP_SETS[-1]
+
+    def same(sids, label: str) -> None:
+        for sid in sids:
+            check(sha256(base + f".ec{sid:02d}") == hashes[sid], f"{label}: shard {sid} differs")
+
+    def drop() -> None:
+        for sid in lost:
+            os.remove(base + f".ec{sid:02d}")
+
+    out = {}
+    os.environ["SEAWEEDFS_TPU_EC_MESH"] = "1"
+    select._mesh_codec.cache_clear()
+    try:
+        enc = run_cli(["ec.encode.local", *argv])
+        check(enc["engine"] == "ReedSolomonMesh", f"SEAWEEDFS_TPU_EC_MESH=1 encode ran {enc['engine']}")
+        same(range(14), "mesh encode")
+        drop()
+        reb = run_cli(["ec.rebuild.local", *argv])
+        same(lost, "mesh rebuild")
+    finally:
+        del os.environ["SEAWEEDFS_TPU_EC_MESH"]
+    print(f"SEAWEEDFS_TPU_EC_MESH=1 encode on {ident}: hash-identical to phase 3; {stage_line(enc)}")
+    print(f"SEAWEEDFS_TPU_EC_MESH=1 rebuild {list(lost)} on {ident}: hash-identical; "
+          f"{stage_line(reb)}")
+    out["cli"] = dict(encode=enc, rebuild=reb)
+
+    for mode in ("width", "rows"):
+        codec = ReedSolomonMesh(10, 4, mesh=lmesh, mode=mode)
+        enc_st, reb_st = {}, {}
+        ec_encoder.write_ec_files(base, codec=codec, stats=enc_st)
+        same(range(14), f"logical mesh {mode} encode")
+        drop()
+        ec_encoder.rebuild_ec_files(base, codec=codec, stats=reb_st)
+        same(lost, f"logical mesh {mode} rebuild")
+        print(f"logical (2, 2) mesh {mode} through the pipeline on {ident}: hash-identical; "
+              f"encode {stage_line(enc_st)}; rebuild {stage_line(reb_st)}")
+        out[mode] = dict(encode=enc_st, rebuild=reb_st)
+
+    drop()
+    shard_size = os.path.getsize(base + ".ec01")
+    read_bytes = 10 * shard_size
+    rate = read_bytes / 2  # bytes/s: the 1 s burst covers half the reads
+    nominal = (read_bytes - rate) / rate
+    waited0 = stats.REPAIR_WAIT_SECONDS.value()
+    read0 = stats.REPAIR_BYTES.value(code="rs", mode="global", dir="read")
+    os.environ["WEED_REPAIR_RATE_MB"] = repr(rate / (1 << 20))  # the budget's MB is 2^20 bytes
+    repair_budget.reload()
+    try:
+        reb = run_cli(["ec.rebuild.local", *argv])
+    finally:
+        del os.environ["WEED_REPAIR_RATE_MB"]
+        repair_budget.reload()
+    waited = stats.REPAIR_WAIT_SECONDS.value() - waited0
+    same(lost, "throttled rebuild")
+    check(stats.REPAIR_BYTES.value(code="rs", mode="global", dir="read") - read0 == read_bytes,
+          "the throttled rebuild's read bytes are not in weedtpu_repair_bytes_total")
+    check(0.5 * nominal <= waited <= nominal + 0.05 and reb["wall_s"] >= nominal,
+          f"throttled rebuild waited {waited} s (nominal {nominal} s), wall {reb['wall_s']} s")
+    cuda_cache = reb.get("sched_cache", {}).get("cuda", {})
+    check(cuda_cache.get("hit", 0) > 0 and cuda_cache.get("miss", 1) == 0,
+          f"the repeated survivor pattern did not ride the cuda schedule cache: {reb}")
+    print(f"throttled rebuild on {ident}: WEED_REPAIR_RATE_MB={rate / (1 << 20):.6f}, "
+          f"{read_bytes} bytes read, weedtpu_repair_wait_seconds_total +{waited:.6f} s "
+          f"(nominal {nominal:.6f} s), sched_cache {reb['sched_cache']}; {stage_line(reb)}")
+    out["throttled"] = dict(rebuild=reb, waited_s=waited, nominal_s=nominal,
+                            rate_mb_s=rate / (1 << 20))
+    return out
+
+
+def phase_mesh(args, directory: str, hashes: dict, ident: str, dev, rates) -> dict:
+    """Phase 6: the multi-device EC codec (parallel/) on the card."""
+    import torch
+
+    from seaweedfs_tpu_torch.parallel import distributed_ec, make_mesh
+
+    own = make_mesh()
+    print(f"mesh over the card's own devices: {own.size} position(s) ({torch.cuda.device_count()} "
+          f"CUDA device(s)), shape {own.shape}")
+    lmesh = make_mesh(devices=[dev] * 4, shard_par=2)
+    streams = {p.stream.cuda_stream for p in lmesh.positions}
+    check(lmesh.shape == {"shard": 2, "stripe": 2} and len(streams) == 4,
+          f"logical mesh {lmesh} has {len(streams)} streams")
+    ops = phase_mesh_ops(args, dev, rates, ident, lmesh)
+    zero_launch_counts()
+    pipeline = phase_mesh_pipeline(directory, hashes, ident, dev, lmesh)
+    pipe_launches = launch_counts()
+    check(pipe_launches["gf_apply"] > 0, "the mesh pipeline launched no K1")
+    t = time.perf_counter()
+    scaling = distributed_ec.measure_scaling(shard_mb=64)
+    print(f"measure_scaling on {ident} ({time.perf_counter() - t:.3f}s): {json.dumps(scaling)}")
+    launches = {k: ops["launches"][k] + pipe_launches[k] for k in pipe_launches}
+    return dict(ops=ops, pipeline=pipeline, scaling=scaling, launches=launches,
+                devices=own.size)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -874,7 +1144,7 @@ def main() -> int:
         kern = phase_kernel(rng, dev, rates)
         planes = phase_planes(rng, dev, rates, ident,
                               sorted({n for _off, n in shard_chunks(int(args.gib * (1 << 30)))}))
-        main_path = phase_main_path(args, ident, dev)
+        main_path = phase_main_path(args, ident, dev, rates)
     except SmokeFailure as e:
         print(f"FAIL: {e}")
         return 1
@@ -968,6 +1238,24 @@ def main() -> int:
         plane_entry("gf_pack", 240, "pack", "pack", "10x64MiB"),
         plane_entry("gf_unpack", 260, "unpack", "unpack", "10x64MiB"),
     ]}
+    mesh = main_path["mesh"]
+    mesh_shapes = {"gf_apply": "k1_10x16MiB_to_4", "gf_planes_apply": "apply_bits_32MiB_to_2",
+                   "gf_pack": "pack_10x32MiB", "gf_unpack": "unpack_2x32MiB"}
+    for entry in record["kernels"]:
+        name, shape = entry["name"], mesh_shapes[entry["name"]]
+        entry["launches"] += mesh["launches"][name]
+        entry["launches_mesh"] = mesh["launches"][name]
+        entry["max_abs_err"] = max(entry["max_abs_err"], mesh["ops"]["errs"][name])
+        entry.update({f"{key}_mesh_position_{shape}": mesh["ops"]["timings"][shape][key]
+                      for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    record["kernels"][0].update(
+        mesh_encode_ms_10x64MiB=mesh["ops"]["whole_ms"],
+        mesh_upload_ms_10x64MiB=mesh["ops"]["upload_ms"],
+        mesh_cli_encode_wall_s=mesh["pipeline"]["cli"]["encode"]["wall_s"],
+        mesh_cli_rebuild_wall_s=mesh["pipeline"]["cli"]["rebuild"]["wall_s"],
+        throttled_rebuild_wait_s=mesh["pipeline"]["throttled"]["waited_s"],
+        scaling=mesh["scaling"]["devices"],
+    )
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)
     print(json.dumps(record))

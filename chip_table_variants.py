@@ -93,7 +93,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.ops import gf256, rs_cuda
 
     ident = cs.gpu_identity()
     print(f"device: {torch.cuda.get_device_name(0)} ({ident}), torch {torch.__version__}")
@@ -118,7 +118,7 @@ def main() -> int:
 
         def k1_call(lib, mat, x):
             r, s = mat.shape
-            m = rs_cuda._device_matrix(mat, dev)
+            m = torch.from_numpy(np.ascontiguousarray(mat)).to(dev)
             out = torch.empty((r, x.shape[1]), dtype=torch.uint8, device=dev)
 
             def call():
@@ -130,7 +130,7 @@ def main() -> int:
 
         def k2_call(lib, mat, p):
             r, s = mat.shape
-            m = rs_cuda._device_matrix(rs_cuda._plane_masks(mat.tobytes(), r, s), dev)
+            m = torch.from_numpy(rs_cuda.pack_masks(gf256.matrix_to_gf2(mat))).to(dev)
             out = torch.empty((r, p.shape[1]), dtype=torch.uint32, device=dev)
 
             def call():

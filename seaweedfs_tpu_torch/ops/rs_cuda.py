@@ -5,10 +5,14 @@
 - ``pack_words`` / ``unpack_words`` (K3 / K4) and ``apply_matrix_planes``
   / ``apply_matrices_planes`` (K2) launch the kernels of csrc/gf_planes.cu:
   the plane-resident rebuild hop that ``ReedSolomonCuda.
-  reconstruct_words_multi`` wires together.
+  reconstruct_words_multi`` wires together.  ``apply_bits_planes`` is K2
+  with a GF(2) bit-matrix that need not come from GF(2^8), the runtime
+  operand of parallel/gf2.apply_bits.
 
 The sources are built by ops/_build.py at first use and bound through
-ctypes; kernels run on PyTorch's current stream.  A CPU tensor goes to the
+ctypes; kernels run on PyTorch's current stream.  The per-matrix device
+copies (K1's GF(2^8) matrix, K2's packed GF(2) masks) are cached and
+metered by ops/sched_cache under the plane ``cuda``.  A CPU tensor goes to the
 plain version in ops/rs_torch.py; a CUDA tensor launches the kernel or
 raises.  Each kernel has a launch counter (``launches`` for K1,
 ``pack_launches``, ``unpack_launches``, ``plane_launches``), so a run can
@@ -18,16 +22,16 @@ show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from collections import OrderedDict
-from functools import cache, lru_cache
+from functools import cache
 
 import numpy as np
 import torch
 
-from seaweedfs_tpu_torch.ops import _build, gf256, xor_sched
+from seaweedfs_tpu_torch.ops import _build, gf256, sched_cache, xor_sched
 from seaweedfs_tpu_torch.ops.rs_torch import (
     BLOCK_WORDS,
     ReedSolomonTorch,
+    apply_bits_planes_reference,
     apply_matrix_planes_reference,
     apply_matrix_reference,
     check_plane_words,
@@ -35,13 +39,10 @@ from seaweedfs_tpu_torch.ops.rs_torch import (
     unpack_words_reference,
 )
 
-_MATRIX_CACHE_SIZE = 64
-
 launches = 0  # K1, gf_apply
 pack_launches = 0  # K3
 unpack_launches = 0  # K4
 plane_launches = 0  # K2
-_matrices: OrderedDict[tuple, torch.Tensor] = OrderedDict()
 
 
 @cache
@@ -69,18 +70,21 @@ def _planes_lib() -> ctypes.CDLL:
     return lib
 
 
-def _device_matrix(matrix: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Device copy of a matrix, cached by its bytes (LRU, bounded): the
-    encode matrix and a volume's rebuild matrix are uploaded once."""
-    key = (matrix.tobytes(), matrix.shape, device.index)
-    dev = _matrices.get(key)
-    if dev is None:
-        dev = torch.from_numpy(matrix.copy()).to(device)
-        _matrices[key] = dev
-        if len(_matrices) > _MATRIX_CACHE_SIZE:
-            _matrices.popitem(last=False)
-    else:
-        _matrices.move_to_end(key)
+def _device_matrix(kind: str, key: np.ndarray, stream: torch.cuda.Stream, build) -> torch.Tensor:
+    """The device copy of ``build()``, a per-matrix host array, for a
+    launch on ``stream``; cached by ``kind`` and ``key``'s bytes in
+    sched_cache (plane ``cuda``), so the encode matrix and a volume's
+    rebuild matrix are uploaded once.  A launch on another stream than the
+    upload's (parallel/distributed_ec runs one stream per mesh position)
+    marks the copy as used there, so the allocator cannot hand its memory
+    out while that launch still reads it."""
+    dev, home = sched_cache.get_or_build(
+        "cuda", (kind, key.tobytes(), key.shape, stream.device),
+        lambda: (torch.from_numpy(np.ascontiguousarray(build())).to(stream.device),
+                 stream.cuda_stream),
+    )
+    if stream.cuda_stream != home:
+        dev.record_stream(stream)
     return dev
 
 
@@ -116,12 +120,12 @@ def apply_matrix_cuda(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     n = raw.shape[1]
     out = torch.empty((r, n), dtype=torch.uint8, device=raw.device)
     if r and n:
-        mat = _device_matrix(matrix, raw.device)
-        stream = torch.cuda.current_stream(raw.device).cuda_stream
+        stream = torch.cuda.current_stream(raw.device)
+        mat = _device_matrix("gf_apply", matrix, stream, lambda: matrix)
         with torch.cuda.device(raw.device):
             err = _lib().sw_gf_apply(
                 mat.data_ptr(), r, s, raw.data_ptr(), raw.stride(0),
-                out.data_ptr(), out.stride(0), n, stream,
+                out.data_ptr(), out.stride(0), n, stream.cuda_stream,
             )
         if err:
             raise RuntimeError(
@@ -193,13 +197,39 @@ def unpack_words(planes: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@lru_cache(maxsize=_MATRIX_CACHE_SIZE)
-def _plane_masks(key: bytes, r: int, s: int) -> np.ndarray:
-    """The plane kernel's matrix: (8r, s) uint8 whose [i, j] bit c is bit
-    [i, 8j + c] of the matrix's GF(2) lowering."""
-    bits = gf256.matrix_to_gf2(np.frombuffer(key, dtype=np.uint8).reshape(r, s))
-    packed = np.packbits(bits.reshape(8 * r, s, 8), axis=2, bitorder="little")
+def pack_masks(bits: np.ndarray) -> np.ndarray:
+    """The plane kernel's matrix from an (8r, 8s) 0/1 GF(2) matrix: (8r, s)
+    uint8 whose [i, j] bit c is bits[i, 8j + c]."""
+    r8, s8 = bits.shape
+    packed = np.packbits(
+        np.asarray(bits, dtype=np.uint8).reshape(r8, s8 // 8, 8), axis=2, bitorder="little"
+    )
     return np.ascontiguousarray(packed[:, :, 0])
+
+
+def _check_bits(bits: np.ndarray) -> np.ndarray:
+    bits = np.ascontiguousarray(bits, dtype=np.uint8)
+    if bits.ndim != 2 or bits.shape[0] % 8 or bits.shape[1] % 8 or bits.max(initial=0) > 1:
+        raise ValueError(f"need an (8r, 8s) 0/1 GF(2) matrix, got shape {bits.shape}")
+    return bits
+
+
+def _apply_planes(kind: str, key: np.ndarray, masks, r: int, s: int,
+                  planes: torch.Tensor) -> torch.Tensor:
+    """Launch K2 with the masks that ``masks()`` packs for ``key``."""
+    global plane_launches
+    _check_device_rows(planes)
+    if planes.shape[0] != s:
+        raise ValueError(f"matrix takes {s} rows, planes has {planes.shape[0]}")
+    width = planes.shape[1]
+    out = torch.empty((r, width), dtype=torch.uint32, device=planes.device)
+    if r and width:
+        dev_masks = _device_matrix(kind, key, torch.cuda.current_stream(planes.device), masks)
+        _launch("sw_gf_planes_apply", dev_masks.data_ptr(), r, s, planes.data_ptr(),
+                planes.stride(0), out.data_ptr(), out.stride(0), width,
+                device=planes.device)
+        plane_launches += 1
+    return out
 
 
 def apply_matrix_planes(matrix: np.ndarray, planes: torch.Tensor) -> torch.Tensor:
@@ -207,25 +237,26 @@ def apply_matrix_planes(matrix: np.ndarray, planes: torch.Tensor) -> torch.Tenso
     rows in the plane-interleaved layout, the result (r, W) in the same
     layout, so chained applies never pack or unpack.  W must be a multiple
     of BLOCK_WORDS (pad via pad_width_words)."""
-    global plane_launches
     matrix = np.ascontiguousarray(matrix, dtype=np.uint8)
     if matrix.ndim != 2:
         raise ValueError(f"matrix must be 2-D, got shape {matrix.shape}")
     if planes.device.type == "cpu":
         return apply_matrix_planes_reference(matrix, planes)
-    _check_device_rows(planes)
     r, s = matrix.shape
-    if planes.shape[0] != s:
-        raise ValueError(f"matrix takes {s} rows, planes has {planes.shape[0]}")
-    width = planes.shape[1]
-    out = torch.empty((r, width), dtype=torch.uint32, device=planes.device)
-    if r and width:
-        masks = _device_matrix(_plane_masks(matrix.tobytes(), r, s), planes.device)
-        _launch("sw_gf_planes_apply", masks.data_ptr(), r, s, planes.data_ptr(),
-                planes.stride(0), out.data_ptr(), out.stride(0), width,
-                device=planes.device)
-        plane_launches += 1
-    return out
+    return _apply_planes("planes", matrix, lambda: pack_masks(gf256.matrix_to_gf2(matrix)),
+                         r, s, planes)
+
+
+def apply_bits_planes(bits: np.ndarray, planes: torch.Tensor) -> torch.Tensor:
+    """K2 with a GF(2) matrix that need not come from GF(2^8): ``bits`` is
+    (8r, 8s) 0/1, output plane i the XOR of the input planes j (plane c of
+    row j // 8 for j = 8 * row + c) where bits[i, j] is set.  ``planes`` as
+    for :func:`apply_matrix_planes`; the result is (r, W)."""
+    bits = _check_bits(bits)
+    if planes.device.type == "cpu":
+        return apply_bits_planes_reference(bits, planes)
+    return _apply_planes("bits", bits, lambda: pack_masks(bits),
+                         bits.shape[0] // 8, bits.shape[1] // 8, planes)
 
 
 def apply_matrices_planes(

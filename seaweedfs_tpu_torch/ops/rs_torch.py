@@ -8,8 +8,10 @@ table gathers from ``gf256.MUL_TABLE`` and XOR on uint8.  It is the CPU
 path and the yardstick the CUDA kernel (ops/rs_cuda.py) is held against.
 The plane-resident rebuild hop's plain versions sit beside it:
 ``pack_words_reference`` / ``unpack_words_reference`` (byte-words to
-GF(2) bit-planes and back) and ``apply_matrix_planes_reference`` (the
-GF(2) bit-matrix of a GF(2^8) matrix, applied plane by plane with XORs).
+GF(2) bit-planes and back), ``apply_bits_planes_reference`` (a GF(2)
+bit-matrix applied plane by plane with XORs) and
+``apply_matrix_planes_reference`` (the same for a GF(2^8) matrix's
+lowering).
 
 Layouts follow the JAX package at the word-level functions: shard rows are
 (s, W) uint32 words, little-endian views of the (s, 4W) bytes.  Arithmetic
@@ -127,22 +129,31 @@ def unpack_words_reference(planes: torch.Tensor) -> torch.Tensor:
     return _transpose_bits(planes)
 
 
-def apply_matrix_planes_reference(matrix: np.ndarray, planes: torch.Tensor) -> torch.Tensor:
-    """(r, s) GF(2^8) matrix applied to (s, W) plane-interleaved rows ->
+def apply_bits_planes_reference(bits: np.ndarray, planes: torch.Tensor) -> torch.Tensor:
+    """(8r, 8s) 0/1 GF(2) matrix applied to (s, W) plane-interleaved rows ->
     (r, W) plane-interleaved rows: output plane (o, b) is the XOR of the
-    input planes (j, c) wherever matrix_to_gf2(matrix)[8o+b, 8j+c] is
-    set, block by block."""
-    matrix = np.asarray(matrix, dtype=np.uint8)
-    if matrix.ndim != 2:
-        raise ValueError(f"matrix must be 2-D, got shape {matrix.shape}")
-    r, s = matrix.shape
+    input planes (j, c) wherever bits[8o+b, 8j+c] is set, block by block."""
+    bits = np.asarray(bits)
+    if bits.ndim != 2 or bits.shape[0] % 8 or bits.shape[1] % 8:
+        raise ValueError(f"need an (8r, 8s) GF(2) matrix, got shape {bits.shape}")
+    r, s = bits.shape[0] // 8, bits.shape[1] // 8
     x = _plane_blocks(planes)
     if x.shape[0] != s:
         raise ValueError(f"matrix takes {s} rows, planes has {x.shape[0]}")
     out = torch.zeros((r, *x.shape[1:]), dtype=torch.uint8, device=x.device)
-    for i, j in zip(*np.nonzero(gf256.matrix_to_gf2(matrix))):
+    for i, j in zip(*np.nonzero(bits)):
         out[i // 8, :, i % 8] ^= x[j // 8, :, j % 8]
     return out.view(r, -1).view(torch.uint32)
+
+
+def apply_matrix_planes_reference(matrix: np.ndarray, planes: torch.Tensor) -> torch.Tensor:
+    """(r, s) GF(2^8) matrix applied to (s, W) plane-interleaved rows ->
+    (r, W) plane-interleaved rows: :func:`apply_bits_planes_reference` of
+    the matrix's GF(2) lowering ``gf256.matrix_to_gf2``."""
+    matrix = np.asarray(matrix, dtype=np.uint8)
+    if matrix.ndim != 2:
+        raise ValueError(f"matrix must be 2-D, got shape {matrix.shape}")
+    return apply_bits_planes_reference(gf256.matrix_to_gf2(matrix), planes)
 
 
 class ReedSolomonTorch:

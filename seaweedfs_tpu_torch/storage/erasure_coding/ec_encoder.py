@@ -20,7 +20,16 @@ down into a pinned output buffer, with an event recorded per batch.  Two
 such slots alternate: batch i-1 is drained (event waited, shards written)
 while batch i runs on the device, and a slot is refilled only after its
 previous batch was drained — a pread into a buffer whose upload has not
-completed would give wrong parity, not a crash.
+completed would give wrong parity, not a crash.  The event is recorded on
+the current stream of ``codec.device``; a mesh codec (parallel/
+distributed_ec.ReedSolomonMesh, whose ``device`` is the mesh's first
+device) makes that stream wait on every mesh position's stream before it
+returns a result, so the download and the event come after all of them.
+
+The rebuild runs under the ``ec_repair`` plane tag (stats/plane), charges
+each chunk's reads against the WEED_REPAIR_RATE_MB budget
+(ops/repair_budget) before reading it, and records its read bytes in
+weedtpu_repair_bytes_total{code,mode,dir}.
 """
 
 from __future__ import annotations
@@ -331,13 +340,37 @@ def rebuild_ec_files(
     no file behind.  The survivors stream through the device pipeline
     ``chunk`` bytes per shard at a time.  ``stats`` (optional) collects
     {read_bytes = len(inputs) x shard size, written_bytes, mode, inputs}
-    and the same stage timings as write_ec_files.  The repair rate budget
-    and the ec_repair plane billing of the JAX package are not ported."""
+    and the same stage timings as write_ec_files (``read_s`` includes the
+    repair budget's waits), and ``sched_cache``: the per-plane hits and
+    misses of ops/sched_cache during the rebuild, only the planes that
+    moved (none on the CPU, whose plain path caches nothing).  The whole
+    rebuild runs under ``plane.tagged(plane.EC_REPAIR)``; each chunk is
+    charged ``len(inputs) * width`` bytes against
+    ``repair_budget.shared()`` just before it is read, so a throttled
+    rebuild sleeps while the previous chunk computes, and the read bytes
+    are accounted once at the end."""
+    from seaweedfs_tpu_torch.stats import plane
+
+    with plane.tagged(plane.EC_REPAIR):
+        return _rebuild_ec_files(base_file_name, scheme, codec, chunk, stats, targets, device)
+
+
+def _rebuild_ec_files(
+    base_file_name: str,
+    scheme: EcScheme,
+    codec,
+    chunk: int,
+    stats: dict | None,
+    targets: list[int] | None,
+    device: str | torch.device | None,
+) -> list[int]:
+    from seaweedfs_tpu_torch.ops import repair_budget, sched_cache
     from seaweedfs_tpu_torch.ops.select import pipeline_codec_for
 
     codec = codec or pipeline_codec_for(scheme, device)
     st = _new_stats(stats)
     t0 = time.perf_counter()
+    sched_before = sched_cache.snapshot()
     present: list[int] = []
     missing: list[int] = []
     for sid in range(scheme.total_shards):
@@ -362,6 +395,7 @@ def rebuild_ec_files(
     if len(set(sizes.values())) != 1:
         raise ValueError(f"surviving shard sizes differ: {sizes}")
     shard_size = next(iter(sizes.values()))
+    budget = repair_budget.shared()
 
     # ExitStack: a failed open mid-dict must close the ones already open
     with contextlib.ExitStack() as stack:
@@ -379,6 +413,7 @@ def rebuild_ec_files(
         }
 
         def read(off: int, rows: np.ndarray) -> None:
+            budget.throttle(len(inputs) * rows.shape[1])
             for i, sid in enumerate(inputs):
                 got = os.preadv(ins[sid].fileno(), [memoryview(rows[i])], off)
                 if got < rows.shape[1]:
@@ -401,11 +436,20 @@ def rebuild_ec_files(
             (off, min(chunk, shard_size - off)) for off in range(0, shard_size, chunk)
         ]
         _stream(codec, tasks, len(inputs), len(missing), read, compute, write, st)
+    read_bytes = len(inputs) * shard_size
+    budget.account(scheme.code_name, mode, read=read_bytes)
+    sched_after = sched_cache.snapshot()
+    sched_delta = {
+        p: {ev: sched_after[p].get(ev, 0.0) - sched_before.get(p, {}).get(ev, 0.0)
+            for ev in ("hit", "miss")}
+        for p in sched_after
+    }
     st.update(
-        read_bytes=len(inputs) * shard_size,
+        read_bytes=read_bytes,
         written_bytes=len(missing) * shard_size,
         mode=mode,
         inputs=tuple(inputs),
+        sched_cache={p: d for p, d in sched_delta.items() if any(d.values())},
         wall_s=time.perf_counter() - t0,
     )
     return missing

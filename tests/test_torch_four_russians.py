@@ -5,7 +5,7 @@ the method of four Russians: for each input row j and half h the 16 XORs
 of subsets of planes 4h..4h+3 are built, and each output plane XORs in the
 entry whose index is the four matrix bits of (plane, j, h).  CUDA cannot
 run here, so this file runs the kernels' loops in torch, step for step:
-K2 with the mask nibbles that ``rs_cuda._plane_masks`` hands the kernel,
+K2 with the mask nibbles that ``rs_cuda.pack_masks`` hands the kernel,
 and K1 with its tile mapping (two 16-byte pieces per 32-byte column), its
 in-register bit transpose, the table offsets it derives from the GF(2^8)
 matrix inside each block, its zero-filled tail and its grid.y groups of 8
@@ -108,7 +108,7 @@ def emulate_k2(matrix: np.ndarray, words: np.ndarray, R: int | None = None) -> n
     """K2 on (s, W) plane-interleaved uint32 rows, indexed by the nibbles
     of the mask bytes sw_gf_planes_apply receives."""
     r, s = matrix.shape
-    masks = rs_cuda._plane_masks(np.ascontiguousarray(matrix).tobytes(), r, s)
+    masks = rs_cuda.pack_masks(gf256.matrix_to_gf2(matrix))
     x = torch.from_numpy(words.astype(np.int64)).reshape(s, -1, 8, PW)
     planes = [[x[j, :, b] for b in range(8)] for j in range(s)]
     out = table_apply(planes, lambda o, p, j, h: (int(masks[8 * o + p, j]) >> (4 * h)) & 15,
@@ -215,7 +215,7 @@ def test_k1_offsets_equal_the_plane_mask_nibbles(name):
     kernel; they must be the nibbles K2 gets from the host."""
     mat = all_matrices()[name]
     r, s = mat.shape
-    masks = rs_cuda._plane_masks(np.ascontiguousarray(mat).tobytes(), r, s)
+    masks = rs_cuda.pack_masks(gf256.matrix_to_gf2(mat))
     for o in range(r):
         for p in range(8):
             for j in range(s):
@@ -225,7 +225,7 @@ def test_k1_offsets_equal_the_plane_mask_nibbles(name):
 
 def test_k1_offsets_for_every_coefficient():
     every = np.arange(256, dtype=np.uint8).reshape(16, 16)
-    masks = rs_cuda._plane_masks(every.tobytes(), 16, 16)
+    masks = rs_cuda.pack_masks(gf256.matrix_to_gf2(every))
     got = np.array([[[[k1_index(every, o, p, j, h) for h in range(2)] for j in range(16)]
                      for p in range(8)] for o in range(16)])
     want = np.stack([masks & 15, masks >> 4], axis=-1).reshape(16, 8, 16, 2)

@@ -42,7 +42,13 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/ops/lrc_matrix.py", "seaweedfs_tpu_torch/ops/lrc_codec.py",
             "seaweedfs_tpu_torch/storage/erasure_coding/lrc.py",
             "seaweedfs_tpu_torch/storage/erasure_coding/ec_decoder.py",
-            "seaweedfs_tpu_torch/storage/erasure_coding/ec_volume.py"} <= names
+            "seaweedfs_tpu_torch/storage/erasure_coding/ec_volume.py",
+            "seaweedfs_tpu_torch/parallel/__init__.py", "seaweedfs_tpu_torch/parallel/mesh.py",
+            "seaweedfs_tpu_torch/parallel/gf2.py", "seaweedfs_tpu_torch/parallel/distributed_ec.py",
+            "seaweedfs_tpu_torch/stats/__init__.py", "seaweedfs_tpu_torch/stats/plane.py",
+            "seaweedfs_tpu_torch/util/__init__.py", "seaweedfs_tpu_torch/util/limiter.py",
+            "seaweedfs_tpu_torch/ops/repair_budget.py",
+            "seaweedfs_tpu_torch/ops/sched_cache.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())
