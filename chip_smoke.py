@@ -6,9 +6,10 @@
 Phases, each printing what it found; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit, and an nvcc build of
-   every kernel in seaweedfs_tpu_torch/csrc (one process per source, all
-   started together), with ptxas's registers and spills for every kernel
-   instantiation; a spill in K1 or K2 fails the run.
+   every kernel in seaweedfs_tpu_torch/csrc (and a g++ build of its host
+   CRC32C; one process per source, all started together), with ptxas's
+   registers and spills for every kernel instantiation; a spill in K1 or K2
+   fails the run.
 2. Kernels against their plain versions on the card, byte-exact:
    - K1, the CUDA GF(2^8) apply, against rs_torch.apply_matrix_reference,
      for the RS(10,4) encode matrix, a 1-loss and a 4-loss RS(10,4) rebuild
@@ -74,6 +75,31 @@ Phases, each printing what it found; any failure exits non-zero:
    covers half its reads, which must wait about a second
    (weedtpu_repair_wait_seconds_total) and ride the cuda schedule cache;
    and measure_scaling for the device counts present.
+7. The volume server's EC service and the needle-read path: a G GiB .dat
+   of real version-3 needles from --seed (1 KiB payloads, the size `weed
+   benchmark` writes, 1064 bytes on disk each, plus 8 of 256 KiB-1 MiB;
+   64 tombstoned in the .idx; a sample equal to Needle.to_bytes) is served
+   by ``python -m seaweedfs_tpu_torch.cli volume -device cuda`` in a
+   subprocess and driven over localhost gRPC: EcShardsGenerate (K1 in the
+   server; .ecx == the sorted live .idx, parity sampled on the CPU),
+   EcShardsMount and EcShardsInfo (14 shards), EcShardRead of seeded
+   ranges (== the shard files), twice EcShardsUnmount and EcShardsDelete
+   of {0, 3, 10, 13} and EcShardsRebuild (hash-identical; the first and
+   second rebuild of one process side by side), EcBlobDelete (then
+   EcShardRead with its file_key says is_deleted), EcShardsToVolume (the
+   .dat's sha256 comes back), and the server's /metrics (EC operations,
+   the cuda schedule cache and its K1 launches, which start at 0 in the
+   new process).  The same .dat is
+   encoded as LRC(10,2,2) by ``ec.encode.local -code lrc`` and with 64 MiB
+   large blocks by write_ec_files (one 10 x 64 MiB large row: parity
+   sampled in both areas, needles read back).  Then about 20,000 needles
+   (every one that crosses a 1 MiB block, and the big ones) are read here
+   through Store, EcVolume.read_needle and EcShardLocator's local
+   reconstruction, in five states (RS healthy, RS without {0, 3, 10, 13},
+   LRC without {3}, {0, 5, 12, 13} and {0, 1, 10, 11}): every payload equal
+   to its seeded bytes, every tombstoned needle NotFoundError, needles/s,
+   p50/p99 and the repair bytes read per reconstructed byte (5 for an LRC
+   local plan, 10 for a global decode).
 
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
@@ -101,6 +127,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -687,9 +714,13 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
         lrc = phase_lrc(lrc_dir, size, ident, dev, dat_sha, want_ecx)
         shutil.rmtree(lrc_dir)  # room for phase 6's shards
         mesh = phase_mesh(args, tmp, hashes, ident, dev, rates)
+        for name in os.listdir(tmp):  # room for phase 7's volumes
+            path = os.path.join(tmp, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+        ec_service = phase_ec_service(args, tmp, ident, dev)
         return dict(launches=enc_launches + reb_launches, encode=enc, rebuild=reb,
                     encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
-                    lrc=lrc, mesh=mesh)
+                    lrc=lrc, mesh=mesh, ec_service=ec_service)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1101,6 +1132,508 @@ def phase_mesh(args, directory: str, hashes: dict, ident: str, dev, rates) -> di
                 devices=own.size)
 
 
+# -- phase 7 ------------------------------------------------------------------
+
+NEEDLE_PAYLOAD = 1024  # `weed benchmark`'s default -size
+BIG_NEEDLES = 8  # 256 KiB - 1 MiB payloads: reads of several intervals
+DEAD_NEEDLES = 64
+READ_SAMPLE = 20_000
+LARGE_ROW_BLOCK = 64 * MIB  # the large-row pipeline's large blocks
+READ_STATES = [  # label, volume, shards removed
+    ("RS healthy", "rs", ()),
+    ("RS {0,3,10,13} removed", "rs", (0, 3, 10, 13)),
+    ("LRC {3} removed", "lrc", (3,)),
+    ("LRC {0,5,12,13} removed", "lrc", (0, 5, 12, 13)),
+    ("LRC {0,1,10,11} removed", "lrc", (0, 1, 10, 11)),
+]
+
+
+def make_needle_volume(directory: str, size: int, seed: int) -> dict:
+    """A version-3 .dat of real needles, about ``size`` bytes: 1 KiB
+    payloads (1064 bytes on disk each, with a last-modified time) and
+    BIG_NEEDLES larger ones at seeded places, and its .idx with
+    DEAD_NEEDLES of the small ones tombstoned.  The records are built in
+    bulk from --seed; a seeded sample must equal ``Needle.to_bytes``."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.storage.needle import FLAG_HAS_LAST_MODIFIED, Needle
+    from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE, SuperBlock
+    from seaweedfs_tpu_torch.storage.types import Version, get_actual_size
+    from seaweedfs_tpu_torch.util.crc32c import crc32c_rows
+
+    rng = np.random.default_rng(seed)
+    body = 4 + NEEDLE_PAYLOAD + 1 + 5  # data size, data, flags, last modified
+    rec = get_actual_size(body, Version.V3)
+    big_sizes = [int(s) for s in rng.integers(256 << 10, (1 << 20) + 1, BIG_NEEDLES)]
+    big_recs = [get_actual_size(4 + s + 1 + 5, Version.V3) for s in big_sizes]
+    n = (size - SUPER_BLOCK_SIZE - sum(big_recs)) // rec
+    total = n + BIG_NEEDLES
+    ids = rng.permutation(np.unique(rng.integers(1, 1 << 48, total + total // 8)))[:total]
+    check(len(ids) == total, "needle ids collide")
+    cookies = rng.integers(0, 1 << 32, total)
+    modified = rng.integers(1_500_000_000, 1_800_000_000, total)
+    stamps = rng.integers(1, 1 << 62, total)
+    recs = np.zeros((n, rec), np.uint8)
+    o_data = 20
+    o_flags = o_data + NEEDLE_PAYLOAD
+    o_crc = o_flags + 1 + 5
+    payload = recs[:, o_data:o_flags]
+    payload[:] = np.frombuffer(rng.bytes(n * NEEDLE_PAYLOAD), np.uint8).reshape(n, NEEDLE_PAYLOAD)
+
+    def put(col: int, values, dtype: str, width: int | None = None) -> None:
+        raw = np.asarray(values).astype(dtype).view(np.uint8).reshape(len(values), -1)
+        raw = raw[:, raw.shape[1] - (width or raw.shape[1]):]
+        recs[:, col : col + raw.shape[1]] = raw
+
+    put(0, cookies[:n], ">u4")
+    put(4, ids[:n], ">u8")
+    put(12, np.full(n, body), ">u4")
+    put(16, np.full(n, NEEDLE_PAYLOAD), ">u4")
+    recs[:, o_flags] = FLAG_HAS_LAST_MODIFIED
+    put(o_flags + 1, modified[:n], ">u8", 5)
+    put(o_crc, crc32c_rows(payload), ">u4")
+    put(o_crc + 4, stamps[:n], ">u8")
+
+    def needle(i: int, data: bytes) -> Needle:
+        return Needle(id=int(ids[i]), cookie=int(cookies[i]), data=data,
+                      flags=FLAG_HAS_LAST_MODIFIED, last_modified=int(modified[i]),
+                      append_at_ns=int(stamps[i]))
+
+    for i in rng.choice(n, min(n, 512), replace=False):
+        check(recs[i].tobytes() == needle(int(i), payload[i].tobytes()).to_bytes(Version.V3),
+              f"bulk needle record {i} differs from Needle.to_bytes")
+    offsets = np.empty(n, np.int64)
+    cuts = [0, *sorted(int(c) for c in rng.choice(np.arange(1, n), BIG_NEEDLES, replace=False)), n]
+    big = []
+    with open(os.path.join(directory, "1.dat"), "wb") as f:
+        f.write(SuperBlock().to_bytes())  # version 3
+        pos = SUPER_BLOCK_SIZE
+        for j in range(BIG_NEEDLES + 1):
+            lo, hi = cuts[j], cuts[j + 1]
+            offsets[lo:hi] = pos + rec * np.arange(hi - lo)
+            f.write(recs[lo:hi])
+            pos += rec * (hi - lo)
+            if j < BIG_NEEDLES:
+                data = rng.bytes(big_sizes[j])
+                record = needle(n + j, data).to_bytes(Version.V3)
+                big.append(dict(id=int(ids[n + j]), data=data, offset=pos, size=4 + len(data) + 6))
+                f.write(record)
+                pos += len(record)
+    entry = np.dtype([("id", ">u8"), ("off", ">u4"), ("size", ">i4")])
+    puts = np.empty(total, entry)
+    puts["id"] = ids
+    puts["off"][:n] = offsets // 8
+    puts["off"][n:] = [b["offset"] // 8 for b in big]
+    puts["size"][:n] = body
+    puts["size"][n:] = [b["size"] for b in big]
+    puts = puts[np.argsort(puts["off"].astype(np.int64), kind="stable")]  # write order
+    dead = rng.choice(n, DEAD_NEEDLES, replace=False)
+    tombs = np.empty(DEAD_NEEDLES, entry)
+    tombs["id"], tombs["off"], tombs["size"] = ids[dead], 0, -1
+    with open(os.path.join(directory, "1.idx"), "wb") as f:
+        f.write(puts.tobytes() + tombs.tobytes())
+    live = puts[~np.isin(puts["id"], ids[dead])]
+    crossing = np.flatnonzero(offsets // MIB != (offsets + rec - 1) // MIB)
+    return dict(recs=recs, payload=payload, ids=ids, n=n, rec=rec, offsets=offsets, big=big,
+                dead=set(int(i) for i in dead), dat_size=pos, crossing=crossing,
+                ecx=live[np.argsort(live["id"].astype(np.uint64))].tobytes())
+
+
+def read_sample(vol: dict, seed: int) -> list[tuple[int, bytes]]:
+    """(needle id, payload) of READ_SAMPLE seeded live 1 KiB needles, every
+    live needle that crosses a 1 MiB block boundary, and the big ones."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    live = np.setdiff1d(np.arange(vol["n"]), np.fromiter(vol["dead"], np.int64))
+    picked = set(int(i) for i in rng.choice(live, min(READ_SAMPLE, len(live)), replace=False))
+    picked |= set(int(i) for i in vol["crossing"]) - vol["dead"]
+    sample = [(int(vol["ids"][i]), vol["payload"][i].tobytes()) for i in sorted(picked)]
+    sample += [(b["id"], b["data"]) for b in vol["big"]]
+    return [sample[i] for i in rng.permutation(len(sample))]
+
+
+class _Server:
+    """``python -m seaweedfs_tpu_torch.cli volume`` in a subprocess on
+    localhost: started with ``-device``, verbosity 1 (its stage lines go to
+    ``log``), stopped with SIGTERM (killed if it does not exit)."""
+
+    def __init__(self, directory: str, device: str, log: str):
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, WEEDTPU_V="1",
+                   PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+        self.log = log
+        self._log_file = open(log, "w")
+        t = time.perf_counter()
+        # port 0: the server binds free ports itself and names them on its
+        # first line
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.cli", "volume", "-dir", directory,
+             "-ip", "127.0.0.1", "-port", "0", "-grpcPort", "0", "-metricsPort", "0",
+             "-device", device],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=self._log_file, text=True)
+        line = self.proc.stdout.readline().strip()
+        self.start_s = time.perf_counter() - t
+        bound = re.search(r"gRPC on 127\.0\.0\.1:(\d+) .*metrics on 127\.0\.0\.1:(\d+)", line)
+        if bound is None:
+            self.stop()
+            raise SmokeFailure(f"the volume server did not start: {line!r}; "
+                               f"log: {self.log_text()[-2000:]}")
+        self.grpc_port, self.metrics_port = int(bound[1]), int(bound[2])
+        print(f"volume server subprocess pid {self.proc.pid} up in {self.start_s:.3f}s: {line}")
+
+    def log_text(self) -> str:
+        if not self._log_file.closed:
+            self._log_file.flush()
+        with open(self.log) as f:
+            return f.read()
+
+    def metrics(self) -> str:
+        import urllib.request
+
+        url = f"http://127.0.0.1:{self.metrics_port}/metrics"
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.read().decode()
+
+    def stop(self) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.proc.stdout.close()
+        self._log_file.close()
+        return self.proc.returncode
+
+
+def metric(text: str, name: str, **labels) -> float:
+    """The value of one series of /metrics text (0 when absent)."""
+    want = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    series = f"{name}{{{want}}}" if labels else name
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def server_stages(log: str, op: str) -> list[dict]:
+    """The pipeline stage breakdowns the server logged for ``op``."""
+    return [json.loads(line.split(" stages: ", 1)[1]) for line in log.splitlines()
+            if f"] ec: {op} " in line and " stages: " in line]
+
+
+def phase_server(vol: dict, directory: str, dev, ident: str, seed: int) -> dict:
+    """The volume server's EC service, over gRPC from this process to a
+    server subprocess on the card (see the module docstring)."""
+    import grpc
+    import numpy as np
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as pb
+
+    base = os.path.join(directory, "1")
+    dat_sha = sha256(base + ".dat")
+    server = _Server(directory, dev.type, os.path.join(os.path.dirname(directory), "server.log"))
+    walls: dict = {}
+    try:
+        before = server.metrics()
+        for kernel in ("gf_apply", "gf_planes_apply", "gf_pack", "gf_unpack"):
+            check(metric(before, "weedtpu_cuda_kernel_launches", kernel=kernel) == 0,
+                  f"the new server process has launched {kernel}")
+        stub = rpc.volume_stub(f"127.0.0.1:{server.grpc_port}")
+
+        def call(label: str, method: str, request, stream: bool = False):
+            t = time.perf_counter()
+            out = getattr(stub, method)(request, timeout=600)
+            out = list(out) if stream else out
+            walls.setdefault(label, []).append(time.perf_counter() - t)
+            return out
+
+        call("generate", "EcShardsGenerate", pb.EcShardsGenerateRequest(volume_id=1))
+        with open(base + ".ecx", "rb") as f:
+            check(f.read() == vol["ecx"], "server .ecx differs from the sorted live .idx entries")
+        n_rows = check_parity(base, vol["dat_size"], ReedSolomonTorch(10, 4, device="cpu"))
+        call("mount", "EcShardsMount", pb.EcShardsMountRequest(volume_id=1, shard_ids=range(14)))
+        info = call("info", "EcShardsInfo", pb.EcShardsInfoRequest(volume_id=1))
+        shard_size = os.path.getsize(base + ".ec00")
+        check([(s.shard_id, s.size) for s in info.shards] == [(i, shard_size) for i in range(14)],
+              f"EcShardsInfo: {info}")
+        rng = np.random.default_rng(seed)
+        for sid, size in [(int(s), int(z)) for s, z in zip(rng.integers(0, 14, 6),
+                                                           rng.integers(1, 3 * MIB, 6))]:
+            offset = int(rng.integers(0, shard_size - size))
+            got = b"".join(r.data for r in call("shard read", "EcShardRead", pb.EcShardReadRequest(
+                volume_id=1, shard_id=sid, offset=offset, size=size), stream=True))
+            with open(base + f".ec{sid:02d}", "rb") as f:
+                check(got == os.pread(f.fileno(), size, offset),
+                      f"EcShardRead {sid} @{offset} +{size} differs from the shard file")
+        # the reads of phase 7 run on links to the generated shards
+        reads_dir = os.path.join(os.path.dirname(directory), "reads")
+        os.mkdir(reads_dir)
+        for sid in range(14):
+            os.link(base + f".ec{sid:02d}", os.path.join(reads_dir, f"1.ec{sid:02d}"))
+        for ext in (".ecx", ".vif"):
+            shutil.copy(base + ext, os.path.join(reads_dir, "1" + ext))
+
+        lost = HOP_SETS[-1]
+        hashes = {sid: sha256(base + f".ec{sid:02d}") for sid in lost}
+        for _ in range(2):  # the second rebuild in the same process: warm pinned slots
+            call("unmount", "EcShardsUnmount", pb.EcShardsUnmountRequest(volume_id=1, shard_ids=lost))
+            info = call("info", "EcShardsInfo", pb.EcShardsInfoRequest(volume_id=1))
+            check([s.shard_id for s in info.shards] == [i for i in range(14) if i not in lost],
+                  f"EcShardsInfo after unmounting {lost}: {info}")
+            call("delete", "EcShardsDelete", pb.EcShardsDeleteRequest(volume_id=1, shard_ids=lost))
+            check(not any(os.path.exists(base + f".ec{sid:02d}") for sid in lost),
+                  "EcShardsDelete left shard files")
+            resp = call("rebuild", "EcShardsRebuild", pb.EcShardsRebuildRequest(volume_id=1))
+            check(list(resp.rebuilt_shard_ids) == list(lost), f"rebuilt {resp.rebuilt_shard_ids}")
+            for sid in lost:
+                check(sha256(base + f".ec{sid:02d}") == hashes[sid], f"server rebuilt {sid} differs")
+            call("mount", "EcShardsMount", pb.EcShardsMountRequest(volume_id=1, shard_ids=lost))
+
+        victim = vol["big"][0]["id"]
+        call("blob delete", "EcBlobDelete", pb.EcBlobDeleteRequest(volume_id=1, file_key=victim))
+        out = call("shard read", "EcShardRead", pb.EcShardReadRequest(
+            volume_id=1, shard_id=0, size=16, file_key=victim), stream=True)
+        check([r.is_deleted for r in out] == [True], "EcShardRead of a deleted blob: not is_deleted")
+        try:
+            stub.EcShardsCopy(pb.EcShardsCopyRequest(volume_id=1), timeout=60)
+            check(False, "EcShardsCopy answered")
+        except grpc.RpcError as e:
+            check(e.code() == grpc.StatusCode.UNIMPLEMENTED, f"EcShardsCopy: {e.code()}")
+
+        for ext in (".dat", ".idx"):
+            os.remove(base + ext)
+        call("to volume", "EcShardsToVolume", pb.EcShardsToVolumeRequest(volume_id=1))
+        check(sha256(base + ".dat") == dat_sha, "EcShardsToVolume: .dat differs from the original")
+
+        text = server.metrics()
+        ops = {op: metric(text, "weedtpu_ec_operations_total", op=op) for op in ("encode", "rebuild")}
+        check(ops == {"encode": 1, "rebuild": 2}, f"weedtpu_ec_operations_total {ops}")
+        cache = {ev: metric(text, "weedtpu_ec_sched_cache_total", event=ev, plane="cuda")
+                 for ev in ("hit", "miss")}
+        check(sum(cache.values()) > 0, "no weedtpu_ec_sched_cache_total{plane=\"cuda\"} in the server")
+        launches = {k: int(metric(text, "weedtpu_cuda_kernel_launches", kernel=k))
+                    for k in ("gf_apply", "gf_planes_apply", "gf_pack", "gf_unpack")}
+        check(launches["gf_apply"] > 0, f"the server launched no K1: {launches}")
+    finally:
+        rc = server.stop()
+    log = server.log_text()
+    check(rc == 0, f"the volume server exited {rc}: {log[-2000:]}")
+    gen, rebuilds = server_stages(log, "generate"), server_stages(log, "rebuild")
+    check(len(gen) == 1 and len(rebuilds) == 2, f"server stage lines: {len(gen)} / {len(rebuilds)}")
+    print(f"server on {ident}: /metrics weedtpu_ec_operations_total {ops}, "
+          f"weedtpu_ec_sched_cache_total{{plane=\"cuda\"}} {cache}, "
+          f"weedtpu_cuda_kernel_launches {launches}")
+    print(f"server generate on {ident}: {n_rows} rows, RPC wall {walls['generate'][0]:.4f}s, "
+          f"{vol['dat_size'] / walls['generate'][0] / 1e9:.3f} GB/s of .dat; {stage_line(gen[0])}")
+    print(f"server rebuild {list(lost)} on {ident}, first vs second in one process: RPC wall "
+          f"{walls['rebuild'][0]:.4f}s vs {walls['rebuild'][1]:.4f}s; setup "
+          f"{rebuilds[0]['setup_s']:.4f}s vs {rebuilds[1]['setup_s']:.4f}s; "
+          f"{stage_line(rebuilds[0])} | {stage_line(rebuilds[1])}")
+    print("server RPC client walls (s): " + ", ".join(
+        f"{k} {' / '.join(f'{w:.4f}' for w in v)}" for k, v in walls.items()))
+    return dict(walls=walls, generate=gen[0], rebuilds=rebuilds, launches=launches,
+                sched_cache=cache, start_s=server.start_s, reads_dir=reads_dir)
+
+
+def phase_reads(vol: dict, dirs: dict, ident: str, seed: int) -> dict:
+    """Needle reads through the port's Store, EcVolume.read_needle and the
+    local half of EcShardLocator, in READ_STATES (host only)."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import stats
+    from seaweedfs_tpu_torch.server.store_ec import EcShardLocator
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.volume import NotFoundError
+
+    sample = read_sample(vol, seed)
+    dead = [int(vol["ids"][i]) for i in sorted(vol["dead"])]
+    out = {}
+    for label, kind, lost in READ_STATES:
+        store = Store([dirs[kind]])
+        store.mount_ec_shards("", 1, [s for s in range(14) if s not in lost])
+        ev = store.find_ec_volume(1)
+        locator = EcShardLocator()
+        fetch = locator.make_fetcher(ev)
+        rebuilt = [0, 0]  # intervals, bytes
+
+        def counted(vid, sid, offset, length):
+            rebuilt[0] += 1
+            rebuilt[1] += length
+            return fetch(vid, sid, offset, length)
+
+        bytes0 = stats.REPAIR_BYTES.series()
+        lat = np.empty(len(sample))
+        try:
+            t0 = time.perf_counter()
+            for j, (nid, payload) in enumerate(sample):
+                t = time.perf_counter()
+                got = ev.read_needle(nid, fetcher=counted).data
+                lat[j] = time.perf_counter() - t
+                check(got == payload, f"{label}: needle {nid:x} differs from its seeded bytes")
+            wall = time.perf_counter() - t0
+            for nid in dead:
+                try:
+                    ev.read_needle(nid, fetcher=counted)
+                    check(False, f"{label}: tombstoned needle {nid:x} was read")
+                except NotFoundError:
+                    pass
+        finally:
+            locator.close()
+            store.close()
+        moved = {dict(k)["mode"]: v - bytes0.get(k, 0.0)
+                 for k, v in stats.REPAIR_BYTES.series().items()
+                 if dict(k)["dir"] == "read" and dict(k)["code"] == kind and v != bytes0.get(k, 0.0)}
+        per_interval = {mode: v / rebuilt[1] for mode, v in moved.items()} if rebuilt[1] else {}
+        if lost:
+            check(rebuilt[0] > 0, f"{label}: no interval was reconstructed")
+        want = {(): {}, (0, 3, 10, 13): {"global": 10.0}, (3,): {"local": 5.0},
+                (0, 5, 12, 13): {"local": 5.0}}.get(lost)
+        if want is not None:
+            check(per_interval == want, f"{label}: repair reads per interval byte {per_interval}")
+        else:  # a local plan abandoned (co-members missing), then the global decode
+            check(per_interval.get("global") == 10.0 and per_interval.get("local", 0) < 5,
+                  f"{label}: repair reads per interval byte {per_interval}")
+        rec = dict(needles=len(sample), needles_per_s=len(sample) / wall,
+                   p50_us=float(np.percentile(lat, 50) * 1e6),
+                   p99_us=float(np.percentile(lat, 99) * 1e6),
+                   reconstructed_intervals=rebuilt[0], reconstructed_bytes=rebuilt[1],
+                   repair_read_bytes=moved)
+        out[label] = rec
+        print(f"reads ({label}) on the host ({ident} box): {len(sample)} needles byte-exact, "
+              f"{len(dead)} tombstoned raise NotFoundError; {rec['needles_per_s']:.1f} needles/s, "
+              f"p50 {rec['p50_us']:.1f} us, p99 {rec['p99_us']:.1f} us; {rebuilt[0]} intervals "
+              f"({rebuilt[1]} bytes) reconstructed; weedtpu_repair_bytes_total{{dir=read}} "
+              f"+{moved} ({per_interval} per byte)")
+    return out
+
+
+def phase_large_row(vol: dict, directory: str, dev, ident: str) -> dict:
+    """The 1 GiB .dat through write_ec_files with 64 MiB large blocks: one
+    large row of 10 x 64 MiB (strided preadv, one K1 batch) and small rows
+    after it; parity sampled against the CPU plain version in both areas,
+    and needles read back through EcVolume with that scheme."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
+    from seaweedfs_tpu_torch.server.store_ec import EcShardLocator
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import EcScheme
+    from seaweedfs_tpu_torch.storage.volume_info import VolumeInfo, save_volume_info
+
+    scheme = EcScheme(10, 4, large_block_size=LARGE_ROW_BLOCK)
+    k, big, small = 10, scheme.large_block_size, scheme.small_block_size
+    base = os.path.join(directory, "1")
+    st: dict = {}
+    ec_encoder.write_ec_files(base, scheme, stats=st, device=dev)
+    ec_encoder.write_sorted_ecx_file(base)
+    save_volume_info(base + ".vif", VolumeInfo(dat_file_size=vol["dat_size"], data_shards=k,
+                                               parity_shards=4))
+    n_large, left = 0, vol["dat_size"]
+    while left > big * k:
+        n_large, left = n_large + 1, left - big * k
+    check(n_large >= 1, "the volume has no large row")
+    small_rows = -(-left // (small * k))
+    windows = [(r * big + x, [r * big * k + i * big + x for i in range(k)])
+               for r in range(n_large) for x in (0, big // 2, big - small)]
+    windows += [(n_large * big + q * small,
+                 [n_large * big * k + q * small * k + i * small for i in range(k)])
+                for q in (0, small_rows - 1)]
+    codec = ReedSolomonTorch(10, 4, device="cpu")
+    with open(base + ".dat", "rb") as dat:
+        for shard_off, dat_offs in windows:
+            data = np.zeros((k, small), np.uint8)
+            for i, off in enumerate(dat_offs):
+                got = os.preadv(dat.fileno(), [memoryview(data[i])], off)
+                data[i, got:] = 0
+            want = np.concatenate([data, codec.encode(data)])
+            for sid in range(14):
+                with open(base + f".ec{sid:02d}", "rb") as f:
+                    shard = np.frombuffer(os.pread(f.fileno(), small, shard_off), np.uint8)
+                check(np.array_equal(shard, want[sid]),
+                      f"large-row volume: shard {sid} wrong at {shard_off}")
+    # needles across the large blocks' boundaries, the large -> small
+    # boundary, and at random; healthy, then with shard 2 missing
+    offsets, rec = vol["offsets"], vol["rec"]
+    edges = [j * big for j in range(1, n_large * k + 1)]
+    near = {int(np.searchsorted(offsets, e)) - 1 for e in edges}
+    rng = np.random.default_rng(len(edges))
+    picks = sorted((near | set(int(i) for i in rng.choice(vol["n"], 200, replace=False)))
+                   - vol["dead"] - {-1})
+    ev = EcVolume(directory, 1, scheme=scheme)
+    locator = EcShardLocator()
+    kinds, crossing = set(), 0
+    try:
+        for sid in range(14):
+            ev.add_shard(sid)
+        for missing in (None, 2):
+            if missing is not None:
+                ev.delete_shard(missing)
+            fetch = locator.make_fetcher(ev)
+            for i in picks:
+                nid = int(vol["ids"][i])
+                check(ev.read_needle(nid, fetcher=fetch).data == vol["payload"][i].tobytes(),
+                      f"large-row volume: needle {nid:x} differs")
+                intervals = ev.locate(nid)[2]
+                kinds |= {iv.is_large_block for iv in intervals}
+                crossing += len(intervals) > 1
+    finally:
+        locator.close()
+        ev.close()
+    check(kinds == {True, False} and crossing > 0,
+          f"large-row reads covered large={True in kinds} small={False in kinds}, {crossing} crossing")
+    gbs = vol["dat_size"] / st["wall_s"] / 1e9
+    print(f"large-row encode on {ident}: EcScheme(10, 4, large_block_size={big // MIB} MiB), "
+          f"{n_large} large row(s) of 10 x {big // MIB} MiB + {small_rows} small rows, "
+          f"{gbs:.3f} GB/s; parity of "
+          f"{len(windows)} 1 MiB windows == CPU plain version; {len(picks)} needles x 2 states "
+          f"byte-exact ({crossing} reads spanned blocks); {stage_line(st)}")
+    return dict(stages=st, gbs=gbs, large_rows=n_large, small_rows=small_rows)
+
+
+def phase_ec_service(args, directory: str, ident: str, dev) -> dict:
+    """Phase 7: a needle volume through the volume server's EC service,
+    then needle reads from its shards and from an LRC encoding of it, and
+    the large-row pipeline."""
+    from seaweedfs_tpu_torch.ops.lrc_codec import LrcTorch
+
+    size = int(args.gib * (1 << 30))
+    server_dir = os.path.join(directory, "server")
+    os.mkdir(server_dir)
+    t = time.perf_counter()
+    vol = make_needle_volume(server_dir, size, args.seed)
+    print(f"needle volume: {vol['n']} needles of {NEEDLE_PAYLOAD} B ({vol['rec']} B on disk) + "
+          f"{BIG_NEEDLES} of {min(len(b['data']) for b in vol['big'])}-"
+          f"{max(len(b['data']) for b in vol['big'])} B, {vol['dat_size']} bytes, "
+          f"{len(vol['dead'])} tombstoned, {len(vol['crossing'])} crossing 1 MiB blocks; "
+          f"{time.perf_counter() - t:.3f}s")
+    lrc_dir, large_dir = os.path.join(directory, "lrc"), os.path.join(directory, "large")
+    for d in (lrc_dir, large_dir):
+        os.mkdir(d)
+        for ext in (".dat", ".idx"):
+            os.link(os.path.join(server_dir, "1" + ext), os.path.join(d, "1" + ext))
+
+    server = phase_server(vol, server_dir, dev, ident, args.seed)
+    zero_launch_counts()
+    enc = run_cli(["ec.encode.local", "-dir", lrc_dir, "-volumeId", "1", "-device", dev.type,
+                   "-code", "lrc"])
+    check_parity(os.path.join(lrc_dir, "1"), vol["dat_size"], LrcTorch(10, 2, 2, device="cpu"))
+    print(f"LRC encode of the needle volume on {ident}: {stage_line(enc)}")
+    large = phase_large_row(vol, large_dir, dev, ident)
+    launches = launch_counts()
+    check(launches["gf_apply"] > 0, f"phase 7's own encodes launched no K1: {launches}")
+    shutil.rmtree(large_dir)
+    reads = phase_reads(vol, {"rs": server["reads_dir"], "lrc": lrc_dir}, ident, args.seed)
+    return dict(server=server, reads=reads, large=large, lrc_encode=enc,
+                launches=launches["gf_apply"] + server["launches"]["gf_apply"],
+                launches_server=server["launches"]["gf_apply"], launches_local=launches["gf_apply"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1255,6 +1788,20 @@ def main() -> int:
         mesh_cli_rebuild_wall_s=mesh["pipeline"]["cli"]["rebuild"]["wall_s"],
         throttled_rebuild_wait_s=mesh["pipeline"]["throttled"]["waited_s"],
         scaling=mesh["scaling"]["devices"],
+    )
+    svc = main_path["ec_service"]
+    server = svc["server"]
+    record["kernels"][0]["launches"] += svc["launches"]
+    record["kernels"][0].update(
+        launches_ec_service=svc["launches"],
+        launches_ec_service_server=svc["launches_server"],
+        server_rpc_walls_s=server["walls"],
+        server_rebuild_setup_s=[r["setup_s"] for r in server["rebuilds"]],
+        server_generate_stages=server["generate"],
+        needle_reads={label: {key: r[key] for key in ("needles", "needles_per_s", "p50_us",
+                                                      "p99_us", "reconstructed_intervals")}
+                      for label, r in svc["reads"].items()},
+        large_row_encode_gbs=svc["large"]["gbs"],
     )
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)

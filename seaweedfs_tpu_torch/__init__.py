@@ -8,3 +8,5 @@ apply runs in hand-written CUDA kernels (``csrc/gf_apply.cu``, and
 use.  Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (``-device cpu`` on the CLI).
 """
+
+__version__ = "0.1.0"

@@ -1,12 +1,15 @@
-"""Build the port's CUDA sources with nvcc at first use and load them.
+"""Build the port's native sources at first use and load them.
 
 Each ``csrc/<name>.cu`` becomes a shared library with a plain C interface,
-compiled for Hopper (``sm_90a``) into ``build/kernels/`` at the repo root
+compiled by nvcc for Hopper (``sm_90a``); each host source
+``csrc/<name>.cpp`` (the CRC32C of util/crc32c.py) one compiled by g++.
+Both go into ``build/kernels/`` at the repo root
 (listed in .gitignore) under a name keyed by a hash of the sources and
 flags, so an edited source rebuilds and concurrent builders never share a
 half-written file.  Only the sources in the checkout are built; nothing is
 fetched.  ``nvcc`` is taken from ``$CUDA_HOME/bin``, else the standard
-``/usr/local/cuda/bin``, else ``$PATH``.
+``/usr/local/cuda/bin``, else ``$PATH``; ``g++`` from ``$PATH``.  A failed
+build raises: there is no slower fallback.
 """
 
 from __future__ import annotations
@@ -26,14 +29,16 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
 def sources() -> list[str]:
-    """Names of the kernels in csrc/ (one .cu each)."""
-    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    """Names of the sources in csrc/: the kernels (one .cu each) and the
+    host sources (one .cpp each)."""
+    return sorted(p.stem for p in [*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cpp")])
 
 
 def nvcc() -> str:
@@ -53,11 +58,29 @@ def nvcc() -> str:
     return found
 
 
+def gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host sources in csrc/ are built at first use")
+    return found
+
+
+def _source(name: str) -> Path:
+    cu = CSRC_DIR / f"{name}.cu"
+    return cu if cu.exists() else CSRC_DIR / f"{name}.cpp"
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu*")):  # .cu and shared .cuh headers
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    src = _source(name)
+    if src.suffix == ".cu":
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        deps = sorted(CSRC_DIR.glob("*.cu*"))  # .cu and shared .cuh headers
+    else:
+        h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+        deps = [src]
+    for dep in deps:
+        h.update(dep.name.encode())
+        h.update(dep.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -66,13 +89,16 @@ def _log_path(library: Path) -> Path:
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
-    """Start nvcc for one source; None if its library is already built."""
+    """Start the compiler for one source; None if its library is already
+    built."""
     out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    src = _source(name)
+    compiler = [nvcc(), *NVCC_FLAGS] if src.suffix == ".cu" else [gxx(), *GXX_FLAGS]
+    cmd = [*compiler, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -90,7 +116,7 @@ def _finish(name: str, started) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"build failed for csrc/{_source(name).name}:\n{log}")
     _log_path(tmp).write_text(log)
     os.replace(_log_path(tmp), _log_path(out))
     os.replace(tmp, out)
@@ -98,8 +124,8 @@ def _finish(name: str, started) -> str:
 
 
 def build_all(names: list[str] | None = None) -> dict[str, dict]:
-    """Build every kernel at once, one nvcc process per source, all started
-    together.  Returns {name: {"path", "seconds", "log"}}."""
+    """Build every source at once, one compiler process per source, all
+    started together.  Returns {name: {"path", "seconds", "log"}}."""
     names = sources() if names is None else names
     t0 = time.perf_counter()
     started, logs, errors = {}, {}, []
@@ -123,7 +149,8 @@ def build_all(names: list[str] | None = None) -> dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
+    """The loaded library for csrc/<name>.cu or .cpp, built first if
+    needed."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

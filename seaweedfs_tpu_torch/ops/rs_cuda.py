@@ -88,13 +88,16 @@ def _device_matrix(kind: str, key: np.ndarray, stream: torch.cuda.Stream, build)
     return dev
 
 
-def apply_matrix_cuda(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
+def apply_matrix_cuda(matrix: np.ndarray, data: torch.Tensor,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """(r, s) GF(2^8) matrix applied to shard rows: (s, n) uint8 -> (r, n)
     uint8, or (s, W) uint32 words -> (r, W) uint32 words.
 
     Rows must be contiguous; the row stride is free (views of a larger
-    buffer are fine).  The output is a new contiguous tensor.  A matrix
-    past the kernel's limits (sw_gf_apply in csrc/gf_apply.cu: its table
+    buffer are fine).  The output is a new contiguous tensor, or ``out``:
+    an (r, n) view of the same type and device with contiguous rows and
+    any row stride, written in place (a column slice of a larger result).
+    A matrix past the kernel's limits (sw_gf_apply in csrc/gf_apply.cu: its table
     offsets in shared memory, its grid rows) raises RuntimeError."""
     global launches
     matrix = np.ascontiguousarray(matrix, dtype=np.uint8)
@@ -107,32 +110,47 @@ def apply_matrix_cuda(matrix: np.ndarray, data: torch.Tensor) -> torch.Tensor:
         )
     words = data.dtype == torch.uint32
     raw = data.view(torch.uint8) if words else data
+    r, s = matrix.shape
+    dst = None
+    if out is not None:
+        if (out.dtype, out.device, tuple(out.shape)) != (data.dtype, data.device,
+                                                         (r, data.shape[1])):
+            raise ValueError(
+                f"out must be ({r}, {data.shape[1]}) {data.dtype} on {data.device}, got "
+                f"{tuple(out.shape)} {out.dtype} on {out.device}"
+            )
+        dst = out.view(torch.uint8) if words else out
     if raw.device.type == "cpu":
-        out = apply_matrix_reference(matrix, raw)
-        return out.view(torch.uint32) if words else out
+        res = apply_matrix_reference(matrix, raw)
+        if dst is not None:
+            dst.copy_(res)
+            return out
+        return res.view(torch.uint32) if words else res
     if raw.device.type != "cuda":
         raise ValueError(f"unsupported device {raw.device}")
-    r, s = matrix.shape
     if raw.shape[0] != s:
         raise ValueError(f"matrix takes {s} rows, data has {raw.shape[0]}")
-    if raw.shape[1] > 1 and raw.stride(1) != 1:
-        raise ValueError("rows must be contiguous (unit stride along the row)")
     n = raw.shape[1]
-    out = torch.empty((r, n), dtype=torch.uint8, device=raw.device)
+    if dst is None:
+        dst = torch.empty((r, n), dtype=torch.uint8, device=raw.device)
+    if n > 1 and (raw.stride(1) != 1 or dst.stride(1) != 1):
+        raise ValueError("rows must be contiguous (unit stride along the row)")
     if r and n:
         stream = torch.cuda.current_stream(raw.device)
         mat = _device_matrix("gf_apply", matrix, stream, lambda: matrix)
         with torch.cuda.device(raw.device):
             err = _lib().sw_gf_apply(
                 mat.data_ptr(), r, s, raw.data_ptr(), raw.stride(0),
-                out.data_ptr(), out.stride(0), n, stream.cuda_stream,
+                dst.data_ptr(), dst.stride(0), n, stream.cuda_stream,
             )
         if err:
             raise RuntimeError(
                 f"gf_apply launch failed: {_lib().sw_gf_error_string(err).decode()}"
             )
         launches += 1
-    return out.view(torch.uint32) if words else out
+    if out is not None:
+        return out
+    return dst.view(torch.uint32) if words else dst
 
 
 # ---- plane-resident path (K2-K4) --------------------------------------------

@@ -7,7 +7,9 @@ position on its own CUDA stream (parallel/mesh.py): each position's work
 is queued on its stream, the collectives become device-to-device copies,
 and the caller's stream on the mesh's first device waits on every
 position before a result is handed back.  A (k, W) input and every
-result live on that first device, like a global ``jax.Array``.
+result live on that first device, like a global ``jax.Array``; in the
+width mode an input placed on the positions (``Sharded``, as
+``measure_scaling`` places it) gives a result left there too.
 
 Two sharding modes, as in the JAX package:
 
@@ -131,27 +133,60 @@ def _on_first(mesh: Mesh, words) -> torch.Tensor:
     return torch.as_tensor(words, device=mesh.devices[0])
 
 
-def _apply_sharded(mesh: Mesh, rules, operand: np.ndarray, out_rows: int, words: torch.Tensor,
-                   apply) -> torch.Tensor:
+class Sharded:
+    """A 2-D array kept as every position's block on the position's own
+    device, keyed by (shard, stripe): the port of a ``jax.Array`` placed
+    with a NamedSharding.  ``spec`` is how ``shape`` is split."""
+
+    ndim = 2
+
+    def __init__(self, blocks: dict[tuple[int, int], torch.Tensor], spec: tuple,
+                 shape: tuple[int, int]):
+        self.blocks, self.spec, self.shape = blocks, spec, shape
+
+
+def _apply_sharded(mesh: Mesh, rules, operand: np.ndarray, out_rows: int, words,
+                   apply, in_place: bool = False):
     """Run ``apply(local_operand, local_words)`` on every position's blocks
-    under ``rules`` and assemble the (out_rows, W) result on the first
-    device: output rows are split as the operand's rows, columns as the
-    words' columns."""
-    words = _on_first(mesh, words)
+    under ``rules``: output rows are split as the operand's rows, columns
+    as the words' columns.  ``words`` on the first device give the
+    (out_rows, W) result assembled there; ``Sharded`` words, placed under
+    the same rules, give a ``Sharded`` result left on the positions.  With
+    ``in_place``, a position whose output block is on its own device
+    passes it as ``apply``'s ``out`` (K1 writes it there) instead of
+    copying a result of its own into it."""
+    placed = isinstance(words, Sharded)
+    if not placed:
+        words = _on_first(mesh, words)
     specs = match_partition_rules(rules, {"matrix_bits": operand, "stripe_words": words})
     op_spec, w_spec = specs["matrix_bits"], specs["stripe_words"]
-    out = torch.empty((out_rows, words.shape[1]), dtype=words.dtype, device=words.device)
+    if placed and words.spec != w_spec:
+        raise ValueError(f"words placed as {words.spec}, the rules split them as {w_spec}")
+    width = words.shape[1]
     row_axes = op_spec[0] if op_spec else None
     col_axes = w_spec[1] if len(w_spec) > 1 else None
+    first = mesh.devices[0]
+    out = None if placed else torch.empty((out_rows, width), dtype=words.dtype, device=first)
+    blocks: dict[tuple[int, int], torch.Tensor] = {}
 
     def run(p: Position) -> None:
-        local = apply(_block(operand, op_spec, mesh, p),
-                      _to(_block(words, w_spec, mesh, p), p.device))
-        out[_split(out_rows, row_axes, mesh, p), _split(words.shape[1], col_axes, mesh, p)].copy_(
-            local)
+        rows, cols = _split(out_rows, row_axes, mesh, p), _split(width, col_axes, mesh, p)
+        local_op = _block(operand, op_spec, mesh, p)
+        if placed:
+            local_words = words.blocks[p.shard, p.stripe]
+            dst = blocks[p.shard, p.stripe] = torch.empty(
+                (rows.stop - rows.start, cols.stop - cols.start), dtype=local_words.dtype,
+                device=p.device)
+        else:
+            local_words = _to(_block(words, w_spec, mesh, p), p.device)
+            dst = out[rows, cols]
+        if in_place and dst.device == p.device:
+            apply(local_op, local_words, out=dst)
+        else:
+            dst.copy_(apply(local_op, local_words))
 
-    _fan_out(mesh, words.device, run)
-    return out
+    _fan_out(mesh, first, run)
+    return Sharded(blocks, (row_axes, col_axes), (out_rows, width)) if placed else out
 
 
 def _pad_rows(bits: np.ndarray, row_groups: int, shard_par: int) -> np.ndarray:
@@ -177,7 +212,7 @@ def _apply_widthsharded(mesh: Mesh, matrix: np.ndarray, words) -> torch.Tensor:
     """Apply a GF(2^8) matrix with its rows replicated and the width split
     over every position, each position's slice through K1."""
     return _apply_sharded(mesh, WIDTH_PARTITION_RULES, matrix, matrix.shape[0], words,
-                          rs_cuda.apply_matrix_cuda)
+                          rs_cuda.apply_matrix_cuda, in_place=True)
 
 
 def sharded_encode(words, mesh: Mesh, data_shards: int, parity_shards: int,
@@ -250,14 +285,30 @@ def _synchronize(mesh: Mesh) -> None:
             torch.cuda.synchronize(dev)
 
 
+def _place(mesh: Mesh, rules, name: str, x: np.ndarray) -> Sharded:
+    """``x`` placed on the positions under ``rules``, each block on its own
+    device: the port of ``jax.device_put`` with a NamedSharding, a
+    placement made once and kept."""
+    spec = match_partition_rules(rules, {name: x})[name]
+    return Sharded({(p.shard, p.stripe): torch.from_numpy(
+                        np.ascontiguousarray(_block(x, spec, mesh, p))).to(p.device)
+                    for p in mesh.positions}, spec, x.shape)
+
+
 def measure_scaling(data_shards: int = 10, parity_shards: int = 4,
                     device_counts: tuple[int, ...] | None = None, shard_mb: int = 4,
                     trials: int = 3, devices=None) -> dict:
     """Encode and rebuild throughput per device count on the width-split
     mesh: the JAX package's ec_multichip_scaling record (GB/s of data
-    processed; best of ``trials`` after a warm-up call).  Rebuild applies
-    the worst-case ``parity_shards``-data-loss reconstruction matrix.
-    ``devices`` defaults to every CUDA device, as make_mesh's."""
+    processed, rounded to 3 places; best of ``trials`` after a warm-up
+    call).  As there, the data words are placed on the positions once,
+    before timing, the codec's ``encode_words`` and ``_apply`` are timed
+    on them, and each result stays on the positions: a timed call is one
+    K1 a position over its own block, writing its own output.  Rebuild
+    applies the worst-case ``parity_shards``-data-loss reconstruction
+    matrix.  ``backend`` is the platform's name (``gpu`` or ``cpu``, as
+    ``jax.default_backend()`` names them); ``devices`` defaults to every
+    CUDA device, as make_mesh's."""
     k, m = data_shards, parity_shards
     if devices is None:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -271,7 +322,7 @@ def measure_scaling(data_shards: int = 10, parity_shards: int = 4,
         "metric": "ec_multichip_scaling",
         "unit": "GB/s",
         "mode": "width",
-        "backend": devices[0].type,
+        "backend": "gpu" if devices[0].type == "cuda" else devices[0].type,
         "k": k,
         "m": m,
         "shard_mb": shard_mb,
@@ -293,21 +344,21 @@ def measure_scaling(data_shards: int = 10, parity_shards: int = 4,
         mesh = make_mesh(n, devices=devices)
         codec = ReedSolomonMesh(k, m, mesh=mesh, mode="width")
         width = codec._padded_width(shard_mb << 20) // WORD_BYTES
-        words = torch.from_numpy(rng.integers(0, 2**32, size=(k, width), dtype=np.uint32))
-        words = words.to(mesh.devices[0])
+        words = rng.integers(0, 2**32, size=(k, width), dtype=np.uint32)
+        placed = _place(mesh, WIDTH_PARTITION_RULES, "data_words", words)
         data_bytes = k * width * WORD_BYTES
-        enc_s = best_seconds(lambda: codec.encode_words(words), mesh)
-        reb_s = best_seconds(lambda: codec._apply(recon, words), mesh)
-        record["devices"][str(n)] = {"encode": data_bytes / enc_s / 1e9,
-                                     "rebuild": data_bytes / reb_s / 1e9}
+        enc_s = best_seconds(lambda: codec.encode_words(placed), mesh)
+        reb_s = best_seconds(lambda: codec._apply(recon, placed), mesh)
+        record["devices"][str(n)] = {"encode": round(data_bytes / enc_s / 1e9, 3),
+                                     "rebuild": round(data_bytes / reb_s / 1e9, 3)}
     counts = sorted(int(c) for c in record["devices"])
     lo, hi = str(counts[0]), str(counts[-1])
     if lo != hi:
         for op in ("encode", "rebuild"):
             base = record["devices"][lo][op]
-            record[f"{op}_scaling_{hi}x_vs_{lo}x"] = (
-                record["devices"][hi][op] / base if base else 0.0
-            )
+            record[f"{op}_scaling_{hi}x_vs_{lo}x"] = round(
+                record["devices"][hi][op] / base, 3
+            ) if base else 0.0
     return record
 
 

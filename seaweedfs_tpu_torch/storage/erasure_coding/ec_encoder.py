@@ -20,8 +20,9 @@ down into a pinned output buffer, with an event recorded per batch.  Two
 such slots alternate: batch i-1 is drained (event waited, shards written)
 while batch i runs on the device, and a slot is refilled only after its
 previous batch was drained — a pread into a buffer whose upload has not
-completed would give wrong parity, not a crash.  The event is recorded on
-the current stream of ``codec.device``; a mesh codec (parallel/
+completed would give wrong parity, not a crash.  The download and its
+event go on the current stream of ``codec.device`` (not of the current
+device); a mesh codec (parallel/
 distributed_ec.ReedSolomonMesh, whose ``device`` is the mesh's first
 device) makes that stream wait on every mesh position's stream before it
 returns a result, so the download and the event come after all of them.
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME, EcScheme
-from seaweedfs_tpu_torch.storage.needle_map import MemDb
+from seaweedfs_tpu_torch.storage.types import index_entry_size
 
 # per-dispatch column width for bulk encode and per-chunk width of rebuild
 DEFAULT_CHUNK = 64 * 1024 * 1024
@@ -223,9 +224,17 @@ def _stream(codec, tasks, n_in: int, n_out: int, read, compute, write, st: dict)
         t2 = time.perf_counter()
         st["read_s"] += t2 - t
         out = compute(rows).view(torch.uint8)[:, :width]
-        slot.rows_out(width).copy_(out, non_blocking=True)
-        if slot.event is not None:
-            slot.event.record()
+        if slot.event is None:
+            slot.rows_out(width).copy_(out)
+        else:
+            # the download and its fence go on the codec device's stream,
+            # where the upload and the kernel went: a bare record() lands
+            # on the current device's stream, which is another device's
+            # when the codec runs off cuda:0
+            stream = torch.cuda.current_stream(codec.device)
+            with torch.cuda.stream(stream):
+                slot.rows_out(width).copy_(out, non_blocking=True)
+            slot.event.record(stream)
         slot.task, slot.width = task, width
         st["dispatch_s"] += time.perf_counter() - t2
         if pending is not None:
@@ -308,14 +317,28 @@ def write_sorted_ecx_file(
     base_file_name: str, ext: str = ".ecx", offset_width: int = 4
 ) -> None:
     """Generate the sorted .ecx index from the volume's .idx log
-    (reference behavior: WriteSortedFileFromIdx, ec_encoder.go:28-55).
-    ``offset_width`` must match the source volume's."""
+    (reference behavior: WriteSortedFileFromIdx, ec_encoder.go:28-55):
+    the last entry of each needle id, dropped when it is a deletion (zero
+    offset or tombstone size), in ascending id order.  The log is replayed
+    in bulk with numpy, the same entries as the JAX package's MemDb replay
+    gives.  ``offset_width`` must match the source volume's."""
+    entry_size = index_entry_size(offset_width)
+    raw = np.fromfile(base_file_name + ".idx", dtype=np.uint8)
     # strict: the .ecx outlives the source volume — a torn .idx tail must
     # abort the encode, not silently drop a needle
-    db = MemDb.load_from_idx(base_file_name + ".idx", offset_width, strict=True)
-    with open(base_file_name + ext, "wb") as f:
-        for nv in db.ascending():
-            f.write(nv.to_bytes(offset_width))
+    if raw.size % entry_size:
+        raise ValueError(
+            f"truncated index file: {raw.size % entry_size}-byte partial tail entry"
+        )
+    rows = raw.reshape(-1, entry_size)
+    keys = rows[:, :8].copy().view(">u8").ravel().astype(np.uint64)
+    # a stored offset is zero iff all its bytes are (any width)
+    live = rows[:, 8 : 8 + offset_width].any(axis=1)
+    live &= rows[:, -4:].copy().view(">i4").ravel() >= 0  # not a tombstone size
+    # np.unique's first index in the reversed log is each id's last entry
+    _ids, first = np.unique(keys[::-1], return_index=True)
+    last = len(keys) - 1 - first  # ascending id order
+    rows[last[live[last]]].tofile(base_file_name + ext)
 
 
 def rebuild_ec_files(

@@ -76,6 +76,13 @@ class LrcScheme(EcScheme):
     def group_members(self, group: int) -> tuple[int, ...]:
         return lrc_matrix.group_members(self.data_shards, self.local_groups, group)
 
+    def group_shard_bits(self, group: int) -> int:
+        """The group's members as a ShardBits-compatible bitmask."""
+        bits = 0
+        for sid in self.group_members(group):
+            bits |= 1 << sid
+        return bits
+
     def loss_recoverable(self, lost: tuple[int, ...]) -> bool:
         """Exact (rank-based) recoverability of a loss pattern: {0,1,2,3}
         (four shards of one group) is fatal while many 4-loss spreads are

@@ -1,39 +1,22 @@
-"""Needle map: id -> (offset, size) index replayed from an .idx log.
+"""Needle map: walk the (key, offset, size) entries of an .idx/.ecx file.
 
-The port's copy of the part of seaweedfs_tpu/storage/needle_map.py that the
-EC encoder needs: ``NeedleValue``, ``walk_index_file`` and ``MemDb``.  The
-.idx file is an append-only log of 16-byte entries (same layout as the
-reference's, weed/storage/needle_map/needle_value.go ToBytes); a deletion
-appends an entry with zero offset and tombstone size.
+The port's copy of ``walk_index_file`` from seaweedfs_tpu/storage/
+needle_map.py, which the EC decoder needs.  The .idx file is an
+append-only log of 16-byte entries (same layout as the reference's,
+weed/storage/needle_map/needle_value.go ToBytes); a deletion appends an
+entry with zero offset and tombstone size.  (The encoder replays the log
+in bulk: ec_encoder.write_sorted_ecx_file.)
 """
 
 from __future__ import annotations
 
 import io
 import logging
-import os
-from dataclasses import dataclass
-from typing import Callable, Iterator
+from typing import Callable
 
-from seaweedfs_tpu_torch.storage.types import (
-    OFFSET_SIZE,
-    index_entry_size,
-    pack_index_entry,
-    size_is_deleted,
-    unpack_index_entry,
-)
+from seaweedfs_tpu_torch.storage.types import OFFSET_SIZE, index_entry_size, unpack_index_entry
 
 log = logging.getLogger(__name__)
-
-
-@dataclass(frozen=True)
-class NeedleValue:
-    key: int
-    offset: int  # actual byte offset
-    size: int
-
-    def to_bytes(self, offset_width: int = OFFSET_SIZE) -> bytes:
-        return pack_index_entry(self.key, self.offset, self.size, offset_width)
 
 
 def walk_index_file(
@@ -74,46 +57,3 @@ def walk_index_file(
             fn(*unpack_index_entry(chunk[i : i + entry_size]))
         consumed += whole
         pending = chunk[whole:]
-
-
-class MemDb:
-    """Replayed view of an index log; insertion-order-independent."""
-
-    def __init__(self) -> None:
-        self._m: dict[int, NeedleValue] = {}
-
-    def set(self, key: int, offset: int, size: int) -> None:
-        self._m[key] = NeedleValue(key, offset, size)
-
-    def delete(self, key: int) -> None:
-        self._m.pop(key, None)
-
-    def get(self, key: int) -> NeedleValue | None:
-        return self._m.get(key)
-
-    def __len__(self) -> int:
-        return len(self._m)
-
-    def ascending(self) -> Iterator[NeedleValue]:
-        for key in sorted(self._m):
-            yield self._m[key]
-
-    @classmethod
-    def load_from_idx(
-        cls, idx_path: str | os.PathLike, offset_width: int = OFFSET_SIZE,
-        strict: bool = False,
-    ) -> "MemDb":
-        """``strict`` raises on a torn tail instead of tolerating it —
-        pass it when the loaded view seeds a sealed artifact (EC encode)
-        where a silently-dropped entry would become silent data loss."""
-        db = cls()
-
-        def visit(key: int, offset: int, size: int) -> None:
-            if offset > 0 and not size_is_deleted(size):
-                db.set(key, offset, size)
-            else:
-                db.delete(key)
-
-        with open(idx_path, "rb") as f:
-            walk_index_file(f, visit, offset_width=offset_width, strict=strict)
-        return db

@@ -1,10 +1,15 @@
-"""Volume file naming (the port's copy of seaweedfs_tpu/storage/volume.py's
-``volume_file_name``; the volume object itself is not ported)."""
+"""Volume file naming and the not-found error (the port's copies of
+seaweedfs_tpu/storage/volume.py's ``volume_file_name`` and
+``NotFoundError``; the volume object itself is not ported)."""
 
 from __future__ import annotations
 
 import os
 from pathlib import Path
+
+
+class NotFoundError(KeyError):
+    pass
 
 
 def volume_file_name(directory: str | os.PathLike, collection: str, vid: int) -> str:

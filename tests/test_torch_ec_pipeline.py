@@ -183,6 +183,44 @@ def test_sorted_ecx_strict_on_torn_idx(volume_dir, tmp_path):
         ec_encoder.write_sorted_ecx_file(base)
 
 
+@pytest.mark.parametrize("offset_width", [4, 5])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sorted_ecx_matches_jax_on_random_logs(tmp_path, offset_width, seed):
+    """The bulk .idx replay against the JAX package's MemDb replay: ids
+    written, overwritten, deleted (zero offset or tombstone size) and
+    written again, in any order; the last entry of an id decides."""
+    from seaweedfs_tpu.storage.types import pack_index_entry
+
+    rng = np.random.default_rng([seed, offset_width])
+    ids = rng.integers(1, 1 << 63, 300, dtype=np.uint64)
+    ids[:3] = [1, (1 << 64) - 1, 1 << 63]  # the ends of the key space sort as unsigned
+    log = []
+    for _ in range(3000):
+        nid = int(rng.choice(ids))
+        kind = rng.integers(0, 4)
+        if kind == 0:
+            log.append(pack_index_entry(nid, 0, -1, offset_width))  # tombstone
+        elif kind == 1:
+            log.append(pack_index_entry(nid, 0, int(rng.integers(1, 1 << 20)), offset_width))
+        else:
+            off = 8 * int(rng.integers(1, 1 << (8 * offset_width)))
+            log.append(pack_index_entry(nid, off, int(rng.integers(0, 1 << 30)), offset_width))
+    for d in ("port", "ref"):
+        os.mkdir(tmp_path / d)
+        (tmp_path / d / "1.idx").write_bytes(b"".join(log))
+    ec_encoder.write_sorted_ecx_file(str(tmp_path / "port" / "1"), offset_width=offset_width)
+    jax_ec.write_sorted_ecx_file(str(tmp_path / "ref" / "1"), offset_width=offset_width)
+    got = (tmp_path / "port" / "1.ecx").read_bytes()
+    assert got == (tmp_path / "ref" / "1.ecx").read_bytes()
+    assert 0 < len(got) < 300 * (12 + offset_width)
+
+
+def test_sorted_ecx_of_an_empty_idx(tmp_path):
+    (tmp_path / "1.idx").write_bytes(b"")
+    ec_encoder.write_sorted_ecx_file(str(tmp_path / "1"))
+    assert (tmp_path / "1.ecx").read_bytes() == b""
+
+
 def test_preadv_padded_zero_fills_past_eof(tmp_path, monkeypatch):
     path = tmp_path / "f"
     payload = bytes(range(200))

@@ -48,7 +48,16 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/stats/__init__.py", "seaweedfs_tpu_torch/stats/plane.py",
             "seaweedfs_tpu_torch/util/__init__.py", "seaweedfs_tpu_torch/util/limiter.py",
             "seaweedfs_tpu_torch/ops/repair_budget.py",
-            "seaweedfs_tpu_torch/ops/sched_cache.py"} <= names
+            "seaweedfs_tpu_torch/ops/sched_cache.py",
+            "seaweedfs_tpu_torch/util/crc32c.py", "seaweedfs_tpu_torch/util/wlog.py",
+            "seaweedfs_tpu_torch/storage/needle.py", "seaweedfs_tpu_torch/storage/store.py",
+            "seaweedfs_tpu_torch/storage/erasure_coding/ec_locate.py",
+            "seaweedfs_tpu_torch/storage/erasure_coding/shard_bits.py",
+            "seaweedfs_tpu_torch/server/store_ec.py",
+            "seaweedfs_tpu_torch/server/volume_server.py", "seaweedfs_tpu_torch/rpc.py",
+            "seaweedfs_tpu_torch/pb/volume_server_pb2.py",
+            "seaweedfs_tpu_torch/commands/servers.py",
+            "seaweedfs_tpu_torch/commands/version.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())

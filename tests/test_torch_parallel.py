@@ -284,7 +284,21 @@ def test_round_trip_step_refuses_what_jax_refuses(k, m, n):
     assert str(port_err.value) == str(jax_err.value)
 
 
-def test_measure_scaling_has_the_jax_record_keys():
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread while a CPU throughput is timed: with several
+    test workers on the box, torch's default thread pool oversubscribes
+    the cores and a 10 MiB plain apply can take minutes, which the
+    record's 3-place rounding (as JAX's) would read as 0.0 GB/s."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_measure_scaling_has_the_jax_record_keys(one_torch_thread):
     got = distributed_ec.measure_scaling(device_counts=(1, 8), shard_mb=1, trials=1, devices=CPU8)
     want = jax_dec.measure_scaling(device_counts=(1, 8), shard_mb=1, trials=1)
     assert sorted(got) == sorted(want)
