@@ -100,6 +100,30 @@ Phases, each printing what it found; any failure exits non-zero:
    to its seeded bytes, every tombstoned needle NotFoundError, needles/s,
    p50/p99 and the repair bytes read per reconstructed byte (5 for an LRC
    local plan, 10 for a global decode).
+8. The cluster EC path: ``cli master`` and four ``cli volume -device cuda
+   -mserver ...`` subprocesses (racks alternating, each one's start time
+   printed) over phase 7's needle volume (hard links of its .dat/.idx, on
+   server 0) and a 256 MiB LRC volume (vid 2, collection lrc, on server
+   1; cut from 1 GiB for time), driven by ``cli shell -c``: the master
+   sees volume 1 on server 0; ``lock; ec.encode -volumeId 1; unlock``
+   leaves 14 shards at the master over both racks, at most 4 on a node,
+   each sha256-identical to phase 7's generate, the original volume gone,
+   and server 0's K1 launches (its /metrics) equal to the generate's
+   batches (18 a GiB); about 3,000 needles are read here through Store
+   (one server's shards), EcVolume.read_needle and EcShardLocator(master)
+   with remote EcShardRead answers and no reconstruction, then again after
+   the server (other than the reader and server 1) holding the most
+   shards is SIGKILLed and pruned by the master (reconstructions > 0);
+   ``ec.rebuild`` regenerates its shards on the rebuilder identically
+   (temp copies gone, K1 launched there); ``ec.decode`` restores the .dat
+   (sha256, and needles read back through Volume once the cluster has
+   stopped); the LRC volume is encoded ``-code lrc`` (the master reports
+   (10, 4, 2)), shard 3 deleted and rebuilt flag-less, identical, its
+   staging copies moving at most 5 shard sizes (the local group, on the
+   rebuilder's weedtpu_repair_bytes_total{mode="move"}); every process
+   but the killed one exits 0 on SIGTERM.  The walls (encode, balance
+   copies, prune wait, rebuild staging and pipeline, decode) and read
+   figures go on a ``cluster:`` JSON line.
 
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
@@ -718,9 +742,10 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
             path = os.path.join(tmp, name)
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         ec_service = phase_ec_service(args, tmp, ident, dev)
+        cluster = phase_cluster(args, tmp, ec_service, ident, dev)
         return dict(launches=enc_launches + reb_launches, encode=enc, rebuild=reb,
                     encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
-                    lrc=lrc, mesh=mesh, ec_service=ec_service)
+                    lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1239,14 +1264,14 @@ def make_needle_volume(directory: str, size: int, seed: int) -> dict:
                 ecx=live[np.argsort(live["id"].astype(np.uint64))].tobytes())
 
 
-def read_sample(vol: dict, seed: int) -> list[tuple[int, bytes]]:
-    """(needle id, payload) of READ_SAMPLE seeded live 1 KiB needles, every
+def read_sample(vol: dict, seed: int, count: int = READ_SAMPLE) -> list[tuple[int, bytes]]:
+    """(needle id, payload) of ``count`` seeded live 1 KiB needles, every
     live needle that crosses a 1 MiB block boundary, and the big ones."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     live = np.setdiff1d(np.arange(vol["n"]), np.fromiter(vol["dead"], np.int64))
-    picked = set(int(i) for i in rng.choice(live, min(READ_SAMPLE, len(live)), replace=False))
+    picked = set(int(i) for i in rng.choice(live, min(count, len(live)), replace=False))
     picked |= set(int(i) for i in vol["crossing"]) - vol["dead"]
     sample = [(int(vol["ids"][i]), vol["payload"][i].tobytes()) for i in sorted(picked)]
     sample += [(b["id"], b["data"]) for b in vol["big"]]
@@ -1254,33 +1279,45 @@ def read_sample(vol: dict, seed: int) -> list[tuple[int, bytes]]:
 
 
 class _Server:
-    """``python -m seaweedfs_tpu_torch.cli volume`` in a subprocess on
-    localhost: started with ``-device``, verbosity 1 (its stage lines go to
-    ``log``), stopped with SIGTERM (killed if it does not exit)."""
+    """``python -m seaweedfs_tpu_torch.cli <command>`` in a subprocess on
+    localhost (by default ``volume -device <device>`` over ``directory``):
+    verbosity 1 (its stage lines go to ``log``), ports bound at 0 and read
+    from its first line (``ready()``), stopped with SIGTERM (killed if it
+    does not exit)."""
 
-    def __init__(self, directory: str, device: str, log: str):
+    def __init__(self, directory: str, device: str, log: str, extra: tuple = (),
+                 argv: list | None = None, wait: bool = True):
         root = os.path.dirname(os.path.abspath(__file__))
         env = dict(os.environ, WEEDTPU_V="1",
                    PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
         self.log = log
         self._log_file = open(log, "w")
-        t = time.perf_counter()
+        self._t = time.perf_counter()
         # port 0: the server binds free ports itself and names them on its
         # first line
-        self.proc = subprocess.Popen(
-            [sys.executable, "-m", "seaweedfs_tpu_torch.cli", "volume", "-dir", directory,
-             "-ip", "127.0.0.1", "-port", "0", "-grpcPort", "0", "-metricsPort", "0",
-             "-device", device],
-            cwd=root, env=env, stdout=subprocess.PIPE, stderr=self._log_file, text=True)
+        argv = argv or ["volume", "-dir", directory, "-ip", "127.0.0.1", "-port", "0",
+                        "-grpcPort", "0", "-metricsPort", "0", "-device", device, *extra]
+        self.proc = subprocess.Popen([sys.executable, "-m", "seaweedfs_tpu_torch.cli", *argv],
+                                     cwd=root, env=env, stdout=subprocess.PIPE,
+                                     stderr=self._log_file, text=True)
+        self.metrics_port = None
+        if wait:
+            self.ready()
+
+    def ready(self) -> str:
+        """Wait for the first line; returns it (the ports it names are
+        parsed into grpc_port and metrics_port)."""
         line = self.proc.stdout.readline().strip()
-        self.start_s = time.perf_counter() - t
-        bound = re.search(r"gRPC on 127\.0\.0\.1:(\d+) .*metrics on 127\.0\.0\.1:(\d+)", line)
+        self.start_s = time.perf_counter() - self._t
+        bound = re.search(r"gRPC on 127\.0\.0\.1:(\d+)(?: .*metrics on 127\.0\.0\.1:(\d+))?", line)
         if bound is None:
             self.stop()
-            raise SmokeFailure(f"the volume server did not start: {line!r}; "
+            raise SmokeFailure(f"the server did not start: {line!r}; "
                                f"log: {self.log_text()[-2000:]}")
-        self.grpc_port, self.metrics_port = int(bound[1]), int(bound[2])
-        print(f"volume server subprocess pid {self.proc.pid} up in {self.start_s:.3f}s: {line}")
+        self.grpc_port = int(bound[1])
+        self.metrics_port = int(bound[2]) if bound[2] else None
+        print(f"server subprocess pid {self.proc.pid} up in {self.start_s:.3f}s: {line}")
+        return line
 
     def log_text(self) -> str:
         if not self._log_file.closed:
@@ -1400,10 +1437,10 @@ def phase_server(vol: dict, directory: str, dev, ident: str, seed: int) -> dict:
             volume_id=1, shard_id=0, size=16, file_key=victim), stream=True)
         check([r.is_deleted for r in out] == [True], "EcShardRead of a deleted blob: not is_deleted")
         try:
-            stub.EcShardsCopy(pb.EcShardsCopyRequest(volume_id=1), timeout=60)
-            check(False, "EcShardsCopy answered")
+            stub.ReadNeedleBlob(pb.ReadNeedleBlobRequest(volume_id=1, needle_id=victim), timeout=60)
+            check(False, "ReadNeedleBlob answered")
         except grpc.RpcError as e:
-            check(e.code() == grpc.StatusCode.UNIMPLEMENTED, f"EcShardsCopy: {e.code()}")
+            check(e.code() == grpc.StatusCode.UNIMPLEMENTED, f"ReadNeedleBlob: {e.code()}")
 
         for ext in (".dat", ".idx"):
             os.remove(base + ext)
@@ -1629,9 +1666,348 @@ def phase_ec_service(args, directory: str, ident: str, dev) -> dict:
     check(launches["gf_apply"] > 0, f"phase 7's own encodes launched no K1: {launches}")
     shutil.rmtree(large_dir)
     reads = phase_reads(vol, {"rs": server["reads_dir"], "lrc": lrc_dir}, ident, args.seed)
-    return dict(server=server, reads=reads, large=large, lrc_encode=enc,
+    return dict(server=server, reads=reads, large=large, lrc_encode=enc, vol=vol, source_dir=lrc_dir,
                 launches=launches["gf_apply"] + server["launches"]["gf_apply"],
                 launches_server=server["launches"]["gf_apply"], launches_local=launches["gf_apply"])
+
+CLUSTER_SERVERS = 4
+CLUSTER_READ_SAMPLE = 2_000
+LRC_CLUSTER_GIB = 0.25  # the LRC volume of phase 8, cut to stay inside the time limit
+PRUNE_WAIT_S = 60.0  # the master prunes after 15 s without a heartbeat, checked every 5 s
+
+
+def _poll(predicate, what: str, timeout: float) -> float:
+    """Seconds until ``predicate()`` held; fails after ``timeout``."""
+    t = time.perf_counter()
+    while not predicate():
+        check(time.perf_counter() - t < timeout, f"timed out after {timeout}s waiting for {what}")
+        time.sleep(0.1)
+    return time.perf_counter() - t
+
+
+def _ec_census(master_stub, vid: int) -> dict:
+    """{node grpc address: [shard ids]} and the EC volume's (k, m, local
+    groups), from the master's VolumeList."""
+    from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+
+    topo = master_stub.VolumeList(m_pb.VolumeListRequest(), timeout=60).topology_info
+    out, scheme, racks, volumes = {}, None, {}, set()
+    for dc in topo.data_center_infos:
+        for rack in dc.rack_infos:
+            for dn in rack.data_node_infos:
+                addr = f"{dn.url.rsplit(':', 1)[0]}:{dn.grpc_port}"
+                racks[addr] = rack.id
+                for disk in dn.disk_infos.values():
+                    volumes |= {v.id for v in disk.volume_infos}
+                    for es in disk.ec_shard_infos:
+                        if es.volume_id == vid:
+                            out[addr] = [i for i in range(32) if es.shard_bits >> i & 1]
+                            scheme = (es.data_shards, es.parity_shards, es.local_groups)
+    return dict(holders=out, scheme=scheme, racks=racks, volumes=volumes)
+
+
+def _shell(master: str, commands: str, log: str) -> tuple[float, str]:
+    """``cli shell -master M -c commands`` in a subprocess: (wall, stdout);
+    a non-zero exit fails the phase."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    t = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch.cli", "shell", "-master",
+                          master, "-c", commands], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=900)
+    wall = time.perf_counter() - t
+    with open(log, "a") as f:
+        f.write(f"$ shell -c {commands!r} ({wall:.3f}s, rc {run.returncode})\n{run.stdout}{run.stderr}")
+    check(run.returncode == 0, f"shell -c {commands!r} exited {run.returncode}: {run.stderr[-2000:]}")
+    print(f"cluster: shell -c {commands!r}: {wall:.3f}s; " + " | ".join(run.stdout.splitlines()))
+    return wall, run.stdout
+
+
+def _cluster_reads(ev, locator, sample, label: str) -> dict:
+    """Read ``sample`` through ``ev`` and the locator's fetcher: every
+    payload equal; remote EcShardRead answers and reconstructions counted."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import stats
+
+    remote = [0]
+    read_remote = locator.read_remote
+
+    def counted(*a):
+        out = read_remote(*a)
+        remote[0] += 1
+        return out
+
+    locator.read_remote = counted
+    rec0 = stats.EC_DEGRADED_READS.value(mode="reconstruct")
+    fetch = locator.make_fetcher(ev)
+    lat = np.empty(len(sample))
+    t0 = time.perf_counter()
+    for j, (nid, payload) in enumerate(sample):
+        t = time.perf_counter()
+        got = ev.read_needle(nid, fetcher=fetch).data
+        lat[j] = time.perf_counter() - t
+        check(got == payload, f"{label}: needle {nid:x} differs from its seeded bytes")
+    wall = time.perf_counter() - t0
+    rec = dict(needles=len(sample), needles_per_s=len(sample) / wall,
+               p50_us=float(np.percentile(lat, 50) * 1e6), p99_us=float(np.percentile(lat, 99) * 1e6),
+               remote_reads=remote[0],
+               reconstructions=stats.EC_DEGRADED_READS.value(mode="reconstruct") - rec0)
+    print(f"cluster reads ({label}) on the host: {len(sample)} needles byte-exact; "
+          f"{rec['needles_per_s']:.1f} needles/s, p50 {rec['p50_us']:.1f} us, p99 "
+          f"{rec['p99_us']:.1f} us; {remote[0]} remote EcShardRead answers, "
+          f"{rec['reconstructions']:.0f} intervals reconstructed")
+    return rec
+
+
+def phase_cluster(args, directory: str, svc: dict, ident: str, dev) -> dict:
+    """Phase 8: the cluster EC path.  One ``cli master`` and four ``cli
+    volume -device cuda`` subprocesses (racks alternating) over phase 7's
+    needle volume (on server 0) and a 256 MiB LRC volume (on server 1),
+    driven by ``cli shell``: ec.encode, remote needle reads, the loss of a
+    node, ec.rebuild, ec.decode, and an LRC single loss (module
+    docstring)."""
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as pb
+    from seaweedfs_tpu_torch.server.store_ec import EcShardLocator
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    vol = svc["vol"]
+    root = os.path.join(directory, "cluster")
+    dirs = [os.path.join(root, f"v{i}") for i in range(CLUSTER_SERVERS)]
+    for d in dirs:
+        os.makedirs(d)
+    # phase 7's volume, as links to its untouched .dat/.idx; the generate
+    # of phase 7's server, hashed from the links phase 7's reads kept
+    for ext in (".dat", ".idx"):
+        os.link(os.path.join(svc["source_dir"], "1" + ext), os.path.join(dirs[0], "1" + ext))
+    dat_sha = sha256(os.path.join(dirs[0], "1.dat"))
+    want = {sid: sha256(os.path.join(svc["server"]["reads_dir"], f"1.ec{sid:02d}"))
+            for sid in range(14)}
+    t = time.perf_counter()
+    lrc_src = os.path.join(root, "lrc_src")
+    os.mkdir(lrc_src)
+    lrc_vol = make_needle_volume(lrc_src, int(LRC_CLUSTER_GIB * (1 << 30)), args.seed + 1)
+    for ext in (".dat", ".idx"):
+        os.rename(os.path.join(lrc_src, "1" + ext), os.path.join(dirs[1], "lrc_2" + ext))
+    print(f"cluster: LRC volume 2 (collection lrc): {lrc_vol['n']} needles, "
+          f"{lrc_vol['dat_size']} bytes, {time.perf_counter() - t:.3f}s")
+    shell_log = os.path.join(root, "shell.log")
+    walls: dict = {}
+    servers: list = []
+    killed = None
+    master = _Server("", "", os.path.join(root, "master.log"), argv=["master", "-port", "0"])
+    try:
+        maddr = f"127.0.0.1:{master.grpc_port}"
+        mstub = rpc.master_stub(maddr)
+        t = time.perf_counter()
+        servers = [_Server(d, dev.type, os.path.join(root, f"v{i}.log"), wait=False,
+                           extra=("-mserver", maddr, "-rack", f"rack{i % 2}"))
+                   for i, d in enumerate(dirs)]
+        for s_ in servers:
+            s_.ready()
+            s_.addr = f"127.0.0.1:{s_.grpc_port}"
+        walls["servers_up"] = time.perf_counter() - t
+        print(f"cluster: master {maddr}; {CLUSTER_SERVERS} volume servers up in "
+              f"{walls['servers_up']:.3f}s (each: "
+              + ", ".join(f"{s_.start_s:.3f}s" for s_ in servers) + ")")
+        for s_ in servers:
+            text = s_.metrics()
+            check(metric(text, "weedtpu_cuda_kernel_launches", kernel="gf_apply") == 0,
+                  f"the new server process {s_.addr} has launched K1")
+        by_addr = {s_.addr: s_ for s_ in servers}
+
+        def located(vid: int) -> list[str]:
+            resp = mstub.LookupVolume(m_pb.LookupVolumeRequest(volume_or_file_ids=[str(vid)]),
+                                      timeout=60)
+            return [f"{l.url.rsplit(':', 1)[0]}:{l.grpc_port}"
+                    for l in resp.volume_id_locations[0].locations]
+
+        # step 1: the master sees volume 1 on server 0 (and 2 on server 1)
+        walls["volume_registered"] = _poll(
+            lambda: located(1) == [servers[0].addr] and located(2) == [servers[1].addr],
+            "volumes 1 and 2 at the master", 120)
+
+        # step 2: ec.encode, generate on server 0 (K1 on the card), balance
+        walls["encode_shell"], _ = _shell(maddr, "lock; ec.encode -volumeId 1; unlock", shell_log)
+        _poll(lambda: sum(len(v) for v in _ec_census(mstub, 1)["holders"].values()) == 14,
+              "14 shards of volume 1 at the master", 60)
+        census = _ec_census(mstub, 1)
+        holders = census["holders"]
+        per_rack = {}
+        for addr, sids in holders.items():
+            per_rack[census["racks"][addr]] = per_rack.get(census["racks"][addr], 0) + len(sids)
+        check(sorted(sid for v in holders.values() for sid in v) == list(range(14)),
+              f"shards at the master: {holders}")
+        check(max(len(v) for v in holders.values()) <= 4 and sorted(per_rack) == ["rack0", "rack1"],
+              f"the balance left {holders} ({per_rack} by rack)")
+        check(1 not in census["volumes"] and not any(
+            os.path.exists(os.path.join(d, "1.dat")) for d in dirs),
+              "the original volume 1 survived ec.encode")
+        place = {}
+        for addr, sids in holders.items():
+            d = dirs[servers.index(by_addr[addr])]
+            for sid in sids:
+                place[sid] = addr
+                check(sha256(os.path.join(d, f"1.ec{sid:02d}")) == want[sid],
+                      f"shard {sid} on {addr} differs from phase 7's generate")
+        tasks = len(ec_encoder._plan_tasks(DEFAULT_SCHEME, vol["dat_size"], ec_encoder.DEFAULT_CHUNK))
+        k1_source = int(metric(servers[0].metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply"))
+        check(k1_source == tasks, f"server 0 launched K1 {k1_source} times, the generate has {tasks} batches")
+        gen = server_stages(servers[0].log_text(), "generate")
+        check(len(gen) == 1, f"server 0 logged {len(gen)} generates")
+        copies = [c for s_ in servers for c in server_stages(s_.log_text(), "copy")]
+        walls["generate_pipeline"] = gen[0]["wall_s"]
+        walls["balance_copies"] = sum(c["wall_s"] for c in copies)
+        balance_bytes = sum(c["bytes"] for c in copies)
+        print(f"cluster encode on {ident}: 14 shards == phase 7's generate, spread {holders} "
+              f"({per_rack} by rack); server 0 K1 launches {k1_source}; generate {stage_line(gen[0])}; "
+              f"{len(copies)} balance copies, {balance_bytes} bytes in {walls['balance_copies']:.3f}s")
+
+        # step 3: remote reads from the shards of one server, over the master
+        sample = read_sample(vol, args.seed, CLUSTER_READ_SAMPLE)
+        victim_addr = max((a for a in holders if a != servers[1].addr), key=lambda a: len(holders[a]))
+        reader_addr = max((a for a in holders if a != victim_addr), key=lambda a: len(holders[a]))
+        reader = by_addr[reader_addr]
+        store = Store([dirs[servers.index(reader)]])
+        store.mount_ec_shards("", 1, holders[reader_addr])
+        ev = store.find_ec_volume(1)
+        locator = EcShardLocator(maddr, reader_addr)
+        try:
+            healthy = _cluster_reads(ev, locator, sample, f"healthy, shards {holders[reader_addr]} "
+                                                          f"local on {reader_addr}")
+        finally:
+            locator.close()
+        check(healthy["remote_reads"] > 0, "the healthy reads made no remote EcShardRead")
+        check(healthy["reconstructions"] == 0, "the healthy reads reconstructed")
+
+        # step 4: lose the node (other than the reader and the LRC volume's
+        # server) that holds the most shards
+        lost = holders[victim_addr]
+        killed = by_addr[victim_addr]
+        k1_by_server = {killed.addr: int(metric(killed.metrics(), "weedtpu_cuda_kernel_launches",
+                                                kernel="gf_apply"))}
+        killed.proc.send_signal(signal.SIGKILL)
+        killed.proc.wait()
+        walls["prune_wait"] = _poll(lambda: victim_addr not in _ec_census(mstub, 1)["holders"],
+                                    f"the master to prune {victim_addr}", PRUNE_WAIT_S)
+        print(f"cluster: SIGKILL {victim_addr} (shards {lost}); pruned by the master after "
+              f"{walls['prune_wait']:.3f}s")
+        locator = EcShardLocator(maddr, reader_addr)
+        try:
+            degraded = _cluster_reads(ev, locator, sample, f"{victim_addr} lost")
+        finally:
+            locator.close()
+            store.close()
+        check(degraded["reconstructions"] > 0, "the degraded reads reconstructed nothing")
+
+        # step 5: ec.rebuild (no geometry flags)
+        copies0 = {s_.addr: len(server_stages(s_.log_text(), "copy")) for s_ in servers if s_ is not killed}
+        walls["rebuild_shell"], out = _shell(maddr, "lock; ec.rebuild -volumeId 1; unlock", shell_log)
+        # the rebuilt shards' mount reaches the master in a heartbeat delta
+        _poll(lambda: sum(len(v) for v in _ec_census(mstub, 1)["holders"].values()) == 14,
+              "14 shards of volume 1 after the rebuild", 60)
+        census = _ec_census(mstub, 1)
+        rebuilder = next(by_addr[a] for a, sids in census["holders"].items() if lost[0] in sids)
+        rdir = dirs[servers.index(rebuilder)]
+        for sid in lost:
+            check(census["holders"].get(rebuilder.addr, []).count(sid) == 1,
+                  f"shard {sid} not on the rebuilder {rebuilder.addr}: {census['holders']}")
+            check(sha256(os.path.join(rdir, f"1.ec{sid:02d}")) == want[sid],
+                  f"rebuilt shard {sid} differs from phase 7's generate")
+        files = sorted(n for n in os.listdir(rdir) if re.fullmatch(r"1\.ec\d\d", n))
+        check(files == [f"1.ec{sid:02d}" for sid in sorted(census["holders"][rebuilder.addr])],
+              f"the rebuilder's temp copies were left: {files}")
+        staging = server_stages(rebuilder.log_text(), "copy")[copies0[rebuilder.addr]:]
+        walls["rebuild_staging"] = sum(c["wall_s"] for c in staging)
+        reb = server_stages(rebuilder.log_text(), "rebuild")
+        check(len(reb) >= 1, "the rebuilder logged no rebuild")
+        walls["rebuild_pipeline"] = reb[-1]["wall_s"]
+        k1_rebuilder = int(metric(rebuilder.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply"))
+        check(k1_rebuilder > (k1_source if rebuilder is servers[0] else 0),
+              f"the rebuilder {rebuilder.addr} launched no K1 for the rebuild ({k1_rebuilder})")
+        print(f"cluster rebuild on {ident}: {lost} on {rebuilder.addr} hash-identical, temps gone; "
+              f"staging {len(staging)} copies, {sum(c['bytes'] for c in staging)} bytes in "
+              f"{walls['rebuild_staging']:.3f}s; K1 launches {k1_rebuilder}; {stage_line(reb[-1])}")
+
+        # step 6: ec.decode
+        walls["decode_shell"], _ = _shell(maddr, "lock; ec.decode -volumeId 1; unlock", shell_log)
+        _poll(lambda: len(located(1)) == 1 and not _ec_census(mstub, 1)["holders"],
+              "the decoded volume 1 at the master, its shards gone", 60)
+        decoded_dir = dirs[servers.index(by_addr[located(1)[0]])]
+
+        # step 7: LRC, a single loss staged through its local group only
+        walls["lrc_encode_shell"], _ = _shell(
+            maddr, "lock; ec.encode -volumeId 2 -collection lrc -code lrc; unlock", shell_log)
+        _poll(lambda: sum(len(v) for v in _ec_census(mstub, 2)["holders"].values()) == 14,
+              "14 LRC shards at the master", 60)
+        census = _ec_census(mstub, 2)
+        check(census["scheme"] == (10, 4, 2), f"the master reports volume 2 as {census['scheme']}")
+        h3 = next(a for a, sids in census["holders"].items() if 3 in sids)
+        base3 = os.path.join(dirs[servers.index(by_addr[h3])], "lrc_2")
+        lrc_sha3 = sha256(base3 + ".ec03")
+        shard_size = os.path.getsize(base3 + ".ec03")
+        vstub = rpc.volume_stub(h3)
+        vstub.EcShardsUnmount(pb.EcShardsUnmountRequest(volume_id=2, shard_ids=[3]), timeout=60)
+        vstub.EcShardsDelete(pb.EcShardsDeleteRequest(volume_id=2, collection="lrc", shard_ids=[3]),
+                             timeout=60)
+        _poll(lambda: sum(len(v) for v in _ec_census(mstub, 2)["holders"].values()) == 13,
+              "the master to drop LRC shard 3", 60)
+        live = [s_ for s_ in servers if s_ is not killed]
+
+        def moved() -> dict:
+            return {s_.addr: metric(s_.metrics(), "weedtpu_repair_bytes_total", code="lrc",
+                                    dir="moved", mode="move") for s_ in live}
+
+        before = moved()
+        walls["lrc_rebuild_shell"], _ = _shell(maddr, "lock; ec.rebuild -volumeId 2; unlock", shell_log)
+        _poll(lambda: sum(len(v) for v in _ec_census(mstub, 2)["holders"].values()) == 14,
+              "14 LRC shards after the rebuild", 60)
+        census = _ec_census(mstub, 2)
+        h3 = next(a for a, sids in census["holders"].items() if 3 in sids)
+        check(sha256(os.path.join(dirs[servers.index(by_addr[h3])], "lrc_2.ec03")) == lrc_sha3,
+              "the rebuilt LRC shard 3 differs")
+        delta = {a: v - before[a] for a, v in moved().items()}
+        check(0 < delta[h3] <= 5 * shard_size and sum(delta.values()) == delta[h3],
+              f"LRC staging moved {delta} bytes (shard {shard_size}): more than the local group")
+        lrc_reb = server_stages(by_addr[h3].log_text(), "rebuild")[-1]
+        check(lrc_reb.get("mode") == "local", f"the LRC rebuild was not local: {stage_line(lrc_reb)}")
+        print(f"cluster LRC on {ident}: master class {census['scheme']}; shard 3 rebuilt on {h3} "
+              f"identical; staging moved {delta[h3]:.0f} bytes = {delta[h3] / shard_size:.2f} shard "
+              f"sizes; {stage_line(lrc_reb)}")
+
+        for s_ in live:
+            k1_by_server[s_.addr] = int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches",
+                                               kernel="gf_apply"))
+    finally:
+        rcs = {s_.addr if hasattr(s_, "addr") else s_.proc.pid: s_.stop() for s_ in servers}
+        rcs["master"] = master.stop()
+    check(all(rc == 0 for a, rc in rcs.items() if killed is None or a != killed.addr),
+          f"cluster processes exited {rcs}")
+    check(rcs[killed.addr] == -signal.SIGKILL, f"the killed server exited {rcs[killed.addr]}")
+
+    # the decoded volume, opened here now that its server has stopped
+    v = Volume(decoded_dir, 1, create=False)
+    try:
+        check(sha256(v.base + ".dat") == dat_sha, "the decoded .dat differs from the original")
+        for nid, payload in read_sample(vol, args.seed + 2, 500):
+            check(v.read_needle(nid).data == payload, f"decoded volume: needle {nid:x} differs")
+    finally:
+        v.close()
+    launches = sum(k1_by_server.values())
+    rec = dict(walls=walls, healthy=healthy, degraded=degraded, k1_source=k1_source,
+               k1_rebuilder=k1_rebuilder, k1_by_server=k1_by_server, launches=launches,
+               lost=lost, balance_bytes=balance_bytes, lrc_staging_bytes=delta[h3],
+               lrc_shard_size=shard_size, server_start_s=[s_.start_s for s_ in servers],
+               rcs={str(k): v_ for k, v_ in rcs.items()})
+    print(f"decode on {ident}: .dat sha256 == the original; 500 needles read back in process")
+    print("cluster: " + json.dumps(rec, sort_keys=True))
+    return rec
 
 
 def main() -> int:
@@ -1802,6 +2178,15 @@ def main() -> int:
                                                       "p99_us", "reconstructed_intervals")}
                       for label, r in svc["reads"].items()},
         large_row_encode_gbs=svc["large"]["gbs"],
+    )
+    cluster = main_path["cluster"]
+    record["kernels"][0]["launches"] += cluster["launches"]
+    record["kernels"][0].update(
+        launches_cluster=cluster["launches"],
+        launches_cluster_source_generate=cluster["k1_source"],
+        launches_cluster_rebuilder=cluster["k1_rebuilder"],
+        cluster_walls_s=cluster["walls"],
+        cluster_reads={k: cluster[k] for k in ("healthy", "degraded")},
     )
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)

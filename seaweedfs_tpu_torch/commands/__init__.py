@@ -46,7 +46,7 @@ def command(name: str, help: str):
 def _import_all() -> None:
     # command modules register on import; they defer torch and storage
     # imports into run() so `-h` stays fast
-    from seaweedfs_tpu_torch.commands import ec_local, servers, version  # noqa: F401
+    from seaweedfs_tpu_torch.commands import ec_local, servers, shell_cmd, version  # noqa: F401
 
 
 _import_all()

@@ -1,14 +1,19 @@
-"""``volume``: run the port's volume server (the EC gRPC service).
+"""``master`` and ``volume``: run the port's master and volume server.
 
-The port of seaweedfs_tpu/commands/servers.py's ``volume`` command, with
-``-dir``, ``-ip``, ``-port``, ``-grpcPort`` (default ``-port`` + 10000, as
-there; with ``-port 0``, a free port), ``-metricsPort`` (a ``/metrics``
-listener; 0 picks a free port, none when left out) and ``-device``
-(default ``cuda``; ``cpu`` runs the codec on the host).  The port has no
-HTTP needle data path, so ``-port`` binds nothing itself.  The first line
-on stdout names the ports bound.  The server
-resolves its device at start: without CUDA, and without ``-device cpu``,
-it raises and exits.  SIGINT or SIGTERM stops it.
+The port of seaweedfs_tpu/commands/servers.py's ``master`` and ``volume``
+commands.  ``master`` takes ``-ip``, ``-port``, ``-grpcPort`` (default
+``-port`` + 10000; with ``-port 0``, a free port) and
+``-volumeSizeLimitMB``; it has no HTTP endpoints, so ``-port`` binds
+nothing itself, and it runs no kernel.  ``volume`` takes ``-dir``,
+``-mserver`` (the master's gRPC address; the port's default is none: no
+heartbeat, the EC service alone), ``-ip``, ``-port``, ``-grpcPort`` (as
+the master's), ``-dataCenter``, ``-rack``, ``-max`` (volumes per dir),
+``-metricsPort`` (a ``/metrics`` listener; 0 picks a free port, none when
+left out) and ``-device`` (default ``cuda``; ``cpu`` runs the codec on the
+host).  The volume server has no HTTP needle data path either.  Each
+prints one first line on stdout that names the ports it bound.  The
+volume server resolves its device at start: without CUDA, and without
+``-device cpu``, it raises and exits.  SIGINT or SIGTERM stops either.
 """
 
 from __future__ import annotations
@@ -34,17 +39,47 @@ def _wait_forever() -> int:
     return fired[0]
 
 
-@command("volume", "run a volume server (the EC shard gRPC service)")
+@command("master", "run a master (topology, heartbeats, EC lookups, admin lock)")
+def run_master(args) -> int:
+    from seaweedfs_tpu_torch.server.master_server import MasterServer
+
+    ms = MasterServer(ip=args.ip, port=args.port, grpc_port=args.grpcPort,
+                      volume_size_limit_mb=args.volumeSizeLimitMB)
+    ms.start()
+    print(f"master gRPC on {ms.grpc_address}", flush=True)
+    try:
+        _wait_forever()
+    finally:
+        ms.stop()
+    return 0
+
+
+def _master_flags(p) -> None:
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=9333)
+    p.add_argument("-grpcPort", type=int, default=0, help="default port+10000")
+    p.add_argument("-volumeSizeLimitMB", type=int, default=30 * 1024)
+
+
+run_master.configure = _master_flags
+
+
+@command("volume", "run a volume server (EC shard service, volumes, heartbeats)")
 def run_volume(args) -> int:
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 
+    dirs = args.dir.split(",")
     vs = VolumeServer(
-        args.dir.split(","),
+        dirs,
+        args.mserver,
         ip=args.ip,
         port=args.port,
         grpc_port=args.grpcPort,
         metrics_port=args.metricsPort,
         device=args.device,
+        data_center=args.dataCenter,
+        rack=args.rack,
+        max_volume_counts=[args.max] * len(dirs),
     )
     vs.start()
     metrics = f", metrics on {vs.ip}:{vs.metrics_port}" if vs.metrics_port is not None else ""
@@ -58,9 +93,14 @@ def run_volume(args) -> int:
 
 def _volume_flags(p) -> None:
     p.add_argument("-dir", default="./data", help="comma-separated data dirs")
+    p.add_argument("-mserver", default="",
+                   help="master gRPC address (none: no heartbeat, the EC service alone)")
     p.add_argument("-ip", default="127.0.0.1")
     p.add_argument("-port", type=int, default=8080)
     p.add_argument("-grpcPort", type=int, default=0, help="default port+10000")
+    p.add_argument("-dataCenter", default="DefaultDataCenter")
+    p.add_argument("-rack", default="DefaultRack")
+    p.add_argument("-max", type=int, default=8, help="max volumes per dir")
     p.add_argument("-metricsPort", type=int, default=None,
                    help="/metrics listener port (0: a free one; none when left out)")
     p.add_argument("-device", default="cuda",

@@ -112,3 +112,9 @@ def volume_stub(address: str) -> Stub:
     from seaweedfs_tpu_torch.pb import volume_server_pb2
 
     return Stub(address, volume_server_pb2, "VolumeServer")
+
+
+def master_stub(address: str) -> Stub:
+    from seaweedfs_tpu_torch.pb import master_pb2
+
+    return Stub(address, master_pb2, "Master")

@@ -1,7 +1,8 @@
 """Volume super block: the first 8 bytes of every .dat file.
 
-The port's copy of seaweedfs_tpu/storage/super_block.py (parsing only;
-TTL helpers are not ported).
+The port's copy of seaweedfs_tpu/storage/super_block.py, with its
+replica-placement codes and the TTL wire format that a mounted volume's
+heartbeat reports.
 
 Layout (same as the reference's, weed/storage/super_block/super_block.go):
 byte 0 = needle version, byte 1 = replica placement code, bytes 2-3 = TTL,
@@ -34,6 +35,12 @@ class ReplicaPlacement:
     diff_dc: int = 0
 
     @classmethod
+    def parse(cls, s: str) -> "ReplicaPlacement":
+        if len(s) != 3 or not s.isdigit():
+            raise ValueError(f"invalid replica placement {s!r}")
+        return cls(diff_dc=int(s[0]), diff_rack=int(s[1]), same_rack=int(s[2]))
+
+    @classmethod
     def from_byte(cls, b: int) -> "ReplicaPlacement":
         return cls(
             diff_dc=b // 100, diff_rack=(b // 10) % 10, same_rack=b % 10
@@ -41,6 +48,45 @@ class ReplicaPlacement:
 
     def to_byte(self) -> int:
         return self.diff_dc * 100 + self.diff_rack * 10 + self.same_rack
+
+    def __str__(self) -> str:
+        return f"{self.diff_dc}{self.diff_rack}{self.same_rack}"
+
+
+# TTL wire format (2 bytes: count + unit), matching the reference's
+# needle/volume TTL encoding (weed/storage/needle/volume_ttl.go)
+_TTL_UNITS = [
+    (0, 0),  # empty
+    (1, 60),  # minute
+    (2, 3600),  # hour
+    (3, 86400),  # day
+    (4, 7 * 86400),  # week
+    (5, 30 * 86400),  # month
+    (6, 365 * 86400),  # year
+]
+
+
+def ttl_from_seconds(seconds: int) -> bytes:
+    if seconds <= 0:
+        return b"\x00\x00"
+    if seconds < 60:
+        # the smallest wire unit is the minute: round sub-minute TTLs up
+        return bytes([1, 1])
+    for code, unit_sec in reversed(_TTL_UNITS[1:]):
+        if seconds >= unit_sec and seconds // unit_sec <= 255:
+            count = -(-seconds // unit_sec)  # round up within the unit
+            if count <= 255:
+                return bytes([count, code])
+    return bytes([255, 6])  # cap at 255 years
+
+
+def ttl_to_seconds(ttl: bytes) -> int:
+    if len(ttl) < 2 or ttl[0] == 0:
+        return 0
+    for code, unit_sec in _TTL_UNITS:
+        if code == ttl[1]:
+            return ttl[0] * unit_sec
+    return 0
 
 
 @dataclass

@@ -53,6 +53,13 @@ def index_entry_size(offset_width: int = OFFSET_SIZE) -> int:
     return NEEDLE_ID_SIZE + offset_width + SIZE_SIZE
 
 
+def max_volume_size(offset_width: int = OFFSET_SIZE) -> int:
+    """Hard .dat size cap: 2^(8*width) stored units of 8 bytes
+    (32GB at width 4, 8TB at width 5 — offset_5bytes.go
+    MaxPossibleVolumeSize)."""
+    return (1 << (8 * offset_width)) * NEEDLE_PADDING_SIZE
+
+
 def offset_to_bytes(actual_offset: int, offset_width: int = OFFSET_SIZE) -> bytes:
     """Actual byte offset (8-aligned) -> stored offset bytes.
 

@@ -34,3 +34,7 @@ def _emit(severity: str, msg: str, args: tuple) -> None:
 
 def info(msg: str, *args) -> None:
     _emit("I", msg, args)
+
+
+def warning(msg: str, *args) -> None:
+    _emit("W", msg, args)

@@ -57,7 +57,15 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/server/volume_server.py", "seaweedfs_tpu_torch/rpc.py",
             "seaweedfs_tpu_torch/pb/volume_server_pb2.py",
             "seaweedfs_tpu_torch/commands/servers.py",
-            "seaweedfs_tpu_torch/commands/version.py"} <= names
+            "seaweedfs_tpu_torch/commands/version.py",
+            "seaweedfs_tpu_torch/pb/master_pb2.py", "seaweedfs_tpu_torch/storage/volume.py",
+            "seaweedfs_tpu_torch/storage/backend.py", "seaweedfs_tpu_torch/storage/needle_map.py",
+            "seaweedfs_tpu_torch/topology/topology.py", "seaweedfs_tpu_torch/util/resilience.py",
+            "seaweedfs_tpu_torch/server/master_server.py", "seaweedfs_tpu_torch/shell/__init__.py",
+            "seaweedfs_tpu_torch/shell/command_env.py", "seaweedfs_tpu_torch/shell/ec_common.py",
+            "seaweedfs_tpu_torch/shell/command_ec_balance.py",
+            "seaweedfs_tpu_torch/shell/command_ec.py", "seaweedfs_tpu_torch/shell/command_volume.py",
+            "seaweedfs_tpu_torch/commands/shell_cmd.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())

@@ -261,7 +261,7 @@ def test_grpc_round_trip_through_the_cli_server(tmp_path):
                                                           file_key=nid), timeout=30))
         assert [r.is_deleted for r in out] == [True]
         with pytest.raises(grpc.RpcError) as err:
-            stub.EcShardsCopy(pb.EcShardsCopyRequest(volume_id=1), timeout=30)
+            stub.ReadNeedleBlob(pb.ReadNeedleBlobRequest(volume_id=1, needle_id=nid), timeout=30)
         assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
         with urllib.request.urlopen(f"http://127.0.0.1:{metrics_port}/metrics", timeout=30) as r:
             text = r.read().decode()
