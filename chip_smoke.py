@@ -92,7 +92,7 @@ Phases, each printing what it found; any failure exits non-zero:
    new process).  The same .dat is
    encoded as LRC(10,2,2) by ``ec.encode.local -code lrc`` and with 64 MiB
    large blocks by write_ec_files (one 10 x 64 MiB large row: parity
-   sampled in both areas, needles read back).  Then about 20,000 needles
+   sampled in both areas, needles read back).  Then about 7,000 needles
    (every one that crosses a 1 MiB block, and the big ones) are read here
    through Store, EcVolume.read_needle and EcShardLocator's local
    reconstruction, in five states (RS healthy, RS without {0, 3, 10, 13},
@@ -109,7 +109,7 @@ Phases, each printing what it found; any failure exits non-zero:
    leaves 14 shards at the master over both racks, at most 4 on a node,
    each sha256-identical to phase 7's generate, the original volume gone,
    and server 0's K1 launches (its /metrics) equal to the generate's
-   batches (18 a GiB); about 3,000 needles are read here through Store
+   batches (18 a GiB); about 2,000 needles are read here through Store
    (one server's shards), EcVolume.read_needle and EcShardLocator(master)
    with remote EcShardRead answers and no reconstruction, then again after
    the server (other than the reader and server 1) holding the most
@@ -124,6 +124,26 @@ Phases, each printing what it found; any failure exits non-zero:
    but the killed one exits 0 on SIGTERM.  The walls (encode, balance
    copies, prune wait, rebuild staging and pipeline, decode) and read
    figures go on a ``cluster:`` JSON line.
+9. The write path: a fresh ``cli master`` and four ``cli volume -device
+   cuda -max 8 -mserver ...`` subprocesses (racks alternating), each with
+   its HTTP port bound and registered at the master as ``ip:httpport``.
+   9a: ``cli benchmark -n 65536 -size 1024 -c 16`` (upstream `weed
+   benchmark`'s shape, -n cut 16x for time), 0 errors in its write and
+   read reports; 9b: 5,000 writes at replication 001, then every needle
+   read from both holders ``/dir/lookup`` names; 9c: ``cli benchmark -n
+   16384 -size 65536`` fills one 1 GiB volume, and 1,024 needles of
+   seeded payloads go in through MasterClient and the pool; 9d: ``cli
+   shell -c "lock; ec.encode -volumeId V -collection ec64k -streaming;
+   unlock"``: K1 launches on the source server equal its generate's
+   batches (18), every shard lands once on its holder (14 at the master,
+   at most 4 a node, both racks), no .dat, .idx or .tmp remains, and the
+   targets' received bytes, the generate's stage split and the balance's
+   moves are printed; 9e: the 1,024 seeded needles and 4,096 benchmark
+   needles read over HTTP, each resolved through ``/dir/lookup``, equal to
+   their payloads (p50, p99, and the intervals the serving holder had to
+   read from others, counted from the .ecx and the census); 9f: 64
+   seeded needles DELETEd on the EC volume, then 404.  Its figures go on
+   a ``write path:`` JSON line.
 
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
@@ -156,6 +176,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 MIB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -743,9 +764,13 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         ec_service = phase_ec_service(args, tmp, ident, dev)
         cluster = phase_cluster(args, tmp, ec_service, ident, dev)
+        for name in os.listdir(tmp):  # room for phase 9's volumes
+            path = os.path.join(tmp, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+        write = phase_write_path(args, tmp, ident, dev)
         return dict(launches=enc_launches + reb_launches, encode=enc, rebuild=reb,
                     encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
-                    lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster)
+                    lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster, write=write)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1162,7 +1187,7 @@ def phase_mesh(args, directory: str, hashes: dict, ident: str, dev, rates) -> di
 NEEDLE_PAYLOAD = 1024  # `weed benchmark`'s default -size
 BIG_NEEDLES = 8  # 256 KiB - 1 MiB payloads: reads of several intervals
 DEAD_NEEDLES = 64
-READ_SAMPLE = 20_000
+READ_SAMPLE = 6_000  # cut from 20,000 to leave phase 9 room in the time limit
 LARGE_ROW_BLOCK = 64 * MIB  # the large-row pipeline's large blocks
 READ_STATES = [  # label, volume, shards removed
     ("RS healthy", "rs", ()),
@@ -1306,7 +1331,7 @@ class _Server:
 
     def ready(self) -> str:
         """Wait for the first line; returns it (the ports it names are
-        parsed into grpc_port and metrics_port)."""
+        parsed into grpc_port, http_port and metrics_port)."""
         line = self.proc.stdout.readline().strip()
         self.start_s = time.perf_counter() - self._t
         bound = re.search(r"gRPC on 127\.0\.0\.1:(\d+)(?: .*metrics on 127\.0\.0\.1:(\d+))?", line)
@@ -1316,6 +1341,8 @@ class _Server:
                                f"log: {self.log_text()[-2000:]}")
         self.grpc_port = int(bound[1])
         self.metrics_port = int(bound[2]) if bound[2] else None
+        http = re.search(r"HTTP on 127\.0\.0\.1:(\d+)", line)
+        self.http_port = int(http[1]) if http else None
         print(f"server subprocess pid {self.proc.pid} up in {self.start_s:.3f}s: {line}")
         return line
 
@@ -1370,6 +1397,8 @@ def phase_server(vol: dict, directory: str, dev, ident: str, seed: int) -> dict:
     from seaweedfs_tpu_torch import rpc
     from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
     from seaweedfs_tpu_torch.pb import volume_server_pb2 as pb
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.types import Version
 
     base = os.path.join(directory, "1")
     dat_sha = sha256(base + ".dat")
@@ -1436,11 +1465,16 @@ def phase_server(vol: dict, directory: str, dev, ident: str, seed: int) -> dict:
         out = call("shard read", "EcShardRead", pb.EcShardReadRequest(
             volume_id=1, shard_id=0, size=16, file_key=victim), stream=True)
         check([r.is_deleted for r in out] == [True], "EcShardRead of a deleted blob: not is_deleted")
+        # the normal volume still holds it: ReadNeedleBlob answers its record
+        blob = stub.ReadNeedleBlob(pb.ReadNeedleBlobRequest(volume_id=1, needle_id=victim),
+                                   timeout=60).needle_blob
+        check(Needle.from_bytes(blob, Version.V3).data == vol["big"][0]["data"],
+              "ReadNeedleBlob's record differs from the needle written")
         try:
-            stub.ReadNeedleBlob(pb.ReadNeedleBlobRequest(volume_id=1, needle_id=victim), timeout=60)
-            check(False, "ReadNeedleBlob answered")
+            stub.VolumeVacuum(pb.VolumeVacuumRequest(volume_id=1), timeout=60)
+            check(False, "VolumeVacuum answered")
         except grpc.RpcError as e:
-            check(e.code() == grpc.StatusCode.UNIMPLEMENTED, f"ReadNeedleBlob: {e.code()}")
+            check(e.code() == grpc.StatusCode.UNIMPLEMENTED, f"VolumeVacuum: {e.code()}")
 
         for ext in (".dat", ".idx"):
             os.remove(base + ext)
@@ -1671,7 +1705,7 @@ def phase_ec_service(args, directory: str, ident: str, dev) -> dict:
                 launches_server=server["launches"]["gf_apply"], launches_local=launches["gf_apply"])
 
 CLUSTER_SERVERS = 4
-CLUSTER_READ_SAMPLE = 2_000
+CLUSTER_READ_SAMPLE = 1_000  # cut from 2,000 to leave phase 9 room in the time limit
 LRC_CLUSTER_GIB = 0.25  # the LRC volume of phase 8, cut to stay inside the time limit
 PRUNE_WAIT_S = 60.0  # the master prunes after 15 s without a heartbeat, checked every 5 s
 
@@ -1704,6 +1738,19 @@ def _ec_census(master_stub, vid: int) -> dict:
                             out[addr] = [i for i in range(32) if es.shard_bits >> i & 1]
                             scheme = (es.data_shards, es.parity_shards, es.local_groups)
     return dict(holders=out, scheme=scheme, racks=racks, volumes=volumes)
+
+
+def _disk_shards(dirs_by_addr: dict, name: str) -> dict:
+    """{node grpc address: [shard ids]} of the ``name.ecNN`` files on each
+    server's disk: what a finished shell command left, which the master
+    reports once the servers' heartbeat deltas have landed."""
+    out = {}
+    for addr, d in dirs_by_addr.items():
+        sids = sorted(int(n[-2:]) for n in os.listdir(d)
+                      if re.fullmatch(re.escape(name) + r"\.ec\d\d", n))
+        if sids:
+            out[addr] = sids
+    return out
 
 
 def _shell(master: str, commands: str, log: str) -> tuple[float, str]:
@@ -1835,8 +1882,11 @@ def phase_cluster(args, directory: str, svc: dict, ident: str, dev) -> dict:
 
         # step 2: ec.encode, generate on server 0 (K1 on the card), balance
         walls["encode_shell"], _ = _shell(maddr, "lock; ec.encode -volumeId 1; unlock", shell_log)
-        _poll(lambda: sum(len(v) for v in _ec_census(mstub, 1)["holders"].values()) == 14,
-              "14 shards of volume 1 at the master", 60)
+        # the balance's last moves reach the master in heartbeat deltas: wait
+        # until it reports what the servers' disks hold
+        on_disk = {s_.addr: dirs[i] for i, s_ in enumerate(servers)}
+        _poll(lambda: _ec_census(mstub, 1)["holders"] == _disk_shards(on_disk, "1"),
+              "the master's census of volume 1 to match the servers' disks", 60)
         census = _ec_census(mstub, 1)
         holders = census["holders"]
         per_rack = {}
@@ -1910,9 +1960,13 @@ def phase_cluster(args, directory: str, svc: dict, ident: str, dev) -> dict:
         copies0 = {s_.addr: len(server_stages(s_.log_text(), "copy")) for s_ in servers if s_ is not killed}
         walls["rebuild_shell"], out = _shell(maddr, "lock; ec.rebuild -volumeId 1; unlock", shell_log)
         # the rebuilt shards' mount reaches the master in a heartbeat delta
-        _poll(lambda: sum(len(v) for v in _ec_census(mstub, 1)["holders"].values()) == 14,
-              "14 shards of volume 1 after the rebuild", 60)
+        # (the killed server's files stay on its disk, outside the cluster)
+        _poll(lambda: _ec_census(mstub, 1)["holders"] == _disk_shards(
+            {a_: d for a_, d in on_disk.items() if a_ != killed.addr}, "1"),
+              "the master's census of volume 1 after the rebuild to match the disks", 60)
         census = _ec_census(mstub, 1)
+        check(sum(len(v) for v in census["holders"].values()) == 14,
+              f"shards of volume 1 after the rebuild: {census['holders']}")
         rebuilder = next(by_addr[a] for a, sids in census["holders"].items() if lost[0] in sids)
         rdir = dirs[servers.index(rebuilder)]
         for sid in lost:
@@ -1944,9 +1998,12 @@ def phase_cluster(args, directory: str, svc: dict, ident: str, dev) -> dict:
         # step 7: LRC, a single loss staged through its local group only
         walls["lrc_encode_shell"], _ = _shell(
             maddr, "lock; ec.encode -volumeId 2 -collection lrc -code lrc; unlock", shell_log)
-        _poll(lambda: sum(len(v) for v in _ec_census(mstub, 2)["holders"].values()) == 14,
-              "14 LRC shards at the master", 60)
+        _poll(lambda: _ec_census(mstub, 2)["holders"] == _disk_shards(
+            {a_: d for a_, d in on_disk.items() if a_ != killed.addr}, "lrc_2"),
+              "the master's census of the LRC volume to match the servers' disks", 60)
         census = _ec_census(mstub, 2)
+        check(sum(len(v) for v in census["holders"].values()) == 14,
+              f"LRC shards at the master: {census['holders']}")
         check(census["scheme"] == (10, 4, 2), f"the master reports volume 2 as {census['scheme']}")
         h3 = next(a for a, sids in census["holders"].items() if 3 in sids)
         base3 = os.path.join(dirs[servers.index(by_addr[h3])], "lrc_2")
@@ -2007,6 +2064,318 @@ def phase_cluster(args, directory: str, svc: dict, ident: str, dev) -> dict:
                rcs={str(k): v_ for k, v_ in rcs.items()})
     print(f"decode on {ident}: .dat sha256 == the original; 500 needles read back in process")
     print("cluster: " + json.dumps(rec, sort_keys=True))
+    return rec
+
+
+# -- phase 9 ------------------------------------------------------------------
+
+BENCH_N = 65536  # `weed benchmark` -n 1048576 cut 16x for the time limit
+BENCH_SIZE = 1024  # `weed benchmark` -size
+BENCH_C = 16  # `weed benchmark` -c
+REP_N = 5000  # DATA_PLANE.md's replicated-write row
+FILL_N, FILL_SIZE = 16384, 64 * 1024  # 1 GiB of DATA_PLANE.md's 64 KB payloads
+SEEDED_NEEDLES = 1024
+EC_READ_SAMPLE = 4096
+EC_DELETES = 64
+
+
+def _benchmark(maddr: str, n: int, size: int, collection: str, replication: str,
+               log: str) -> list[dict]:
+    """``cli benchmark`` in a subprocess: its write and read reports, each
+    with 0 errors and every request answered."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    argv = ["benchmark", "-master", maddr, "-n", str(n), "-size", str(size), "-c", str(BENCH_C),
+            "-collection", collection, "-replication", replication]
+    t = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch.cli", *argv], cwd=root,
+                         env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    with open(log, "a") as f:
+        f.write(f"$ {' '.join(argv)} ({wall:.3f}s, rc {run.returncode})\n{run.stdout}{run.stderr}")
+    check(run.returncode == 0, f"benchmark {argv} exited {run.returncode}: {run.stderr[-2000:]}")
+    reports = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
+    check([r["phase"] for r in reports] == ["write", "read"], f"benchmark printed {run.stdout!r}")
+    for r in reports:
+        check(r["errors"] == 0 and r["requests"] == n,
+              f"benchmark {collection} {r['phase']}: {r['requests']} answered, {r['errors']} "
+              f"errors: {r.get('error_samples')}")
+        print(f"write path: benchmark -n {n} -size {size} -c {BENCH_C} -collection {collection} "
+              f"-replication {replication} {r['phase']}: {r['req_per_sec']} req/s, "
+              f"{r['mb_per_sec']} MB/s, p50 {r['p50_ms']} ms, p90 {r['p90_ms']} ms, p99 "
+              f"{r['p99_ms']} ms, {r['errors']} errors")
+    return reports
+
+
+def _volume_fids(base: str, vid: int) -> list[str]:
+    """The fid of every live needle of the volume at ``base`` (its .idx,
+    last entry of a key wins, and each needle's cookie from its .dat
+    record)."""
+    import numpy as np
+
+    entry = np.dtype([("id", ">u8"), ("off", ">u4"), ("size", ">i4")])
+    raw = np.fromfile(base + ".idx", dtype=np.uint8)
+    idx = raw[: raw.size - raw.size % entry.itemsize].view(entry)
+    _, last = np.unique(idx["id"][::-1], return_index=True)
+    live = idx[len(idx) - 1 - last]
+    live = live[(live["off"] > 0) & (live["size"] > 0)]
+    fids = []
+    with open(base + ".dat", "rb") as f:
+        for key, off in zip(live["id"].tolist(), live["off"].tolist()):
+            cookie = int.from_bytes(os.pread(f.fileno(), 4, off * 8), "big")
+            fids.append(f"{vid},{key:x}{cookie:08x}")
+    return fids
+
+
+def phase_write_path(args, directory: str, ident: str, dev) -> dict:
+    """Phase 9: the write path.  One ``cli master`` and four ``cli volume
+    -device cuda -max 8`` subprocesses (racks alternating), each with its
+    HTTP port bound; ``cli benchmark`` writes and reads (9a), replicated
+    writes read back from both holders (9b), one 1 GiB volume filled by the
+    benchmark and 1,024 seeded needles (9c), ``ec.encode -streaming`` of it
+    through K1 on its server (9d), reads of the EC volume over HTTP (9e) and
+    deletes (9f) (module docstring)."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.util.http_pool import HttpConnectionPool
+    from seaweedfs_tpu_torch.wdclient import MasterClient
+
+    root = os.path.join(directory, "write")
+    dirs = [os.path.join(root, f"v{i}") for i in range(CLUSTER_SERVERS)]
+    for d in dirs:
+        os.makedirs(d)
+    bench_log = os.path.join(root, "benchmark.log")
+    shell_log = os.path.join(root, "shell.log")
+    walls: dict = {}
+    servers: list = []
+    pool = HttpConnectionPool(timeout=60.0)
+    master = _Server("", "", os.path.join(root, "master.log"), argv=["master", "-port", "0"])
+    try:
+        maddr = f"127.0.0.1:{master.grpc_port}"
+        mhttp = f"127.0.0.1:{master.http_port}"
+        mstub = rpc.master_stub(maddr)
+        t = time.perf_counter()
+        servers = [_Server(d, dev.type, os.path.join(root, f"v{i}.log"), wait=False,
+                           extra=("-mserver", maddr, "-rack", f"rack{i % 2}", "-max", "8"))
+                   for i, d in enumerate(dirs)]
+        for s_ in servers:
+            s_.ready()
+            check(s_.http_port is not None, "a volume server bound no HTTP port")
+            s_.url = f"127.0.0.1:{s_.http_port}"
+        by_url = {s_.url: s_ for s_ in servers}
+
+        def nodes() -> set:
+            topo = mstub.VolumeList(m_pb.VolumeListRequest(), timeout=60).topology_info
+            return {dn.id for dc in topo.data_center_infos for r in dc.rack_infos
+                    for dn in r.data_node_infos}
+
+        walls["servers_up"] = time.perf_counter() - t
+        walls["registered"] = _poll(lambda: nodes() == set(by_url), "4 nodes named ip:httpport", 120)
+        print(f"write path: master {maddr} (HTTP {mhttp}); {CLUSTER_SERVERS} volume servers "
+              f"{sorted(by_url)} up in {walls['servers_up']:.3f}s, registered by their HTTP "
+              f"ports after {walls['registered']:.3f}s")
+        for s_ in servers:
+            check(metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply") == 0,
+                  f"the new server process {s_.url} has launched K1")
+
+        def lookup(vid: int) -> list[str]:
+            status, body = pool.request(mhttp, "GET", f"/dir/lookup?volumeId={vid}")
+            check(status == 200, f"/dir/lookup?volumeId={vid}: {status} {body[:200]!r}")
+            return [loc["url"] for loc in json.loads(body)["locations"]]
+
+        def collection_vids(collection: str) -> list[int]:
+            topo = mstub.VolumeList(m_pb.VolumeListRequest(), timeout=60).topology_info
+            return sorted({v.id for dc in topo.data_center_infos for r in dc.rack_infos
+                           for dn in r.data_node_infos for disk in dn.disk_infos.values()
+                           for v in disk.volume_infos if v.collection == collection})
+
+        def base_on(url: str, collection: str, vid: int) -> str:
+            return os.path.join(dirs[servers.index(by_url[url])], f"{collection}_{vid}")
+
+        # 9a: writes and reads, the upstream `weed benchmark` shape
+        bench = _benchmark(maddr, BENCH_N, BENCH_SIZE, "benchmark", "000", bench_log)
+
+        # 9b: replicated writes, each acknowledged one on both holders
+        rep = _benchmark(maddr, REP_N, BENCH_SIZE, "rep", "001", bench_log)
+        rep_vids = collection_vids("rep")
+        rep_fids, rep_payloads, t = 0, set(), time.perf_counter()
+        for vid in rep_vids:
+            holders = lookup(vid)
+            check(len(holders) == 2, f"rep volume {vid} has holders {holders}")
+            fids = [_volume_fids(base_on(u, "rep", vid), vid) for u in holders]
+            check(sorted(fids[0]) == sorted(fids[1]), f"rep volume {vid}: the holders' needles differ")
+
+            def read_back(fid: str, holders=holders) -> list[str]:
+                out = []
+                for url in holders:
+                    status, body = pool.request(url, "GET", f"/{fid}")
+                    check(status == 200 and len(body) == BENCH_SIZE,
+                          f"replica {url} of {fid}: {status}, {len(body)} bytes")
+                    out.append(hashlib.sha256(body).hexdigest())
+                return out
+
+            with ThreadPoolExecutor(BENCH_C) as readers:
+                for digests in readers.map(read_back, fids[0]):
+                    rep_payloads.update(digests)
+            rep_fids += len(fids[0])
+        walls["rep_readback"] = time.perf_counter() - t
+        check(rep_fids == REP_N and len(rep_payloads) == 1,
+              f"{rep_fids} replicated needles ({len(rep_payloads)} payloads) for {REP_N} writes")
+        print(f"write path: {rep_fids} replicated needles in {len(rep_vids)} volume(s) read back "
+              f"from both holders each, byte-identical, in {walls['rep_readback']:.3f}s")
+
+        # 9c: one real volume: the benchmark's 1 GiB and 1,024 seeded needles
+        fill = _benchmark(maddr, FILL_N, FILL_SIZE, "ec64k", "000", bench_log)
+        (vid,) = collection_vids("ec64k")
+        mc = MasterClient(maddr)
+        rng = np.random.default_rng(args.seed + 9)
+        seeded, t = {}, time.perf_counter()
+        for i in range(SEEDED_NEEDLES):
+            a = mc.assign(collection="ec64k")
+            check(int(a.fid.split(",")[0]) == vid, f"seeded needle {i} went to volume {a.fid}")
+            payload = rng.bytes(int(rng.integers(1, FILL_SIZE + 1)))
+            status, body = pool.request(a.location.url, "POST", f"/{a.fid}", body=payload)
+            check(status == 201, f"POST {a.fid}: {status} {body[:200]!r}")
+            seeded[a.fid] = payload
+        walls["seeded_writes"] = time.perf_counter() - t
+        (source_url,) = lookup(vid)
+        source = by_url[source_url]
+        src_base = base_on(source_url, "ec64k", vid)
+        dat_size = os.path.getsize(src_base + ".dat")
+        bench_fids = sorted(set(_volume_fids(src_base, vid)) - set(seeded))
+        check(len(bench_fids) == FILL_N and dat_size >= FILL_N * FILL_SIZE,
+              f"volume {vid}: {len(bench_fids)} benchmark needles, {dat_size} bytes")
+        sample = [bench_fids[i] for i in rng.choice(len(bench_fids), EC_READ_SAMPLE, replace=False)]
+        bench_payload = {}
+        for fid in sample[:16]:
+            status, body = pool.request(source_url, "GET", f"/{fid}")
+            check(status == 200 and len(body) == FILL_SIZE, f"GET {fid} before the encode: {status}")
+            bench_payload[hashlib.sha256(body).hexdigest()] = body
+        check(len(bench_payload) == 1, "the benchmark wrote more than one payload")
+        (bench_body,) = bench_payload.values()
+        print(f"write path: volume {vid} on {source_url}: {dat_size} bytes, {FILL_N} benchmark "
+              f"needles + {SEEDED_NEEDLES} seeded ones written in {walls['seeded_writes']:.3f}s")
+
+        # 9d: ec.encode -streaming: every shard straight to its holder, K1 on
+        # the source server
+        walls["encode_shell"], out = _shell(
+            maddr, f"lock; ec.encode -volumeId {vid} -collection ec64k -streaming; unlock", shell_log)
+        check(f"ec.encode volume {vid} -> RS(10,4) [streamed to holders]" in out,
+              f"the shell did not stream: {out!r}")
+        moved = re.search(r"ec\.balance moved (\d+) shards", out)
+        check(moved is not None, f"no balance line in {out!r}")
+        on_disk = {f"127.0.0.1:{s_.grpc_port}": dirs[i] for i, s_ in enumerate(servers)}
+        _poll(lambda: _ec_census(mstub, vid)["holders"] == _disk_shards(on_disk, f"ec64k_{vid}"),
+              f"the master's census of volume {vid} to match the servers' disks", 60)
+        census = _ec_census(mstub, vid)
+        holders = census["holders"]
+        per_rack: dict = {}
+        for addr, sids in holders.items():
+            per_rack[census["racks"][addr]] = per_rack.get(census["racks"][addr], 0) + len(sids)
+        check(sorted(sid for v in holders.values() for sid in v) == list(range(14)),
+              f"shards at the master: {holders}")
+        check(max(len(v) for v in holders.values()) <= DEFAULT_SCHEME.max_shards_per_disk
+              and sorted(per_rack) == ["rack0", "rack1"],
+              f"the streaming encode left {holders} ({per_rack} by rack)")
+        files = {f"v{i}": sorted(n for n in os.listdir(d) if n.startswith(f"ec64k_{vid}."))
+                 for i, d in enumerate(dirs)}
+        on_disk = sorted(n for names in files.values() for n in names if re.search(r"\.ec\d\d$", n))
+        check(on_disk == [f"ec64k_{vid}.ec{sid:02d}" for sid in range(14)],
+              f"shard files after the encode (no copy may remain twice): {files}")
+        check(not any(n.endswith((".dat", ".idx", ".tmp")) for names in files.values()
+                      for n in names), f"a .dat, .idx or .tmp remained: {files}")
+        tasks = len(ec_encoder._plan_tasks(DEFAULT_SCHEME, dat_size, ec_encoder.DEFAULT_CHUNK))
+        k1_source = int(metric(source.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply"))
+        check(k1_source == tasks, f"the source server launched K1 {k1_source} times, its generate "
+                                  f"has {tasks} batches")
+        gen = server_stages(source.log_text(), "generate")
+        check(len(gen) == 1, f"the source server logged {len(gen)} generates")
+        shard_size = DEFAULT_SCHEME.shard_file_size(dat_size)
+        streams = {s_.url: server_stages(s_.log_text(), "receive") for s_ in servers}
+        received = {url: sum(r["bytes"] for r in rs) for url, rs in streams.items()}
+        shards_in = [r for rs in streams.values() for r in rs if re.fullmatch(r"\.ec\d\d", r["ext"])]
+        check(all(r["bytes"] == shard_size for r in shards_in)
+              and 14 - DEFAULT_SCHEME.max_shards_per_disk <= len(shards_in) <= 14,
+              f"the targets received {[(r['ext'], r['bytes']) for r in shards_in]} (shards of "
+              f"{shard_size} bytes)")
+        copies = [c for s_ in servers for c in server_stages(s_.log_text(), "copy") if c["shards"]]
+        walls["generate_pipeline"] = gen[0]["wall_s"]
+        print(f"write path: ec.encode -streaming of volume {vid} on {ident}: shell "
+              f"{walls['encode_shell']:.3f}s; source {source_url} K1 launches {k1_source} "
+              f"(= {tasks} batches); generate {stage_line(gen[0])}; {len(shards_in)} shards streamed, "
+              f"bytes received by target {received}; shards {holders} ({per_rack} by "
+              f"rack); ec.balance moved {moved[1]} shards ({len(copies)} shard copies); no .dat "
+              f"or .tmp left")
+
+        # 9e: reads of the EC volume, each resolved through /dir/lookup
+        ecx_dir = dirs[servers.index(by_url[lookup(vid)[0]])]
+        ev = EcVolume(ecx_dir, vid, "ec64k", scheme=None)
+        shard_of = {sid: addr for addr, sids in holders.items() for sid in sids}
+        grpc_of = {s_.url: f"127.0.0.1:{s_.grpc_port}" for s_ in servers}
+        reads = [(fid, payload) for fid, payload in seeded.items()]
+        reads += [(fid, bench_body) for fid in sample]
+        order = rng.permutation(len(reads))
+        lat = np.empty(len(reads))
+        remote_intervals = 0
+        t0 = time.perf_counter()
+        for j, i in enumerate(order):
+            fid, payload = reads[i]
+            t = time.perf_counter()
+            urls = lookup(vid)
+            status, body = pool.request(urls[0], "GET", f"/{fid}")
+            lat[j] = time.perf_counter() - t
+            check(status == 200 and body == payload, f"EC read of {fid} from {urls[0]}: {status}, "
+                                                     f"{len(body)} bytes")
+            nid = int(fid.split(",")[1][:-8], 16)
+            remote_intervals += sum(shard_of[iv.to_shard_and_offset(ev.scheme)[0]] != grpc_of[urls[0]]
+                                    for iv in ev.locate(nid)[2])
+        walls["ec_reads"] = time.perf_counter() - t0
+        ev.close()
+        ec_reads = dict(reads=len(reads), reads_per_s=len(reads) / walls["ec_reads"],
+                        p50_ms=float(np.percentile(lat, 50) * 1e3),
+                        p99_ms=float(np.percentile(lat, 99) * 1e3),
+                        remote_intervals=remote_intervals)
+        reconstructed = sum(metric(s_.metrics(), "weedtpu_ec_degraded_reads_total",
+                                   mode="reconstruct") for s_ in servers)
+        check(reconstructed == 0, f"healthy EC reads reconstructed {reconstructed} intervals")
+        print(f"write path: {len(reads)} EC reads ({SEEDED_NEEDLES} seeded, {len(sample)} benchmark) "
+              f"through /dir/lookup + GET, each equal to its payload, on the host: "
+              f"{ec_reads['reads_per_s']:.1f} reads/s, p50 {ec_reads['p50_ms']:.3f} ms, p99 "
+              f"{ec_reads['p99_ms']:.3f} ms; {remote_intervals} intervals answered by remote holders "
+              f"(from the .ecx and the census), 0 reconstructed")
+
+        # 9f: deletes on the EC volume, then 404s
+        doomed = [fid for fid in seeded][:EC_DELETES]
+        for fid in doomed:
+            url = lookup(vid)[0]
+            status, body = pool.request(url, "DELETE", f"/{fid}")
+            check(status == 202, f"DELETE {fid} on {url}: {status} {body!r}")
+        for fid in doomed:
+            url = lookup(vid)[0]
+            status, body = pool.request(url, "GET", f"/{fid}")
+            check(status == 404, f"GET of the deleted {fid} on {url}: {status}")
+        print(f"write path: {len(doomed)} seeded needles deleted on the EC volume (202), each GET "
+              f"then 404")
+        k1_by_server = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches",
+                                           kernel="gf_apply")) for s_ in servers}
+    finally:
+        pool.close()
+        rcs = {getattr(s_, "url", s_.proc.pid): s_.stop() for s_ in servers}
+        rcs["master"] = master.stop()
+    check(all(rc == 0 for rc in rcs.values()), f"write path processes exited {rcs}")
+    launches = sum(k1_by_server.values())
+    check(launches == k1_source, f"K1 launched outside the source's generate: {k1_by_server}")
+    rec = dict(walls=walls, benchmark=bench, replicated=rep, fill=fill, ec_reads=ec_reads,
+               k1_source=k1_source, batches=tasks, launches=launches, received=received,
+               balance_moved=int(moved[1]), shard_copies=len(copies), dat_size=dat_size,
+               generate=gen[0], rcs={str(k): v for k, v in rcs.items()})
+    print("write path: " + json.dumps(rec, sort_keys=True))
     return rec
 
 
@@ -2187,6 +2556,14 @@ def main() -> int:
         launches_cluster_rebuilder=cluster["k1_rebuilder"],
         cluster_walls_s=cluster["walls"],
         cluster_reads={k: cluster[k] for k in ("healthy", "degraded")},
+    )
+    write = main_path["write"]
+    record["kernels"][0]["launches"] += write["launches"]
+    record["kernels"][0].update(
+        launches_write_path=write["launches"],
+        write_path_walls_s=write["walls"],
+        write_path_benchmark={f"{r['phase']}_req_per_s": r["req_per_sec"] for r in write["benchmark"]},
+        write_path_ec_reads=write["ec_reads"],
     )
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)

@@ -2,7 +2,8 @@
 
 The counterpart of seaweedfs_tpu/cli.py for the commands ported so far
 (``ec.encode.local``, ``ec.rebuild.local``, ``ec.decode.local``, for the RS
-and LRC storage classes; ``master``, ``volume`` and ``shell``; ``version``);
+and LRC storage classes; ``master``, ``volume``, ``shell`` and
+``benchmark``; ``version``);
 ``<cmd> -h`` shows each command's flags.  A
 missing CUDA device is not caught here: it raises.
 """

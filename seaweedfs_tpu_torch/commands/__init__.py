@@ -46,7 +46,13 @@ def command(name: str, help: str):
 def _import_all() -> None:
     # command modules register on import; they defer torch and storage
     # imports into run() so `-h` stays fast
-    from seaweedfs_tpu_torch.commands import ec_local, servers, shell_cmd, version  # noqa: F401
+    from seaweedfs_tpu_torch.commands import (  # noqa: F401
+        benchmark_cmd,
+        ec_local,
+        servers,
+        shell_cmd,
+        version,
+    )
 
 
 _import_all()

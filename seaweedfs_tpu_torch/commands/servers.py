@@ -1,19 +1,20 @@
 """``master`` and ``volume``: run the port's master and volume server.
 
 The port of seaweedfs_tpu/commands/servers.py's ``master`` and ``volume``
-commands.  ``master`` takes ``-ip``, ``-port``, ``-grpcPort`` (default
-``-port`` + 10000; with ``-port 0``, a free port) and
-``-volumeSizeLimitMB``; it has no HTTP endpoints, so ``-port`` binds
-nothing itself, and it runs no kernel.  ``volume`` takes ``-dir``,
+commands.  ``master`` takes ``-ip``, ``-port`` (its HTTP endpoints; 0
+binds a free port), ``-grpcPort`` (default ``-port`` + 10000; with
+``-port 0``, a free port), ``-volumeSizeLimitMB``, ``-defaultReplication``
+and ``-jwtKey``; it runs no kernel.  ``volume`` takes ``-dir``,
 ``-mserver`` (the master's gRPC address; the port's default is none: no
-heartbeat, the EC service alone), ``-ip``, ``-port``, ``-grpcPort`` (as
-the master's), ``-dataCenter``, ``-rack``, ``-max`` (volumes per dir),
-``-metricsPort`` (a ``/metrics`` listener; 0 picks a free port, none when
-left out) and ``-device`` (default ``cuda``; ``cpu`` runs the codec on the
-host).  The volume server has no HTTP needle data path either.  Each
-prints one first line on stdout that names the ports it bound.  The
-volume server resolves its device at start: without CUDA, and without
-``-device cpu``, it raises and exits.  SIGINT or SIGTERM stops either.
+heartbeat), ``-ip``, ``-port`` (the HTTP needle API; ``ip:port`` names the
+node at the master), ``-grpcPort`` (as the master's), ``-dataCenter``,
+``-rack``, ``-max`` (volumes per dir), ``-jwtKey``, ``-fsync`` (default
+``$WEED_FSYNC`` or ``close``), ``-metricsPort`` (a separate ``/metrics``
+listener; 0 picks a free port, none when left out) and ``-device``
+(default ``cuda``; ``cpu`` runs the codec on the host).  Each prints one
+first line on stdout that names the ports it bound.  The volume server
+resolves its device at start: without CUDA, and without ``-device cpu``,
+it raises and exits.  SIGINT or SIGTERM stops either.
 """
 
 from __future__ import annotations
@@ -44,9 +45,10 @@ def run_master(args) -> int:
     from seaweedfs_tpu_torch.server.master_server import MasterServer
 
     ms = MasterServer(ip=args.ip, port=args.port, grpc_port=args.grpcPort,
-                      volume_size_limit_mb=args.volumeSizeLimitMB)
+                      volume_size_limit_mb=args.volumeSizeLimitMB,
+                      default_replication=args.defaultReplication, jwt_key=args.jwtKey)
     ms.start()
-    print(f"master gRPC on {ms.grpc_address}", flush=True)
+    print(f"master gRPC on {ms.grpc_address}, HTTP on {ms.advertise}", flush=True)
     try:
         _wait_forever()
     finally:
@@ -59,12 +61,14 @@ def _master_flags(p) -> None:
     p.add_argument("-port", type=int, default=9333)
     p.add_argument("-grpcPort", type=int, default=0, help="default port+10000")
     p.add_argument("-volumeSizeLimitMB", type=int, default=30 * 1024)
+    p.add_argument("-defaultReplication", default="000")
+    p.add_argument("-jwtKey", default="", help="sign per-fid write JWTs (or WEED_JWT_KEY)")
 
 
 run_master.configure = _master_flags
 
 
-@command("volume", "run a volume server (EC shard service, volumes, heartbeats)")
+@command("volume", "run a volume server (HTTP needle API, EC shard service, heartbeats)")
 def run_volume(args) -> int:
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 
@@ -80,10 +84,13 @@ def run_volume(args) -> int:
         data_center=args.dataCenter,
         rack=args.rack,
         max_volume_counts=[args.max] * len(dirs),
+        jwt_key=args.jwtKey,
+        fsync=args.fsync,
     )
     vs.start()
     metrics = f", metrics on {vs.ip}:{vs.metrics_port}" if vs.metrics_port is not None else ""
-    print(f"volume server gRPC on {vs.ip}:{vs.grpc_port} (device {vs.device}){metrics}", flush=True)
+    print(f"volume server HTTP on {vs.url}, gRPC on {vs.ip}:{vs.grpc_port} (device {vs.device})"
+          f"{metrics}", flush=True)
     try:
         _wait_forever()
     finally:
@@ -94,13 +101,17 @@ def run_volume(args) -> int:
 def _volume_flags(p) -> None:
     p.add_argument("-dir", default="./data", help="comma-separated data dirs")
     p.add_argument("-mserver", default="",
-                   help="master gRPC address (none: no heartbeat, the EC service alone)")
+                   help="master gRPC address (none: no heartbeat)")
     p.add_argument("-ip", default="127.0.0.1")
     p.add_argument("-port", type=int, default=8080)
     p.add_argument("-grpcPort", type=int, default=0, help="default port+10000")
     p.add_argument("-dataCenter", default="DefaultDataCenter")
     p.add_argument("-rack", default="DefaultRack")
     p.add_argument("-max", type=int, default=8, help="max volumes per dir")
+    p.add_argument("-jwtKey", default="", help="verify per-fid write JWTs (or WEED_JWT_KEY)")
+    p.add_argument("-fsync", default="",
+                   help="volume fsync policy: always | interval[:N] | close | never "
+                   "(default $WEED_FSYNC or close)")
     p.add_argument("-metricsPort", type=int, default=None,
                    help="/metrics listener port (0: a free one; none when left out)")
     p.add_argument("-device", default="cuda",

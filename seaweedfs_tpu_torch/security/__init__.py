@@ -1,0 +1,14 @@
+"""Security: per-fid write JWTs, the port of seaweedfs_tpu/security's
+``sign_fid``, ``verify_fid`` and ``JwtError``.
+
+When a signing key is configured, the master attaches a short-lived
+HMAC-SHA256 JWT to every assignment, and volume servers refuse writes and
+deletes that do not carry a token for that exact fid (reference
+weed/security/jwt.go:16-30, guard.go).  The key is symmetric and shared by
+masters and volume servers, so volume servers can also sign their
+replication fan-out.  TLS is not ported.
+"""
+
+from seaweedfs_tpu_torch.security.jwt import JwtError, decode_jwt, encode_jwt, sign_fid, verify_fid
+
+__all__ = ["JwtError", "decode_jwt", "encode_jwt", "sign_fid", "verify_fid"]

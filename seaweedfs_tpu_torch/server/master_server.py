@@ -1,32 +1,39 @@
-"""Master server: topology coordination over gRPC.
+"""Master server: topology coordination over gRPC + HTTP.
 
 The port's copy of the single-master half of
 seaweedfs_tpu/server/master_server.py (reference
 weed/server/master_server.go:62-87, master_grpc_server*.go): it receives
 streaming heartbeats from volume servers (full state then deltas,
-including EC shard bitsets and their storage class), serves
-``LookupVolume``, ``LookupEcVolume``, ``VolumeList`` and
-``CollectionList``, leases the shell's cluster-exclusive admin lock, and
-prunes nodes that stop heartbeating.  It runs no kernel and takes no
-device.
+including EC shard bitsets and their storage class), serves ``Assign``,
+``VolumeGrow``, ``LookupVolume``, ``LookupEcVolume``, ``VolumeList`` and
+``CollectionList``, leases the shell's cluster-exclusive admin lock,
+prunes nodes that stop heartbeating, signs per-fid write JWTs when it has
+a key, and answers the HTTP endpoints ``/dir/assign``, ``/dir/lookup``
+(volume holders, else EC shard holders) and ``/metrics`` on ``port``.  It
+runs no kernel and takes no device.
 
-Not ported: HA (raft, lease election, follower forwarding: the one master
-always leads), the HTTP endpoints, ``Assign``/``VolumeGrow`` (the
-topology's write half), JWT signing, the meta store, telemetry and the
-cluster-node registry.  Their RPCs answer UNIMPLEMENTED.
+Not ported: HA (raft, lease election, follower forwarding and the
+sequence barrier: the one master always leads and its sequence is always
+ready), the meta store, telemetry, ``/cluster/*`` and the cluster-node
+registry.  Their RPCs answer UNIMPLEMENTED.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
+from urllib.parse import parse_qs, urlparse
 
 import grpc
 
-from seaweedfs_tpu_torch import rpc
+from seaweedfs_tpu_torch import rpc, stats
 from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+from seaweedfs_tpu_torch.security import sign_fid
 from seaweedfs_tpu_torch.storage.erasure_coding.shard_bits import ShardBits
 from seaweedfs_tpu_torch.topology.topology import DataNode, Topology, VolumeRecord
+from seaweedfs_tpu_torch.util.httpd import PooledHTTPServer, QuietHandler
 
 
 def _to_record(v: m_pb.VolumeStat) -> VolumeRecord:
@@ -131,6 +138,29 @@ class MasterGrpcServicer:
                                          leader=self.ms.grpc_address)
 
     # -- unary RPCs --------------------------------------------------------
+
+    def assign(self, request, context):
+        try:
+            fid, nodes = self.ms.topology.pick_for_write(
+                max(1, request.count), request.collection,
+                request.replication or self.ms.default_replication, request.ttl_seconds,
+                disk_type=request.disk_type, growth_count=max(1, request.writable_volume_count))
+        except Exception as e:  # noqa: BLE001 — surfaced as the response's error
+            return m_pb.AssignResponse(error=str(e))
+        stats.MASTER_REQUESTS.inc(type="assign")
+        return m_pb.AssignResponse(fid=fid, count=max(1, request.count),
+                                   location=_location(nodes[0]),
+                                   replicas=[_location(n) for n in nodes[1:]],
+                                   auth=self.ms.sign_write_jwt(fid))
+
+    def volume_grow(self, request, context):
+        """Pre-grow volumes for a layout (reference shell volume.grow ->
+        master VolumeGrow; topology/volume_growth.go)."""
+        vids = [self.ms.topology.grow_volumes(
+                    request.collection, request.replication or self.ms.default_replication,
+                    request.ttl_seconds, disk_type=request.disk_type)
+                for _ in range(max(1, request.count))]
+        return m_pb.VolumeGrowResponse(volume_ids=vids)
 
     def lookup_volume(self, request, context):
         out = []
@@ -244,9 +274,54 @@ class MasterGrpcServicer:
         return m_pb.ReleaseAdminTokenResponse()
 
 
+class _MasterHttpHandler(QuietHandler):
+    ms: "MasterServer" = None  # class attribute injected per server
+
+    def _json(self, obj, code: int = 200) -> None:
+        self._reply(code, json.dumps(obj).encode(), "application/json")
+
+    def do_GET(self):
+        url = urlparse(self.path)
+        q = parse_qs(url.query)
+        if url.path == "/metrics":
+            self._reply(200, stats.render_text().encode(), "text/plain; version=0.0.4")
+        elif url.path == "/dir/assign":
+            try:
+                fid, nodes = self.ms.topology.pick_for_write(
+                    int(q.get("count", ["1"])[0]), q.get("collection", [""])[0],
+                    q.get("replication", [self.ms.default_replication])[0],
+                    int(q.get("ttl", ["0"])[0] or 0), disk_type=q.get("disk", [""])[0])
+            except Exception as e:  # noqa: BLE001 — the client gets the reason
+                self._json({"error": str(e)}, 500)
+                return
+            out = {"fid": fid, "url": nodes[0].url, "publicUrl": nodes[0].public_url, "count": 1}
+            auth = self.ms.sign_write_jwt(fid)
+            if auth:
+                out["auth"] = auth
+            self._json(out)
+        elif url.path == "/dir/lookup":
+            vid = q.get("volumeId", [""])[0].split(",")[0]
+            nodes = self.ms.topology.lookup(int(vid)) if vid.isdigit() else []
+            if not nodes and vid.isdigit():
+                shard_nodes = {n.id: n for ns in self.ms.topology.lookup_ec_shards(int(vid)).values()
+                               for n in ns}
+                nodes = list(shard_nodes.values())
+            if nodes:
+                self._json({"volumeId": vid, "locations": [
+                    {"url": n.url, "publicUrl": n.public_url} for n in nodes]})
+            else:
+                self._json({"volumeId": vid, "error": "not found"}, 404)
+        else:
+            self._json({"error": "not found"}, 404)
+
+    def do_POST(self):
+        self._drain()
+        self.do_GET()
+
+
 class MasterServer:
-    """One master: the topology, the admin lock, the gRPC server and the
-    dead-node prune loop."""
+    """One master: the topology, the admin lock, the gRPC and HTTP servers
+    and the dead-node prune loop."""
 
     def __init__(
         self,
@@ -254,18 +329,34 @@ class MasterServer:
         port: int = 9333,
         grpc_port: int = 0,
         volume_size_limit_mb: int = 30 * 1024,
+        default_replication: str = "000",
+        jwt_key: str = "",
     ):
         self.ip = ip
         self.port = port
         self.grpc_port = grpc_port if (grpc_port or port == 0) else port + 10000
         self.topology = Topology(volume_size_limit_mb * 1024 * 1024)
         self.admin_lock = AdminLock()
+        self.default_replication = default_replication
+        self.jwt_key = jwt_key or os.environ.get("WEED_JWT_KEY", "")
         self._grpc_server = None
+        self._http_server = None
         self._stop = threading.Event()
+
+    @property
+    def advertise(self) -> str:
+        return f"{self.ip}:{self.port}"
 
     @property
     def grpc_address(self) -> str:
         return f"{self.ip}:{self.grpc_port}"
+
+    def sign_write_jwt(self, fid: str) -> str:
+        """Per-fid write token when the cluster signs writes (reference
+        security.GenJwtForVolumeServer); empty string when disabled."""
+        if not self.jwt_key:
+            return ""
+        return sign_fid(self.jwt_key, fid)
 
     def _prune_loop(self) -> None:
         while not self._stop.wait(self.topology.dead_node_timeout / 3):
@@ -276,10 +367,17 @@ class MasterServer:
         rpc.add_service(self._grpc_server, m_pb, "Master", MasterGrpcServicer(self))
         self.grpc_port = rpc.add_port(self._grpc_server, f"{self.ip}:{self.grpc_port}")
         self._grpc_server.start()
+        handler = type("Handler", (_MasterHttpHandler,), {"ms": self})
+        self._http_server = PooledHTTPServer((self.ip, self.port), handler)
+        self.port = self._http_server.server_address[1]
+        threading.Thread(target=self._http_server.serve_forever, daemon=True).start()
         threading.Thread(target=self._prune_loop, daemon=True).start()
 
     def stop(self) -> None:
         self._stop.set()
+        if self._http_server is not None:
+            self._http_server.shutdown()
+            self._http_server.server_close()
         if self._grpc_server is not None:
             # wait for termination: a mid-grace return leaves the port
             # half-dead (client RPCs get CANCELLED, not UNAVAILABLE)

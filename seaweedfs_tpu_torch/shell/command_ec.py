@@ -6,9 +6,10 @@ balance -> delete originals; command_ec_rebuild.go:62-256: copy survivors
 to one rebuilder -> rebuild RPC -> mount -> drop temp copies;
 command_ec_decode.go:89-119: collect all shards -> decode to .dat/.idx ->
 mount volume -> drop shards).  The encode and rebuild behind these RPCs
-run in the volume servers, through K1 on the card.  The streaming encode
-(``-streaming``: shards sent to their holders while they are generated)
-is not ported and raises ``ShellError``."""
+run in the volume servers, through K1 on the card.  ``ec.encode
+-streaming`` picks every shard's holder before the generate, which then
+sends each shard to its holder as the pipeline produces it (reference
+worker ec_task.go:534)."""
 
 from __future__ import annotations
 
@@ -142,6 +143,85 @@ def do_ec_encode(
     )
 
 
+def pick_streaming_targets(env: CommandEnv, scheme: EcScheme, disk_type: str = "") -> list[str]:
+    """One destination gRPC address per shard, decided BEFORE the encode so
+    shards stream straight to their holders.  Capacity-weighted: each
+    shard goes to the node with the most remaining free EC slots (ties
+    broken by node id for determinism) and every placement consumes a
+    slot, the same pressure ec.balance converges to."""
+    nodes, _, _ = collect_ec_nodes(env.collect_topology().topology_info, scheme, disk_type)
+    remaining = {n.info.id: n.free_ec_slots for n in nodes if n.free_ec_slots > 0}
+    by_id = {n.info.id: n for n in nodes}
+    total_free = sum(remaining.values())
+    if total_free < scheme.total_shards:
+        raise ShellError(
+            f"streaming encode needs {scheme.total_shards} free EC slots"
+            + (f" on {disk_type} disks" if disk_type else "")
+            + f", cluster has {total_free}")
+    targets = []
+    assigned: dict[str, list[int]] = {}
+    cap = scheme.max_shards_per_disk
+    for sid in range(scheme.total_shards):
+        # durability first: prefer nodes under the max_shards_per_disk cap;
+        # past the cap (a cluster smaller than min_total_disks), still
+        # refuse placements whose single-node loss would be rank-deficient
+        # (e.g. a whole LRC local group on one node) unless nothing else
+        # has a slot
+        live = {i: r for i, r in remaining.items() if r > 0}
+        tiers = [
+            {i: r for i, r in live.items() if len(assigned.get(i, [])) < cap},
+            {i: r for i, r in live.items()
+             if scheme.loss_recoverable(tuple(assigned.get(i, []) + [sid]))},
+            live,
+        ]
+        pool = next(t for t in tiers if t)
+        nid = max(pool, key=lambda i: (pool[i], i))
+        remaining[nid] -= 1
+        assigned.setdefault(nid, []).append(sid)
+        n = by_id[nid]
+        targets.append(grpc_addr(n.info.url, n.info.grpc_port))
+    return targets
+
+
+def do_ec_encode_streaming(env: CommandEnv, vid: int, collection: str, scheme: EcScheme,
+                           disk_type: str = "", max_parallelization: int = 10) -> None:
+    """Distributed generate: shards stream to their destination holders as
+    they are produced (reference worker ec_task.go:534
+    sendShardFileToDestination): no shard is written locally only to be
+    copied to its holder afterwards (the k+m/k write amplification of
+    generate-then-balance)."""
+    locations = env.lookup_volume(vid)
+    if not locations:
+        raise ShellError(f"volume {vid} not found")
+    for loc in locations:
+        env.volume(_loc_grpc(loc)).VolumeMarkReadonly(vs_pb.VolumeMarkRequest(volume_id=vid))
+    source = _loc_grpc(locations[0])
+    targets = pick_streaming_targets(env, scheme, disk_type)
+    env.volume(source).EcShardsGenerate(vs_pb.EcShardsGenerateRequest(
+        volume_id=vid, collection=collection, geometry=geometry_msg(scheme), targets=targets,
+        disk_type=disk_type))
+    by_dest: dict[str, list[int]] = {}
+    for sid, dest in enumerate(targets):
+        by_dest.setdefault(dest or source, []).append(sid)
+    # every holder needs the needle index beside its shards; the .ecx/.vif
+    # are small, so copying them is not the write wall the shards were
+    for dest, sids in sorted(by_dest.items()):
+        if dest != source:
+            copy_shards(env, vid, collection, [], source, dest, copy_index_files=True,
+                        disk_type=disk_type)
+        mount_shards(env, vid, collection, sids, dest)
+    if source not in by_dest:
+        # the generating server holds no shards: drop its orphaned index
+        # files (EcShardsDelete with no ids sweeps .ecx/.ecj/.vif)
+        env.volume(source).EcShardsDelete(vs_pb.EcShardsDeleteRequest(
+            volume_id=vid, collection=collection, shard_ids=[]))
+    parallel_exec(
+        [(lambda g=_loc_grpc(loc): env.volume(g).VolumeDelete(
+            vs_pb.VolumeDeleteRequest(volume_id=vid))) for loc in locations],
+        max_parallelization,
+    )
+
+
 def _wait_for_registered_shards(
     env: CommandEnv, vid: int, total: int, timeout: float = 15.0
 ) -> None:
@@ -166,12 +246,6 @@ def _wait_for_registered_shards(
 @shell_command("ec.encode", "erasure-code volumes (encode through K1 on the card)")
 def cmd_ec_encode(env, args, out):
     env.confirm_is_locked()
-    if args.streaming:
-        raise ShellError(
-            "ec.encode -streaming is not ported yet (the streaming generate: "
-            "EcShardsGenerate targets, RemoteShardSink, EcShardsReceive); "
-            "run ec.encode without it"
-        )
     scheme = _scheme_from_args(args) or DEFAULT_SCHEME
     if args.volumeId:
         vids = [args.volumeId]
@@ -183,14 +257,13 @@ def cmd_ec_encode(env, args, out):
         print("no volumes to encode", file=out)
         return
     for vid in vids:
-        do_ec_encode(
-            env,
-            vid,
-            args.collection,
-            scheme,
-            args.maxParallelization,
-        )
-        print(f"ec.encode volume {vid} -> {scheme_desc(scheme)}", file=out)
+        if args.streaming:
+            do_ec_encode_streaming(env, vid, args.collection, scheme, disk_type=args.diskType,
+                                   max_parallelization=args.maxParallelization)
+        else:
+            do_ec_encode(env, vid, args.collection, scheme, args.maxParallelization)
+        print(f"ec.encode volume {vid} -> {scheme_desc(scheme)}"
+              + (" [streamed to holders]" if args.streaming else ""), file=out)
     if not args.skipBalance:
         from seaweedfs_tpu_torch.shell.command_ec_balance import balance_ec_shards
 
@@ -222,7 +295,7 @@ def _encode_flags(p):
     p.add_argument(
         "-streaming", action="store_true",
         help="stream shards straight to destination holders during "
-        "generate (not ported: raises)",
+        "generate instead of materializing locally and balancing",
     )
     p.add_argument(
         "-diskType", default="",

@@ -1,9 +1,11 @@
 """Metrics: the port's counterpart of seaweedfs_tpu/stats.
 
-Only the counter families the port emits so far, with the JAX package's
-names and help strings: the repair budget's (ops/repair_budget), the
-plane billing's (stats/plane), the EC service's (``EC_OPS``,
-``EC_DEGRADED_READS``) and, in ops/sched_cache, the schedule cache's; and
+Only the families the port emits so far, with the JAX package's names and
+help strings: the repair budget's (ops/repair_budget), the plane
+billing's (stats/plane), the EC service's (``EC_OPS``,
+``EC_DEGRADED_READS``), the HTTP data plane's (``VOLUME_REQUESTS``,
+``VOLUME_REQUEST_SECONDS``, ``MASTER_REQUESTS``) and, in ops/sched_cache,
+the schedule cache's; and
 one of its own, ``CUDA_KERNEL_LAUNCHES``, which a server samples from the
 kernels' launch counters so a client can see them.
 ``series()`` is how callers read a family; ``render_text()`` renders every
@@ -15,6 +17,7 @@ family in the Prometheus text format of the JAX package's
 from __future__ import annotations
 
 import threading
+from bisect import bisect_right
 
 
 def _fmt_labels(labels: tuple[tuple[str, str], ...]) -> str:
@@ -95,6 +98,47 @@ class Gauge:
         return "\n".join(lines)
 
 
+DEFAULT_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+    5.0, 10.0,
+)
+
+
+class Histogram:
+    """A family of latency histograms, rendered with cumulative buckets."""
+
+    def __init__(self, name: str, help_text: str = "", buckets=DEFAULT_BUCKETS):
+        self.name = name
+        self.help = help_text
+        self.buckets = tuple(sorted(buckets))
+        self._lock = threading.Lock()
+        self._counts: dict[tuple, list[int]] = {}
+        self._sums: dict[tuple, float] = {}
+        _register(self)
+
+    def observe(self, value: float, **labels) -> None:
+        key = tuple(sorted(labels.items()))
+        with self._lock:
+            counts = self._counts.setdefault(key, [0] * (len(self.buckets) + 1))
+            counts[bisect_right(self.buckets, value)] += 1  # per bucket; cumulative at render
+            self._sums[key] = self._sums.get(key, 0.0) + value
+
+    def render(self) -> str:
+        lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} histogram"]
+        with self._lock:
+            for key, counts in sorted(self._counts.items()):
+                cumulative = 0
+                for i, bound in enumerate(self.buckets):
+                    cumulative += counts[i]
+                    lines.append(f"{self.name}_bucket{_fmt_labels(key + (('le', f'{bound:g}'),))} "
+                                 f"{cumulative}")
+                cumulative += counts[-1]
+                lines.append(f"{self.name}_bucket{_fmt_labels(key + (('le', '+Inf'),))} {cumulative}")
+                lines.append(f"{self.name}_sum{_fmt_labels(key)} {self._sums[key]:g}")
+                lines.append(f"{self.name}_count{_fmt_labels(key)} {cumulative}")
+        return "\n".join(lines)
+
+
 def render_text() -> str:
     with _FAMILIES_LOCK:
         families = list(_FAMILIES)
@@ -126,6 +170,18 @@ def start_metrics_server(port: int, ip: str = "127.0.0.1"):
     return server
 
 
+VOLUME_REQUESTS = Counter(
+    "weedtpu_volume_server_request_total",
+    "Volume server HTTP requests by type",
+)
+VOLUME_REQUEST_SECONDS = Histogram(
+    "weedtpu_volume_server_request_seconds",
+    "Volume server HTTP request latency by type",
+)
+MASTER_REQUESTS = Counter(
+    "weedtpu_master_request_total",
+    "Master RPC/HTTP requests by type",
+)
 EC_OPS = Counter(
     "weedtpu_ec_operations_total",
     "EC codec operations (encode/rebuild/reconstruct) by op",

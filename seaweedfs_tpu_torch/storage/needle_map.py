@@ -163,6 +163,11 @@ class AppendIndex:
     def flush(self) -> None:
         self._f.flush()
 
+    def sync(self) -> None:
+        """fsync the .idx (the volume fsync policy's index half)."""
+        self._f.flush()
+        os.fsync(self._f.fileno())
+
     def close(self) -> None:
         self._f.flush()
         try:

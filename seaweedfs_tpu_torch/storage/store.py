@@ -5,12 +5,13 @@ The port's copy of seaweedfs_tpu/storage/store.py (reference
 weed/storage/store.go:57-76, disk_location.go, disk_location_ec.go): load,
 create, mount, unmount and destroy volumes; mount, unmount and destroy EC
 shards; and the stats plus delta queues (``volume_deltas``,
-``ec_shard_deltas``) that the volume server's heartbeat drains.  The
-native data plane, the store-level needle I/O and the per-disk types,
-needle-map kinds, backends, offset widths and fsync policies of the JAX
-Store's options are not ported (every volume is on hdd, with an
-in-memory needle map and the disk backend, width 4 when new, and fsync
-on close).
+``ec_shard_deltas``) that the volume server's heartbeat drains.  Every
+volume it opens or creates takes the store's fsync policy
+(``storage.volume.parse_fsync_policy``).  The native data plane, the
+store-level needle I/O and the per-disk types, needle-map kinds, backends
+and offset widths of the JAX Store's options are not ported (every volume
+is on hdd, with an in-memory needle map and the disk backend, width 4 when
+new).
 """
 
 from __future__ import annotations
@@ -25,7 +26,12 @@ from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
 from seaweedfs_tpu_torch.storage.erasure_coding.scheme import EcScheme
 from seaweedfs_tpu_torch.storage.erasure_coding.shard_bits import ShardBits
 from seaweedfs_tpu_torch.storage.super_block import ttl_to_seconds
-from seaweedfs_tpu_torch.storage.volume import NotFoundError, Volume, volume_file_name
+from seaweedfs_tpu_torch.storage.volume import (
+    NotFoundError,
+    Volume,
+    parse_fsync_policy,
+    volume_file_name,
+)
 
 
 class DiskLocation:
@@ -35,9 +41,11 @@ class DiskLocation:
 
     disk_type = "hdd"
 
-    def __init__(self, directory: str | os.PathLike, max_volume_count: int = 8):
+    def __init__(self, directory: str | os.PathLike, max_volume_count: int = 8,
+                 fsync: str = "close"):
         self.directory = str(directory)
         self.max_volume_count = max_volume_count
+        self.fsync = fsync
         self.volumes: dict[int, Volume] = {}
         self.ec_volumes: dict[int, EcVolume] = {}
         self.lock = threading.RLock()
@@ -55,7 +63,7 @@ class DiskLocation:
                 if vid in self.volumes:
                     continue
                 try:
-                    vol = Volume(self.directory, vid, collection, create=False)
+                    vol = Volume(self.directory, vid, collection, create=False, fsync=self.fsync)
                 except (OSError, ValueError):
                     continue
                 self.volumes[vid] = vol
@@ -82,13 +90,15 @@ class Store:
     """All disk locations of one volume server + heartbeat delta queues."""
 
     def __init__(self, directories: list[str | os.PathLike],
-                 max_volume_counts: list[int] | None = None):
+                 max_volume_counts: list[int] | None = None, fsync: str = "close"):
         counts = max_volume_counts or [8] * len(directories)
         if len(counts) != len(directories):
             # zip would silently drop the unmatched dirs
             raise ValueError(f"{len(directories)} dirs need {len(directories)} max counts "
                              f"(got {len(counts)})")
-        self.locations = [DiskLocation(d, c) for d, c in zip(directories, counts)]
+        parse_fsync_policy(fsync)  # refuse a bad policy before any volume opens
+        self.fsync = fsync
+        self.locations = [DiskLocation(d, c, fsync) for d, c in zip(directories, counts)]
         # incremental heartbeat deltas (reference: NewVolumesChan /
         # NewEcShardsChan, store.go:69-74): (kind, volume, disk_type) and
         # (kind, vid, collection, bits, sizes, scheme, disk_type)
@@ -135,7 +145,8 @@ class Store:
         loc = self._location_with_room(disk_type)
         if loc is None:
             raise ValueError(f"no {disk_type or 'hdd'} disk location has room for a new volume")
-        vol = Volume(loc.directory, vid, collection, replica_placement, ttl_seconds=ttl_seconds)
+        vol = Volume(loc.directory, vid, collection, replica_placement, ttl_seconds=ttl_seconds,
+                     fsync=self.fsync)
         with loc.lock:
             loc.volumes[vid] = vol
         self.volume_deltas.put(("new", vol, loc.disk_type))
@@ -150,7 +161,7 @@ class Store:
         for loc in self.locations:
             if not os.path.exists(volume_file_name(loc.directory, collection, vid) + ".dat"):
                 continue
-            vol = Volume(loc.directory, vid, collection, create=False)
+            vol = Volume(loc.directory, vid, collection, create=False, fsync=self.fsync)
             with loc.lock:
                 loc.volumes[vid] = vol
             self.volume_deltas.put(("new", vol, loc.disk_type))

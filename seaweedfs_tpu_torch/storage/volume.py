@@ -7,9 +7,10 @@ walk a mounted volume gets), create one, append, tombstone and read
 needles, seal it durably (.vif readOnly), and destroy it.  A volume that
 fills up is sealed and handed to the EC pipeline (storage/erasure_coding).
 
-Not ported: the fsync policies (a volume is made durable when it
-closes, the JAX package's default ``close``), the needle-map kinds other
-than memory, the memory backend, the native data plane, tiering, vacuum,
+Each volume applies its fsync policy (``parse_fsync_policy``: always,
+interval[:N], close or never) after every append, as the JAX package does.
+
+Not ported: the needle-map kinds other than memory, the memory backend, the native data plane, tiering, vacuum,
 ``scan`` and ``rebuild_index`` (a volume whose vacuum commit marker
 survived a crash, which needs the index rebuilt from its .dat, is refused
 at open).
@@ -58,6 +59,24 @@ class NotFoundError(KeyError):
     pass
 
 
+def parse_fsync_policy(spec: str) -> tuple[str, float]:
+    """-> (mode, interval_s).  Modes: ``always`` fsync .dat+.idx after
+    every write; ``interval[:N]`` fsync opportunistically at most every N
+    seconds (default 5) on the write path; ``close`` only on clean close
+    (the backend does that unconditionally); ``never`` documents that the
+    caller accepts page-cache durability."""
+    spec = (spec or "close").strip().lower()
+    mode, _, arg = spec.partition(":")
+    if mode not in ("always", "interval", "close", "never"):
+        raise ValueError(f"unknown fsync policy {spec!r}")
+    interval = 5.0
+    if mode == "interval" and arg:
+        interval = float(arg)
+        if interval <= 0:
+            raise ValueError(f"fsync interval must be positive: {spec!r}")
+    return mode, interval
+
+
 def volume_file_name(directory: str | os.PathLike, collection: str, vid: int) -> str:
     base = f"{collection}_{vid}" if collection else str(vid)
     return str(Path(directory) / base)
@@ -76,11 +95,14 @@ class Volume:
         create: bool = True,
         ttl_seconds: int = 0,
         offset_width: int = 4,
+        fsync: str = "close",
     ):
         self.id = vid
         self.collection = collection
         self.base = volume_file_name(directory, collection, vid)
         self.read_only = False
+        self.fsync_mode, self.fsync_interval_s = parse_fsync_policy(fsync)
+        self._last_fsync = time.monotonic()
         # scrubber state, reported in the heartbeat's VolumeStat (the
         # scrubber itself is not ported: these stay 0)
         self.last_scrub_at_ns = 0
@@ -236,6 +258,23 @@ class Volume:
         except NeedleError:
             return "crc"
 
+    # -- fsync policy -------------------------------------------------------
+
+    def sync(self) -> None:
+        """fsync .dat + .idx now."""
+        self._dat.sync()
+        self.nm.sync()
+
+    def _maybe_sync_locked(self) -> None:
+        """Apply the volume fsync policy after a write (lock held)."""
+        if self.fsync_mode == "always":
+            self.sync()
+        elif self.fsync_mode == "interval":
+            now = time.monotonic()
+            if now - self._last_fsync >= self.fsync_interval_s:
+                self._last_fsync = now
+                self.sync()
+
     def _compute_deleted_bytes(self) -> int:
         size = self.dat_size() - SUPER_BLOCK_SIZE
         if size <= 0:
@@ -302,6 +341,7 @@ class Volume:
             old = self.nm.get(n.id)
             end = self._dat.append(record)
             self.nm.put(n.id, end, n.size)
+            self._maybe_sync_locked()
             if old is not None and size_is_valid(old.size):
                 # overwrite: the superseded record is garbage now
                 with self._acct_lock:
@@ -321,6 +361,7 @@ class Volume:
             record = Needle(id=needle_id, cookie=0).to_bytes(self.version)
             self._dat.append(record)
             self.nm.delete(needle_id)
+            self._maybe_sync_locked()
             with self._acct_lock:
                 self._deleted_bytes += get_actual_size(nv.size, self.version) + len(record)
             return get_actual_size(nv.size, self.version)

@@ -1,18 +1,21 @@
 """In-memory cluster topology kept by the master.
 
-The port's copy of the read half of seaweedfs_tpu/topology/topology.py
-(reference weed/topology/topology.go:30-61, data_node.go,
-topology_ec.go:16-42, volume_layout.go): a DC -> rack -> data-node tree
-fed by streaming heartbeats (full state, then deltas), per-(collection,
-replication, ttl, disk type) volume layouts, the master-side EC shard map
-(vid -> shard -> nodes) with each EC volume's storage class, dead-node
-pruning, and the lookups.  The write half (``next_file_key``,
-``pick_for_write``, ``grow_volumes`` and the sequence watermarks) waits
-for the assign path.
+The port's copy of seaweedfs_tpu/topology/topology.py (reference
+weed/topology/topology.go:30-61, data_node.go, topology_ec.go:16-42,
+volume_layout.go, volume_growth.go, capacity reservation in node.go): a
+DC -> rack -> data-node tree fed by streaming heartbeats (full state, then
+deltas), per-(collection, replication, ttl, disk type) volume layouts, the
+master-side EC shard map (vid -> shard -> nodes) with each EC volume's
+storage class, dead-node pruning, the lookups, and the write half: file
+keys and volume ids, assign (``pick_for_write``) and rack-aware volume
+growth with capacity reservations.  The sequence's persistence and HA
+watermark adoption (``restore_sequence``, the persist hook) belong to
+master HA and are not ported: one master's ids start from the clock.
 """
 
 from __future__ import annotations
 
+import random
 import threading
 import time
 from dataclasses import dataclass, field
@@ -64,6 +67,8 @@ class DataNode:
         self.ec_shards: dict[int, ShardBits] = {}
         self.ec_collections: dict[int, str] = {}
         self.ec_disk_types: dict[int, str] = {}  # vid -> shard disk type
+        self.reserved = 0  # in-flight volume growth reservations (all types)
+        self.reserved_by_type: dict[str, int] = {}
         self.last_seen = time.monotonic()
 
     @property
@@ -76,13 +81,14 @@ class DataNode:
 
     def free_slots(self, disk_type: str = "") -> int:
         # EC shards consume fractional slots (k+m shards ~= 1 volume);
-        # they are attributed to hdd.  (The JAX package also subtracts
-        # in-flight growth reservations: volume growth is not ported.)
+        # they are attributed to hdd
         ec_load = -(-sum(b.count() for b in self.ec_shards.values()) // 14)
         if not disk_type:
-            return sum(self.max_volume_counts.values()) - len(self.volumes) - ec_load
+            return (sum(self.max_volume_counts.values()) - len(self.volumes) - self.reserved
+                    - ec_load)
         used = sum(1 for r in self.volumes.values() if r.disk_type == disk_type)
-        out = self.max_volume_counts.get(disk_type, 0) - used
+        out = (self.max_volume_counts.get(disk_type, 0) - used
+               - self.reserved_by_type.get(disk_type, 0))
         if disk_type == "hdd":
             out -= ec_load
         return out
@@ -120,9 +126,14 @@ class VolumeLayout:
             self.writable.discard(vid)
             self.readonly.discard(vid)
 
+    def pick_writable(self) -> int | None:
+        if not self.writable:
+            return None
+        return random.choice(tuple(self.writable))
+
 
 class Topology:
-    """Cluster state: heartbeat registration and the lookups."""
+    """Cluster state + assign/lookup/grow operations."""
 
     def __init__(self, volume_size_limit: int = 30 * 1024**3):
         self.lock = threading.RLock()
@@ -138,7 +149,23 @@ class Topology:
         self.ec_schemes: dict[int, tuple[int, int, int]] = {}
         self.volume_size_limit = volume_size_limit
         self.max_volume_id = 0
+        self._file_key = int(time.time()) << 20  # coarse snowflake epoch base
         self.dead_node_timeout = 15.0
+        # per-layout growth serialization (see pick_for_write); guarded by
+        # the GIL for setdefault, entries live for the process lifetime
+        self._growth_locks: dict[tuple, threading.Lock] = {}
+
+    # -- sequence ----------------------------------------------------------
+
+    def next_file_key(self, count: int = 1) -> int:
+        with self.lock:
+            self._file_key += count
+            return self._file_key
+
+    def next_volume_id(self) -> int:
+        with self.lock:
+            self.max_volume_id += 1
+            return self.max_volume_id
 
     # -- heartbeat sync ----------------------------------------------------
 
@@ -300,6 +327,137 @@ class Topology:
             shard_map = self.ec_shard_map.get(vid, {})
             return {sid: [self.nodes[n] for n in nodes if n in self.nodes]
                     for sid, nodes in shard_map.items()}
+
+    # -- assign / growth ---------------------------------------------------
+
+    def pick_for_write(self, count: int, collection: str, replication: str, ttl: int,
+                       disk_type: str = "", growth_count: int = 1) -> tuple[str, list[DataNode]]:
+        """Returns (fid, [primary + replica nodes]); grows volumes when no
+        writable volume exists for the layout, ``growth_count`` of them at
+        once."""
+        disk_type = disk_type or "hdd"
+        with self.lock:
+            layout = self._layout(collection, replication, ttl, disk_type)
+            vid = layout.pick_writable()
+        if vid is None:
+            # serialize growth per layout (the reference's single-grower
+            # volumeGrowthRequestChan): under an assign burst on an empty
+            # layout, one caller grows while the rest wait and reuse the
+            # fresh volume; without this, N concurrent assigns race into N
+            # growths and the losers fail with "no free slots"
+            grow_lock = self._growth_locks.setdefault(
+                (collection, replication, ttl, disk_type), threading.Lock())
+            with grow_lock:
+                with self.lock:
+                    vid = layout.pick_writable()
+                if vid is None:
+                    # growth issues blocking gRPC allocates: outside the
+                    # topology lock
+                    vid = self.grow_volumes(collection, replication, ttl,
+                                            count=max(1, growth_count), disk_type=disk_type)
+        with self.lock:
+            # the fid names the FIRST key of the reserved span; clients
+            # derive the rest as fid_1..fid_{count-1} (key+i, same cookie),
+            # the reference's batch-assign convention
+            start_key = self.next_file_key(count) - count + 1
+            cookie = random.getrandbits(32)
+            nodes = [self.nodes[n] for n in layout.locations.get(vid, ()) if n in self.nodes]
+            if not nodes:
+                raise RuntimeError(f"no locations for assigned volume {vid}")
+            return f"{vid},{start_key:x}{cookie:08x}", nodes
+
+    def grow_volumes(self, collection: str, replication: str, ttl: int, count: int = 1,
+                     disk_type: str = "") -> int:
+        """Allocate new volumes on placement-satisfying nodes; returns the
+        last vid.  Reference volume_growth.go findEmptySlotsForOneVolume:
+        main + replica nodes honoring the xyz placement code, with a
+        capacity reservation held while the gRPC allocates run, so
+        concurrent assigns cannot oversubscribe a node."""
+        from seaweedfs_tpu_torch.storage.super_block import ReplicaPlacement
+
+        rp = ReplicaPlacement.parse(replication or "000")
+        disk_type = disk_type or "hdd"
+        vid = None
+        for _ in range(count):
+            with self.lock:
+                chosen = self._choose_nodes(rp, disk_type)
+                for n in chosen:
+                    n.reserved += 1
+                    n.reserved_by_type[disk_type] = n.reserved_by_type.get(disk_type, 0) + 1
+                new_vid = self.next_volume_id()
+            try:
+                self._allocate_on(chosen, new_vid, collection, replication, ttl, disk_type)
+                # register now: the heartbeat delta confirms later, but
+                # assigns must see the new locations at once
+                with self.lock:
+                    for n in chosen:
+                        self._register_volume_locked(
+                            VolumeRecord(id=new_vid, collection=collection,
+                                         replica_placement=replication or "000",
+                                         ttl_seconds=ttl, disk_type=disk_type), n)
+            finally:
+                with self.lock:
+                    for n in chosen:
+                        n.reserved -= 1
+                        n.reserved_by_type[disk_type] = max(
+                            0, n.reserved_by_type.get(disk_type, 0) - 1)
+            vid = new_vid
+        return vid
+
+    def _choose_nodes(self, rp, disk_type: str = "hdd") -> list[DataNode]:
+        """Pick 1 + z same-rack + y other-rack + x other-DC nodes with room.
+        Every candidate is tried as the main node (most-free first) until
+        one satisfies the placement: a main in a single-node rack must not
+        doom a same-rack-replica request another rack could serve."""
+        candidates = [n for n in self.nodes.values() if n.free_slots(disk_type) > 0]
+        if not candidates:
+            raise RuntimeError(f"no free {disk_type} slots in cluster")
+        random.shuffle(candidates)
+        candidates.sort(key=lambda n: -n.free_slots(disk_type))
+        last_err: Exception | None = None
+        for main in candidates:
+            try:
+                return self._nodes_around(main, candidates, rp, disk_type)
+            except RuntimeError as e:
+                last_err = e
+        raise RuntimeError(f"placement unsatisfiable: {last_err}")
+
+    @staticmethod
+    def _nodes_around(main, candidates, rp, disk_type="hdd") -> list[DataNode]:
+        chosen = [main]
+
+        def take(pool, want):
+            got = []
+            for n in pool:
+                if len(got) >= want:
+                    break
+                if n not in chosen and n.free_slots(disk_type) > 0:
+                    got.append(n)
+            if len(got) < want:
+                raise RuntimeError(f"wanted {want} more nodes near {main.id}")
+            return got
+
+        same_rack = [n for n in candidates if n.rack == main.rack
+                     and n.data_center == main.data_center and n is not main]
+        other_rack = [n for n in candidates
+                      if n.data_center == main.data_center and n.rack != main.rack]
+        other_dc = [n for n in candidates if n.data_center != main.data_center]
+        chosen += take(same_rack, rp.same_rack)
+        chosen += take(other_rack, rp.diff_rack)
+        chosen += take(other_dc, rp.diff_dc)
+        return chosen
+
+    def _allocate_on(self, nodes: list[DataNode], vid: int, collection: str, replication: str,
+                     ttl: int, disk_type: str = "") -> None:
+        """Issue AllocateVolume to each chosen volume server (overridable
+        for in-memory tests)."""
+        from seaweedfs_tpu_torch import rpc
+        from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs_pb
+
+        for node in nodes:
+            rpc.volume_stub(node.grpc_address).AllocateVolume(vs_pb.AllocateVolumeRequest(
+                volume_id=vid, collection=collection, replication=replication,
+                ttl_seconds=ttl, disk_type=disk_type))
 
     # -- views -------------------------------------------------------------
 

@@ -1,10 +1,73 @@
-"""Rate limiting: the port's copy of seaweedfs_tpu/util/limiter.py's
-TokenBucket, the bucket the repair budget (ops/repair_budget) composes."""
+"""Load limiting: the port's copy of seaweedfs_tpu/util/limiter.py's
+InFlightLimiter, the volume server's upload and download backpressure, and
+TokenBucket, the bucket the repair budget (ops/repair_budget) composes.
+The tenant QoS layer is not ported."""
 
 from __future__ import annotations
 
 import threading
 import time
+from contextlib import contextmanager
+
+
+class InFlightLimiter:
+    """Condition-variable backpressure on in-flight bytes (the reference
+    volume server's upload/download limit,
+    weed/server/volume_server_handlers_read.go:188-194)."""
+
+    def __init__(self, limit_bytes: int, wait_timeout: float = 30.0):
+        self.limit = limit_bytes
+        self.wait_timeout = wait_timeout
+        self._in_flight = 0
+        self._cond = threading.Condition()
+
+    @property
+    def in_flight(self) -> int:
+        with self._cond:
+            return self._in_flight
+
+    def acquire(self, n: int, timeout: float | None = None) -> bool:
+        """Block until ``n`` more bytes fit under the limit; False on
+        timeout.  A request larger than the whole limit is admitted once
+        the pipe is empty (the reference waits on ``> limit``, it does not
+        reject).  ``timeout`` overrides the limiter default: pass a small
+        value when the caller already holds a reservation (growing while
+        holding cannot wait long or peers in the same position starve each
+        other)."""
+        if self.limit <= 0 or n <= 0:  # limit 0 = disabled
+            return True
+        if timeout is not None:
+            deadline = max(0.0, timeout)
+        elif self.wait_timeout <= 0:
+            deadline = threading.TIMEOUT_MAX
+        else:
+            deadline = self.wait_timeout
+        with self._cond:
+            ok = self._cond.wait_for(
+                lambda: self._in_flight == 0 or self._in_flight + n <= self.limit,
+                timeout=deadline,
+            )
+            if not ok:
+                return False
+            self._in_flight += n
+            return True
+
+    def release(self, n: int) -> None:
+        if self.limit <= 0 or n <= 0:
+            return
+        with self._cond:
+            self._in_flight = max(0, self._in_flight - n)
+            self._cond.notify_all()
+
+    @contextmanager
+    def reserve(self, n: int, timeout: float | None = None):
+        """Context-managed acquire/release; yields False if shed."""
+        ok = self.acquire(n, timeout=timeout)
+        try:
+            yield ok
+        finally:
+            if ok:
+                self.release(n)
 
 
 class TokenBucket:

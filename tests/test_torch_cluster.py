@@ -386,8 +386,6 @@ def test_encode_remote_reads_node_loss_rebuild_decode(cluster, monkeypatch):
     env = CommandEnv(master.grpc_address)
     _shell(env, "lock")
     try:
-        with pytest.raises(Exception, match="not ported"):
-            _shell(env, "ec.encode -volumeId 1 -streaming")
         text = _shell(env, "ec.encode -volumeId 1")
         assert "ec.encode volume 1 -> RS(10,4)" in text
         _wait(lambda: sum(_master_counts(master, 1).values()) == 14, "14 shards at the master")

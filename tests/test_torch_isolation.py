@@ -65,7 +65,13 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/shell/command_env.py", "seaweedfs_tpu_torch/shell/ec_common.py",
             "seaweedfs_tpu_torch/shell/command_ec_balance.py",
             "seaweedfs_tpu_torch/shell/command_ec.py", "seaweedfs_tpu_torch/shell/command_volume.py",
-            "seaweedfs_tpu_torch/commands/shell_cmd.py"} <= names
+            "seaweedfs_tpu_torch/commands/shell_cmd.py",
+            "seaweedfs_tpu_torch/security/__init__.py", "seaweedfs_tpu_torch/security/jwt.py",
+            "seaweedfs_tpu_torch/wdclient/__init__.py", "seaweedfs_tpu_torch/images/__init__.py",
+            "seaweedfs_tpu_torch/images/resize.py", "seaweedfs_tpu_torch/util/httpd.py",
+            "seaweedfs_tpu_torch/util/http_pool.py", "seaweedfs_tpu_torch/util/http_range.py",
+            "seaweedfs_tpu_torch/storage/compression.py",
+            "seaweedfs_tpu_torch/commands/benchmark_cmd.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())

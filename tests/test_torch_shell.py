@@ -4,8 +4,8 @@
   replica, then generate and mount on the first, then delete every
   replica), checked with a recording environment fed to both shells.
 - The shell's own rules: commands that mutate need ``lock``, unknown
-  commands and ``-streaming`` raise ``ShellError``, ``help`` lists what is
-  ported.
+  commands raise ``ShellError``, ``-streaming`` is taken (it goes on to the
+  master), ``help`` lists what is ported.
 - The command line: ``cli master``, two ``cli volume -mserver ... -device
   cpu`` and ``cli shell -c "lock; ec.encode -volumeId 1; unlock"`` as
   subprocesses on localhost; and ``cli volume`` without ``-device cpu``
@@ -25,6 +25,7 @@ import time
 from argparse import Namespace
 from pathlib import Path
 
+import grpc
 import pytest
 import torch
 
@@ -88,8 +89,8 @@ def test_shell_rules():
         run_command(env, "volume.list", io.StringIO())
     with pytest.raises(ShellError, match="bad arguments"):
         run_command(env, "ec.rebuild -noSuchFlag", io.StringIO())
-    env.lock_token = 1  # as if leased: -streaming must refuse before any RPC
-    with pytest.raises(ShellError, match="-streaming is not ported"):
+    env.lock_token = 1  # as if leased: -streaming is parsed and goes on to the (absent) master
+    with pytest.raises(grpc.RpcError):
         run_command(env, "ec.encode -volumeId 9 -streaming", io.StringIO())
     out = io.StringIO()
     run_command(env, "help", out)
@@ -135,7 +136,8 @@ def test_cli_master_volumes_and_shell(tmp_path):
     write_needle_volume(str(dirs[0]), seed=21, n=150)
     procs = []
     try:
-        master, bound = _start(["master", "-port", "0"], r"^master gRPC on (127\.0\.0\.1:\d+)$")
+        master, bound = _start(["master", "-port", "0"],
+                               r"^master gRPC on (127\.0\.0\.1:\d+), HTTP on 127\.0\.0\.1:\d+$")
         procs.append(master)
         maddr = bound[1]
         for i, d in enumerate(dirs):

@@ -26,6 +26,8 @@ from seaweedfs_tpu.server import volume_server as jax_vs
 from seaweedfs_tpu_torch import rpc
 from seaweedfs_tpu_torch.pb import volume_server_pb2 as pb
 from seaweedfs_tpu_torch.server import volume_server
+from seaweedfs_tpu_torch.storage.needle import Needle
+from seaweedfs_tpu_torch.storage.types import Version
 
 from test_torch_ec_read import write_needle_volume
 
@@ -74,7 +76,7 @@ def pair(tmp_path):
     shutil.copytree(src, port_dir)
     shutil.copytree(src, ref_dir)
     ref = jax_vs.VolumeServer([str(ref_dir)], "127.0.0.1:1")
-    port = volume_server.VolumeServer([str(port_dir)], grpc_port=0, device="cpu")
+    port = volume_server.VolumeServer([str(port_dir)], port=0, grpc_port=0, device="cpu")
     port.start()
     try:
         yield (volume_server.VolumeServerGrpcServicer(port), str(port_dir),
@@ -212,11 +214,13 @@ def test_unmounted_shard_read_and_empty_info_match_jax(pair):
 
 
 def test_generate_with_targets_is_refused_not_encoded_locally(pair):
+    """Targets that cannot take their shards fail the generate, and nothing
+    is encoded locally in their place."""
     port, port_dir = pair[0], pair[1]
     before = sorted(os.listdir(port_dir))
     _out, err = _call(port, "ec_shards_generate",
                       pb.EcShardsGenerateRequest(volume_id=1, targets=["127.0.0.1:1"] * 14))
-    assert err[0] == grpc.StatusCode.UNIMPLEMENTED
+    assert err[0] == grpc.StatusCode.INTERNAL and "streaming generate" in err[1]
     assert sorted(os.listdir(port_dir)) == before
 
 
@@ -260,8 +264,11 @@ def test_grpc_round_trip_through_the_cli_server(tmp_path):
         out = list(stub.EcShardRead(pb.EcShardReadRequest(volume_id=1, shard_id=0, size=8,
                                                           file_key=nid), timeout=30))
         assert [r.is_deleted for r in out] == [True]
+        blob = stub.ReadNeedleBlob(pb.ReadNeedleBlobRequest(volume_id=1, needle_id=nid,
+                                                            offset=-1), timeout=30).needle_blob
+        assert Needle.from_bytes(blob, Version.V3).data == vol["live"][nid]
         with pytest.raises(grpc.RpcError) as err:
-            stub.ReadNeedleBlob(pb.ReadNeedleBlobRequest(volume_id=1, needle_id=nid), timeout=30)
+            stub.VolumeVacuum(pb.VolumeVacuumRequest(volume_id=1), timeout=30)
         assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
         with urllib.request.urlopen(f"http://127.0.0.1:{metrics_port}/metrics", timeout=30) as r:
             text = r.read().decode()
