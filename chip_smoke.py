@@ -144,6 +144,29 @@ Phases, each printing what it found; any failure exits non-zero:
    read from others, counted from the .ecx and the census); 9f: 64
    seeded needles DELETEd on the EC volume, then 404.  Its figures go on
    a ``write path:`` JSON line.
+10. Master failover: three ``cli master -ha raft -peers m0,m1,m2 -mdir
+   ...`` and four ``cli volume -device cuda -max 8 -mserver m0,m1,m2``
+   subprocesses (racks alternating), up once one leader is elected and the
+   four nodes are at it.  16 writer threads assign through
+   ``MasterClient("m0,m1,m2")`` and POST 1 KiB (derived from the fid) at
+   replication 001 for 10 s; then whichever master leads is SIGKILLed (its
+   place in the list printed) and the writes go on until 10 s after a new
+   leader answers.  Printed: the seconds from the kill to the new leader,
+   to the four servers at it and to the first acknowledged write assigned
+   after the kill; write req/s, p50 and p99 before and after; every write
+   error (reported, never dropped).  The killed master restarts on its
+   -mdir and must catch up as a follower; ``cli shell -master m0,m1,m2 -c
+   cluster.raft.ps`` must list three members and the one leader.  Checks:
+   every acknowledged fid and file key unique, every acknowledged needle
+   byte-identical from both holders, every volume id's .dat on its copies
+   only and no needle id in two volumes (no id issued twice across the
+   failover and the restart); ``cli benchmark -master m0,m1,m2 -n 16384
+   -size 1024 -c 16`` with 0 errors; ``cli benchmark`` of 4,096 x 64 KiB
+   fills one 256 MiB volume, and ``cli shell -master m0,m1,m2 -c "lock;
+   ec.encode -volumeId V -collection haec; unlock"`` encodes it with K1 on
+   its server's card (launches from its /metrics equal to the generate's
+   batches), every shard sha256-identical to the CPU plain version's
+   encoding of the same .dat.  Its figures go on a ``failover:`` JSON line.
 
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
@@ -175,6 +198,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -768,9 +792,14 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
             path = os.path.join(tmp, name)
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         write = phase_write_path(args, tmp, ident, dev)
+        for name in os.listdir(tmp):  # room for phase 10's volumes
+            path = os.path.join(tmp, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+        failover = phase_failover(args, tmp, ident, dev)
         return dict(launches=enc_launches + reb_launches, encode=enc, rebuild=reb,
                     encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
-                    lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster, write=write)
+                    lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster, write=write,
+                    failover=failover)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2108,10 +2137,9 @@ def _benchmark(maddr: str, n: int, size: int, collection: str, replication: str,
     return reports
 
 
-def _volume_fids(base: str, vid: int) -> list[str]:
-    """The fid of every live needle of the volume at ``base`` (its .idx,
-    last entry of a key wins, and each needle's cookie from its .dat
-    record)."""
+def _live_entries(base: str):
+    """The live entries (id, off, size) of ``base``.idx, the last entry of a
+    key winning."""
     import numpy as np
 
     entry = np.dtype([("id", ">u8"), ("off", ">u4"), ("size", ">i4")])
@@ -2119,7 +2147,13 @@ def _volume_fids(base: str, vid: int) -> list[str]:
     idx = raw[: raw.size - raw.size % entry.itemsize].view(entry)
     _, last = np.unique(idx["id"][::-1], return_index=True)
     live = idx[len(idx) - 1 - last]
-    live = live[(live["off"] > 0) & (live["size"] > 0)]
+    return live[(live["off"] > 0) & (live["size"] > 0)]
+
+
+def _volume_fids(base: str, vid: int) -> list[str]:
+    """The fid of every live needle of the volume at ``base`` (its .idx and
+    each needle's cookie from its .dat record)."""
+    live = _live_entries(base)
     fids = []
     with open(base + ".dat", "rb") as f:
         for key, off in zip(live["id"].tolist(), live["off"].tolist()):
@@ -2379,6 +2413,336 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
     return rec
 
 
+HA_MASTERS = 3
+HA_WRITERS = 16  # `weed benchmark`'s -c
+HA_WINDOW_S = 10.0  # writes before the kill, and after a new leader answers
+HA_BENCH_N = 16384
+HA_EC_N, HA_EC_SIZE = 4096, 64 * 1024  # one 256 MiB volume of 64 KiB needles
+
+
+def _free_ports(n: int) -> list[int]:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s_ in socks:
+        s_.bind(("127.0.0.1", 0))
+    ports = [s_.getsockname()[1] for s_ in socks]
+    for s_ in socks:
+        s_.close()
+    return ports
+
+
+def _http_json(addr: str, path: str, timeout: float = 2.0):
+    """GET on a fresh connection: (status, JSON body), or None when the
+    peer does not answer (a killed master)."""
+    import http.client
+
+    host, port = addr.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"null")
+    except (OSError, ValueError, http.client.HTTPException):
+        return None
+    finally:
+        conn.close()
+
+
+def _ha_payload(fid: str) -> bytes:
+    """Each write's 1 KiB payload, derived from its fid."""
+    return hashlib.shake_256(fid.encode()).digest(BENCH_SIZE)
+
+
+def phase_failover(args, directory: str, ident: str, dev) -> dict:
+    """Phase 10: master failover.  Three ``cli master -ha raft`` and four
+    ``cli volume -device cuda -max 8 -mserver m0,m1,m2`` subprocesses; 16
+    writers through MasterClient(m0,m1,m2) at replication 001 while the
+    leading master is SIGKILLed; the killed master restarts on its -mdir
+    and rejoins; every acknowledged write unique and on both holders;
+    ``cli benchmark`` through the master list; ``ec.encode`` of a 256 MiB
+    volume through the new leader, K1 on its server (module docstring)."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.util.http_pool import HttpConnectionPool
+    from seaweedfs_tpu_torch.wdclient import MasterClient
+
+    root = os.path.join(directory, "failover")
+    dirs = [os.path.join(root, f"v{i}") for i in range(CLUSTER_SERVERS)]
+    for d in dirs:
+        os.makedirs(d)
+    log = os.path.join(root, "shell.log")
+    ports = _free_ports(2 * HA_MASTERS)
+    http_addrs = [f"127.0.0.1:{p}" for p in ports[:HA_MASTERS]]
+    grpc_addrs = [f"127.0.0.1:{p}" for p in ports[HA_MASTERS:]]
+    mlist = ",".join(grpc_addrs)
+
+    def master_argv(i: int) -> list:
+        return ["master", "-port", str(ports[i]), "-grpcPort", str(ports[HA_MASTERS + i]),
+                "-ha", "raft", "-peers", ",".join(http_addrs), "-mdir",
+                os.path.join(root, f"m{i}")]
+
+    def statuses() -> dict:
+        """{master index: /cluster/status} of the masters that answer."""
+        out = {}
+        for i, addr in enumerate(http_addrs):
+            got = _http_json(addr, "/cluster/status")
+            if got is not None and got[0] == 200:
+                out[i] = got[1]
+        return out
+
+    def leader(exclude=None) -> int | None:
+        """The index of the one master that leads and that every other
+        answering master names, else None."""
+        st = {i: s_ for i, s_ in statuses().items() if i != exclude}
+        leads = [i for i, s_ in st.items() if s_["IsLeader"]]
+        if len(leads) != 1 or any(s_["Leader"] != http_addrs[leads[0]] for s_ in st.values()):
+            return None
+        return leads[0]
+
+    def census(i: int) -> dict:
+        """{node id: {vid: collection}} at master i."""
+        topo = rpc.master_stub(grpc_addrs[i]).VolumeList(m_pb.VolumeListRequest(),
+                                                         timeout=30).topology_info
+        return {dn.id: {v.id: v.collection for disk in dn.disk_infos.values()
+                        for v in disk.volume_infos}
+                for dc in topo.data_center_infos for r in dc.rack_infos for dn in r.data_node_infos}
+
+    walls: dict = {}
+    masters: list = []
+    servers: list = []
+    t_phase = time.perf_counter()
+    pool = HttpConnectionPool(timeout=60.0, max_per_host=64)
+    try:
+        t = time.perf_counter()
+        masters = [_Server("", "", os.path.join(root, f"m{i}.log"), argv=master_argv(i), wait=False)
+                   for i in range(HA_MASTERS)]
+        for m in masters:
+            m.ready()
+        walls["masters_up"] = time.perf_counter() - t
+        walls["first_leader"] = _poll(lambda: leader() is not None, "a raft leader", 60)
+        t = time.perf_counter()
+        servers = [_Server(d, dev.type, os.path.join(root, f"v{i}.log"), wait=False,
+                           extra=("-mserver", mlist, "-rack", f"rack{i % 2}", "-max", "8"))
+                   for i, d in enumerate(dirs)]
+        for s_ in servers:
+            s_.ready()
+            s_.url = f"127.0.0.1:{s_.http_port}"
+        by_url = {s_.url: s_ for s_ in servers}
+        walls["servers_up"] = time.perf_counter() - t
+        first = leader()
+        walls["registered"] = _poll(lambda: set(census(first)) == set(by_url),
+                                    "4 nodes at the raft leader", 120)
+        print(f"failover: masters {grpc_addrs} (HTTP {http_addrs}) up in "
+              f"{walls['masters_up']:.3f}s, m{first} leads after {walls['first_leader']:.3f}s; "
+              f"{CLUSTER_SERVERS} volume servers up in {walls['servers_up']:.3f}s, all at the "
+              f"leader after {walls['registered']:.3f}s")
+
+        # the writes: assign + POST at 001 through the master list
+        mc = MasterClient(mlist)
+        acks: list = []  # (fid, url, acked at, latency)
+        errors: list = []  # (at, what)
+        stop = threading.Event()
+
+        def writer() -> None:
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                try:
+                    a = mc.assign(collection="ha", replication="001")
+                    status, body = pool.request(a.location.url, "POST", f"/{a.fid}",
+                                                body=_ha_payload(a.fid))
+                except Exception as e:  # noqa: BLE001 — every failed write is reported
+                    errors.append((time.perf_counter(), f"{type(e).__name__}: {e}"[:200]))
+                    time.sleep(0.05)
+                    continue
+                t1 = time.perf_counter()
+                if status == 201:
+                    acks.append((a.fid, a.location.url, t1, t1 - t0))
+                else:
+                    errors.append((t1, f"POST {a.fid}: {status} {body[:120]!r}"))
+                    time.sleep(0.05)
+
+        threads = [threading.Thread(target=writer, daemon=True) for _ in range(HA_WRITERS)]
+        t_start = time.perf_counter()
+        for th in threads:
+            th.start()
+        time.sleep(HA_WINDOW_S)
+        victim = leader()
+        check(victim is not None, f"no single leader before the kill: {statuses()}")
+        masters[victim].proc.kill()
+        t_kill = time.perf_counter()
+        masters[victim].stop()
+        print(f"failover: SIGKILLed the leader m{victim} ({http_addrs[victim]}, place {victim} of "
+              f"{HA_MASTERS} in -mserver/-master) after {t_kill - t_start:.3f}s of writes, "
+              f"{len(acks)} acknowledged")
+        new = None
+        while new is None:
+            check(time.perf_counter() - t_kill < 60, "no new leader within 60 s of the kill")
+            new = leader(exclude=victim)
+            time.sleep(0.02)
+        t_leader = time.perf_counter()
+        _poll(lambda: set(census(new)) == set(by_url), "the four servers at the new leader", 60)
+        t_rehomed = time.perf_counter()
+        while time.perf_counter() < t_leader + HA_WINDOW_S:
+            time.sleep(0.1)
+        stop.set()
+        for th in threads:
+            th.join(timeout=120)
+        t_end = time.perf_counter()
+        after = [a for a in acks if a[2] - a[3] > t_kill]  # assigned after the kill
+        check(bool(after), "no write was acknowledged after the kill")
+
+        def window(lo: float, hi: float) -> dict:
+            lat = np.array([a[3] for a in acks if lo <= a[2] < hi])
+            return dict(writes=int(lat.size), req_per_s=float(lat.size / (hi - lo)),
+                        p50_ms=float(np.percentile(lat, 50) * 1e3),
+                        p99_ms=float(np.percentile(lat, 99) * 1e3))
+
+        rec = dict(killed=victim, new_leader=new,
+                   leader_s=t_leader - t_kill, rehomed_s=t_rehomed - t_kill,
+                   first_ack_s=min(a[2] for a in after) - t_kill,
+                   before=window(t_start, t_kill), after=window(t_leader, t_end),
+                   acked=len(acks), errors=len(errors),
+                   errors_before_kill=sum(e[0] < t_kill for e in errors),
+                   error_samples=sorted({e[1] for e in errors})[:8],
+                   last_error_after_kill_s=max((e[0] - t_kill for e in errors), default=None))
+        print(f"failover: kill -> new leader m{new} {rec['leader_s']:.3f}s, -> 4 servers re-homed "
+              f"{rec['rehomed_s']:.3f}s, -> first acknowledged write {rec['first_ack_s']:.3f}s; "
+              f"writes before {rec['before']['req_per_s']:.1f} req/s (p50 "
+              f"{rec['before']['p50_ms']:.2f}, p99 {rec['before']['p99_ms']:.2f} ms), after "
+              f"{rec['after']['req_per_s']:.1f} req/s (p50 {rec['after']['p50_ms']:.2f}, p99 "
+              f"{rec['after']['p99_ms']:.2f} ms); {len(acks)} acknowledged, {len(errors)} write "
+              f"errors (reported, retried): {rec['error_samples']}")
+
+        # the killed master restarts on its -mdir and rejoins as a follower
+        t = time.perf_counter()
+        masters[victim] = _Server("", "", os.path.join(root, f"m{victim}.restart.log"),
+                                  argv=master_argv(victim))
+
+        def caught_up() -> bool:
+            got = _http_json(http_addrs[victim], "/cluster/raft/ps")
+            ldr = _http_json(http_addrs[new], "/cluster/raft/ps")
+            return (got is not None and ldr is not None and got[1]["role"] == "follower"
+                    and got[1]["leader"] == http_addrs[new]
+                    and got[1]["commit_index"] >= ldr[1]["commit_index"] - 1)
+
+        _poll(caught_up, f"m{victim} to rejoin as a follower", 60)
+        walls["rejoined"] = time.perf_counter() - t
+        check(leader() == new, f"the restart moved the leadership: {statuses()}")
+        _, out = _shell(mlist, "cluster.raft.ps", log)
+        rows = [line.split() for line in out.splitlines()[1:] if line.strip()]
+        check(sorted(r[0] for r in rows) == sorted(http_addrs)
+              and [r[1] for r in rows].count("leader") == 1
+              and next(r[0] for r in rows if r[1] == "leader") == http_addrs[new],
+              f"cluster.raft.ps after the restart: {out!r}")
+        print(f"failover: m{victim} restarted on its -mdir and caught up as a follower in "
+              f"{walls['rejoined']:.3f}s; cluster.raft.ps lists 3 members, leader m{new}")
+
+        # every acknowledged write is unique and on both holders
+        fids = [a[0] for a in acks]
+        check(len(set(fids)) == len(fids), "a fid was acknowledged twice")
+        keys = [int(f.split(",")[1][:-8], 16) for f in fids]
+        check(len(set(keys)) == len(keys), "a file key was issued twice")
+        holders = {}
+        for fid in fids:
+            vid = int(fid.split(",")[0])
+            if vid not in holders:
+                holders[vid] = sorted(u for u, vols in census(new).items() if vid in vols)
+                check(len(holders[vid]) == 2, f"ha volume {vid} has holders {holders[vid]}")
+
+        def read_back(fid: str) -> int:
+            want = _ha_payload(fid)
+            for url in holders[int(fid.split(",")[0])]:
+                status, body = pool.request(url, "GET", f"/{fid}")
+                check(status == 200 and body == want, f"{fid} on {url}: {status}, {len(body)} B")
+            return 2
+
+        t = time.perf_counter()
+        with ThreadPoolExecutor(HA_WRITERS) as readers:
+            reads = sum(readers.map(read_back, fids))
+        walls["read_back"] = time.perf_counter() - t
+        print(f"failover: {len(fids)} acknowledged writes ({len(set(keys))} distinct keys) in "
+              f"{len(holders)} volume(s), each read back byte-identical from both holders "
+              f"({reads} GETs in {walls['read_back']:.3f}s)")
+
+        # the benchmark through the master list, then one 256 MiB volume
+        bench = _benchmark(mlist, HA_BENCH_N, BENCH_SIZE, "habench", "000", log)
+        fill = _benchmark(mlist, HA_EC_N, HA_EC_SIZE, "haec", "000", log)
+        topo = census(new)
+        (vid,) = sorted({v for vols in topo.values() for v, c in vols.items() if c == "haec"})
+        (source_url,) = [u for u, vols in topo.items() if vid in vols]
+        source = by_url[source_url]
+        src_base = os.path.join(dirs[servers.index(source)], f"haec_{vid}")
+        dat_size = os.path.getsize(src_base + ".dat")
+        check(dat_size >= HA_EC_N * HA_EC_SIZE, f"volume {vid}: {dat_size} bytes")
+
+        # no volume id and no file key twice: each volume's .dat on exactly
+        # its copies, and no needle id in two volumes
+        copies = {"ha": 2, "habench": 1, "haec": 1}
+        where: dict = {}
+        for i, d in enumerate(dirs):
+            for name in os.listdir(d):
+                m = re.fullmatch(r"(\w+)_(\d+)\.dat", name)
+                if m:
+                    where.setdefault(int(m[2]), []).append((m[1], i))
+        for v, held in sorted(where.items()):
+            check(len({c for c, _ in held}) == 1 and len(held) == copies[held[0][0]],
+                  f"volume id {v} is held as {held}")
+        owner: dict = {}
+        for v, held in where.items():
+            for key in _live_entries(os.path.join(dirs[held[0][1]], f"{held[0][0]}_{v}"))["id"].tolist():
+                check(owner.setdefault(key, v) == v, f"needle id {key:x} in volumes "
+                                                     f"{owner[key]} and {v}")
+        print(f"failover: {len(where)} volume ids each on its own copies only; {len(owner)} "
+              f"needle ids, none in two volumes (across the failover and the restart)")
+
+        # ec.encode through the new leader: K1 on the source's card, shards
+        # equal to the CPU plain version's encoding of the same .dat
+        ref = os.path.join(root, "ref")
+        os.mkdir(ref)
+        for ext in (".dat", ".idx"):
+            os.link(src_base + ext, os.path.join(ref, f"haec_{vid}{ext}"))
+        t = time.perf_counter()
+        ec_encoder.write_ec_files(os.path.join(ref, f"haec_{vid}"), device="cpu")
+        walls["cpu_reference_encode"] = time.perf_counter() - t
+        want = {sid: sha256(os.path.join(ref, f"haec_{vid}.ec{sid:02d}")) for sid in range(14)}
+        walls["encode_shell"], out = _shell(
+            mlist, f"lock; ec.encode -volumeId {vid} -collection haec; unlock", log)
+        on_disk = {f"127.0.0.1:{s_.grpc_port}": dirs[i] for i, s_ in enumerate(servers)}
+        new_stub = rpc.master_stub(grpc_addrs[new])
+        _poll(lambda: _ec_census(new_stub, vid)["holders"] == _disk_shards(on_disk, f"haec_{vid}"),
+              f"the new leader's census of volume {vid} to match the servers' disks", 60)
+        shard_files = {sid: os.path.join(dirs[i], f"haec_{vid}.ec{sid:02d}")
+                       for i, d in enumerate(dirs) for sid in range(14)
+                       if os.path.exists(os.path.join(d, f"haec_{vid}.ec{sid:02d}"))}
+        check(sorted(shard_files) == list(range(14)), f"shards on disk: {sorted(shard_files)}")
+        for sid, path in shard_files.items():
+            check(sha256(path) == want[sid], f"shard {sid} differs from the CPU plain encoding")
+        tasks = len(ec_encoder._plan_tasks(DEFAULT_SCHEME, dat_size, ec_encoder.DEFAULT_CHUNK))
+        k1 = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply"))
+              for s_ in servers}
+        check(k1[source_url] == tasks and sum(k1.values()) == tasks,
+              f"K1 launches by server {k1}; the source's generate has {tasks} batches")
+        print(f"failover: ec.encode of volume {vid} ({dat_size} bytes) through the master list on "
+              f"{ident}: shell {walls['encode_shell']:.3f}s; source {source_url} K1 launches "
+              f"{k1[source_url]} (= {tasks} batches); 14 shards sha256-identical to the CPU plain "
+              f"version's ({walls['cpu_reference_encode']:.3f}s on the host)")
+    finally:
+        pool.close()
+        rcs = {getattr(s_, "url", s_.proc.pid): s_.stop() for s_ in servers}
+        rcs.update({f"m{i}": m.stop() for i, m in enumerate(masters)})
+    check(all(rc == 0 for rc in rcs.values()), f"failover processes exited {rcs}")
+    walls["phase"] = time.perf_counter() - t_phase
+    rec.update(walls=walls, benchmark=bench, fill=fill, launches=k1[source_url], batches=tasks,
+               reads=reads, needles=len(owner), volumes=len(where), rcs={str(k): v for k, v in rcs.items()})
+    print("failover: " + json.dumps(rec, sort_keys=True))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2564,6 +2928,13 @@ def main() -> int:
         write_path_walls_s=write["walls"],
         write_path_benchmark={f"{r['phase']}_req_per_s": r["req_per_sec"] for r in write["benchmark"]},
         write_path_ec_reads=write["ec_reads"],
+    )
+    failover = main_path["failover"]
+    record["kernels"][0]["launches"] += failover["launches"]
+    record["kernels"][0].update(
+        launches_failover=failover["launches"],
+        failover_s={k: failover[k] for k in ("leader_s", "rehomed_s", "first_ack_s")},
+        failover_writes={k: failover[k] for k in ("before", "after", "acked", "errors")},
     )
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)

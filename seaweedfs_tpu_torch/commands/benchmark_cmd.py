@@ -183,7 +183,8 @@ def run_benchmark_cmd(args) -> int:
 
 
 def _flags(p):
-    p.add_argument("-master", default="127.0.0.1:19333", help="master gRPC address")
+    p.add_argument("-master", default="127.0.0.1:19333",
+                   help="master gRPC address, or a comma list of them")
     p.add_argument("-n", type=int, default=1000, help="number of files")
     p.add_argument("-size", type=int, default=1024, help="file size in bytes")
     p.add_argument("-c", type=int, default=16, help="concurrent clients")

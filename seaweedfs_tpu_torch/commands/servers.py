@@ -3,11 +3,16 @@
 The port of seaweedfs_tpu/commands/servers.py's ``master`` and ``volume``
 commands.  ``master`` takes ``-ip``, ``-port`` (its HTTP endpoints; 0
 binds a free port), ``-grpcPort`` (default ``-port`` + 10000; with
-``-port 0``, a free port), ``-volumeSizeLimitMB``, ``-defaultReplication``
-and ``-jwtKey``; it runs no kernel.  ``volume`` takes ``-dir``,
-``-mserver`` (the master's gRPC address; the port's default is none: no
-heartbeat), ``-ip``, ``-port`` (the HTTP needle API; ``ip:port`` names the
-node at the master), ``-grpcPort`` (as the master's), ``-dataCenter``,
+``-port 0``, a free port), ``-volumeSizeLimitMB``, ``-defaultReplication``,
+``-jwtKey`` and, for HA, ``-peers`` (every master's ``ip:port``, itself
+included), ``-mdir`` (durable sequence state, and the raft log) and ``-ha``
+(``lease``, the default, or ``raft``, which needs ``-mdir``; with
+``-ha raft`` an empty ``-peers`` starts a passive joiner for
+``cluster.raft.add``); it runs no kernel and takes no device.  ``volume``
+takes ``-dir``, ``-mserver`` (the master's gRPC address, or a
+comma-separated list of them; the port's default is none: no heartbeat),
+``-ip``, ``-port`` (the HTTP needle API; ``ip:port`` names the node at the
+master), ``-grpcPort`` (as the master's), ``-dataCenter``,
 ``-rack``, ``-max`` (volumes per dir), ``-jwtKey``, ``-fsync`` (default
 ``$WEED_FSYNC`` or ``close``), ``-metricsPort`` (a separate ``/metrics``
 listener; 0 picks a free port, none when left out) and ``-device``
@@ -40,13 +45,15 @@ def _wait_forever() -> int:
     return fired[0]
 
 
-@command("master", "run a master (topology, heartbeats, EC lookups, admin lock)")
+@command("master", "run a master (topology, heartbeats, assigns, EC lookups, admin lock, HA)")
 def run_master(args) -> int:
     from seaweedfs_tpu_torch.server.master_server import MasterServer
 
     ms = MasterServer(ip=args.ip, port=args.port, grpc_port=args.grpcPort,
                       volume_size_limit_mb=args.volumeSizeLimitMB,
-                      default_replication=args.defaultReplication, jwt_key=args.jwtKey)
+                      default_replication=args.defaultReplication,
+                      peers=[p.strip() for p in args.peers.split(",") if p.strip()],
+                      meta_dir=args.mdir, ha=args.ha, jwt_key=args.jwtKey)
     ms.start()
     print(f"master gRPC on {ms.grpc_address}, HTTP on {ms.advertise}", flush=True)
     try:
@@ -62,6 +69,11 @@ def _master_flags(p) -> None:
     p.add_argument("-grpcPort", type=int, default=0, help="default port+10000")
     p.add_argument("-volumeSizeLimitMB", type=int, default=30 * 1024)
     p.add_argument("-defaultReplication", default="000")
+    p.add_argument("-peers", default="", help="comma list of all master ip:port (incl. self)")
+    p.add_argument("-mdir", default="", help="meta dir for durable master state")
+    p.add_argument("-ha", default="lease", choices=("lease", "raft"),
+                   help="HA mode: lease probing or raft consensus (needs -mdir; "
+                   "empty -peers joins passively via cluster.raft.add)")
     p.add_argument("-jwtKey", default="", help="sign per-fid write JWTs (or WEED_JWT_KEY)")
 
 
@@ -101,7 +113,7 @@ def run_volume(args) -> int:
 def _volume_flags(p) -> None:
     p.add_argument("-dir", default="./data", help="comma-separated data dirs")
     p.add_argument("-mserver", default="",
-                   help="master gRPC address (none: no heartbeat)")
+                   help="master gRPC address, or a comma list of them (none: no heartbeat)")
     p.add_argument("-ip", default="127.0.0.1")
     p.add_argument("-port", type=int, default=8080)
     p.add_argument("-grpcPort", type=int, default=0, help="default port+10000")

@@ -48,7 +48,7 @@ def run(args) -> int:
 
 def _configure(p):
     p.add_argument("-master", default="127.0.0.1:19333",
-                   help="master gRPC address (host:grpc_port)")
+                   help="master gRPC address (host:grpc_port), or a comma list of them")
     p.add_argument("-c", default="", help="run `;`-separated commands and exit")
 
 

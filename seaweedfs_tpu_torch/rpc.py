@@ -10,9 +10,12 @@ Server side: implement a class with snake_case methods named after the RPC
 :func:`add_service`.  Client side: :func:`volume_stub` returns an object
 with the CamelCase method names the proto declares.
 
-The JAX package's resilience layer (deadlines, retries, breakers, channel
-eviction), trace propagation, fault injection and TLS are not ported:
-calls here are plain grpcio calls over insecure channels.
+Calls here are plain grpcio calls over insecure channels: the JAX
+package's resilience layer (default deadlines, retries, breakers) rides
+only the callers that ask for it (util/resilience.call_unary, as
+wdclient's failover stub does), and those evict a peer's cached channel
+when it answers UNAVAILABLE (``evict_channel``).  Trace propagation, fault
+injection and TLS are not ported.
 """
 
 from __future__ import annotations
@@ -106,6 +109,16 @@ def cached_channel(address: str) -> grpc.Channel:
             ch = grpc.insecure_channel(address, options=_GRPC_OPTIONS)
             _channel_cache[address] = ch
         return ch
+
+
+def evict_channel(address: str) -> None:
+    """Drop a dead peer's cached channel, so the next call re-dials instead
+    of riding the old channel's reconnect backoff (a restarted master).
+    The channel is not closed here: calls of other threads may still ride
+    it, and closing would turn their answers into CANCELLED; it closes when
+    the last stub holding it goes."""
+    with _channel_lock:
+        _channel_cache.pop(address, None)
 
 
 def volume_stub(address: str) -> Stub:

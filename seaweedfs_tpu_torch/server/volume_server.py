@@ -21,16 +21,18 @@ volume_grpc_client_to_master.go:51-113):
   ``EcShardsReceive``), rebuild, copy, mount, unmount, delete, read, blob
   delete, info and to-volume of EC shards; allocate, delete, mark
   read-only / writable, status, mount and unmount of normal volumes;
-  ``CopyFile`` (1 MiB chunks) and ``ReadNeedleBlob``; and, with a master
-  address, the heartbeat stream (full state, then the store's deltas, a
-  full resync every ``FULL_SYNC_EVERY`` beats).
+  ``CopyFile`` (1 MiB chunks) and ``ReadNeedleBlob``; and, with master
+  addresses, the heartbeat stream (full state, then the store's deltas, a
+  full resync every ``FULL_SYNC_EVERY`` beats).  ``master_address`` is a
+  comma-separated list (HA): the stream follows the ``leader`` a master
+  answers with and rotates through the list when a master is gone.
 
 Generate and rebuild stream the volume through
 ``select.pipeline_codec_for(scheme, device)``: K1 (csrc/gf_apply.cu) on the
 card.  Status codes, bodies and messages are the JAX package's.
 
 Not ported: the native C++ data plane, ``VolumeCopy``, vacuum, the
-scrubber, tier moves, master failover across several addresses, the
+scrubber, tier moves, the
 tracing spans and latency sketch on the handlers, and ``/debug/``.  Those
 RPCs answer UNIMPLEMENTED.
 """
@@ -41,7 +43,6 @@ import http.client
 import json
 import os
 import queue
-import random
 import re
 import threading
 import time
@@ -76,7 +77,7 @@ from seaweedfs_tpu_torch.storage.volume_info import (
     maybe_load_volume_info,
     save_volume_info,
 )
-from seaweedfs_tpu_torch.util import wlog
+from seaweedfs_tpu_torch.util import resilience, wlog
 from seaweedfs_tpu_torch.util.http_pool import HttpConnectionPool
 from seaweedfs_tpu_torch.util.httpd import PooledHTTPServer, QuietHandler
 from seaweedfs_tpu_torch.util.limiter import InFlightLimiter
@@ -810,8 +811,9 @@ class _VolumeHttpHandler(QuietHandler):
 class VolumeServer:
     """One volume server: the Store over its disks (its volumes loaded),
     the EC shard locator, the HTTP and gRPC servers, the optional
-    ``/metrics`` listener and, when ``master_address`` is given, the
-    heartbeat stream to it.
+    ``/metrics`` listener and, when ``master_address`` is given (one
+    master's gRPC address, or a comma-separated list of them), the
+    heartbeat stream to the leader.
 
     ``device`` is the codec's device, resolved at ``start()``: CUDA unless
     the caller asks for the CPU; without CUDA, start raises.  ``fsync`` is
@@ -840,7 +842,10 @@ class VolumeServer:
         self.store = Store(directories, max_volume_counts,
                            fsync=fsync or os.environ.get("WEED_FSYNC", "close"))
         self.store.load_existing_volumes()
-        self.master_address = master_address
+        # comma-separated master gRPC addresses (HA); the active one follows
+        # the leader field of the heartbeat responses
+        self.master_addresses = [a.strip() for a in master_address.split(",") if a.strip()]
+        self.master_address = self.master_addresses[0] if self.master_addresses else ""
         self.ip = ip
         self.port = port
         self.grpc_port = grpc_port if (grpc_port or port == 0) else port + 10000
@@ -1048,24 +1053,42 @@ class VolumeServer:
             )
 
     def _heartbeat_loop(self) -> None:
+        ring = 0
         failures = 0
         while not self._stop.is_set():
             try:
                 stub = rpc.master_stub(self.master_address)
-                for _resp in stub.SendHeartbeat(self._heartbeat_messages()):
+                for resp in stub.SendHeartbeat(self._heartbeat_messages()):
                     failures = 0
                     if self._stop.is_set():
                         return
+                    if resp.leader and resp.leader != self.master_address:
+                        # re-home to the leader (reference leader redirect,
+                        # volume_grpc_client_to_master.go)
+                        if wlog.V(1):
+                            wlog.info("volume %s: heartbeat re-homes from %s to leader %s",
+                                      self.url, self.master_address, resp.leader)
+                        self.master_address = resp.leader
+                        if resp.leader in self.master_addresses:
+                            # keep the failover ring aligned so a dead
+                            # leader's slot is not the first retry
+                            ring = self.master_addresses.index(resp.leader)
+                        break
             except grpc.RpcError as e:
                 failures += 1
                 if wlog.V(1):
                     wlog.info("volume %s: heartbeat to %s broke: %s", self.url,
                               self.master_address, e.code())
+                if e.code() is grpc.StatusCode.UNAVAILABLE:
+                    rpc.evict_channel(self.master_address)
+                # this master is gone: try the next configured one
+                if len(self.master_addresses) > 1:
+                    ring = (ring + 1) % len(self.master_addresses)
+                    self.master_address = self.master_addresses[ring]
             # stream broke: reconnect after a beat, with full jitter growing
-            # on repeated failures (the JAX package's backoff: 50 ms doubling,
-            # capped at 2 s) so a restarted master is not greeted by every
-            # volume server at the same instant
-            self._stop.wait(1.0 + random.uniform(0.0, min(2.0, 0.05 * 2 ** (min(failures, 5) - 1))))
+            # on repeated failures so a restarted master is not greeted by
+            # every volume server at the same instant
+            self._stop.wait(1.0 + resilience.backoff_s(min(failures, 5)))
 
     def start(self) -> None:
         from seaweedfs_tpu_torch.ops import rs_cuda, sched_cache  # noqa: F401 — sched_cache's family
@@ -1083,6 +1106,8 @@ class VolumeServer:
         handler = type("Handler", (_VolumeHttpHandler,), {"vs": self})
         self._http_server = PooledHTTPServer((self.ip, self.port), handler)
         self.port = self._http_server.server_address[1]  # ip:port names the node
+        # as in the JAX package, the EC locator asks the first configured
+        # master (followers forward its LookupEcVolume to the leader)
         self.locator = EcShardLocator(self.master_address, f"{self.ip}:{self.grpc_port}")
         threading.Thread(target=self._http_server.serve_forever, daemon=True).start()
         if self.metrics_port is not None:

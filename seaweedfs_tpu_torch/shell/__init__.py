@@ -6,7 +6,8 @@ commands running against the master under a cluster-exclusive admin
 lock.  Commands self-register via @shell_command; the REPL and one-shot
 ``-c`` runner both dispatch through ``run_command``.  Ported commands:
 ``lock``, ``unlock``, ``help``, ``ec.encode``, ``ec.balance``,
-``ec.rebuild`` and ``ec.decode``.  The shell runs no kernel and takes no
+``ec.rebuild``, ``ec.decode``, ``cluster.ps``, ``cluster.check``,
+``cluster.raft.ps``, ``cluster.raft.add`` and ``cluster.raft.remove``.  The shell runs no kernel and takes no
 device: the EC work happens inside the volume servers it drives."""
 
 from __future__ import annotations
@@ -95,6 +96,7 @@ def run_command(
 
 def _import_all() -> None:
     from seaweedfs_tpu_torch.shell import (  # noqa: F401
+        command_cluster,
         command_ec,
         command_ec_balance,
         command_volume,

@@ -4,9 +4,12 @@ The port's copy of seaweedfs_tpu/shell/command_env.py (reference
 `CommandEnv`, weed/shell/commands.go:33-50): every mutating shell command
 first confirms it holds the master-leased admin lock; the lease is
 renewed in the background while held
-(wdclient/exclusive_locks/exclusive_locker.go).  The filer clients
-(``filer``, ``remote_filer``) and the fs.* working directory are not
-ported.
+(wdclient/exclusive_locks/exclusive_locker.go).  The master address may
+be a comma-separated list (HA): ``master()`` then fails over across it
+(wdclient.FailoverStub), where the JAX package's ``CommandEnv`` hands the
+string to one stub; followers forward every RPC to the leader, so any
+live master of the list serves the shell.  The filer clients (``filer``,
+``remote_filer``) and the fs.* working directory are not ported.
 """
 
 from __future__ import annotations
@@ -15,8 +18,8 @@ import threading
 
 from seaweedfs_tpu_torch import rpc
 from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
-
 from seaweedfs_tpu_torch.util import wlog
+from seaweedfs_tpu_torch.wdclient import FailoverStub
 
 LOCK_NAME = "admin"
 RENEW_INTERVAL = 3.0  # < AdminLock.TTL on the master
@@ -32,14 +35,18 @@ class NotLockedError(RuntimeError):
 
 class CommandEnv:
     def __init__(self, master_grpc_address: str, client_name: str = "shell"):
-        self.master_address = master_grpc_address
+        self.master_addresses = [a.strip() for a in master_grpc_address.split(",") if a.strip()]
+        # the master tried first; with a list it follows the one that answered
+        self.master_address = self.master_addresses[0]
         self.client_name = client_name
         self.lock_token = 0
         self._renew_stop: threading.Event | None = None
 
     # -- clients -----------------------------------------------------------
 
-    def master(self) -> rpc.Stub:
+    def master(self):
+        if len(self.master_addresses) > 1:
+            return FailoverStub(self, self.master_addresses)
         return rpc.master_stub(self.master_address)
 
     def volume(self, grpc_address: str) -> rpc.Stub:

@@ -4,7 +4,8 @@ Only the families the port emits so far, with the JAX package's names and
 help strings: the repair budget's (ops/repair_budget), the plane
 billing's (stats/plane), the EC service's (``EC_OPS``,
 ``EC_DEGRADED_READS``), the HTTP data plane's (``VOLUME_REQUESTS``,
-``VOLUME_REQUEST_SECONDS``, ``MASTER_REQUESTS``) and, in ops/sched_cache,
+``VOLUME_REQUEST_SECONDS``, ``MASTER_REQUESTS``), the raft master's
+(``RAFT_STATE``) and, in ops/sched_cache,
 the schedule cache's; and
 one of its own, ``CUDA_KERNEL_LAUNCHES``, which a server samples from the
 kernels' launch counters so a client can see them.
@@ -86,6 +87,11 @@ class Gauge:
     def set_function(self, fn, **labels) -> None:
         with self._lock:
             self._fns[tuple(sorted(labels.items()))] = fn
+
+    def remove(self, **labels) -> None:
+        """Drop one label series (a stopped master's samplers)."""
+        with self._lock:
+            self._fns.pop(tuple(sorted(labels.items())), None)
 
     def render(self) -> str:
         lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} gauge"]
@@ -213,6 +219,10 @@ PLANE_OP_SECONDS = Counter(
     "weedtpu_plane_op_seconds_total",
     "Seconds spent inside storage-backend and http-pool operations, by "
     "plane",
+)
+RAFT_STATE = Gauge(
+    "weedtpu_master_raft",
+    "Raft consensus state: term and role (leader=1/follower=0) per field",
 )
 CUDA_KERNEL_LAUNCHES = Gauge(
     "weedtpu_cuda_kernel_launches",

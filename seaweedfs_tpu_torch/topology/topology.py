@@ -8,9 +8,11 @@ deltas), per-(collection, replication, ttl, disk type) volume layouts, the
 master-side EC shard map (vid -> shard -> nodes) with each EC volume's
 storage class, dead-node pruning, the lookups, and the write half: file
 keys and volume ids, assign (``pick_for_write``) and rack-aware volume
-growth with capacity reservations.  The sequence's persistence and HA
-watermark adoption (``restore_sequence``, the persist hook) belong to
-master HA and are not ported: one master's ids start from the clock.
+growth with capacity reservations, and the sequence's durability: the
+hi-lo file-key ceiling and ``max_volume_id`` go through the ``persist``
+hook (the master's meta store, and under ``-ha raft`` the raft log), and
+``restore_sequence`` adopts persisted or peer watermarks, so a restart or
+a failover never reissues an id.
 """
 
 from __future__ import annotations
@@ -150,21 +152,51 @@ class Topology:
         self.volume_size_limit = volume_size_limit
         self.max_volume_id = 0
         self._file_key = int(time.time()) << 20  # coarse snowflake epoch base
+        self._file_key_ceiling = self._file_key  # persisted hi-lo watermark
         self.dead_node_timeout = 15.0
+        # durability hook (master_server.MasterMetaStore.save); called with
+        # (max_volume_id, file_key_ceiling) under the topology lock
+        self.persist = None
         # per-layout growth serialization (see pick_for_write); guarded by
         # the GIL for setdefault, entries live for the process lifetime
         self._growth_locks: dict[tuple, threading.Lock] = {}
 
     # -- sequence ----------------------------------------------------------
 
+    def restore_sequence(self, max_volume_id: int, file_key_ceiling: int) -> None:
+        """Adopt persisted or peer state: never hand out ids below the
+        watermark.  Also used for HA watermark adoption: each election ping
+        carries the peer's ceiling, so a standby promoted to leader starts
+        above everything the old leader could have issued."""
+        with self.lock:
+            self.max_volume_id = max(self.max_volume_id, max_volume_id)
+            self._file_key = max(self._file_key, file_key_ceiling)
+            self._file_key_ceiling = max(self._file_key_ceiling, self._file_key)
+
+    def sequence_watermarks(self) -> tuple[int, int]:
+        with self.lock:
+            return self.max_volume_id, self._file_key_ceiling
+
+    def _persist(self) -> None:
+        if self.persist is not None:
+            self.persist(self.max_volume_id, self._file_key_ceiling)
+
+    FILE_KEY_MARGIN = 1 << 20
+
     def next_file_key(self, count: int = 1) -> int:
         with self.lock:
             self._file_key += count
+            if self._file_key >= self._file_key_ceiling:
+                # hi-lo: push the durable ceiling a margin ahead so a crash
+                # can never replay an already-issued key
+                self._file_key_ceiling = self._file_key + self.FILE_KEY_MARGIN
+                self._persist()
             return self._file_key
 
     def next_volume_id(self) -> int:
         with self.lock:
             self.max_volume_id += 1
+            self._persist()
             return self.max_volume_id
 
     # -- heartbeat sync ----------------------------------------------------

@@ -38,3 +38,7 @@ def info(msg: str, *args) -> None:
 
 def warning(msg: str, *args) -> None:
     _emit("W", msg, args)
+
+
+def error(msg: str, *args) -> None:
+    _emit("E", msg, args)

@@ -4,10 +4,13 @@ port of seaweedfs_tpu/wdclient's ``MasterClient`` and ``AssignError``.
 Counterpart of the reference's wdclient (weed/wdclient/masterclient.go,
 vid_map.go): callers assign fids and resolve them to volume-server URLs
 through a local cache kept fresh by TTL expiry and explicit invalidation.
-Lookups populate lazily via LookupVolume and expire on a short TTL.
+Lookups populate lazily via LookupVolume and expire on a short TTL.  A
+comma-separated master list (HA) fails over on connection errors through
+util/resilience.failover_call, like the reference's KeepConnectedToMaster
+rotation (wdclient/masterclient.go:134).
 
-Not ported: failover across several masters, batch assigns, the EC
-shard-location cache and client-side write tokens.
+Not ported: batch assigns, the EC shard-location cache and client-side
+write tokens.
 """
 
 from __future__ import annotations
@@ -16,29 +19,84 @@ import random
 import threading
 import time
 
+import grpc
+
 from seaweedfs_tpu_torch import rpc
 from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
-from seaweedfs_tpu_torch.util import wlog
+from seaweedfs_tpu_torch.util import resilience, wlog
 
 
 class AssignError(RuntimeError):
     pass
 
 
+class FailoverStub:
+    """A master stub over a master list: each RPC runs through
+    ``resilience.failover_call``, so connection-class failures rotate the
+    masters with jittered backoff between full rotations, peers with open
+    breakers go last, and application errors (PERMISSION_DENIED, ...) are
+    the answer and raise at once.  With peers to rotate to, each master
+    gets one attempt (rotation is the retry); a lone master keeps the
+    policy's full retry budget.  ``holder`` is any object whose
+    ``master_address`` is tried first and follows the master that last
+    answered (the port's ``MasterClient._FailoverStub`` and the shell's
+    master list share it)."""
+
+    def __init__(self, holder, addresses: list[str]):
+        self._holder = holder
+        self._addresses = addresses
+
+    def __getattr__(self, rpc_name: str):
+        holder, addresses = self._holder, self._addresses
+
+        def call(request):
+            addrs = [holder.master_address] + [a for a in addresses
+                                               if a != holder.master_address]
+            per_peer = 1 if len(addrs) > 1 else None
+
+            def call_at(addr: str):
+                stub = rpc.master_stub(addr)
+
+                def invoke():
+                    try:
+                        return getattr(stub, rpc_name)(
+                            request, timeout=resilience.policy().deadline_s)
+                    except grpc.RpcError as e:
+                        if e.code() is grpc.StatusCode.UNAVAILABLE:
+                            rpc.evict_channel(addr)
+                        raise
+
+                return resilience.call_unary(invoke, service="master", method=rpc_name,
+                                             address=addr, max_attempts=per_peer)
+
+            def on_success(addr: str) -> None:
+                holder.master_address = addr
+
+            return resilience.failover_call(addrs, call_at, on_success=on_success)
+
+        return call
+
+
 class MasterClient:
-    """Assign and lookup against one master, with a TTL'd vid -> locations
-    cache."""
+    """Assign and lookup against the masters, with a TTL'd vid -> locations
+    cache.  ``master_address`` is one master's gRPC address or a
+    comma-separated list of them (HA)."""
 
     def __init__(self, master_address: str, cache_ttl: float = 10.0):
-        self.master_address = master_address
+        self.master_addresses = [a.strip() for a in master_address.split(",") if a.strip()]
+        self.master_address = self.master_addresses[0]
         self.cache_ttl = cache_ttl
         self._lock = threading.Lock()
         self._vid_cache: dict[int, tuple[float, list[str]]] = {}  # vid -> (expiry, urls)
 
+    @property
+    def _stub(self) -> FailoverStub:
+        return FailoverStub(self, self.master_addresses)
+
     def assign(self, count: int = 1, collection: str = "", replication: str = "",
                ttl_seconds: int = 0, disk_type: str = "",
                writable_volume_count: int = 0) -> m_pb.AssignResponse:
-        resp = rpc.master_stub(self.master_address).Assign(m_pb.AssignRequest(
+        resp = self._stub.Assign(m_pb.AssignRequest(
             count=count, collection=collection, replication=replication,
             ttl_seconds=ttl_seconds, disk_type=disk_type,
             writable_volume_count=writable_volume_count))
@@ -53,8 +111,7 @@ class MasterClient:
             hit = self._vid_cache.get(vid)
             if hit and hit[0] > now:
                 return list(hit[1])
-        resp = rpc.master_stub(self.master_address).LookupVolume(
-            m_pb.LookupVolumeRequest(volume_or_file_ids=[str(vid)]))
+        resp = self._stub.LookupVolume(m_pb.LookupVolumeRequest(volume_or_file_ids=[str(vid)]))
         urls: list[str] = []
         for loc in resp.volume_id_locations:
             if loc.error:

@@ -71,7 +71,10 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/images/resize.py", "seaweedfs_tpu_torch/util/httpd.py",
             "seaweedfs_tpu_torch/util/http_pool.py", "seaweedfs_tpu_torch/util/http_range.py",
             "seaweedfs_tpu_torch/storage/compression.py",
-            "seaweedfs_tpu_torch/commands/benchmark_cmd.py"} <= names
+            "seaweedfs_tpu_torch/commands/benchmark_cmd.py",
+            "seaweedfs_tpu_torch/cluster/__init__.py", "seaweedfs_tpu_torch/cluster/raft.py",
+            "seaweedfs_tpu_torch/cluster/election.py", "seaweedfs_tpu_torch/cluster/registry.py",
+            "seaweedfs_tpu_torch/shell/command_cluster.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())

@@ -94,8 +94,10 @@ def test_shell_rules():
         run_command(env, "ec.encode -volumeId 9 -streaming", io.StringIO())
     out = io.StringIO()
     run_command(env, "help", out)
-    assert sorted(SHELL_REGISTRY) == ["ec.balance", "ec.decode", "ec.encode", "ec.rebuild",
-                                      "help", "lock", "unlock"]
+    assert sorted(SHELL_REGISTRY) == ["cluster.check", "cluster.ps", "cluster.raft.add",
+                                      "cluster.raft.ps", "cluster.raft.remove", "ec.balance",
+                                      "ec.decode", "ec.encode", "ec.rebuild", "help", "lock",
+                                      "unlock"]
     for name in SHELL_REGISTRY:
         assert name in out.getvalue()
 
