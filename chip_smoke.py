@@ -127,8 +127,8 @@ Phases, each printing what it found; any failure exits non-zero:
 9. The write path: a fresh ``cli master`` and four ``cli volume -device
    cuda -max 8 -mserver ...`` subprocesses (racks alternating), each with
    its HTTP port bound and registered at the master as ``ip:httpport``.
-   9a: ``cli benchmark -n 65536 -size 1024 -c 16`` (upstream `weed
-   benchmark`'s shape, -n cut 16x for time), 0 errors in its write and
+   9a: ``cli benchmark -n 32768 -size 1024 -c 16`` (upstream `weed
+   benchmark`'s shape, -n cut 32x for time), 0 errors in its write and
    read reports; 9b: 5,000 writes at replication 001, then every needle
    read from both holders ``/dir/lookup`` names; 9c: ``cli benchmark -n
    16384 -size 65536`` fills one 1 GiB volume, and 1,024 needles of
@@ -167,6 +167,36 @@ Phases, each printing what it found; any failure exits non-zero:
    its server's card (launches from its /metrics equal to the generate's
    batches), every shard sha256-identical to the CPU plain version's
    encoding of the same .dat.  Its figures go on a ``failover:`` JSON line.
+11. Volume maintenance: a fresh ``cli master`` and four ``cli volume
+   -device cuda -max 8 -scrubInterval 0 -scrubRateMB 0`` subprocesses
+   (racks alternating; no background scrub pass races the phase's
+   counts).  16 writers fill one volume with 8,192 x 64 KiB at
+   replication 001 (512 MiB a holder; upstream volumes are 30 GB) and
+   40% of it (3,277 needles) is deleted; ``volume.vacuum
+   -garbageThreshold 0.3`` through ``cli shell`` must reclaim on both
+   holders exactly the bytes of the records the .idx no longer names and
+   raise the superblock's compaction revision to 1, while one writer to
+   the volume measures the write-lock stall (p50, p99, max); every
+   survivor then reads back equal from both holders and every deleted
+   needle answers 404.  A second volume with garbage is compacted by a
+   restart of its server with ``-vacuumInterval 2`` (same ports), with no
+   shell command.  ``volume.delete`` on one holder and
+   ``volume.fix.replication`` restore the copy through VolumeCopy (.dat
+   and .idx sha256-identical); one byte in each of 8 records of that copy
+   is flipped and ``volume.scrub -volumeId V`` must report 8 corrupt and 8
+   repaired and leave its .dat equal to the other holder's; 5 needles
+   deleted on one holder only are copied back by ``volume.check.disk``;
+   ``volume.move``, ``volume.balance`` and ``volume.server.evacuate``
+   follow, each placement checked once the master's census equals the
+   .dat files on disk, with sampled needles read back.  ``ec.encode`` of
+   the compacted volume must launch K1 on its source server exactly once
+   per batch (its /metrics) and give 14 shards sha256-identical to the CPU
+   plain version's encoding of the same .dat; a byte flipped in one shard
+   interval is rebuilt by ``volume.scrub`` (the holder reports 1 corrupt,
+   1 repaired; the shard's sha256 is restored; K1 does not launch: the
+   repair decodes on the host), and 1,000 needles read over HTTP
+   (``/dir/lookup``, then GET) equal their payloads.  Its figures go on a
+   ``maintenance:`` JSON line.
 
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
@@ -796,10 +826,14 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
             path = os.path.join(tmp, name)
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         failover = phase_failover(args, tmp, ident, dev)
+        for name in os.listdir(tmp):  # room for phase 11's volumes
+            path = os.path.join(tmp, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+        maintenance = phase_maintenance(args, tmp, ident, dev)
         return dict(launches=enc_launches + reb_launches, encode=enc, rebuild=reb,
                     encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
                     lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster, write=write,
-                    failover=failover)
+                    failover=failover, maintenance=maintenance)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1500,10 +1534,10 @@ def phase_server(vol: dict, directory: str, dev, ident: str, seed: int) -> dict:
         check(Needle.from_bytes(blob, Version.V3).data == vol["big"][0]["data"],
               "ReadNeedleBlob's record differs from the needle written")
         try:
-            stub.VolumeVacuum(pb.VolumeVacuumRequest(volume_id=1), timeout=60)
-            check(False, "VolumeVacuum answered")
+            stub.VolumeTierMove(pb.VolumeTierMoveRequest(volume_id=1), timeout=60)
+            check(False, "VolumeTierMove answered")
         except grpc.RpcError as e:
-            check(e.code() == grpc.StatusCode.UNIMPLEMENTED, f"VolumeVacuum: {e.code()}")
+            check(e.code() == grpc.StatusCode.UNIMPLEMENTED, f"VolumeTierMove: {e.code()}")
 
         for ext in (".dat", ".idx"):
             os.remove(base + ext)
@@ -2098,7 +2132,7 @@ def phase_cluster(args, directory: str, svc: dict, ident: str, dev) -> dict:
 
 # -- phase 9 ------------------------------------------------------------------
 
-BENCH_N = 65536  # `weed benchmark` -n 1048576 cut 16x for the time limit
+BENCH_N = 32768  # `weed benchmark` -n 1048576, cut 32x for the time limit
 BENCH_SIZE = 1024  # `weed benchmark` -size
 BENCH_C = 16  # `weed benchmark` -c
 REP_N = 5000  # DATA_PLANE.md's replicated-write row
@@ -2743,6 +2777,528 @@ def phase_failover(args, directory: str, ident: str, dev) -> dict:
     return rec
 
 
+# -- phase 11 -----------------------------------------------------------------
+
+MAINT_N, MAINT_SIZE = 8192, 64 * 1024  # one volume at 001: 512 MiB of payload a holder
+MAINT_DELETES = 3277  # 40% of the needles: a garbage ratio above upstream's 0.3
+MAINT_WRITERS = 16  # `weed benchmark`'s -c
+AUTO_N = 1024  # the second volume, compacted by -vacuumInterval with no shell command
+MAINT_CORRUPT = 8
+MAINT_DIVERGE = 5
+MAINT_SAMPLE = 256  # needles read back after each move
+MAINT_EC_READS = 1000
+STALL_SIZE = 1024  # the writer during the vacuum: small, so it barely dilutes the garbage
+
+
+def _maint_payload(fid: str, small: set = frozenset()) -> bytes:
+    """Each phase-11 write's payload, derived from its fid (STALL_SIZE
+    bytes for the fids in ``small``)."""
+    return hashlib.shake_256(b"maint" + fid.encode()).digest(
+        STALL_SIZE if fid in small else MAINT_SIZE)
+
+
+def _record_bytes(base: str) -> int:
+    """The bytes of the live records of ``base``.dat, per its .idx."""
+    from seaweedfs_tpu_torch.storage.types import Version, get_actual_size
+
+    return sum(get_actual_size(int(s), Version.V3) for s in _live_entries(base)["size"].tolist())
+
+
+def _revision(base: str) -> int:
+    """The compaction revision in ``base``.dat's superblock."""
+    with open(base + ".dat", "rb") as f:
+        return int.from_bytes(f.read(8)[4:6], "big")
+
+
+def _flip(path: str, offset: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0x5A]))
+
+
+def phase_maintenance(args, directory: str, ident: str, dev) -> dict:
+    """Phase 11: volume maintenance.  One ``cli master`` and four ``cli
+    volume -device cuda -max 8 -scrubInterval 0 -scrubRateMB 0``
+    subprocesses (racks alternating); one volume of 8,192 x 64 KiB at 001,
+    40% deleted and ``volume.vacuum``-ed under a writer; a second volume
+    compacted by a restart with ``-vacuumInterval 2``; ``volume.delete`` +
+    ``volume.fix.replication``; 8 corrupt records repaired by
+    ``volume.scrub``; ``volume.check.disk``; ``volume.move``,
+    ``volume.balance`` and ``volume.server.evacuate``; ``ec.encode`` through
+    K1; a corrupt shard interval repaired by ``volume.scrub``; 1,000 EC
+    reads over HTTP (module docstring)."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.util.http_pool import HttpConnectionPool
+    from seaweedfs_tpu_torch.wdclient import MasterClient
+
+    root = os.path.join(directory, "maint")
+    dirs = [os.path.join(root, f"v{i}") for i in range(CLUSTER_SERVERS)]
+    for d in dirs:
+        os.makedirs(d)
+    log = os.path.join(root, "shell.log")
+    walls: dict = {}
+    rec: dict = {}
+    servers: list = []
+    t_phase = time.perf_counter()
+    pool = HttpConnectionPool(timeout=60.0, max_per_host=64)
+    rng = np.random.default_rng(args.seed + 11)
+    master = _Server("", "", os.path.join(root, "master.log"), argv=["master", "-port", "0"])
+    try:
+        maddr = f"127.0.0.1:{master.grpc_port}"
+        mhttp = f"127.0.0.1:{master.http_port}"
+        mstub = rpc.master_stub(maddr)
+
+        def volume_argv(i: int, extra: tuple = (), ports: tuple = (0, 0)) -> list:
+            # no background scrub pass races the phase's own counts
+            return ["volume", "-dir", dirs[i], "-ip", "127.0.0.1", "-port", str(ports[0]),
+                    "-grpcPort", str(ports[1]), "-metricsPort", "0", "-device", dev.type,
+                    "-mserver", maddr, "-rack", f"rack{i % 2}", "-max", "8",
+                    "-scrubInterval", "0", "-scrubRateMB", "0", *extra]
+
+        t = time.perf_counter()
+        servers = [_Server(d, dev.type, os.path.join(root, f"v{i}.log"), argv=volume_argv(i),
+                           wait=False) for i, d in enumerate(dirs)]
+        for s_ in servers:
+            s_.ready()
+            s_.url = f"127.0.0.1:{s_.http_port}"
+        walls["servers_up"] = time.perf_counter() - t
+        urls = [s_.url for s_ in servers]
+
+        def census() -> dict:
+            """{node id: {vid: collection}} of the normal volumes at the master."""
+            topo = mstub.VolumeList(m_pb.VolumeListRequest(), timeout=60).topology_info
+            return {dn.id: {v.id: v.collection for disk in dn.disk_infos.values()
+                            for v in disk.volume_infos}
+                    for dc in topo.data_center_infos for r in dc.rack_infos
+                    for dn in r.data_node_infos}
+
+        def on_disk() -> dict:
+            """{server url: {vid: collection}} of the .dat files on its disk."""
+            out = {}
+            for url, d in zip(urls, dirs):
+                out[url] = {}
+                for name in os.listdir(d):
+                    m = re.fullmatch(r"(\w+)_(\d+)\.dat", name)
+                    if m:
+                        out[url][int(m[2])] = m[1]
+            return out
+
+        def volume_size(vid_: int) -> int:
+            """The .dat size the master's census holds for vid_ (one copy)."""
+            topo = mstub.VolumeList(m_pb.VolumeListRequest(), timeout=60).topology_info
+            return next((v.size for dc in topo.data_center_infos for r in dc.rack_infos
+                         for dn in r.data_node_infos for disk in dn.disk_infos.values()
+                         for v in disk.volume_infos if v.id == vid_), -1)
+
+        def settle(what: str) -> float:
+            # a placement is checked only once the master's
+            # census equals the files on disk
+            return _poll(lambda: census() == on_disk(), f"the master's census to equal the "
+                         f"volumes on disk ({what})", 60)
+
+        def holders(vid: int) -> list[str]:
+            return sorted(u for u, vols in on_disk().items() if vid in vols)
+
+        def base(url: str, collection: str, vid: int) -> str:
+            return os.path.join(dirs[urls.index(url)], f"{collection}_{vid}")
+
+        def grpc_of(url: str) -> str:
+            return f"127.0.0.1:{servers[urls.index(url)].grpc_port}"
+
+        walls["registered"] = settle("start")
+        print(f"maintenance: master {maddr}; {CLUSTER_SERVERS} volume servers {urls} up in "
+              f"{walls['servers_up']:.3f}s, registered after {walls['registered']:.3f}s on {ident}")
+
+        def write_many(collection: str, replication: str, n: int) -> dict:
+            """n acknowledged writes through MasterClient and the pool, 16
+            at a time: {fid: primary url}."""
+            mc = MasterClient(maddr)
+            tickets = iter(range(n))
+            lock = threading.Lock()
+            acked: dict = {}
+            failures: list = []
+
+            def writer() -> None:
+                while True:
+                    with lock:
+                        if next(tickets, None) is None or failures:
+                            return
+                    try:
+                        a = mc.assign(collection=collection, replication=replication)
+                        status, body = pool.request(a.location.url, "POST", f"/{a.fid}",
+                                                    body=_maint_payload(a.fid))
+                    except Exception as e:  # noqa: BLE001 — reported, fails the phase
+                        failures.append(f"{type(e).__name__}: {e}")
+                        return
+                    if status != 201:
+                        failures.append(f"POST {a.fid}: {status} {body[:200]!r}")
+                        return
+                    with lock:
+                        acked[a.fid] = a.location.url
+
+            threads = [threading.Thread(target=writer, daemon=True) for _ in range(MAINT_WRITERS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            check(not failures and len(acked) == n and not any(th.is_alive() for th in threads),
+                  f"{collection}: {len(acked)} of {n} writes acknowledged; {failures[:3]}")
+            return acked
+
+        def read_from(url_of, fids, want404: bool = False) -> float:
+            """GET every fid from each url ``url_of(fid)`` names: its
+            payload, or 404; returns the wall."""
+            def one(fid: str) -> int:
+                for url in url_of(fid):
+                    status, body = pool.request(url, "GET", f"/{fid}")
+                    if want404:
+                        check(status == 404, f"deleted {fid} on {url}: {status}")
+                    else:
+                        check(status == 200 and body == _maint_payload(fid, small),
+                              f"{fid} on {url}: {status}, {len(body)} bytes")
+                return 0
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(MAINT_WRITERS) as ex:
+                list(ex.map(one, fids))
+            return time.perf_counter() - t0
+
+        # 1. fill one volume at 001, then delete 40% of it
+        t = time.perf_counter()
+        acked = write_many("maint", "001", MAINT_N)
+        walls["fill"] = time.perf_counter() - t
+        (vid,) = {int(f.split(",")[0]) for f in acked}
+        settle("after the fill")
+        hs = holders(vid)
+        check(len(hs) == 2, f"volume {vid} at 001 is held by {hs}")
+        fids = sorted(acked)
+        gone = sorted(fids[i] for i in rng.choice(len(fids), MAINT_DELETES, replace=False))
+        t = time.perf_counter()
+        with ThreadPoolExecutor(MAINT_WRITERS) as ex:
+            for fid, (status, body) in zip(gone, ex.map(
+                    lambda f: pool.request(acked[f], "DELETE", f"/{f}"), gone)):
+                check(status == 202, f"DELETE {fid}: {status} {body[:200]!r}")
+        walls["deletes"] = time.perf_counter() - t
+        survivors = sorted(set(fids) - set(gone))
+        print(f"maintenance: volume {vid} on {hs}: {MAINT_N} x {MAINT_SIZE} B written at 001 in "
+              f"{walls['fill']:.3f}s ({MAINT_N / walls['fill']:.1f} writes/s), {len(gone)} "
+              f"deleted in {walls['deletes']:.3f}s on {ident}")
+
+        # 2. volume.vacuum through the shell, one writer to the volume meanwhile
+        size0 = {u: os.path.getsize(base(u, "maint", vid) + ".dat") for u in hs}
+        garbage = {u: size0[u] - 8 - _record_bytes(base(u, "maint", vid)) for u in hs}
+        ratio = {u: garbage[u] / (size0[u] - 8) for u in hs}
+        check(all(r > 0.3 for r in ratio.values()), f"garbage ratios {ratio} not above 0.3")
+        stall, stall_errors, stop, small = [], [], threading.Event(), set()
+
+        def stall_writer() -> None:
+            mc = MasterClient(maddr)
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                try:
+                    a = mc.assign(collection="maint", replication="001")
+                    small.add(a.fid)
+                    status, body = pool.request(a.location.url, "POST", f"/{a.fid}",
+                                                body=_maint_payload(a.fid, small))
+                except Exception as e:  # noqa: BLE001 — reported, fails the phase
+                    stall_errors.append(f"{type(e).__name__}: {e}")
+                    return
+                if status != 201:
+                    stall_errors.append(f"POST {a.fid}: {status} {body[:200]!r}")
+                    return
+                stall.append((a.fid, time.perf_counter() - t0))
+
+        th = threading.Thread(target=stall_writer, daemon=True)
+        th.start()
+        time.sleep(0.5)
+        walls["vacuum_shell"], out = _shell(
+            maddr, f"lock; volume.vacuum -garbageThreshold 0.3 -volumeId {vid}; unlock", log)
+        time.sleep(0.5)
+        stop.set()
+        th.join(timeout=120)
+        check(not th.is_alive() and not stall_errors,
+              f"the writer during the vacuum: {stall_errors}")
+        for u in hs:
+            b = base(u, "maint", vid)
+            check(f"volume {vid} on {u}: reclaimed {garbage[u]} bytes" in out,
+                  f"vacuum on {u} did not reclaim exactly the deleted records' {garbage[u]} bytes")
+            check(_revision(b) == 1, f"{u}: compaction revision {_revision(b)} after one vacuum")
+        check(f"total reclaimed: {sum(garbage.values())} bytes" in out, "vacuum total")
+        check(all(int(f.split(",")[0]) == vid for f, _ in stall), "a stall write left the volume")
+        survivors = sorted(set(survivors) | {f for f, _ in stall})
+        lat = np.array([s[1] for s in stall]) * 1e3
+        rec["vacuum"] = dict(
+            reclaimed=garbage, ratio=ratio, wall_s=walls["vacuum_shell"],
+            mb_per_s=sum(size0.values()) / walls["vacuum_shell"] / 1e6,
+            writer=dict(writes=int(lat.size), p50_ms=float(np.percentile(lat, 50)),
+                        p99_ms=float(np.percentile(lat, 99)), max_ms=float(lat.max())))
+        walls["survivors_read"] = read_from(lambda f: hs, survivors)
+        walls["deleted_read"] = read_from(lambda f: hs, gone, want404=True)
+        print(f"maintenance: volume.vacuum -garbageThreshold 0.3 on {ident}: "
+              f"{walls['vacuum_shell']:.3f}s for {sum(size0.values())} B on 2 holders "
+              f"({rec['vacuum']['mb_per_s']:.1f} MB/s), reclaimed {garbage} B (garbage "
+              f"{ratio}), revision 0 -> 1; one writer meanwhile: {lat.size} writes, p50 "
+              f"{rec['vacuum']['writer']['p50_ms']:.2f} ms, p99 "
+              f"{rec['vacuum']['writer']['p99_ms']:.2f} ms, max "
+              f"{rec['vacuum']['writer']['max_ms']:.2f} ms; {len(survivors)} survivors equal "
+              f"from both holders ({walls['survivors_read']:.3f}s), {len(gone)} deleted answer "
+              f"404 on both")
+
+        # 3. a second volume compacted by auto-vacuum: a restart with
+        # -vacuumInterval 2 and no shell command
+        acked2 = write_many("auto", "000", AUTO_N)
+        (vid2,) = {int(f.split(",")[0]) for f in acked2}
+        (h2,) = holders(vid2)
+        fids2 = sorted(acked2)
+        for fid in fids2[::2]:
+            status, body = pool.request(h2, "DELETE", f"/{fid}")
+            check(status == 202, f"DELETE {fid}: {status}")
+        b2 = base(h2, "auto", vid2)
+        size2 = os.path.getsize(b2 + ".dat")
+        garbage2 = size2 - 8 - _record_bytes(b2)
+        i2 = urls.index(h2)
+        check(servers[i2].stop() == 0, f"{h2} did not stop cleanly")
+        t = time.perf_counter()
+        servers[i2] = _Server(dirs[i2], dev.type, os.path.join(root, f"v{i2}.restart.log"),
+                              argv=volume_argv(i2, ("-vacuumInterval", "2"),
+                                               (int(h2.rsplit(":", 1)[1]), servers[i2].grpc_port)))
+        servers[i2].url = h2
+        pool.close()  # its kept-alive connections went with the stopped process
+        pool = HttpConnectionPool(timeout=60.0, max_per_host=64)
+        # the master hears the compacted size from the pass's heartbeat
+        # delta, sent once the swap is done (the files alone can show the
+        # renames while the server is still reopening them)
+        _poll(lambda: volume_size(vid2) == size2 - garbage2,
+              f"auto-vacuum of volume {vid2} on {h2} at the master", 60)
+        walls["auto_vacuum"] = time.perf_counter() - t
+        check(_revision(b2) == 1, f"volume {vid2}: compaction revision {_revision(b2)}")
+        read_from(lambda f: [h2], fids2[1::2])
+        read_from(lambda f: [h2], fids2[::2], want404=True)
+        settle("after the restart")
+        print(f"maintenance: {h2} restarted with -vacuumInterval 2: volume {vid2} compacted "
+              f"({garbage2} B reclaimed, revision 1) {walls['auto_vacuum']:.3f}s after the "
+              f"restart, with no shell command, on {ident}; {len(fids2[1::2])} survivors equal")
+
+        # 4. volume.delete on one holder, volume.fix.replication restores it
+        # through VolumeCopy: the two copies are then byte-identical
+        keep, drop = hs
+        _shell(maddr, f"lock; volume.delete -volumeId {vid} -node {grpc_of(drop)}; unlock", log)
+        settle("after volume.delete")
+        check(holders(vid) == [keep], f"volume {vid} after volume.delete: {holders(vid)}")
+        walls["fix_replication"], out = _shell(
+            maddr, "lock; volume.fix.replication -collection maint; unlock", log)
+        check(f"replicate volume {vid}: {keep} -> " in out and "fixed 1 under-" in out,
+              f"volume.fix.replication: {out!r}")
+        settle("after volume.fix.replication")
+        hs = holders(vid)
+        check(len(hs) == 2 and keep in hs, f"volume {vid} after fix.replication: {hs}")
+        (copy,) = [u for u in hs if u != keep]
+        for ext in (".dat", ".idx"):
+            check(sha256(base(copy, "maint", vid) + ext) == sha256(base(keep, "maint", vid) + ext),
+                  f"the restored replica's {ext} differs")
+        print(f"maintenance: volume.delete on {drop}, volume.fix.replication copied {keep} -> "
+              f"{copy} in {walls['fix_replication']:.3f}s on {ident}: .dat and .idx "
+              f"sha256-identical")
+
+        # 5. eight corrupt records on one holder, repaired by volume.scrub
+        live = dict(zip(*(_live_entries(base(copy, "maint", vid))[k].tolist()
+                          for k in ("id", "off"))))
+        bad = [survivors[i] for i in rng.choice(len(survivors), MAINT_CORRUPT, replace=False)]
+        want_sha = sha256(base(keep, "maint", vid) + ".dat")
+        for fid in bad:
+            key = int(fid.split(",")[1][:-8], 16)
+            _flip(base(copy, "maint", vid) + ".dat", live[key] * 8 + 1000)  # a data byte
+        check(sha256(base(copy, "maint", vid) + ".dat") != want_sha, "the flips changed nothing")
+        walls["scrub"], out = _shell(maddr, f"lock; volume.scrub -volumeId {vid}; unlock", log)
+        n_live = len(survivors)
+        check(f"{grpc_of(copy)}: volume {vid}: {n_live} scanned, {MAINT_CORRUPT} corrupt, "
+              f"{MAINT_CORRUPT} repaired" in out,
+              f"volume.scrub on {copy}: {out!r}")
+        check(f"{2 * n_live} needles verified, {MAINT_CORRUPT} corrupt, {MAINT_CORRUPT} "
+              f"repaired, 0 failed" in out, f"volume.scrub totals: {out!r}")
+        check(sha256(base(copy, "maint", vid) + ".dat") == want_sha,
+              f"{copy}'s .dat after the scrub differs from {keep}'s")
+        read_from(lambda f: [copy], bad)
+        print(f"maintenance: {MAINT_CORRUPT} records flipped on {copy}; volume.scrub "
+              f"{walls['scrub']:.3f}s on {ident}: {MAINT_CORRUPT} corrupt, {MAINT_CORRUPT} "
+              f"repaired from {keep}, .dat sha256 equal to {keep}'s")
+
+        # 6. five needles deleted on one holder only; volume.check.disk
+        diverged = [survivors[i] for i in rng.choice(len(survivors), MAINT_DIVERGE, replace=False)]
+        for fid in diverged:
+            status, _ = pool.request(keep, "DELETE", f"/{fid}?type=replicate")
+            check(status == 202, f"DELETE {fid} on {keep} only: {status}")
+        walls["check_disk"], out = _shell(maddr, f"lock; volume.check.disk -volumeId {vid}; unlock",
+                                          log)
+        check(f"volume {vid}: +{MAINT_DIVERGE} needles copied, -0 deletions synced" in out,
+              f"volume.check.disk: {out!r}")
+        ids = [set(_live_entries(base(u, "maint", vid))["id"].tolist()) for u in hs]
+        check(ids[0] == ids[1] and len(ids[0]) == n_live, "the holders still disagree")
+        read_from(lambda f: hs, diverged)
+        print(f"maintenance: {MAINT_DIVERGE} needles deleted on {keep} only; volume.check.disk "
+              f"copied them back in {walls['check_disk']:.3f}s on {ident}; both holders hold "
+              f"the same {n_live} needles")
+
+        # 7. volume.move, volume.server.evacuate, then volume.balance refills
+        # the evacuated server (two empty volumes at 001 from volume.grow make
+        # the spread worth a move)
+        sample = [survivors[i] for i in rng.choice(len(survivors), MAINT_SAMPLE, replace=False)]
+        target = next(u for u in urls if u not in hs)
+        walls["move"], _ = _shell(maddr, f"lock; volume.move -volumeId {vid} -source {keep} "
+                                         f"-target {target}; unlock", log)
+        settle("after volume.move")
+        check(holders(vid) == sorted([copy, target]), f"after volume.move: {holders(vid)}")
+        read_from(lambda f: holders(vid), sample)
+        _shell(maddr, "lock; volume.grow -collection spare -replication 001 -count 2; unlock", log)
+        settle("after volume.grow")
+        victim = max(urls, key=lambda u: (len(on_disk()[u]), u))
+        walls["evacuate"], _ = _shell(maddr, f"lock; volume.server.evacuate -node {victim}; "
+                                             "unlock", log)
+        settle("after volume.server.evacuate")
+        check(not on_disk()[victim], f"{victim} still holds {on_disk()[victim]}")
+        check(len(holders(vid)) == 2 and len(holders(vid2)) == 1,
+              f"after the evacuation: {holders(vid)}, {holders(vid2)}")
+        read_from(lambda f: holders(vid), sample)
+        read_from(lambda f: holders(vid2), fids2[1::2])
+        _, plan = _shell(maddr, "lock; volume.balance -noApply; unlock", log)
+        planned = re.findall(r"plan: move volume (\d+) (\S+) -> (\S+)", plan)
+        walls["balance"], out = _shell(maddr, "lock; volume.balance; unlock", log)
+        check(f"volume.balance moved {len(planned)} volumes" in out and planned,
+              f"volume.balance against its plan {planned}: {out!r}")
+        settle("after volume.balance")
+        for v, src, dst in planned:
+            check(int(v) in on_disk()[dst] and int(v) not in on_disk()[src],
+                  f"volume {v} did not move {src} -> {dst}")
+        check(on_disk()[victim], f"volume.balance left the evacuated {victim} empty")
+        read_from(lambda f: holders(vid), sample)
+        read_from(lambda f: holders(vid2), fids2[1::2])
+        print(f"maintenance: volume.move {keep} -> {target} {walls['move']:.3f}s, "
+              f"volume.server.evacuate {victim} {walls['evacuate']:.3f}s, volume.balance "
+              f"{walls['balance']:.3f}s ({len(planned)} moves, as planned) on {ident}; every "
+              f"placement checked against the disks; {MAINT_SAMPLE} sampled needles equal from "
+              f"both holders after each")
+
+        # 8. ec.encode of the compacted volume: K1 on the source's card, the
+        # shards equal to the CPU plain version's encoding of its .dat
+        hs = holders(vid)
+        refs = {}
+        for i, u in enumerate(hs):
+            refs[u] = os.path.join(root, f"ref{i}", f"maint_{vid}")
+            os.makedirs(os.path.dirname(refs[u]))
+            for ext in (".dat", ".idx"):
+                os.link(base(u, "maint", vid) + ext, refs[u] + ext)
+        k1_before = {s_.url: metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply")
+                     for s_ in servers}
+        check(not any(k1_before.values()), f"K1 launched before the encode: {k1_before}")
+        walls["ec_encode"], _ = _shell(maddr, f"lock; ec.encode -volumeId {vid} -collection maint; "
+                                              "unlock", log)
+        by_grpc = {grpc_of(u): d for u, d in zip(urls, dirs)}
+        _poll(lambda: _ec_census(mstub, vid)["holders"] == _disk_shards(by_grpc, f"maint_{vid}"),
+              f"the master's EC census of volume {vid} to match the disks", 60)
+        check(not holders(vid), f"volume {vid}'s .dat survived the encode on {holders(vid)}")
+        gen = [s_.url for s_ in servers if server_stages(s_.log_text(), "generate")]
+        check(len(gen) == 1 and gen[0] in hs, f"the generate ran on {gen}, not one of {hs}")
+        source = gen[0]
+        dat_size = os.path.getsize(refs[source] + ".dat")
+        tasks = len(ec_encoder._plan_tasks(DEFAULT_SCHEME, dat_size, ec_encoder.DEFAULT_CHUNK))
+        k1 = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply"))
+              for s_ in servers}
+        check(k1[source] == tasks and sum(k1.values()) == tasks,
+              f"K1 launches by server {k1}; the source {source}'s generate has {tasks} batches")
+        t = time.perf_counter()
+        ec_encoder.write_ec_files(refs[source], device="cpu")
+        walls["cpu_reference_encode"] = time.perf_counter() - t
+        shard_files = {sid: os.path.join(d, f"maint_{vid}.ec{sid:02d}") for d in dirs
+                       for sid in range(14)
+                       if os.path.exists(os.path.join(d, f"maint_{vid}.ec{sid:02d}"))}
+        check(sorted(shard_files) == list(range(14)), f"shards on disk: {sorted(shard_files)}")
+        for sid, path in shard_files.items():
+            check(sha256(path) == sha256(refs[source] + f".ec{sid:02d}"),
+                  f"shard {sid} differs from the CPU plain encoding")
+        print(f"maintenance: ec.encode of the compacted volume {vid} ({dat_size} B) on {ident}: "
+              f"shell {walls['ec_encode']:.3f}s; source {source} K1 launches {k1[source]} (= "
+              f"{tasks} batches); 14 shards sha256-identical to the CPU plain version's "
+              f"({walls['cpu_reference_encode']:.3f}s on the host)")
+
+        # 9. a corrupt interval of one shard file, repaired by volume.scrub
+        # through reconstruction on the host codec (K1 does not launch)
+        ecx_dir = next(d for d in dirs if os.path.exists(os.path.join(d, f"maint_{vid}.ecx")))
+        ev = EcVolume(ecx_dir, vid, "maint", scheme=None)
+        try:
+            victim_fid = sample[0]
+            _off, _size, intervals = ev.locate(int(victim_fid.split(",")[1][:-8], 16))
+            sid, shard_off = intervals[0].to_shard_and_offset(ev.scheme)
+        finally:
+            ev.close()
+        shard_path = shard_files[sid]
+        holder = next(u for u, d in zip(urls, dirs) if os.path.dirname(shard_path) == d)
+        good = sha256(shard_path)
+        _flip(shard_path, shard_off + 100)
+        check(sha256(shard_path) != good, "the shard flip changed nothing")
+        walls["ec_scrub"], out = _shell(maddr, f"lock; volume.scrub -volumeId {vid}; unlock", log)
+        check(f"{grpc_of(holder)}: ec volume {vid}: {n_live} scanned, 1 corrupt, 1 repaired"
+              in out, f"volume.scrub on the shard holder {holder}: {out!r}")
+        for m in re.finditer(r"(\S+): ec volume \d+: \d+ scanned, (\d+) corrupt, (\d+) repaired"
+                             r"(?:, (\d+) FAILED)?", out):
+            # another holder that read the interval remotely before the
+            # holder rewrote it saw it corrupt and cannot repair media it
+            # does not hold
+            if m[1] != grpc_of(holder):
+                check(int(m[2]) <= 1 and int(m[3]) == 0 and int(m[4] or 0) == int(m[2]),
+                      f"volume.scrub line {m[0]!r}")
+        check(sha256(shard_path) == good, f"shard {sid} on {holder} after the scrub differs")
+        k1_after = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches",
+                                       kernel="gf_apply")) for s_ in servers}
+        check(k1_after == k1, f"the EC scrub launched K1: {k1} -> {k1_after}")
+
+        def lookup(vid_: int) -> list[str]:
+            status, body = pool.request(mhttp, "GET", f"/dir/lookup?volumeId={vid_}")
+            check(status == 200, f"/dir/lookup?volumeId={vid_}: {status}")
+            return [loc["url"] for loc in json.loads(body)["locations"]]
+
+        reads = [survivors[i] for i in rng.choice(len(survivors), MAINT_EC_READS, replace=False)]
+        lat: list = []
+
+        def ec_read(fid: str) -> None:
+            t0 = time.perf_counter()
+            urls_ = lookup(vid)
+            status, body = pool.request(urls_[hash(fid) % len(urls_)], "GET", f"/{fid}")
+            check(status == 200 and body == _maint_payload(fid, small), f"EC read {fid}: {status}")
+            lat.append(time.perf_counter() - t0)
+
+        t = time.perf_counter()
+        with ThreadPoolExecutor(MAINT_WRITERS) as ex:
+            list(ex.map(ec_read, reads))
+        walls["ec_reads"] = time.perf_counter() - t
+        lat_ms = np.array(lat) * 1e3
+        rec["ec_reads"] = dict(reads=len(reads), per_s=len(reads) / walls["ec_reads"],
+                               p50_ms=float(np.percentile(lat_ms, 50)),
+                               p99_ms=float(np.percentile(lat_ms, 99)))
+        print(f"maintenance: shard {sid} on {holder} corrupt at {shard_off + 100}: volume.scrub "
+              f"{walls['ec_scrub']:.3f}s on {ident} rebuilt the interval (sha256 restored, K1 "
+              f"unchanged); "
+              f"{len(reads)} EC reads over HTTP on {ident}: {rec['ec_reads']['per_s']:.1f}/s, "
+              f"p50 {rec['ec_reads']['p50_ms']:.2f} ms, p99 {rec['ec_reads']['p99_ms']:.2f} ms")
+    finally:
+        pool.close()
+        rcs = {getattr(s_, "url", s_.proc.pid): s_.stop() for s_ in servers}
+        rcs["master"] = master.stop()
+    check(all(rc == 0 for rc in rcs.values()), f"maintenance processes exited {rcs}")
+    walls["phase"] = time.perf_counter() - t_phase
+    rec.update(walls=walls, launches=k1[source], batches=tasks, survivors=n_live,
+               rcs={str(k): v for k, v in rcs.items()})
+    print("maintenance: " + json.dumps(rec, sort_keys=True))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2935,6 +3491,14 @@ def main() -> int:
         launches_failover=failover["launches"],
         failover_s={k: failover[k] for k in ("leader_s", "rehomed_s", "first_ack_s")},
         failover_writes={k: failover[k] for k in ("before", "after", "acked", "errors")},
+    )
+    maintenance = main_path["maintenance"]
+    record["kernels"][0]["launches"] += maintenance["launches"]
+    record["kernels"][0].update(
+        launches_maintenance=maintenance["launches"],
+        maintenance_walls_s=maintenance["walls"],
+        maintenance_vacuum=maintenance["vacuum"],
+        maintenance_ec_reads=maintenance["ec_reads"],
     )
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)

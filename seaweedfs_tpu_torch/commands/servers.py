@@ -98,6 +98,11 @@ def run_volume(args) -> int:
         max_volume_counts=[args.max] * len(dirs),
         jwt_key=args.jwtKey,
         fsync=args.fsync,
+        disk_types=[t.strip() or "hdd" for t in args.disk.split(",")] if args.disk else None,
+        scrub_interval_s=args.scrubInterval,
+        scrub_rate_mb_s=args.scrubRateMB,
+        vacuum_interval_s=args.vacuumInterval,
+        vacuum_garbage=args.vacuumGarbage,
     )
     vs.start()
     metrics = f", metrics on {vs.ip}:{vs.metrics_port}" if vs.metrics_port is not None else ""
@@ -120,10 +125,24 @@ def _volume_flags(p) -> None:
     p.add_argument("-dataCenter", default="DefaultDataCenter")
     p.add_argument("-rack", default="DefaultRack")
     p.add_argument("-max", type=int, default=8, help="max volumes per dir")
+    p.add_argument("-disk", default="",
+                   help="comma list of disk types per -dir entry (hdd|ssd|...; default hdd)")
     p.add_argument("-jwtKey", default="", help="verify per-fid write JWTs (or WEED_JWT_KEY)")
     p.add_argument("-fsync", default="",
                    help="volume fsync policy: always | interval[:N] | close | never "
                    "(default $WEED_FSYNC or close)")
+    p.add_argument("-scrubInterval", type=float, default=None,
+                   help="seconds between background scrub passes; 0 disables them "
+                   "(default $WEED_SCRUB_INTERVAL or 600)")
+    p.add_argument("-scrubRateMB", type=float, default=None,
+                   help="scrub read-rate bound in MB/s; 0 means unthrottled "
+                   "(default $WEED_SCRUB_RATE_MB or 32)")
+    p.add_argument("-vacuumInterval", type=float, default=None,
+                   help="seconds between auto-vacuum passes; 0 disables them "
+                   "(default $WEED_VACUUM_INTERVAL_S or 0)")
+    p.add_argument("-vacuumGarbage", type=float, default=None,
+                   help="garbage ratio that triggers compaction "
+                   "(default $WEED_VACUUM_GARBAGE or 0.3)")
     p.add_argument("-metricsPort", type=int, default=None,
                    help="/metrics listener port (0: a free one; none when left out)")
     p.add_argument("-device", default="cuda",

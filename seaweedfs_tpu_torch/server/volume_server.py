@@ -21,20 +21,29 @@ volume_grpc_client_to_master.go:51-113):
   ``EcShardsReceive``), rebuild, copy, mount, unmount, delete, read, blob
   delete, info and to-volume of EC shards; allocate, delete, mark
   read-only / writable, status, mount and unmount of normal volumes;
-  ``CopyFile`` (1 MiB chunks) and ``ReadNeedleBlob``; and, with master
-  addresses, the heartbeat stream (full state, then the store's deltas, a
-  full resync every ``FULL_SYNC_EVERY`` beats).  ``master_address`` is a
-  comma-separated list (HA): the stream follows the ``leader`` a master
-  answers with and rotates through the list when a master is gone.
+  ``CopyFile`` (1 MiB chunks) and ``ReadNeedleBlob``; volume maintenance:
+  ``VolumeVacuum``, ``VolumeCopy`` (the destination pulls .dat/.idx over
+  the source's ``CopyFile`` and mounts them; ``disk_type`` pins the
+  landing disk), ``VolumeScrub``, ``VolumeConfigureReplication``,
+  ``VolumeNeedleIds`` and ``VolumeServerLeave`` (the heartbeat stops, the
+  data plane stays up); and, with master addresses, the heartbeat stream
+  (full state, then the store's deltas, a full resync every
+  ``FULL_SYNC_EVERY`` beats).  ``master_address`` is a comma-separated
+  list (HA): the stream follows the ``leader`` a master answers with and
+  rotates through the list when a master is gone.
+- Background maintenance: the scrubber (storage/scrub.py: CRC walk at a
+  bounded rate, repair from a replica's ``ReadNeedleBlob`` or by EC
+  reconstruction, read-path CRC mismatches flagged to it) and auto-vacuum
+  (storage/vacuum.py), each feeding heartbeat deltas; ``/debug/scrub``,
+  ``/debug/vacuum`` and ``/debug/repair`` on the HTTP port.
 
 Generate and rebuild stream the volume through
 ``select.pipeline_codec_for(scheme, device)``: K1 (csrc/gf_apply.cu) on the
 card.  Status codes, bodies and messages are the JAX package's.
 
-Not ported: the native C++ data plane, ``VolumeCopy``, vacuum, the
-scrubber, tier moves, the
-tracing spans and latency sketch on the handlers, and ``/debug/``.  Those
-RPCs answer UNIMPLEMENTED.
+Not ported: the native C++ data plane, ``VolumeTierMove`` (it needs the
+remote tier backend; it answers UNIMPLEMENTED), the tracing spans and
+latency sketch on the handlers, and the other ``/debug/`` pages.
 """
 
 from __future__ import annotations
@@ -58,6 +67,8 @@ from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs_pb
 from seaweedfs_tpu_torch.security import JwtError, sign_fid, verify_fid
 from seaweedfs_tpu_torch.server.store_ec import EcShardLocator
 from seaweedfs_tpu_torch.storage import compression
+from seaweedfs_tpu_torch.storage import scrub as scrub_mod
+from seaweedfs_tpu_torch.storage import vacuum as vacuum_mod
 from seaweedfs_tpu_torch.storage.erasure_coding import ec_decoder, ec_encoder
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import ec_offset_width, rebuild_ecx_file
 from seaweedfs_tpu_torch.storage.erasure_coding.lrc import make_scheme, scheme_local_groups
@@ -272,6 +283,106 @@ class VolumeServerGrpcServicer:
         except NotFoundError as e:
             context.abort(grpc.StatusCode.NOT_FOUND, str(e))
         return vs_pb.VolumeMountResponse()
+
+    # -- volume maintenance ------------------------------------------------
+
+    def volume_vacuum(self, request, context):
+        vol = self._volume(request.volume_id, context)
+        if vol.garbage_ratio() < request.garbage_threshold:
+            return vs_pb.VolumeVacuumResponse(reclaimed_bytes=0)
+        return vs_pb.VolumeVacuumResponse(reclaimed_bytes=vol.vacuum())
+
+    def volume_copy(self, request, context):
+        """Pull a peer's whole volume (.dat + .idx) and mount it: the
+        destination half of volume.balance / volume.move (reference
+        volume_grpc_copy.go VolumeCopy, riding the CopyFile stream)."""
+        if self.vs.store.find_volume(request.volume_id) is not None:
+            context.abort(grpc.StatusCode.ALREADY_EXISTS, f"volume {request.volume_id} already here")
+        loc = self.vs.store.locations[0]
+        if request.disk_type:
+            # volume.tier.move pins the landing disk
+            loc = next((l for l in self.vs.store.locations if l.disk_type == request.disk_type),
+                       None)
+            if loc is None:
+                context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                              f"no {request.disk_type} disk location on this server")
+        base = volume_file_name(loc.directory, request.collection, request.volume_id)
+        stub = rpc.volume_stub(request.source_data_node)
+        src_modified_ns = 0
+        for ext in (".dat", ".idx"):
+            try:
+                with open(base + ext + ".tmp", "wb") as out:
+                    for resp in stub.CopyFile(vs_pb.CopyFileRequest(
+                            volume_id=request.volume_id, collection=request.collection, ext=ext)):
+                        out.write(resp.file_content)
+                        if ext == ".dat":
+                            src_modified_ns = resp.modified_ts_ns
+            except (grpc.RpcError, OSError) as e:
+                # OSError covers a full or unwritable disk mid-copy: the
+                # .tmp pair must not leak either way
+                for cleanup in (".dat", ".idx"):
+                    try:
+                        os.unlink(base + cleanup + ".tmp")
+                    except FileNotFoundError:
+                        pass
+                context.abort(grpc.StatusCode.INTERNAL,
+                              f"copy {ext} from {request.source_data_node}: {e}")
+        # publish .idx before .dat: mount discovery keys on .dat presence, so
+        # a crash between the renames leaves an undiscoverable .idx rather
+        # than a discoverable volume with an empty needle map
+        for ext in (".idx", ".dat"):
+            os.replace(base + ext + ".tmp", base + ext)
+        self.vs.store.mount_volume(request.volume_id, request.collection)
+        return vs_pb.VolumeCopyResponse(last_append_at_ns=src_modified_ns)
+
+    def volume_scrub(self, request, context):
+        """Foreground scrub pass (the `volume.scrub` shell command):
+        CRC-verify needles, repair from replicas / EC reconstruction."""
+        scrubber = self.vs.scrubber
+        if scrubber is None:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION, "scrubber not available")
+        results = []
+        if request.volume_id:
+            vol = self.vs.store.find_volume(request.volume_id)
+            ev = self.vs.store.find_ec_volume(request.volume_id)
+            if vol is None and ev is None:
+                context.abort(grpc.StatusCode.NOT_FOUND, f"volume {request.volume_id} not found")
+            if vol is not None:
+                results.append(scrubber.scrub_volume(vol, repair=request.repair))
+            if ev is not None:
+                results.append(scrubber.scrub_ec_volume(ev, repair=request.repair))
+        else:
+            results = scrubber.scrub_all(repair=request.repair)
+        return vs_pb.VolumeScrubResponse(results=[vs_pb.VolumeScrubResult(**r) for r in results])
+
+    def volume_configure_replication(self, request, context):
+        """Rewrite a mounted volume's replica-placement code in its
+        superblock (reference command_volume_configure_replication.go);
+        the delta heartbeat re-announces the new placement."""
+        vol = self._volume(request.volume_id, context)
+        try:
+            vol.set_replica_placement(request.replication)
+        except ValueError as e:
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+        self.vs._volume_done(vol)
+        return vs_pb.VolumeConfigureReplicationResponse()
+
+    def volume_needle_ids(self, request, context):
+        """Live needle keys, sizes and offsets of one volume (the
+        volume.fsck census, reference volume_grpc_query.go)."""
+        vol = self._volume(request.volume_id, context)
+        with vol._write_lock:  # MemDb iterates the live dict: snapshot
+            needles = list(vol.nm.db.values())
+        return vs_pb.VolumeNeedleIdsResponse(keys=[nv.key for nv in needles],
+                                             sizes=[nv.size for nv in needles],
+                                             offsets=[nv.offset for nv in needles])
+
+    def volume_server_leave(self, request, context):
+        """Stop heartbeating so the master forgets this node (reference
+        volume_grpc_admin.go VolumeServerLeave); the data plane stays up
+        for in-flight reads until the process exits."""
+        self.vs._leaving.set()
+        return vs_pb.VolumeServerLeaveResponse()
 
     def _volume(self, vid: int, context):
         vol = self.vs.store.find_volume(vid)
@@ -583,6 +694,13 @@ class VolumeServerGrpcServicer:
         return vs_pb.ReadNeedleBlobResponse(needle_blob=vol._pread(offset, size))
 
 
+_DEBUG_PAGES = {
+    "/debug/scrub": scrub_mod.snapshot,
+    "/debug/vacuum": vacuum_mod.snapshot,
+    "/debug/repair": repair_budget.snapshot,
+}
+
+
 class _VolumeHttpHandler(QuietHandler):
     vs: "VolumeServer" = None  # class attribute injected per server
 
@@ -612,6 +730,10 @@ class _VolumeHttpHandler(QuietHandler):
         url, q, fid = self._parse()
         if url.path == "/metrics":
             self._reply(200, stats.render_text().encode(), "text/plain; version=0.0.4")
+            return
+        if url.path in _DEBUG_PAGES:
+            self._reply(200, json.dumps(_DEBUG_PAGES[url.path](), indent=2).encode(),
+                        "application/json")
             return
         if url.path == "/status":
             store = self.vs.store
@@ -707,8 +829,11 @@ class _VolumeHttpHandler(QuietHandler):
                                       extra_headers=enc_headers or None)
         except CrcMismatch:
             # a 500 is an answer from a live peer: the client fails over to
-            # the sibling replicas / EC shards (the scrubber that would
-            # repair the needle is not ported)
+            # the sibling replicas / EC shards, while the needle is flagged
+            # for the scrubber to repair (self-healing read path)
+            stats.DISK_CORRUPTION.inc(path="read")
+            if self.vs.scrubber is not None:
+                self.vs.scrubber.flag(vid, nid)
             self._reply(500, b"crc mismatch", "text/plain")
         except (NotFoundError, KeyError):
             self._reply(404, b"not found", "text/plain")
@@ -838,8 +963,13 @@ class VolumeServer:
         heartbeat_interval: float = 3.0,
         jwt_key: str = "",
         fsync: str = "",
+        disk_types: list[str] | None = None,
+        scrub_interval_s: float | None = None,
+        scrub_rate_mb_s: float | None = None,
+        vacuum_interval_s: float | None = None,
+        vacuum_garbage: float | None = None,
     ):
-        self.store = Store(directories, max_volume_counts,
+        self.store = Store(directories, max_volume_counts, disk_types=disk_types,
                            fsync=fsync or os.environ.get("WEED_FSYNC", "close"))
         self.store.load_existing_volumes()
         # comma-separated master gRPC addresses (HA); the active one follows
@@ -860,7 +990,14 @@ class VolumeServer:
         self._http_server = None
         self._metrics_server = None
         self._stop = threading.Event()
+        self._leaving = threading.Event()  # VolumeServerLeave: heartbeat off
         self._heartbeat_thread: threading.Thread | None = None
+        self.scrubber: scrub_mod.VolumeScrubber | None = None  # built in start()
+        self._scrub_interval_s = scrub_interval_s
+        self._scrub_rate_mb_s = scrub_rate_mb_s
+        self.auto_vacuum: vacuum_mod.AutoVacuum | None = None  # built in start()
+        self._vacuum_interval_s = vacuum_interval_s
+        self._vacuum_garbage = vacuum_garbage
         # vid -> (urls, fetched_at) holder-location cache
         self._lookup_cache: dict[int, tuple[list[str], float]] = {}
         # data-plane hardening: pooled replica connections, parallel
@@ -941,6 +1078,38 @@ class VolumeServer:
             self._lookup_cache[vid] = (urls, now - self._LOOKUP_TTL + 1.0)
         return list(urls)
 
+    def _peer_grpc_addresses(self, vid: int) -> list[str]:
+        """gRPC addresses of the OTHER holders of vid per the master."""
+        try:
+            resp = rpc.master_stub(self.master_address).LookupVolume(
+                m_pb.LookupVolumeRequest(volume_or_file_ids=[str(vid)]), timeout=10.0)
+        except grpc.RpcError:
+            return []
+        return [f"{loc.url.split(':')[0]}:{loc.grpc_port}"
+                for vl in resp.volume_id_locations for loc in vl.locations
+                if loc.url != self.url and loc.grpc_port]
+
+    def fetch_replica_record(self, vid: int, collection: str, needle_id: int,
+                             size: int) -> bytes | None:
+        """Scrubber repair source: the raw on-disk record of one needle
+        from any other replica holder (the peer resolves its own offset)."""
+        for addr in self._peer_grpc_addresses(vid):
+            try:
+                resp = rpc.volume_stub(addr).ReadNeedleBlob(vs_pb.ReadNeedleBlobRequest(
+                    volume_id=vid, needle_id=needle_id, offset=-1, size=0))
+                if resp.needle_blob:
+                    return bytes(resp.needle_blob)
+            except grpc.RpcError as e:
+                if wlog.V(1):
+                    wlog.info("scrub: replica record %x of vid %d from %s: %s", needle_id, vid,
+                              addr, e)
+        return None
+
+    def _volume_done(self, vol) -> None:
+        """A volume's superblock or scrub state changed (a scrub or vacuum
+        pass, a new placement): announce it in the next heartbeat."""
+        self.store.volume_deltas.put(("new", vol, self.store.disk_type_of(vol.id)))
+
     def lookup_volume_url(self, vid: int) -> str | None:
         """First holder URL for vid, excluding self (read redirects)."""
         for url in self.lookup_volume_urls(vid):
@@ -994,14 +1163,17 @@ class VolumeServer:
             scrub_corrupt=vol.scrub_corrupt,
         )
 
+    def _hb_stopped(self) -> bool:
+        return self._stop.is_set() or self._leaving.is_set()
+
     def _heartbeat_messages(self):
         store = self.store
         yield self._full_heartbeat()
         beats = 0
-        while not self._stop.is_set():
+        while not self._hb_stopped():
             new_vols, del_vols, new_ec, del_ec = [], [], [], []
             deadline = time.time() + self.heartbeat_interval
-            while time.time() < deadline and not self._stop.is_set():
+            while time.time() < deadline and not self._hb_stopped():
                 drained = False
                 while True:
                     try:
@@ -1031,7 +1203,7 @@ class VolumeServer:
                 if drained:
                     break  # ship deltas promptly
                 self._stop.wait(0.1)
-            if self._stop.is_set():
+            if self._hb_stopped():
                 return
             beats += 1
             if beats % self.FULL_SYNC_EVERY == 0 and not (new_vols or del_vols or new_ec or del_ec):
@@ -1055,12 +1227,12 @@ class VolumeServer:
     def _heartbeat_loop(self) -> None:
         ring = 0
         failures = 0
-        while not self._stop.is_set():
+        while not self._hb_stopped():
             try:
                 stub = rpc.master_stub(self.master_address)
                 for resp in stub.SendHeartbeat(self._heartbeat_messages()):
                     failures = 0
-                    if self._stop.is_set():
+                    if self._hb_stopped():
                         return
                     if resp.leader and resp.leader != self.master_address:
                         # re-home to the leader (reference leader redirect,
@@ -1109,6 +1281,17 @@ class VolumeServer:
         # as in the JAX package, the EC locator asks the first configured
         # master (followers forward its LookupEcVolume to the leader)
         self.locator = EcShardLocator(self.master_address, f"{self.ip}:{self.grpc_port}")
+        # the self-healing scrubber and auto-vacuum; both feed the
+        # heartbeat so the master's view follows their findings
+        self.scrubber = scrub_mod.VolumeScrubber(
+            self.store, rate_mb_s=self._scrub_rate_mb_s, interval_s=self._scrub_interval_s,
+            replica_fetcher=self.fetch_replica_record, ec_locator=self.locator,
+            on_volume_done=self._volume_done)
+        self.scrubber.start()
+        self.auto_vacuum = vacuum_mod.AutoVacuum(
+            self.store, interval_s=self._vacuum_interval_s,
+            garbage_threshold=self._vacuum_garbage, on_volume_done=self._volume_done)
+        self.auto_vacuum.start()
         threading.Thread(target=self._http_server.serve_forever, daemon=True).start()
         if self.metrics_port is not None:
             self._metrics_server = stats.start_metrics_server(self.metrics_port, self.ip)
@@ -1119,6 +1302,10 @@ class VolumeServer:
 
     def stop(self) -> None:
         self._stop.set()
+        if self.scrubber is not None:
+            self.scrubber.stop()
+        if self.auto_vacuum is not None:
+            self.auto_vacuum.stop()
         if self._heartbeat_thread is not None:
             self._heartbeat_thread.join(timeout=5)
         if self._http_server is not None:

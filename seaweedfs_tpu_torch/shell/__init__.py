@@ -7,8 +7,16 @@ lock.  Commands self-register via @shell_command; the REPL and one-shot
 ``-c`` runner both dispatch through ``run_command``.  Ported commands:
 ``lock``, ``unlock``, ``help``, ``ec.encode``, ``ec.balance``,
 ``ec.rebuild``, ``ec.decode``, ``cluster.ps``, ``cluster.check``,
-``cluster.raft.ps``, ``cluster.raft.add`` and ``cluster.raft.remove``.  The shell runs no kernel and takes no
-device: the EC work happens inside the volume servers it drives."""
+``cluster.raft.ps``, ``cluster.raft.add``, ``cluster.raft.remove``,
+``volume.list``, ``collection.list``, ``collection.delete``,
+``volume.vacuum``, ``volume.delete``, ``volume.mark``, ``volume.copy``,
+``volume.move``, ``volume.mount``, ``volume.unmount``, ``volume.grow``,
+``volume.configure.replication``, ``volume.fix.replication``,
+``volume.deleteEmpty``, ``volume.server.evacuate``,
+``volume.server.leave``, ``volume.tier.move``, ``volume.balance``,
+``volume.check.disk``, ``volume.scrub`` and ``volume.repair.status``.  The
+shell runs no kernel and takes no device: the EC work happens inside the
+volume servers it drives."""
 
 from __future__ import annotations
 
@@ -100,6 +108,11 @@ def _import_all() -> None:
         command_ec,
         command_ec_balance,
         command_volume,
+        command_volume_balance,
+        command_volume_check,
+        command_volume_ops,
+        command_volume_repair,
+        command_volume_scrub,
     )
 
 

@@ -1,0 +1,508 @@
+"""volume.* ops long tail: copy/move/mount/grow/repair/evacuate/tier.move.
+
+The port's copy of seaweedfs_tpu/shell/command_volume_ops.py: the
+reference's shell/command_volume_copy.go, _move.go, _mount.go,
+_unmount.go, _grow (master vol/grow), _configure_replication.go,
+_fix_replication.go, _delete_empty.go, _server_evacuate.go,
+_server_leave.go and _tier_move.go, driven over the master and volume
+gRPC contracts.  ``volume.tier.upload``/``download`` (they need the remote
+tier backend) and ``volume.fsck`` (it needs the filer) are not ported."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs_pb
+from seaweedfs_tpu_torch.shell import shell_command
+from seaweedfs_tpu_torch.shell.ec_common import grpc_addr
+
+
+# ---------------------------------------------------------------------------
+# topology helpers
+# ---------------------------------------------------------------------------
+
+@dataclass
+class _Node:
+    id: str
+    url: str
+    grpc: str
+    dc: str
+    rack: str
+    free_slots: int
+    volumes: dict[int, m_pb.VolumeStat]
+
+
+def _collect_nodes(env) -> list[_Node]:
+    topo = env.collect_topology().topology_info
+    nodes = []
+    for dc in topo.data_center_infos:
+        for rack in dc.rack_infos:
+            for dn in rack.data_node_infos:
+                vols: dict[int, m_pb.VolumeStat] = {}
+                free = 0
+                for disk in dn.disk_infos.values():
+                    free += disk.free_volume_count
+                    for v in disk.volume_infos:
+                        vols[v.id] = v
+                nodes.append(
+                    _Node(
+                        id=dn.id,
+                        url=dn.url,
+                        grpc=grpc_addr(dn.url, dn.grpc_port),
+                        dc=dc.id,
+                        rack=rack.id,
+                        free_slots=free,
+                        volumes=vols,
+                    )
+                )
+    return nodes
+
+
+def _find_node(nodes: list[_Node], which: str) -> _Node:
+    for n in nodes:
+        if which in (n.id, n.url, n.grpc):
+            return n
+    raise RuntimeError(f"no volume server {which!r} in the topology")
+
+
+def _live_move(env, vid: int, collection: str, read_only: bool,
+               src: _Node, dst: _Node, disk_type: str = "") -> None:
+    """Freeze → pull to dst → drop from src (reference LiveMoveVolume,
+    command_volume_move.go, with readonly-freeze semantics).
+    ``disk_type`` pins the landing disk (volume.tier.move)."""
+    src_stub = env.volume(src.grpc)
+    dst_stub = env.volume(dst.grpc)
+    if not read_only:
+        src_stub.VolumeMarkReadonly(vs_pb.VolumeMarkRequest(volume_id=vid))
+    try:
+        dst_stub.VolumeCopy(
+            vs_pb.VolumeCopyRequest(
+                volume_id=vid, collection=collection,
+                source_data_node=src.grpc, disk_type=disk_type,
+            )
+        )
+    except Exception:
+        if not read_only:
+            src_stub.VolumeMarkWritable(vs_pb.VolumeMarkRequest(volume_id=vid))
+        raise
+    src_stub.VolumeDelete(vs_pb.VolumeDeleteRequest(volume_id=vid))
+    if not read_only:
+        dst_stub.VolumeMarkWritable(vs_pb.VolumeMarkRequest(volume_id=vid))
+    else:
+        dst_stub.VolumeMarkReadonly(vs_pb.VolumeMarkRequest(volume_id=vid))
+
+
+# ---------------------------------------------------------------------------
+# copy / move / mount / unmount / grow
+# ---------------------------------------------------------------------------
+
+@shell_command("volume.copy", "copy a volume from one server to another")
+def cmd_volume_copy(env, args, out):
+    env.confirm_is_locked()
+    nodes = _collect_nodes(env)
+    src = _find_node(nodes, args.source)
+    dst = _find_node(nodes, args.target)
+    v = src.volumes.get(args.volumeId)
+    if v is None:
+        raise RuntimeError(f"volume {args.volumeId} not on {args.source}")
+    env.volume(dst.grpc).VolumeCopy(
+        vs_pb.VolumeCopyRequest(
+            volume_id=args.volumeId,
+            collection=v.collection,
+            source_data_node=src.grpc,
+        )
+    )
+    print(f"copied volume {args.volumeId} {src.id} -> {dst.id}", file=out)
+
+
+def _copy_flags(p):
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-source", required=True, help="source node id/url")
+    p.add_argument("-target", required=True, help="target node id/url")
+
+
+cmd_volume_copy.configure = _copy_flags
+
+
+@shell_command("volume.move", "move a volume between servers (freeze+copy+drop)")
+def cmd_volume_move(env, args, out):
+    env.confirm_is_locked()
+    nodes = _collect_nodes(env)
+    src = _find_node(nodes, args.source)
+    dst = _find_node(nodes, args.target)
+    v = src.volumes.get(args.volumeId)
+    if v is None:
+        raise RuntimeError(f"volume {args.volumeId} not on {args.source}")
+    _live_move(env, args.volumeId, v.collection, v.read_only, src, dst)
+    print(f"moved volume {args.volumeId} {src.id} -> {dst.id}", file=out)
+
+
+cmd_volume_move.configure = _copy_flags
+
+
+@shell_command("volume.mount", "mount an unmounted volume on a server")
+def cmd_volume_mount(env, args, out):
+    env.confirm_is_locked()
+    node = _find_node(_collect_nodes(env), args.node)
+    env.volume(node.grpc).VolumeMount(
+        vs_pb.VolumeMountRequest(
+            volume_id=args.volumeId, collection=args.collection
+        )
+    )
+    print(f"mounted volume {args.volumeId} on {node.id}", file=out)
+
+
+def _mount_flags(p):
+    p.add_argument("-node", required=True, help="node id/url")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+
+
+cmd_volume_mount.configure = _mount_flags
+
+
+@shell_command("volume.unmount", "unmount a volume (files stay on disk)")
+def cmd_volume_unmount(env, args, out):
+    env.confirm_is_locked()
+    node = _find_node(_collect_nodes(env), args.node)
+    env.volume(node.grpc).VolumeUnmount(
+        vs_pb.VolumeMountRequest(volume_id=args.volumeId)
+    )
+    print(f"unmounted volume {args.volumeId} on {node.id}", file=out)
+
+
+def _unmount_flags(p):
+    p.add_argument("-node", required=True, help="node id/url")
+    p.add_argument("-volumeId", type=int, required=True)
+
+
+cmd_volume_unmount.configure = _unmount_flags
+
+
+@shell_command("volume.grow", "pre-allocate volumes for a layout")
+def cmd_volume_grow(env, args, out):
+    env.confirm_is_locked()
+    resp = env.master().VolumeGrow(
+        m_pb.VolumeGrowRequest(
+            collection=args.collection,
+            replication=args.replication,
+            ttl_seconds=args.ttl,
+            count=args.count,
+            disk_type=args.disk,
+        )
+    )
+    print(f"grew volumes {list(resp.volume_ids)}", file=out)
+
+
+def _grow_flags(p):
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", default="")
+    p.add_argument("-ttl", type=int, default=0)
+    p.add_argument("-count", type=int, default=1)
+    p.add_argument("-disk", default="", help="disk type (default hdd)")
+
+
+cmd_volume_grow.configure = _grow_flags
+
+
+@shell_command("volume.configure.replication",
+               "change a volume's replica placement code")
+def cmd_configure_replication(env, args, out):
+    env.confirm_is_locked()
+    if not args.volumeId and not args.collection:
+        # never rewrite the whole cluster's placement implicitly
+        raise RuntimeError("scope with -volumeId or -collection")
+    nodes = _collect_nodes(env)
+    changed = 0
+    for n in nodes:
+        for vid, v in sorted(n.volumes.items()):
+            if args.volumeId and vid != args.volumeId:
+                continue
+            if args.collection and v.collection != args.collection:
+                continue
+            env.volume(n.grpc).VolumeConfigureReplication(
+                vs_pb.VolumeConfigureReplicationRequest(
+                    volume_id=vid, replication=args.replication
+                )
+            )
+            print(f"volume {vid} on {n.id}: replication -> {args.replication}",
+                  file=out)
+            changed += 1
+    if changed == 0:
+        raise RuntimeError("no volumes matched the given scope")
+    print(f"{changed} volume replicas reconfigured "
+          "(run volume.fix.replication to realize the new placement)",
+          file=out)
+
+
+def _conf_repl_flags(p):
+    p.add_argument("-volumeId", type=int, default=0)
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", required=True, help="xyz placement code")
+
+
+cmd_configure_replication.configure = _conf_repl_flags
+
+
+# ---------------------------------------------------------------------------
+# replication repair
+# ---------------------------------------------------------------------------
+
+def plan_fix_replication(nodes: list[_Node], collection: str | None = None):
+    """Pure planner: returns (under, over) move lists.
+
+    under: (vid, src_node, dst_node) copies to create;
+    over:  (vid, node) replicas to delete.
+    Placement math mirrors the reference's command_volume_fix_replication.go:
+    expected copies = 1 + sum of the xyz placement digits; new replicas
+    prefer racks not already holding one.
+    """
+    holders: dict[int, list[_Node]] = {}
+    stats: dict[int, m_pb.VolumeStat] = {}
+    for n in nodes:
+        for vid, v in n.volumes.items():
+            if collection is not None and v.collection != collection:
+                continue
+            holders.setdefault(vid, []).append(n)
+            stats[vid] = v
+    under, over = [], []
+    free = {n.id: n.free_slots for n in nodes}
+    for vid, hs in sorted(holders.items()):
+        rp = stats[vid].replica_placement or "000"
+        expected = 1 + sum(int(c) for c in rp if c.isdigit())
+        if len(hs) < expected:
+            need_other_rack = len(rp) == 3 and rp[1] != "0"
+            held_racks = {n.rack for n in hs}
+            held_ids = {n.id for n in hs}
+            candidates = [
+                n for n in nodes
+                if n.id not in held_ids and free.get(n.id, 0) > 0
+            ]
+            if need_other_rack:
+                preferred = [n for n in candidates if n.rack not in held_racks]
+                candidates = preferred or candidates
+            candidates.sort(key=lambda n: -free.get(n.id, 0))
+            for dst in candidates[: expected - len(hs)]:
+                under.append((vid, hs[0], dst))
+                free[dst.id] -= 1
+        elif len(hs) > expected:
+            # drop extras from the fullest nodes first
+            extras = sorted(hs, key=lambda n: free.get(n.id, 0))
+            for n in extras[: len(hs) - expected]:
+                over.append((vid, n))
+    return under, over
+
+
+@shell_command("volume.fix.replication", "repair under/over-replicated volumes")
+def cmd_fix_replication(env, args, out):
+    env.confirm_is_locked()
+    nodes = _collect_nodes(env)
+    under, over = plan_fix_replication(
+        nodes, args.collection if args.collection else None
+    )
+    for vid, src, dst in under:
+        print(f"replicate volume {vid}: {src.id} -> {dst.id}", file=out)
+        if not args.noApply:
+            v = src.volumes[vid]
+            env.volume(dst.grpc).VolumeCopy(
+                vs_pb.VolumeCopyRequest(
+                    volume_id=vid,
+                    collection=v.collection,
+                    source_data_node=src.grpc,
+                )
+            )
+            if v.read_only:
+                env.volume(dst.grpc).VolumeMarkReadonly(
+                    vs_pb.VolumeMarkRequest(volume_id=vid)
+                )
+    for vid, node in over:
+        print(f"delete extra replica of volume {vid} on {node.id}", file=out)
+        if not args.noApply:
+            env.volume(node.grpc).VolumeDelete(
+                vs_pb.VolumeDeleteRequest(volume_id=vid)
+            )
+    print(
+        f"{'planned' if args.noApply else 'fixed'} "
+        f"{len(under)} under- and {len(over)} over-replicated",
+        file=out,
+    )
+
+
+def _fix_flags(p):
+    p.add_argument("-collection", default="")
+    p.add_argument("-noApply", action="store_true", help="plan only")
+
+
+cmd_fix_replication.configure = _fix_flags
+
+
+# ---------------------------------------------------------------------------
+# empty-volume reaping, evacuation, leave
+# ---------------------------------------------------------------------------
+
+@shell_command("volume.deleteEmpty", "delete volumes holding no live files")
+def cmd_delete_empty(env, args, out):
+    env.confirm_is_locked()
+    deleted = 0
+    for n in _collect_nodes(env):
+        for vid, v in sorted(n.volumes.items()):
+            if v.file_count - v.delete_count > 0:
+                continue
+            print(f"delete empty volume {vid} on {n.id}", file=out)
+            if args.force:
+                env.volume(n.grpc).VolumeDelete(
+                    vs_pb.VolumeDeleteRequest(volume_id=vid, only_empty=True)
+                )
+                deleted += 1
+    print(f"{deleted} deleted (use -force to apply)" if not args.force
+          else f"{deleted} deleted", file=out)
+
+
+cmd_delete_empty.configure = lambda p: p.add_argument(
+    "-force", action="store_true", help="actually delete"
+)
+
+
+@shell_command("volume.server.evacuate", "move all volumes off one server")
+def cmd_server_evacuate(env, args, out):
+    env.confirm_is_locked()
+    nodes = _collect_nodes(env)
+    victim = _find_node(nodes, args.node)
+    others = [n for n in nodes if n.id != victim.id]
+    if not others:
+        raise RuntimeError("no other volume servers to evacuate to")
+    moved = 0
+    for vid, v in sorted(victim.volumes.items()):
+        # avoid nodes already holding a replica of this volume
+        targets = [
+            n for n in others if vid not in n.volumes and n.free_slots > 0
+        ]
+        if not targets:
+            print(f"volume {vid}: no target with free slots", file=out)
+            continue
+        dst = max(targets, key=lambda n: n.free_slots)
+        print(f"move volume {vid}: {victim.id} -> {dst.id}", file=out)
+        if not args.noApply:
+            _live_move(env, vid, v.collection, v.read_only, victim, dst)
+            dst.volumes[vid] = v
+            dst.free_slots -= 1
+            moved += 1
+    print(f"evacuated {moved} volumes from {victim.id}", file=out)
+
+
+def _evac_flags(p):
+    p.add_argument("-node", required=True, help="node id/url to empty")
+    p.add_argument("-noApply", action="store_true", help="plan only")
+
+
+cmd_server_evacuate.configure = _evac_flags
+
+
+@shell_command("volume.server.leave", "ask a server to stop heartbeating")
+def cmd_server_leave(env, args, out):
+    env.confirm_is_locked()
+    node = _find_node(_collect_nodes(env), args.node)
+    env.volume(node.grpc).VolumeServerLeave(vs_pb.VolumeServerLeaveRequest())
+    print(f"{node.id} is leaving the cluster", file=out)
+
+
+cmd_server_leave.configure = lambda p: p.add_argument(
+    "-node", required=True, help="node id/url"
+)
+
+
+# ---------------------------------------------------------------------------
+# volume.tier.move (reference command_volume_tier_move.go)
+# ---------------------------------------------------------------------------
+
+def _nodes_with_disks(env):
+    """Like _collect_nodes but keeps the per-disk-type split the tier
+    mover plans with: (node, {disk_type: (volumes, free_slots)})."""
+    topo = env.collect_topology().topology_info
+    out = []
+    for dc in topo.data_center_infos:
+        for rack in dc.rack_infos:
+            for dn in rack.data_node_infos:
+                disks: dict[str, tuple[dict, int]] = {}
+                for dt, disk in dn.disk_infos.items():
+                    vols = {v.id: v for v in disk.volume_infos}
+                    disks[dt or "hdd"] = (vols, disk.free_volume_count)
+                out.append(
+                    (
+                        _Node(
+                            id=dn.id, url=dn.url,
+                            grpc=grpc_addr(dn.url, dn.grpc_port),
+                            dc=dc.id, rack=rack.id, free_slots=0, volumes={},
+                        ),
+                        disks,
+                    )
+                )
+    return out
+
+
+@shell_command(
+    "volume.tier.move",
+    "move volumes from one disk type to another (hdd <-> ssd)",
+)
+def cmd_volume_tier_move(env, args, out):
+    """For each volume of -collection sitting on -fromDiskType, pull it
+    to a server with free -toDiskType capacity (landing disk pinned via
+    VolumeCopy disk_type), then drop the source — the reference's
+    command_volume_tier_move.go doVolumeTierMove."""
+    env.confirm_is_locked()
+    src_type = args.fromDiskType or "hdd"
+    dst_type = args.toDiskType
+    if not dst_type:
+        raise RuntimeError("-toDiskType is required")
+    if src_type == dst_type:
+        raise RuntimeError("from and to disk types are identical")
+    nodes = _nodes_with_disks(env)
+    dest_view = nodes  # refreshed only after a successful move
+    moved = 0
+    for node, disks in nodes:
+        vols, _free = disks.get(src_type, ({}, 0))
+        for vid, v in sorted(vols.items()):
+            if args.collection != v.collection:
+                continue
+            if args.volumeId and vid != args.volumeId:
+                continue
+            # busiest-capacity destination with the target disk type that
+            # does not already hold vid
+            candidates = []
+            for dnode, ddisks in dest_view:
+                _dvols, dfree = ddisks.get(dst_type, ({}, 0))
+                already = any(vid in dd[0] for dd in ddisks.values())
+                if dfree > 0 and not already:
+                    candidates.append((dfree, dnode))
+            if not candidates:
+                print(
+                    f"volume {vid}: no {dst_type} capacity available",
+                    file=out,
+                )
+                continue
+            dst = max(candidates, key=lambda c: (c[0], c[1].id))[1]
+            _live_move(
+                env, vid, v.collection, v.read_only, node, dst,
+                disk_type=dst_type,
+            )
+            print(
+                f"moved volume {vid} {node.id}({src_type}) -> "
+                f"{dst.id}({dst_type})",
+                file=out,
+            )
+            moved += 1
+            # capacity shifted: refresh the destination view (only now —
+            # one topology RPC per MOVE, not per candidate)
+            dest_view = _nodes_with_disks(env)
+    print(f"volume.tier.move moved {moved} volumes", file=out)
+
+
+def _tier_move_flags(p):
+    p.add_argument("-collection", default="")
+    p.add_argument("-volumeId", type=int, default=0, help="one volume only")
+    p.add_argument("-fromDiskType", default="hdd")
+    p.add_argument("-toDiskType", default="")
+
+
+cmd_volume_tier_move.configure = _tier_move_flags

@@ -5,14 +5,17 @@ help strings: the repair budget's (ops/repair_budget), the plane
 billing's (stats/plane), the EC service's (``EC_OPS``,
 ``EC_DEGRADED_READS``), the HTTP data plane's (``VOLUME_REQUESTS``,
 ``VOLUME_REQUEST_SECONDS``, ``MASTER_REQUESTS``), the raft master's
-(``RAFT_STATE``) and, in ops/sched_cache,
+(``RAFT_STATE``), the scrubber's and vacuum's (``DISK_CORRUPTION``,
+``SCRUB_*``), the flight recorder's (``EVENTS_DROPPED``) and, in
+ops/sched_cache,
 the schedule cache's; and
 one of its own, ``CUDA_KERNEL_LAUNCHES``, which a server samples from the
 kernels' launch counters so a client can see them.
 ``series()`` is how callers read a family; ``render_text()`` renders every
 family in the Prometheus text format of the JAX package's
 ``Registry.render_text``, and ``start_metrics_server`` serves it at
-``/metrics`` (the ``/debug/`` pages are not ported).
+``/metrics`` (of the ``/debug/`` pages only the volume server's scrub, vacuum
+and repair ones are ported).
 """
 
 from __future__ import annotations
@@ -196,6 +199,26 @@ EC_DEGRADED_READS = Counter(
     "weedtpu_ec_degraded_reads_total",
     "EC shard reads served degraded, by mode (failover/hedge/reconstruct)",
 )
+DISK_CORRUPTION = Counter(
+    "weedtpu_disk_corruption_total",
+    "Corrupt needle records detected, by path (read/scan/vacuum/scrub)",
+)
+SCRUB_NEEDLES = Counter(
+    "weedtpu_scrub_needles_total",
+    "Needles CRC-verified by the scrubber, by result (ok/corrupt)",
+)
+SCRUB_BYTES = Counter(
+    "weedtpu_scrub_bytes_total",
+    "Bytes read and verified by the scrubber",
+)
+SCRUB_REPAIRS = Counter(
+    "weedtpu_scrub_repairs_total",
+    "Scrubber repairs by source (replica/ec_reconstruct) and outcome",
+)
+SCRUB_PASSES = Counter(
+    "weedtpu_scrub_passes_total",
+    "Completed scrub passes over a volume, by kind (volume/ec)",
+)
 REPAIR_BYTES = Counter(
     "weedtpu_repair_bytes_total",
     "EC repair traffic by storage class (code: rs/lrc/volume), repair mode "
@@ -223,6 +246,11 @@ PLANE_OP_SECONDS = Counter(
 RAFT_STATE = Gauge(
     "weedtpu_master_raft",
     "Raft consensus state: term and role (leader=1/follower=0) per field",
+)
+EVENTS_DROPPED = Counter(
+    "weedtpu_events_dropped_total",
+    "Flight-recorder events displaced from the bounded ring before being "
+    "read (stats/events.py)",
 )
 CUDA_KERNEL_LAUNCHES = Gauge(
     "weedtpu_cuda_kernel_launches",

@@ -4,7 +4,9 @@ The port's copy of the memory kind of seaweedfs_tpu/storage/needle_map.py
 (reference NeedleMapInMemory, weed/storage/needle_map.go): ``MemDb``, the
 dict replay of an index log, and ``AppendIndex``, the live .idx writer of
 an open volume, with its torn-tail truncation and replay; and
-``walk_index_file``, which the EC decoder also reads.  The .idx file is an
+``walk_index_file``, which the EC decoder also reads.  ``MemDb.ascending``
+and ``save_to_idx`` write the compacted index of a vacuum and of an index
+rebuild (sorted by key, staged and renamed), as the JAX package's do.  The .idx file is an
 append-only log of 16-byte entries (same layout as the reference's,
 weed/storage/needle_map/needle_value.go ToBytes); a deletion appends an
 entry with zero offset and tombstone size.  (The encoder replays the log
@@ -100,9 +102,25 @@ class MemDb:
     def __len__(self) -> int:
         return len(self._m)
 
+    def ascending(self) -> Iterator[NeedleValue]:
+        for key in sorted(self._m):
+            yield self._m[key]
+
     def values(self) -> Iterator[NeedleValue]:
         """Unordered iteration, for aggregate accounting."""
         return iter(self._m.values())
+
+    def save_to_idx(self, idx_path: str | os.PathLike, offset_width: int = OFFSET_SIZE) -> None:
+        # staging + atomic rename: a crash mid-save must leave the old
+        # index intact, never a half-written one
+        idx_path = os.fspath(idx_path)
+        tmp = idx_path + ".tmp"
+        with open(tmp, "wb") as f:
+            for nv in self.ascending():
+                f.write(nv.to_bytes(offset_width))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, idx_path)
 
 
 def _replay_visitor(db: MemDb) -> Callable[[int, int, int], None]:

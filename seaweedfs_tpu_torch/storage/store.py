@@ -8,10 +8,11 @@ shards; and the stats plus delta queues (``volume_deltas``,
 ``ec_shard_deltas``) that the volume server's heartbeat drains.  Every
 volume it opens or creates takes the store's fsync policy
 (``storage.volume.parse_fsync_policy``).  The native data plane, the
-store-level needle I/O and the per-disk types, needle-map kinds, backends
-and offset widths of the JAX Store's options are not ported (every volume
-is on hdd, with an in-memory needle map and the disk backend, width 4 when
-new).
+store-level needle I/O and the needle-map kinds, backends and offset
+widths of the JAX Store's options are not ported (every volume has an
+in-memory needle map and the disk backend, width 4 when new).  Each disk
+directory has a type (``disk_types``, default hdd), the placement
+dimension of growth, ``VolumeCopy`` and ``volume.tier.move``.
 """
 
 from __future__ import annotations
@@ -35,15 +36,13 @@ from seaweedfs_tpu_torch.storage.volume import (
 
 
 class DiskLocation:
-    """One disk directory holding volumes and EC shards.  Its placement
-    dimension (reference types.DiskType) is always hdd: the port's
-    volume server takes no disk types."""
-
-    disk_type = "hdd"
+    """One disk directory holding volumes and EC shards, of one disk type
+    (reference types.DiskType: hdd, ssd, ...)."""
 
     def __init__(self, directory: str | os.PathLike, max_volume_count: int = 8,
-                 fsync: str = "close"):
+                 fsync: str = "close", disk_type: str = "hdd"):
         self.directory = str(directory)
+        self.disk_type = disk_type
         self.max_volume_count = max_volume_count
         self.fsync = fsync
         self.volumes: dict[int, Volume] = {}
@@ -90,15 +89,20 @@ class Store:
     """All disk locations of one volume server + heartbeat delta queues."""
 
     def __init__(self, directories: list[str | os.PathLike],
-                 max_volume_counts: list[int] | None = None, fsync: str = "close"):
+                 max_volume_counts: list[int] | None = None, fsync: str = "close",
+                 disk_types: list[str] | None = None):
         counts = max_volume_counts or [8] * len(directories)
-        if len(counts) != len(directories):
+        types = disk_types or ["hdd"] * len(directories)
+        if len(types) == 1 and len(directories) > 1:
+            types = types * len(directories)  # one type applies to all dirs
+        if len(types) != len(directories) or len(counts) != len(directories):
             # zip would silently drop the unmatched dirs
-            raise ValueError(f"{len(directories)} dirs need {len(directories)} max counts "
-                             f"(got {len(counts)})")
+            raise ValueError(f"{len(directories)} dirs need {len(directories)} disk types/max "
+                             f"counts (got {len(types)}/{len(counts)})")
         parse_fsync_policy(fsync)  # refuse a bad policy before any volume opens
         self.fsync = fsync
-        self.locations = [DiskLocation(d, c, fsync) for d, c in zip(directories, counts)]
+        self.locations = [DiskLocation(d, c, fsync, t)
+                          for d, c, t in zip(directories, counts, types)]
         # incremental heartbeat deltas (reference: NewVolumesChan /
         # NewEcShardsChan, store.go:69-74): (kind, volume, disk_type) and
         # (kind, vid, collection, bits, sizes, scheme, disk_type)

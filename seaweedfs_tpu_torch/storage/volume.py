@@ -1,19 +1,24 @@
 """Volume: append-only .dat needle log + live .idx index.
 
-The port's copy of the sealed-volume side of seaweedfs_tpu/storage/
-volume.py (reference weed/storage/volume_read.go / volume_write.go,
-volume_checking.go): open an existing .dat/.idx (with the crash-recovery
-walk a mounted volume gets), create one, append, tombstone and read
-needles, seal it durably (.vif readOnly), and destroy it.  A volume that
-fills up is sealed and handed to the EC pipeline (storage/erasure_coding).
+The port's copy of the disk side of seaweedfs_tpu/storage/volume.py
+(reference weed/storage/volume_read.go / volume_write.go,
+volume_vacuum.go, volume_checking.go): open an existing .dat/.idx (with the
+crash-recovery walk a mounted volume gets, including the index rebuild a
+surviving vacuum commit marker asks for), create one, append, tombstone and
+read needles, seal it durably (.vif readOnly), rewrite its replica
+placement, and destroy it.  Maintenance: ``garbage_ratio`` (incremental,
+from deletes and overwrites), ``vacuum`` (copying compaction through
+.cpd/.cpx and an fsynced .cpt marker around the two renames, corrupt
+records dropped and counted, the superblock's compaction revision + 1;
+the .dat and .idx it leaves are byte-identical to the JAX package's),
+``scan`` and ``rebuild_index``.  A volume that fills up is sealed and
+handed to the EC pipeline (storage/erasure_coding).
 
 Each volume applies its fsync policy (``parse_fsync_policy``: always,
 interval[:N], close or never) after every append, as the JAX package does.
 
-Not ported: the needle-map kinds other than memory, the memory backend, the native data plane, tiering, vacuum,
-``scan`` and ``rebuild_index`` (a volume whose vacuum commit marker
-survived a crash, which needs the index rebuilt from its .dat, is refused
-at open).
+Not ported: the needle-map kinds other than memory, the memory backend (and
+its in-memory vacuum), the native data plane and tiering.
 """
 
 from __future__ import annotations
@@ -24,10 +29,12 @@ import threading
 import time
 from pathlib import Path
 
+from seaweedfs_tpu_torch import stats
+from seaweedfs_tpu_torch.stats import plane
 from seaweedfs_tpu_torch.storage import needle as needle_mod
 from seaweedfs_tpu_torch.storage.backend import open_backend
 from seaweedfs_tpu_torch.storage.needle import CookieMismatch, Needle, NeedleError
-from seaweedfs_tpu_torch.storage.needle_map import AppendIndex
+from seaweedfs_tpu_torch.storage.needle_map import AppendIndex, MemDb
 from seaweedfs_tpu_torch.storage.super_block import (
     SUPER_BLOCK_SIZE,
     ReplicaPlacement,
@@ -103,13 +110,16 @@ class Volume:
         self.read_only = False
         self.fsync_mode, self.fsync_interval_s = parse_fsync_policy(fsync)
         self._last_fsync = time.monotonic()
-        # scrubber state, reported in the heartbeat's VolumeStat (the
-        # scrubber itself is not ported: these stay 0)
+        # scrubber state (storage/scrub.py): fed into the heartbeat's
+        # VolumeStat so the master's health view follows scrub findings
         self.last_scrub_at_ns = 0
         self.scrub_corrupt = 0
         self._write_lock = threading.RLock()
         # guards _deleted_bytes / last_append_at_ns increments
         self._acct_lock = threading.Lock()
+        # odd while a vacuum or an index rebuild swaps the .dat/.idx in:
+        # a read that overlapped a swap is re-read (read_needle)
+        self._swap_seq = 0
 
         dat_path = self.base + ".dat"
         exists = os.path.exists(dat_path)
@@ -153,16 +163,33 @@ class Volume:
         info.read_only = flag
         save_volume_info(self.base + ".vif", info)
 
+    def set_replica_placement(self, code: str) -> None:
+        """Rewrite the superblock's replica-placement byte in place
+        (reference volume_super_block.go, used by
+        volume.configure.replication)."""
+        rp = ReplicaPlacement.parse(code)
+        if rp.to_byte() > 255:
+            # validate the encoding BEFORE mutating anything, or memory
+            # and disk diverge on the failure path
+            raise ValueError(f"replica placement {code!r} does not fit a byte")
+        with self._write_lock:
+            self._dat.write_at(1, bytes([rp.to_byte()]))
+            self._dat.flush()
+            self.super_block.replica_placement = rp
+
     # -- crash recovery (reference volume_checking.go CheckVolumeDataIntegrity
     # behavioral equivalent, extended with tail replay) ---------------------
 
     def _recover_crash_state(self, existed: bool) -> None:
         """Make a possibly-crashed volume serveable again, in place.
 
-        1. Remove .cpd/.cpx vacuum staging a crash mid-vacuum left behind.
-        2. A surviving vacuum COMMIT marker (.cpt) means the crash hit the
-           two-rename swap window and the .idx may be stale: the index
-           rebuild that repairs it is not ported, so the open is refused.
+        1. Remove .cpd/.cpx vacuum staging a crash mid-vacuum left behind
+           (the swap never happened, so .dat/.idx are the live truth).
+        2. If the vacuum COMMIT marker (.cpt) survived, the crash landed
+           inside the two-rename swap window: the .dat may be compacted
+           while the .idx is stale, so the index is rebuilt from the .dat
+           (the marker makes this deterministic; a heuristic could not
+           tell a stale index from one bit-flipped record header).
         3. Tombstone .idx entries pointing past the .dat end.
         4. Walk the un-indexed .dat tail: CRC-valid records are replayed
            into the index; the first torn/corrupt one and everything after
@@ -180,12 +207,14 @@ class Volume:
             if had_marker:
                 os.remove(marker)
             return
-        if had_marker:
-            self.close()
-            raise ValueError(f"volume {self.id}: vacuum commit marker present; the index "
-                             "rebuild from .dat it needs is not ported")
         end = self.dat_size()
         with self._write_lock:
+            if had_marker:
+                wlog.warning("volume %d: vacuum commit marker present — the crash hit the "
+                             "swap window; rebuilding index from .dat", self.id)
+                self.rebuild_index()
+                os.remove(marker)
+                end = self.dat_size()
             tail, tail_nv = self._drop_overhanging_entries_locked(end)
             if tail_nv is not None and self._entry_verdict(tail_nv) == "wrong_key":
                 wlog.warning("volume %d: record at offset %d does not match its index entry "
@@ -298,10 +327,6 @@ class Volume:
     def file_count(self) -> int:
         return len(self.nm.db)
 
-    def deleted_bytes(self) -> int:
-        """.dat bytes not referenced by live needles."""
-        return self._deleted_bytes
-
     def close(self) -> None:
         with self._write_lock:
             self.nm.close()
@@ -369,6 +394,27 @@ class Volume:
     # -- read path ---------------------------------------------------------
 
     def read_needle(self, needle_id: int, cookie: int | None = None) -> Needle:
+        # reads take no lock; one that overlapped a vacuum's swap (the old
+        # .dat closed, the index and the file from different generations)
+        # is re-read from the new files instead of failing
+        while True:
+            seq = self._swap_seq
+            if seq & 1:
+                time.sleep(0.001)
+                continue
+            try:
+                n = self._read_record(needle_id)
+            except (NeedleError, NotFoundError, OSError, ValueError):
+                if seq != self._swap_seq:
+                    continue
+                raise
+            if seq == self._swap_seq:
+                break
+        if cookie is not None and n.cookie != cookie:
+            raise CookieMismatch(f"needle {needle_id:x} cookie mismatch")
+        return n
+
+    def _read_record(self, needle_id: int) -> Needle:
         nv = self.nm.get(needle_id)
         if nv is None or not size_is_valid(nv.size):
             raise NotFoundError(needle_id)
@@ -376,9 +422,122 @@ class Volume:
         n = Needle.from_bytes(buf, self.version)
         if n.id != needle_id:
             raise NeedleError(f"read id mismatch at {nv.offset}: {n.id:x} != {needle_id:x}")
-        if cookie is not None and n.cookie != cookie:
-            raise CookieMismatch(f"needle {needle_id:x} cookie mismatch")
         return n
 
     def _pread(self, offset: int, length: int) -> bytes:
         return self._dat.read_at(offset, length)
+
+    # -- maintenance -------------------------------------------------------
+
+    def deleted_bytes(self) -> int:
+        """.dat bytes not referenced by live needles (tombstoned or
+        overwritten): the numerator of the garbage ratio."""
+        return self._deleted_bytes
+
+    def garbage_ratio(self) -> float:
+        """Fraction of .dat bytes not referenced by live needles."""
+        size = self.dat_size() - SUPER_BLOCK_SIZE
+        if size <= 0:
+            return 0.0
+        return min(1.0, self._deleted_bytes / size)
+
+    def _vacuum_record_ok(self, nv, record: bytes) -> bool:
+        """CRC-gate one record on the vacuum copy path: compaction never
+        launders corrupt bytes into a fresh .dat where nothing would look
+        at them again.  A corrupt record is skipped loudly (offset logged,
+        metric counted); the scrubber repairs from a replica or EC."""
+        try:
+            Needle.from_bytes(record, self.version)
+            return True
+        except NeedleError as e:
+            stats.DISK_CORRUPTION.inc(path="vacuum")
+            wlog.warning("volume %d: corrupt needle %x at offset %d dropped by vacuum: %s",
+                         self.id, nv.key, nv.offset, e)
+            return False
+
+    def vacuum(self) -> int:
+        """Copying compaction: rewrite only live needles, in key order,
+        into .cpd/.cpx, then swap them in (reference volume_vacuum.go).
+        Writes to this volume wait on the write lock for the whole copy.
+        Returns the bytes reclaimed."""
+        with plane.tagged(plane.VACUUM):
+            return self._vacuum()
+
+    def _vacuum(self) -> int:
+        with self._write_lock:
+            old_size = self.dat_size()
+            cpd, cpx = self.base + ".cpd", self.base + ".cpx"
+            new_db = MemDb()
+            with open(cpd, "wb") as out:
+                sb = SuperBlock(
+                    version=self.version,
+                    replica_placement=self.super_block.replica_placement,
+                    ttl=self.super_block.ttl,
+                    compaction_revision=self.super_block.compaction_revision + 1,
+                    offset_width=self.offset_width,
+                )
+                out.write(sb.to_bytes())
+                for nv in self.nm.db.ascending():
+                    record = self._pread(nv.offset, get_actual_size(nv.size, self.version))
+                    if not self._vacuum_record_ok(nv, record):
+                        continue  # logged + counted; never copy corruption
+                    new_off = out.tell()
+                    out.write(record)
+                    new_db.set(nv.key, new_off, nv.size)
+            new_db.save_to_idx(cpx, self.offset_width)
+            # the commit marker brackets the two renames: a crash inside
+            # the window leaves .cpt on disk, and recovery then knows the
+            # .idx may be stale and rebuilds it from the .dat
+            marker = self.base + ".cpt"
+            with open(marker, "wb") as mf:
+                mf.flush()
+                os.fsync(mf.fileno())
+            self._swap_seq += 1
+            self.nm.close()
+            self._dat.close()
+            os.replace(cpd, self.base + ".dat")
+            os.replace(cpx, self.base + ".idx")
+            os.remove(marker)
+            self._dat = open_backend("disk", self.base + ".dat")
+            self.super_block = SuperBlock.from_bytes(self._pread(0, SUPER_BLOCK_SIZE))
+            self.nm = AppendIndex(self.base + ".idx", offset_width=self.offset_width)
+            self._deleted_bytes = 0  # compaction kept only live needles
+            self._swap_seq += 1
+            return old_size - self.dat_size()
+
+    def scan(self, verify_crc: bool = False):
+        """Yield (offset, Needle) for every record in the .dat log
+        (superseded and tombstone records included).  With ``verify_crc``
+        a corrupt record is logged with its offset, counted and skipped
+        (record boundaries come from the header, so the walk goes on)."""
+        end = self.dat_size()
+        off = SUPER_BLOCK_SIZE
+        while off + NEEDLE_HEADER_SIZE <= end:
+            n = Needle.parse_header(self._pread(off, NEEDLE_HEADER_SIZE))
+            total = NEEDLE_HEADER_SIZE + needle_mod.body_length(max(n.size, 0), self.version)
+            if off + total > end:
+                break
+            buf = self._pread(off, total)
+            try:
+                yield off, Needle.from_bytes(buf, self.version, verify_crc=verify_crc)
+            except NeedleError as e:
+                stats.DISK_CORRUPTION.inc(path="scan")
+                wlog.warning("volume %d: corrupt needle %x at offset %d (%d bytes) skipped "
+                             "during scan: %s", self.id, n.id, off, total, e)
+            off += total
+
+    def rebuild_index(self) -> None:
+        """Recreate .idx by scanning .dat (the reference's `weed fix`).
+        Records that fail their CRC are skipped with a logged offset."""
+        with self._write_lock:
+            db = MemDb()
+            for off, n in self.scan(verify_crc=True):
+                if n.size > 0 and n.data:
+                    db.set(n.id, off, n.size)
+                elif n.size == 0:
+                    db.delete(n.id)
+            self._swap_seq += 1
+            self.nm.close()
+            db.save_to_idx(self.base + ".idx", self.offset_width)
+            self.nm = AppendIndex(self.base + ".idx", offset_width=self.offset_width)
+            self._swap_seq += 1

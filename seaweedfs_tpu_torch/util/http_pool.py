@@ -237,3 +237,18 @@ class HttpConnectionPool:
             self._idle.clear()
             self._freed.notify_all()
 
+
+
+_shared: HttpConnectionPool | None = None
+_shared_lock = threading.Lock()
+
+
+def shared_pool() -> HttpConnectionPool:
+    """The process-wide pool (lazy; one per process, like the reference's
+    shared http.Client transport): the shell's volume.check.disk and
+    volume.repair.status requests ride it."""
+    global _shared
+    with _shared_lock:
+        if _shared is None:
+            _shared = HttpConnectionPool(timeout=30.0, max_idle_per_host=16)
+        return _shared

@@ -9,12 +9,14 @@ comma-separated master list (HA) fails over on connection errors through
 util/resilience.failover_call, like the reference's KeepConnectedToMaster
 rotation (wdclient/masterclient.go:134).
 
-Not ported: batch assigns, the EC shard-location cache and client-side
-write tokens.
+``sign_write`` mints a per-fid write token when the cluster signs writes
+(``jwt_key`` or ``$WEED_JWT_KEY``).  Not ported: batch assigns and the EC
+shard-location cache.
 """
 
 from __future__ import annotations
 
+import os
 import random
 import threading
 import time
@@ -23,6 +25,7 @@ import grpc
 
 from seaweedfs_tpu_torch import rpc
 from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+from seaweedfs_tpu_torch.security import sign_fid
 from seaweedfs_tpu_torch.util import resilience, wlog
 
 
@@ -82,7 +85,8 @@ class MasterClient:
     cache.  ``master_address`` is one master's gRPC address or a
     comma-separated list of them (HA)."""
 
-    def __init__(self, master_address: str, cache_ttl: float = 10.0):
+    def __init__(self, master_address: str, cache_ttl: float = 10.0, jwt_key: str = ""):
+        self.jwt_key = jwt_key or os.environ.get("WEED_JWT_KEY", "")
         self.master_addresses = [a.strip() for a in master_address.split(",") if a.strip()]
         self.master_address = self.master_addresses[0]
         self.cache_ttl = cache_ttl
@@ -92,6 +96,13 @@ class MasterClient:
     @property
     def _stub(self) -> FailoverStub:
         return FailoverStub(self, self.master_addresses)
+
+    def sign_write(self, fid: str) -> str:
+        """A fresh per-fid write token, or "" when the cluster does not
+        sign writes."""
+        if not self.jwt_key:
+            return ""
+        return sign_fid(self.jwt_key, fid)
 
     def assign(self, count: int = 1, collection: str = "", replication: str = "",
                ttl_seconds: int = 0, disk_type: str = "",

@@ -74,7 +74,14 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/commands/benchmark_cmd.py",
             "seaweedfs_tpu_torch/cluster/__init__.py", "seaweedfs_tpu_torch/cluster/raft.py",
             "seaweedfs_tpu_torch/cluster/election.py", "seaweedfs_tpu_torch/cluster/registry.py",
-            "seaweedfs_tpu_torch/shell/command_cluster.py"} <= names
+            "seaweedfs_tpu_torch/shell/command_cluster.py",
+            "seaweedfs_tpu_torch/stats/events.py", "seaweedfs_tpu_torch/storage/vacuum.py",
+            "seaweedfs_tpu_torch/storage/scrub.py",
+            "seaweedfs_tpu_torch/shell/command_volume_ops.py",
+            "seaweedfs_tpu_torch/shell/command_volume_balance.py",
+            "seaweedfs_tpu_torch/shell/command_volume_check.py",
+            "seaweedfs_tpu_torch/shell/command_volume_scrub.py",
+            "seaweedfs_tpu_torch/shell/command_volume_repair.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())

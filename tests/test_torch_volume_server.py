@@ -30,6 +30,7 @@ from seaweedfs_tpu_torch.storage.needle import Needle
 from seaweedfs_tpu_torch.storage.types import Version
 
 from test_torch_ec_read import write_needle_volume
+from test_torch_shell import first_line
 
 REPO = Path(__file__).resolve().parent.parent
 LOST = [0, 3, 10, 13]
@@ -240,7 +241,7 @@ def test_grpc_round_trip_through_the_cli_server(tmp_path):
          "-port", "0", "-metricsPort", "0", "-device", "cpu"],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=_env())
     try:
-        line = proc.stdout.readline()
+        line = first_line(proc)
         bound = re.search(r"gRPC on 127\.0\.0\.1:(\d+) \(device cpu\), metrics on "
                           r"127\.0\.0\.1:(\d+)$", line.strip())
         assert bound, (line, proc.stderr.read() if proc.poll() else "")
@@ -267,8 +268,11 @@ def test_grpc_round_trip_through_the_cli_server(tmp_path):
         blob = stub.ReadNeedleBlob(pb.ReadNeedleBlobRequest(volume_id=1, needle_id=nid,
                                                             offset=-1), timeout=30).needle_blob
         assert Needle.from_bytes(blob, Version.V3).data == vol["live"][nid]
+        vac = stub.VolumeVacuum(pb.VolumeVacuumRequest(volume_id=1, garbage_threshold=1.1),
+                                timeout=30)
+        assert vac.reclaimed_bytes == 0  # under the threshold: answered, nothing compacted
         with pytest.raises(grpc.RpcError) as err:
-            stub.VolumeVacuum(pb.VolumeVacuumRequest(volume_id=1), timeout=30)
+            stub.VolumeTierMove(pb.VolumeTierMoveRequest(volume_id=1), timeout=30)
         assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
         with urllib.request.urlopen(f"http://127.0.0.1:{metrics_port}/metrics", timeout=30) as r:
             text = r.read().decode()

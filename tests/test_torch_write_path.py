@@ -60,6 +60,8 @@ from seaweedfs_tpu_torch.topology import topology
 from seaweedfs_tpu_torch.util import http_range
 from seaweedfs_tpu_torch.wdclient import AssignError, MasterClient
 
+from test_torch_shell import first_line
+
 WAIT_S = 60.0
 N_SERVERS = 3
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -648,7 +650,7 @@ def test_cli_benchmark_against_cli_servers(tmp_path):
     def start(args: list[str], pattern: str) -> re.Match:
         procs.append(subprocess.Popen(cli + args, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                       text=True, env=env))
-        line = procs[-1].stdout.readline().strip()
+        line = first_line(procs[-1]).strip()
         bound = re.search(pattern, line)
         assert bound, (line, procs[-1].stderr.read() if procs[-1].poll() is not None else "")
         return bound
