@@ -7,7 +7,8 @@ Phases, each printing what it found; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit, and an nvcc build of
    every kernel in seaweedfs_tpu_torch/csrc (and a g++ build of its host
-   CRC32C; one process per source, all started together), with ptxas's
+   CRC32C and GF(2^8) codec; one process per source, all started
+   together), with ptxas's
    registers and spills for every kernel instantiation; a spill in K1 or K2
    fails the run.
 2. Kernels against their plain versions on the card, byte-exact:
@@ -197,6 +198,29 @@ Phases, each printing what it found; any failure exits non-zero:
    repair decodes on the host), and 1,000 needles read over HTTP
    (``/dir/lookup``, then GET) equal their payloads.  Its figures go on a
    ``maintenance:`` JSON line.
+12. Storage options and the tier: a fresh ``cli master`` and four ``cli
+   volume -device cuda -scrubInterval 0 -scrubRateMB 0``: A and B
+   ``-index leveldb -backend mmap`` (rack r0), C ``-disk ssd -index compact
+   -offsetWidth 5`` and D ``-disk mem -backend memory -index compact`` (rack
+   r1; the disk tags pin the fills of C and D).  V, 4,096 x 64 KiB at 001
+   on A and B (256 MiB a holder; upstream volumes are 30 GB), reads back
+   equal from both; A restarts on its ports with a new ``-publicUrl`` (its
+   LSM map's mark equals the .idx, so nothing is replayed; the time to the
+   first heartbeat is printed); ``cli backup`` lands its holder's .dat and
+   .idx byte for byte; ``volume.mark`` and ``volume.tier.upload -node A``
+   move A's .dat to a directory object store (the .vif names the object;
+   1,024 reads through TieredFile equal, reads/s and p50/p99 printed; a
+   write is refused); A restarts onto the .vif alone and the master lists
+   V on it again; ``volume.tier.download`` restores A's .dat sha256-equal
+   to what was uploaded; C and D take 1,024 x 64 KiB at 000 each (C's .idx
+   of 17-byte entries whose offsets name their records; 40% of D deleted,
+   ``volume.vacuum`` reclaims exactly those records' bytes in memory,
+   survivors equal, the deleted 404); ``ec.encode`` of V launches K1 on its
+   source exactly once per batch, 14 shards sha256-identical to the CPU
+   plain version's.  Its figures go on a ``storage:`` JSON line.  Then the
+   host codec (``ReedSolomonCPU`` on csrc/gf256.cpp, which phases 7 and 11
+   decode on and name) is held byte-equal to the plain torch codec on a
+   10 x 1 MiB encode and a 4-loss rebuild, each timed in µs.
 
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
@@ -830,10 +854,19 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
             path = os.path.join(tmp, name)
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         maintenance = phase_maintenance(args, tmp, ident, dev)
+        for name in os.listdir(tmp):  # room for phase 12's volumes
+            path = os.path.join(tmp, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+        storage = phase_storage(args, tmp, ident, dev)
+        host_codec = phase_host_codec(ident)
+        degraded = {label: (r["p50_us"], r["p99_us"]) for label, r in ec_service["reads"].items()}
+        print(f"host codec paths on {ident}: phase 7 reads p50/p99 us {degraded}; phase 11 EC "
+              f"scrub {maintenance['walls']['ec_scrub']:.3f}s")
         return dict(launches=enc_launches + reb_launches, encode=enc, rebuild=reb,
                     encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
                     lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster, write=write,
-                    failover=failover, maintenance=maintenance)
+                    failover=failover, maintenance=maintenance, storage=storage,
+                    host_codec=host_codec)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1533,11 +1566,13 @@ def phase_server(vol: dict, directory: str, dev, ident: str, seed: int) -> dict:
                                    timeout=60).needle_blob
         check(Needle.from_bytes(blob, Version.V3).data == vol["big"][0]["data"],
               "ReadNeedleBlob's record differs from the needle written")
-        try:
-            stub.VolumeTierMove(pb.VolumeTierMoveRequest(volume_id=1), timeout=60)
-            check(False, "VolumeTierMove answered")
+        try:  # an unsealed volume is not tiered
+            stub.VolumeTierMove(pb.VolumeTierMoveRequest(
+                volume_id=1, dest=os.path.join(directory, "objects")), timeout=60)
+            check(False, "VolumeTierMove tiered an unsealed volume")
         except grpc.RpcError as e:
-            check(e.code() == grpc.StatusCode.UNIMPLEMENTED, f"VolumeTierMove: {e.code()}")
+            check(e.code() == grpc.StatusCode.FAILED_PRECONDITION,
+                  f"VolumeTierMove: {e.code()} {e.details()}")
 
         for ext in (".dat", ".idx"):
             os.remove(base + ext)
@@ -1580,6 +1615,7 @@ def phase_reads(vol: dict, dirs: dict, ident: str, seed: int) -> dict:
     import numpy as np
 
     from seaweedfs_tpu_torch import stats
+    from seaweedfs_tpu_torch.ops.select import small_read_codec_for
     from seaweedfs_tpu_torch.server.store_ec import EcShardLocator
     from seaweedfs_tpu_torch.storage.store import Store
     from seaweedfs_tpu_torch.storage.volume import NotFoundError
@@ -1637,8 +1673,10 @@ def phase_reads(vol: dict, dirs: dict, ident: str, seed: int) -> dict:
                    p99_us=float(np.percentile(lat, 99) * 1e6),
                    reconstructed_intervals=rebuilt[0], reconstructed_bytes=rebuilt[1],
                    repair_read_bytes=moved)
+        rec["codec"] = type(small_read_codec_for(ev.scheme)).__name__
         out[label] = rec
-        print(f"reads ({label}) on the host ({ident} box): {len(sample)} needles byte-exact, "
+        print(f"reads ({label}) on the host ({ident} box), decoding on {rec['codec']}: "
+              f"{len(sample)} needles byte-exact, "
               f"{len(dead)} tombstoned raise NotFoundError; {rec['needles_per_s']:.1f} needles/s, "
               f"p50 {rec['p50_us']:.1f} us, p99 {rec['p99_us']:.1f} us; {rebuilt[0]} intervals "
               f"({rebuilt[1]} bytes) reconstructed; weedtpu_repair_bytes_total{{dir=read}} "
@@ -2818,6 +2856,70 @@ def _flip(path: str, offset: int) -> None:
         f.write(bytes([b[0] ^ 0x5A]))
 
 
+def _write_many(maddr: str, pool, payload, collection: str, replication: str, n: int,
+                disk: str = "") -> dict:
+    """n acknowledged writes through MasterClient and ``pool``,
+    MAINT_WRITERS at a time, each POSTing ``payload(fid)``: {fid: primary
+    url}; any failure fails the phase."""
+    from seaweedfs_tpu_torch.wdclient import MasterClient
+
+    mc = MasterClient(maddr)
+    tickets = iter(range(n))
+    lock = threading.Lock()
+    acked: dict = {}
+    failures: list = []
+
+    def writer() -> None:
+        while True:
+            with lock:
+                if next(tickets, None) is None or failures:
+                    return
+            try:
+                a = mc.assign(collection=collection, replication=replication, disk_type=disk)
+                status, body = pool.request(a.location.url, "POST", f"/{a.fid}",
+                                            body=payload(a.fid))
+            except Exception as e:  # noqa: BLE001 — reported, fails the phase
+                failures.append(f"{type(e).__name__}: {e}")
+                return
+            if status != 201:
+                failures.append(f"POST {a.fid}: {status} {body[:200]!r}")
+                return
+            with lock:
+                acked[a.fid] = a.location.url
+
+    threads = [threading.Thread(target=writer, daemon=True) for _ in range(MAINT_WRITERS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    check(not failures and len(acked) == n and not any(th.is_alive() for th in threads),
+          f"{collection}: {len(acked)} of {n} writes acknowledged; {failures[:3]}")
+    return acked
+
+
+def _read_all(pool, url_of, fids, payload, want404: bool = False):
+    """GET every fid from each url ``url_of(fid)`` names, MAINT_WRITERS at a
+    time: ``payload(fid)``, or 404 with ``want404``; returns the latencies
+    in ms."""
+    import numpy as np
+
+    def one(fid: str) -> list:
+        out = []
+        for url in url_of(fid):
+            t0 = time.perf_counter()
+            status, body = pool.request(url, "GET", f"/{fid}")
+            out.append(time.perf_counter() - t0)
+            if want404:
+                check(status == 404, f"deleted {fid} on {url}: {status}")
+            else:
+                check(status == 200 and body == payload(fid),
+                      f"{fid} on {url}: {status}, {len(body)} bytes")
+        return out
+
+    with ThreadPoolExecutor(MAINT_WRITERS) as ex:
+        return np.array([x for xs in ex.map(one, fids) for x in xs]) * 1e3
+
+
 def phase_maintenance(args, directory: str, ident: str, dev) -> dict:
     """Phase 11: volume maintenance.  One ``cli master`` and four ``cli
     volume -device cuda -max 8 -scrubInterval 0 -scrubRateMB 0``
@@ -2832,6 +2934,7 @@ def phase_maintenance(args, directory: str, ident: str, dev) -> dict:
     import numpy as np
 
     from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.ops.select import small_read_codec_for
     from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
     from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
     from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import EcVolume
@@ -2918,57 +3021,13 @@ def phase_maintenance(args, directory: str, ident: str, dev) -> dict:
               f"{walls['servers_up']:.3f}s, registered after {walls['registered']:.3f}s on {ident}")
 
         def write_many(collection: str, replication: str, n: int) -> dict:
-            """n acknowledged writes through MasterClient and the pool, 16
-            at a time: {fid: primary url}."""
-            mc = MasterClient(maddr)
-            tickets = iter(range(n))
-            lock = threading.Lock()
-            acked: dict = {}
-            failures: list = []
-
-            def writer() -> None:
-                while True:
-                    with lock:
-                        if next(tickets, None) is None or failures:
-                            return
-                    try:
-                        a = mc.assign(collection=collection, replication=replication)
-                        status, body = pool.request(a.location.url, "POST", f"/{a.fid}",
-                                                    body=_maint_payload(a.fid))
-                    except Exception as e:  # noqa: BLE001 — reported, fails the phase
-                        failures.append(f"{type(e).__name__}: {e}")
-                        return
-                    if status != 201:
-                        failures.append(f"POST {a.fid}: {status} {body[:200]!r}")
-                        return
-                    with lock:
-                        acked[a.fid] = a.location.url
-
-            threads = [threading.Thread(target=writer, daemon=True) for _ in range(MAINT_WRITERS)]
-            for th in threads:
-                th.start()
-            for th in threads:
-                th.join(timeout=600)
-            check(not failures and len(acked) == n and not any(th.is_alive() for th in threads),
-                  f"{collection}: {len(acked)} of {n} writes acknowledged; {failures[:3]}")
-            return acked
+            return _write_many(maddr, pool, _maint_payload, collection, replication, n)
 
         def read_from(url_of, fids, want404: bool = False) -> float:
-            """GET every fid from each url ``url_of(fid)`` names: its
-            payload, or 404; returns the wall."""
-            def one(fid: str) -> int:
-                for url in url_of(fid):
-                    status, body = pool.request(url, "GET", f"/{fid}")
-                    if want404:
-                        check(status == 404, f"deleted {fid} on {url}: {status}")
-                    else:
-                        check(status == 200 and body == _maint_payload(fid, small),
-                              f"{fid} on {url}: {status}, {len(body)} bytes")
-                return 0
-
+            """GET every fid from each url ``url_of(fid)`` names; returns
+            the wall."""
             t0 = time.perf_counter()
-            with ThreadPoolExecutor(MAINT_WRITERS) as ex:
-                list(ex.map(one, fids))
+            _read_all(pool, url_of, fids, lambda f: _maint_payload(f, small), want404)
             return time.perf_counter() - t0
 
         # 1. fill one volume at 001, then delete 40% of it
@@ -3283,7 +3342,8 @@ def phase_maintenance(args, directory: str, ident: str, dev) -> dict:
                                p50_ms=float(np.percentile(lat_ms, 50)),
                                p99_ms=float(np.percentile(lat_ms, 99)))
         print(f"maintenance: shard {sid} on {holder} corrupt at {shard_off + 100}: volume.scrub "
-              f"{walls['ec_scrub']:.3f}s on {ident} rebuilt the interval (sha256 restored, K1 "
+              f"{walls['ec_scrub']:.3f}s on {ident} rebuilt the interval on the host codec "
+              f"{type(small_read_codec_for(DEFAULT_SCHEME)).__name__} (sha256 restored, K1 "
               f"unchanged); "
               f"{len(reads)} EC reads over HTTP on {ident}: {rec['ec_reads']['per_s']:.1f}/s, "
               f"p50 {rec['ec_reads']['p50_ms']:.2f} ms, p99 {rec['ec_reads']['p99_ms']:.2f} ms")
@@ -3296,6 +3356,390 @@ def phase_maintenance(args, directory: str, ident: str, dev) -> dict:
     rec.update(walls=walls, launches=k1[source], batches=tasks, survivors=n_live,
                rcs={str(k): v for k, v in rcs.items()})
     print("maintenance: " + json.dumps(rec, sort_keys=True))
+    return rec
+
+
+# -- phase 12 -------------------------------------------------------------------
+
+TIER_N = 4096  # needles of the tiered volume V: 256 MiB a holder at 001
+TIER_SIZE = 64 * 1024
+TIER_READS = 1024  # reads through TieredFile while V is tiered
+FILL_CD = 1024  # 64 KiB needles on each of C (5-byte offsets) and D (memory backend)
+D_DELETES = 410  # 40% of D's needles: a garbage ratio above upstream's 0.3
+HOST_CODEC_ITERS = 20
+
+
+def _tier_payload(fid: str) -> bytes:
+    """Each phase-12 write's payload, derived from its fid."""
+    return hashlib.shake_256(b"tier" + fid.encode()).digest(TIER_SIZE)
+
+
+def phase_host_codec(ident: str) -> dict:
+    """The host small-read codec (ops/rs_cpu.ReedSolomonCPU on csrc/gf256.cpp)
+    against the plain torch codec on the CPU: a 10 -> 4 encode and a 4-loss
+    reconstruct of a 1 MiB interval, byte-equal, each timed as the best of
+    HOST_CODEC_ITERS calls (3 of the plain codec's) in µs."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops import select
+    from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
+    from seaweedfs_tpu_torch.storage.erasure_coding.lrc import DEFAULT_LRC_SCHEME
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME
+
+    host = select.small_read_codec_for(DEFAULT_SCHEME)
+    lrc_host = select.small_read_codec_for(DEFAULT_LRC_SCHEME)
+    plain = ReedSolomonTorch(10, 4, device="cpu")
+    data = np.random.default_rng(12).integers(0, 256, (10, MIB), dtype=np.uint8)
+    lost = (0, 3, 10, 13)
+
+    def best_us(fn, iters: int = HOST_CODEC_ITERS) -> float:
+        fn()
+        best = float("inf")
+        for _ in range(iters):
+            t = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t)
+        return best * 1e6
+
+    parity = host.encode(data)
+    check(np.array_equal(parity, plain.encode(data)), "host codec encode != plain torch codec")
+    shards = list(data) + list(parity)
+    holey = [None if i in lost else s for i, s in enumerate(shards)]
+    got = host.reconstruct(list(holey), targets=lost)
+    want = plain.reconstruct(list(holey), targets=lost)
+    check(all(np.array_equal(got[t], want[t]) and np.array_equal(got[t], shards[t]) for t in lost),
+          "host codec 4-loss reconstruct != plain torch codec")
+    rec = dict(codec=type(host).__name__, lrc_codec=type(lrc_host).__name__,
+               encode_us=best_us(lambda: host.encode(data)),
+               plain_encode_us=best_us(lambda: plain.encode(data), 3),
+               reconstruct_us=best_us(lambda: host.reconstruct(list(holey), targets=lost)),
+               plain_reconstruct_us=best_us(lambda: plain.reconstruct(list(holey), targets=lost),
+                                            3))
+    print(f"host codec ({ident} host): {rec['codec']} / {rec['lrc_codec']} on csrc/gf256.cpp, "
+          f"byte-equal to the plain torch codec; 10 x 1 MiB -> 4 encode {rec['encode_us']:.1f} us "
+          f"(plain {rec['plain_encode_us']:.1f} us), 4-loss reconstruct "
+          f"{rec['reconstruct_us']:.1f} us (plain {rec['plain_reconstruct_us']:.1f} us)")
+    return rec
+
+
+def phase_storage(args, directory: str, ident: str, dev) -> dict:
+    """Phase 12: the storage options and the tier.  One ``cli master`` and
+    four ``cli volume -device cuda``: A and B ``-index leveldb -backend
+    mmap`` (rack r0, where placement 001 keeps both copies), C ``-disk ssd
+    -index compact -offsetWidth 5`` and D ``-disk mem -backend memory
+    -index compact`` (rack r1; their disk tags pin the fills of step 8).
+    V, 4,096 x 64 KiB at 001 on A and B, is read back from both; A restarts
+    and its LSM map replays nothing; ``cli backup`` copies V; V is sealed
+    and ``volume.tier.upload``-ed off A (reads go on through TieredFile,
+    writes are refused); A restarts onto the .vif alone and serves V;
+    ``volume.tier.download`` restores A's .dat byte for byte; C and D take
+    1,024 x 64 KiB each (C's .idx of 17-byte entries, D's 40% deleted and
+    vacuumed in memory); and ``ec.encode`` of V launches K1 on its source
+    (module docstring)."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import cli, rpc
+    from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs_pb
+    from seaweedfs_tpu_torch.storage import needle_map
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE, SuperBlock
+    from seaweedfs_tpu_torch.storage.volume_info import maybe_load_volume_info
+    from seaweedfs_tpu_torch.util.http_pool import HttpConnectionPool
+
+    root = os.path.join(directory, "storage")
+    names = ["A", "B", "C", "D"]
+    dirs = [os.path.join(root, n) for n in names]
+    obj, bk = os.path.join(root, "objects"), os.path.join(root, "backup")
+    for d in dirs:
+        os.makedirs(d)
+    log = os.path.join(root, "shell.log")
+    options = [("-rack", "r0", "-index", "leveldb", "-backend", "mmap"),
+               ("-rack", "r0", "-index", "leveldb", "-backend", "mmap"),
+               ("-rack", "r1", "-disk", "ssd", "-index", "compact", "-offsetWidth", "5"),
+               ("-rack", "r1", "-disk", "mem", "-backend", "memory", "-index", "compact")]
+    walls: dict = {}
+    rec: dict = {}
+    servers: list = []
+    t_phase = time.perf_counter()
+    pool = HttpConnectionPool(timeout=60.0, max_per_host=64)
+    master = _Server("", "", os.path.join(root, "master.log"), argv=["master", "-port", "0"])
+    try:
+        maddr = f"127.0.0.1:{master.grpc_port}"
+        mstub = rpc.master_stub(maddr)
+
+        def volume_argv(i: int, ports: tuple = (0, 0), public: tuple = ()) -> list:
+            return ["volume", "-dir", dirs[i], "-ip", "127.0.0.1", "-port", str(ports[0]),
+                    "-grpcPort", str(ports[1]), "-metricsPort", "0", "-device", dev.type,
+                    "-mserver", maddr, "-scrubInterval", "0", "-scrubRateMB", "0",
+                    *options[i], *public]
+
+        t = time.perf_counter()
+        servers = [_Server(d, dev.type, os.path.join(root, f"{n}.log"), argv=volume_argv(i),
+                           wait=False) for i, (n, d) in enumerate(zip(names, dirs))]
+        for s_ in servers:
+            s_.ready()
+            s_.url = f"127.0.0.1:{s_.http_port}"
+        walls["servers_up"] = time.perf_counter() - t
+        urls = [s_.url for s_ in servers]
+
+        def nodes() -> dict:
+            """{node id: (public url, {vid: VolumeStat})} at the master."""
+            topo = mstub.VolumeList(m_pb.VolumeListRequest(), timeout=60).topology_info
+            return {dn.id: (dn.public_url, {v.id: v for disk in dn.disk_infos.values()
+                                            for v in disk.volume_infos})
+                    for dc in topo.data_center_infos for r in dc.rack_infos
+                    for dn in r.data_node_infos}
+
+        walls["registered"] = _poll(lambda: set(nodes()) == set(urls), "all four nodes", 60)
+        print(f"storage: master {maddr}; A, B (-index leveldb -backend mmap), C (-index compact "
+              f"-offsetWidth 5), D (-backend memory -index compact) at {urls}, up in "
+              f"{walls['servers_up']:.3f}s, registered after {walls['registered']:.3f}s on {ident}")
+
+        def write_many(collection: str, replication: str, n: int, disk: str = "") -> dict:
+            return _write_many(maddr, pool, _tier_payload, collection, replication, n, disk)
+
+        def read_from(hosts, fids, want404: bool = False):
+            """GET every fid from each of ``hosts``; returns the latencies
+            in ms."""
+            return _read_all(pool, lambda f: hosts, fids, _tier_payload, want404)
+
+        def restart(i: int, public: str, stopped=lambda: None) -> float:
+            """Stop server i, call ``stopped()``, and start it on its ports
+            with ``-publicUrl public``; returns the seconds from the start
+            until the master has the new process's first heartbeat (its
+            public url)."""
+            nonlocal pool
+            ports = (servers[i].http_port, servers[i].grpc_port)
+            check(servers[i].stop() == 0, f"{names[i]} did not stop cleanly")
+            stopped()
+            t0 = time.perf_counter()
+            servers[i] = _Server(dirs[i], dev.type, os.path.join(root, f"{names[i]}.restart.log"),
+                                 argv=volume_argv(i, ports, ("-publicUrl", public)))
+            servers[i].url = urls[i]
+            pool.close()  # its kept-alive connections went with the stopped process
+            pool = HttpConnectionPool(timeout=60.0, max_per_host=64)
+            _poll(lambda: nodes()[urls[i]][0] == public,
+                  f"the first heartbeat of the restarted {names[i]}", 60)
+            return time.perf_counter() - t0
+
+        # 1. fill V at 001 on A and B; every needle equal from both
+        t = time.perf_counter()
+        acked = write_many("tier", "001", TIER_N)
+        walls["fill"] = time.perf_counter() - t
+        (vid,) = {int(f.split(",")[0]) for f in acked}
+        fids = sorted(acked)
+        a_url, b_url = urls[0], urls[1]
+        _poll(lambda: all(vid in nodes()[u][1] for u in (a_url, b_url)), f"V={vid} on A and B", 60)
+        check(sorted(u for u, (_p, vols) in nodes().items() if vid in vols) == sorted([a_url, b_url]),
+              f"volume {vid} at 001 is not held by A and B")
+        t = time.perf_counter()
+        lat = read_from([a_url, b_url], fids)
+        walls["read_both"] = time.perf_counter() - t
+        base_a = os.path.join(dirs[0], f"tier_{vid}")
+        print(f"storage: V={vid}: {TIER_N} x {TIER_SIZE} B written at 001 in {walls['fill']:.3f}s "
+              f"({TIER_N / walls['fill']:.1f} writes/s) on {ident}; every needle equal from A and B "
+              f"in {walls['read_both']:.3f}s (p50 {np.percentile(lat, 50):.2f} ms, p99 "
+              f"{np.percentile(lat, 99):.2f} ms)")
+
+        # 2. restart A: its LSM map was marked at the .idx's length on the
+        # clean close, so the reopen replays no .idx entry
+        lsm: dict = {}
+
+        def read_mark() -> None:
+            ldb = needle_map.LevelDbNeedleMap(base_a + ".idx.ldb")
+            lsm.update(marked=ldb.indexed_idx_bytes, idx=os.path.getsize(base_a + ".idx"),
+                       needles=len(ldb))
+            ldb.close()
+
+        http_a = servers[0].http_port
+        walls["restart_to_heartbeat"] = restart(0, f"localhost:{http_a}", read_mark)
+        check(lsm["marked"] == lsm["idx"] and lsm["needles"] == TIER_N,
+              f"A's LSM map at the restart: {lsm}")
+        walls["restart_ready"] = servers[0].start_s
+        read_from([a_url], fids)
+        print(f"storage: A restarted: LSM map marked {lsm['marked']} B = the .idx (nothing to "
+              f"replay), ready in {walls['restart_ready']:.3f}s, first heartbeat "
+              f"{walls['restart_to_heartbeat']:.3f}s after the start (its -publicUrl at the "
+              f"master) on {ident}; every needle equal from A")
+
+        # 3. cli backup of V: the holder it names, byte for byte
+        sha_a = {ext: sha256(base_a + ext) for ext in (".dat", ".idx")}
+        t = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["backup", "-master", maddr, "-volumeId", str(vid), "-collection",
+                           "tier", "-dir", bk])
+        walls["backup"] = time.perf_counter() - t
+        m = re.search(r"backed up volume \d+ from (\S+) to ", buf.getvalue())
+        check(rc == 0 and m is not None and m[1] in (a_url, b_url),
+              f"backup exited {rc}: {buf.getvalue()!r}")
+        src = os.path.join(dirs[urls.index(m[1])], f"tier_{vid}")
+        for ext in (".dat", ".idx"):
+            check(sha256(os.path.join(bk, f"tier_{vid}{ext}")) == sha256(src + ext),
+                  f"backup {ext} differs from {m[1]}'s")
+        print(f"storage: cli backup of V from {m[1]} in {walls['backup']:.3f}s "
+              f"({os.path.getsize(src + '.dat') / walls['backup'] / 1e6:.1f} MB/s) on {ident}: "
+              f".dat and .idx sha256-identical to its holder's")
+
+        # 4. seal V and tier A's copy to the object store
+        _shell(maddr, f"lock; volume.mark -volumeId {vid}; unlock", log)
+        t = time.perf_counter()
+        walls["tier_upload"], out = _shell(
+            maddr, f"lock; volume.tier.upload -node {a_url} -volumeId {vid} -collection tier "
+                   f"-dest {obj}; unlock", log)
+        check(f"volume {vid} tiered to {obj} as vol/tier/{vid}.dat" in out,
+              f"volume.tier.upload printed {out!r}")
+        check(not os.path.exists(base_a + ".dat"), "A's .dat survived the upload")
+        remote = maybe_load_volume_info(base_a + ".vif").remote
+        check(remote.get("key") == f"vol/tier/{vid}.dat" and remote.get("root") == obj,
+              f"A's .vif remote {remote}")
+        rng = np.random.default_rng(args.seed + 12)
+        sample = [fids[i] for i in rng.choice(len(fids), TIER_READS, replace=False)]
+        t = time.perf_counter()
+        lat = read_from([a_url], sample)
+        walls["tiered_reads"] = time.perf_counter() - t
+        rec["tiered_reads"] = dict(reads=len(sample), per_s=len(sample) / walls["tiered_reads"],
+                                   p50_ms=float(np.percentile(lat, 50)),
+                                   p99_ms=float(np.percentile(lat, 99)))
+        key = int(fids[0].split(",")[1][:-8], 16) + 10 * TIER_N
+        status, body = pool.request(a_url, "POST", f"/{vid},{key:x}{1:08x}", body=b"late")
+        check(status == 500 and b"read-only" in body,
+              f"a write to the tiered V answered {status} {body[:200]!r}")
+        print(f"storage: volume.tier.upload of V off A {walls['tier_upload']:.3f}s on {ident}: "
+              f"A's .dat gone, its .vif names {remote['key']}; {len(sample)} reads through "
+              f"TieredFile {rec['tiered_reads']['per_s']:.1f}/s, p50 "
+              f"{rec['tiered_reads']['p50_ms']:.2f} ms, p99 {rec['tiered_reads']['p99_ms']:.2f} "
+              f"ms, all equal; a write refused ({status})")
+
+        # 5. restart A onto the .vif alone: V loads tiered and is served
+        walls["restart_tiered"] = restart(0, f"127.0.0.1:{http_a}")
+        time.sleep(0.5)  # one heartbeat's handling: the full beat also carries the volumes
+        stat = nodes()[a_url][1].get(vid)
+        check(stat is not None and stat.read_only and stat.size > 0,
+              f"the master's census of V on the restarted A: {stat}")
+        read_from([a_url], sample[:256])
+        print(f"storage: A restarted on the .vif alone: V loaded tiered, at the master again "
+              f"(read-only, {stat.size} B) {walls['restart_tiered']:.3f}s after the start on "
+              f"{ident}; 256 reads equal")
+
+        # 6. volume.tier.download: A's .dat comes back byte for byte
+        walls["tier_download"], out = _shell(
+            maddr, f"lock; volume.tier.download -node {a_url} -volumeId {vid} -collection tier "
+                   f"-dest {obj}; unlock", log)
+        check(f"volume {vid} downloaded from {obj}" in out, f"volume.tier.download printed {out!r}")
+        check(sha256(base_a + ".dat") == sha_a[".dat"], "A's downloaded .dat differs from A's")
+        # the backup is its holder's copy; B's records carry B's own append
+        # times, so only a backup from A can equal A's .dat
+        same_as_backup = ""
+        if m[1] == a_url:
+            check(sha256(base_a + ".dat") == sha256(os.path.join(bk, f"tier_{vid}.dat")),
+                  "A's downloaded .dat differs from the backup's")
+            same_as_backup = " and to the backup's"
+        check(os.listdir(obj) == [], f"objects left after the download: {os.listdir(obj)}")
+        read_from([a_url], sample[:256])
+        print(f"storage: volume.tier.download {walls['tier_download']:.3f}s on {ident}: A's .dat "
+              f"sha256-identical to A's before the upload{same_as_backup}")
+
+        # 7. C and D: 1,024 x 64 KiB each at 000 (disk tags pin them)
+        t = time.perf_counter()
+        acked_c = write_many("w5", "000", FILL_CD, disk="ssd")
+        acked_d = write_many("mem", "000", FILL_CD, disk="mem")
+        walls["fill_cd"] = time.perf_counter() - t
+        (vid_c,), (vid_d,) = ({int(f.split(",")[0]) for f in acked_c},
+                              {int(f.split(",")[0]) for f in acked_d})
+        check(set(acked_c.values()) == {urls[2]} and set(acked_d.values()) == {urls[3]},
+              "the ssd and mem fills did not land on C and D")
+        base_c = os.path.join(dirs[2], f"w5_{vid_c}")
+        with open(base_c + ".dat", "rb") as f:
+            sb = SuperBlock.from_bytes(f.read(SUPER_BLOCK_SIZE))
+        entries: list = []
+        with open(base_c + ".idx", "rb") as f:
+            needle_map.walk_index_file(f, lambda k, o, z: entries.append((k, o)), offset_width=5)
+        check(sb.offset_width == 5 and os.path.getsize(base_c + ".idx") == FILL_CD * 17
+              and len(entries) == FILL_CD, f"C's .idx: {os.path.getsize(base_c + '.idx')} B, "
+              f"offset width {sb.offset_width}")
+        with open(base_c + ".dat", "rb") as f:
+            check(all(int.from_bytes(os.pread(f.fileno(), 8, o + 4), "big") == k
+                      for k, o in entries), "a 5-byte .idx offset misses its record")
+        read_from([urls[2]], sorted(acked_c))
+        base_d = os.path.join(dirs[3], f"mem_{vid_d}")
+        check(not os.path.exists(base_d + ".dat"), "D's memory volume has a .dat on disk")
+        fids_d = sorted(acked_d)
+        gone = sorted(fids_d[i] for i in rng.choice(FILL_CD, D_DELETES, replace=False))
+        for fid in gone:
+            status, body = pool.request(urls[3], "DELETE", f"/{fid}")
+            check(status == 202, f"DELETE {fid} on D: {status} {body[:200]!r}")
+        d_stub = rpc.volume_stub(f"127.0.0.1:{servers[3].grpc_port}")
+        size_d = d_stub.VolumeStatus(vs_pb.VolumeStatusRequest(volume_id=vid_d)).volume_size
+        garbage = size_d - SUPER_BLOCK_SIZE - _record_bytes(base_d)
+        walls["vacuum_memory"], out = _shell(
+            maddr, f"lock; volume.vacuum -garbageThreshold 0.3 -volumeId {vid_d}; unlock", log)
+        check(f"volume {vid_d} on {urls[3]}: reclaimed {garbage} bytes" in out,
+              f"the memory vacuum did not reclaim exactly the deleted records' {garbage} bytes: "
+              f"{out!r}")
+        after = d_stub.VolumeStatus(vs_pb.VolumeStatusRequest(volume_id=vid_d)).volume_size
+        check(after == size_d - garbage and not os.path.exists(base_d + ".dat"),
+              f"D's volume after the vacuum: {after} B")
+        survivors = sorted(set(fids_d) - set(gone))
+        read_from([urls[3]], survivors)
+        read_from([urls[3]], gone, want404=True)
+        print(f"storage: C (-offsetWidth 5) and D (-backend memory) took {FILL_CD} x {TIER_SIZE} B "
+              f"each in {walls['fill_cd']:.3f}s on {ident}; C's .idx {FILL_CD} x 17 B entries; D: "
+              f"{D_DELETES} deleted, volume.vacuum {walls['vacuum_memory']:.3f}s reclaimed "
+              f"{garbage} B in memory (= the deleted records'), {len(survivors)} survivors equal, "
+              f"the deleted answer 404")
+
+        # 8. ec.encode of the downloaded V: K1 on its source's card, the
+        # shards equal to the CPU plain version's encoding of its .dat
+        holders = [a_url, b_url]
+        refs = {}
+        for i, u in enumerate(holders):
+            refs[u] = os.path.join(root, f"ref{i}", f"tier_{vid}")
+            os.makedirs(os.path.dirname(refs[u]))
+            for ext in (".dat", ".idx"):
+                os.link(os.path.join(dirs[urls.index(u)], f"tier_{vid}{ext}"), refs[u] + ext)
+        k1_before = {s_.url: metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply")
+                     for s_ in servers}
+        check(not any(k1_before.values()), f"K1 launched before the encode: {k1_before}")
+        walls["ec_encode"], _ = _shell(maddr, f"lock; ec.encode -volumeId {vid} -collection tier; "
+                                              "unlock", log)
+        by_grpc = {f"127.0.0.1:{s_.grpc_port}": d for s_, d in zip(servers, dirs)}
+        _poll(lambda: _ec_census(mstub, vid)["holders"] == _disk_shards(by_grpc, f"tier_{vid}"),
+              f"the master's EC census of V={vid} to match the disks", 60)
+        gen = [s_.url for s_ in servers if server_stages(s_.log_text(), "generate")]
+        check(len(gen) == 1 and gen[0] in holders, f"the generate ran on {gen}, not A or B")
+        source = gen[0]
+        dat_size = os.path.getsize(refs[source] + ".dat")
+        tasks = len(ec_encoder._plan_tasks(DEFAULT_SCHEME, dat_size, ec_encoder.DEFAULT_CHUNK))
+        k1 = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply"))
+              for s_ in servers}
+        check(k1[source] == tasks and sum(k1.values()) == tasks,
+              f"K1 launches by server {k1}; the source {source}'s generate has {tasks} batches")
+        t = time.perf_counter()
+        ec_encoder.write_ec_files(refs[source], device="cpu")
+        walls["cpu_reference_encode"] = time.perf_counter() - t
+        shard_files = {sid: os.path.join(d, f"tier_{vid}.ec{sid:02d}") for d in dirs
+                       for sid in range(14)
+                       if os.path.exists(os.path.join(d, f"tier_{vid}.ec{sid:02d}"))}
+        check(sorted(shard_files) == list(range(14)), f"shards on disk: {sorted(shard_files)}")
+        for sid, path in shard_files.items():
+            check(sha256(path) == sha256(refs[source] + f".ec{sid:02d}"),
+                  f"shard {sid} differs from the CPU plain encoding")
+        print(f"storage: ec.encode of the downloaded V={vid} ({dat_size} B) on {ident}: shell "
+              f"{walls['ec_encode']:.3f}s; source {source} K1 launches {k1[source]} (= {tasks} "
+              f"batches); 14 shards sha256-identical to the CPU plain version's "
+              f"({walls['cpu_reference_encode']:.3f}s on the host)")
+    finally:
+        pool.close()
+        rcs = {getattr(s_, "url", s_.proc.pid): s_.stop() for s_ in servers}
+        rcs["master"] = master.stop()
+    check(all(rc == 0 for rc in rcs.values()), f"storage processes exited {rcs}")
+    walls["phase"] = time.perf_counter() - t_phase
+    rec.update(walls=walls, launches=k1[source], batches=tasks, vid=vid, reclaimed_memory=garbage,
+               rcs={str(k): v for k, v in rcs.items()})
+    print("storage: " + json.dumps(rec, sort_keys=True))
     return rec
 
 
@@ -3499,6 +3943,14 @@ def main() -> int:
         maintenance_walls_s=maintenance["walls"],
         maintenance_vacuum=maintenance["vacuum"],
         maintenance_ec_reads=maintenance["ec_reads"],
+    )
+    storage = main_path["storage"]
+    record["kernels"][0]["launches"] += storage["launches"]
+    record["kernels"][0].update(
+        launches_storage=storage["launches"],
+        storage_walls_s=storage["walls"],
+        storage_tiered_reads=storage["tiered_reads"],
+        host_codec=main_path["host_codec"],
     )
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)

@@ -3,7 +3,7 @@
 The counterpart of seaweedfs_tpu/cli.py for the commands ported so far
 (``ec.encode.local``, ``ec.rebuild.local``, ``ec.decode.local``, for the RS
 and LRC storage classes; ``master``, ``volume``, ``shell`` and
-``benchmark``; ``version``);
+``benchmark``; ``volume.tier.local`` and ``backup``; ``version``);
 ``<cmd> -h`` shows each command's flags.  A
 missing CUDA device is not caught here: it raises.
 """

@@ -47,10 +47,12 @@ def _import_all() -> None:
     # command modules register on import; they defer torch and storage
     # imports into run() so `-h` stays fast
     from seaweedfs_tpu_torch.commands import (  # noqa: F401
+        backup_cmd,
         benchmark_cmd,
         ec_local,
         servers,
         shell_cmd,
+        tier_cmd,
         version,
     )
 

@@ -12,9 +12,13 @@ included), ``-mdir`` (durable sequence state, and the raft log) and ``-ha``
 takes ``-dir``, ``-mserver`` (the master's gRPC address, or a
 comma-separated list of them; the port's default is none: no heartbeat),
 ``-ip``, ``-port`` (the HTTP needle API; ``ip:port`` names the node at the
-master), ``-grpcPort`` (as the master's), ``-dataCenter``,
-``-rack``, ``-max`` (volumes per dir), ``-jwtKey``, ``-fsync`` (default
-``$WEED_FSYNC`` or ``close``), ``-metricsPort`` (a separate ``/metrics``
+master), ``-grpcPort`` (as the master's), ``-publicUrl`` (the read address
+advertised; default ``ip:port``), ``-dataCenter``, ``-rack``, ``-max``
+(volumes per dir), ``-jwtKey``, ``-fsync`` (default ``$WEED_FSYNC`` or
+``close``), ``-index`` (needle map: ``memory``, ``compact`` or
+``leveldb``), ``-backend`` (``.dat`` storage: ``disk``, ``mmap`` or
+``memory``), ``-offsetWidth`` (4 or 5 index offset bytes for new
+volumes), ``-metricsPort`` (a separate ``/metrics``
 listener; 0 picks a free port, none when left out) and ``-device``
 (default ``cuda``; ``cpu`` runs the codec on the host).  Each prints one
 first line on stdout that names the ports it bound.  The volume server
@@ -91,6 +95,7 @@ def run_volume(args) -> int:
         ip=args.ip,
         port=args.port,
         grpc_port=args.grpcPort,
+        public_url=args.publicUrl,
         metrics_port=args.metricsPort,
         device=args.device,
         data_center=args.dataCenter,
@@ -103,6 +108,9 @@ def run_volume(args) -> int:
         scrub_rate_mb_s=args.scrubRateMB,
         vacuum_interval_s=args.vacuumInterval,
         vacuum_garbage=args.vacuumGarbage,
+        needle_map_kind=args.index,
+        backend_kind=args.backend,
+        offset_width=args.offsetWidth,
     )
     vs.start()
     metrics = f", metrics on {vs.ip}:{vs.metrics_port}" if vs.metrics_port is not None else ""
@@ -122,12 +130,20 @@ def _volume_flags(p) -> None:
     p.add_argument("-ip", default="127.0.0.1")
     p.add_argument("-port", type=int, default=8080)
     p.add_argument("-grpcPort", type=int, default=0, help="default port+10000")
+    p.add_argument("-publicUrl", default="")
     p.add_argument("-dataCenter", default="DefaultDataCenter")
     p.add_argument("-rack", default="DefaultRack")
     p.add_argument("-max", type=int, default=8, help="max volumes per dir")
     p.add_argument("-disk", default="",
                    help="comma list of disk types per -dir entry (hdd|ssd|...; default hdd)")
     p.add_argument("-jwtKey", default="", help="verify per-fid write JWTs (or WEED_JWT_KEY)")
+    p.add_argument("-index", default="memory", choices=["memory", "compact", "leveldb"],
+                   help="needle map kind (leveldb persists beside each .idx)")
+    p.add_argument("-backend", default="disk", choices=["disk", "mmap", "memory"],
+                   help="volume .dat storage backend")
+    p.add_argument("-offsetWidth", type=int, default=4, choices=[4, 5],
+                   help="index offset bytes for NEW volumes: 4 = 32GB volume cap "
+                   "(reference-interoperable), 5 = 8TB (reference 5BytesOffset build)")
     p.add_argument("-fsync", default="",
                    help="volume fsync policy: always | interval[:N] | close | never "
                    "(default $WEED_FSYNC or close)")

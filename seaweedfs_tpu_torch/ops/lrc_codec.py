@@ -9,7 +9,10 @@ decode as fallback).  Encode and rebuild byte paths, padding and device
 dispatch are the RS codecs'.
 
 - ``LrcTorch`` (``lrc_torch``): the plain PyTorch codec, the counterpart of
-  the JAX package's ``LrcCPU`` and ``lrc_jax``.
+  the JAX package's ``lrc_jax``.
+- ``LrcCPU``: the native host apply (ops/rs_cpu.ReedSolomonCPU on
+  csrc/gf256.cpp), the counterpart of the JAX package's ``LrcCPU``: the
+  degraded-read and scrub codec of the LRC storage class.
 - ``LrcCuda`` (``lrc_cuda``): the CUDA kernels, the counterpart of
   ``lrc_pallas``.  It inherits ``reconstruct_words_multi``, the
   plane-resident rebuild hop (K3 pack, K2 plane apply, K4 unpack), as
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from seaweedfs_tpu_torch.ops import lrc_matrix
+from seaweedfs_tpu_torch.ops.rs_cpu import ReedSolomonCPU
 from seaweedfs_tpu_torch.ops.rs_cuda import ReedSolomonCuda
 from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
 
@@ -58,6 +62,16 @@ class _LrcAlgebra:
 class LrcTorch(_LrcAlgebra, ReedSolomonTorch):
     """LRC(k, l, r) on the plain PyTorch codec (device defaults to CUDA,
     as every codec of the port; pass device="cpu" for the host)."""
+
+
+class LrcCPU(_LrcAlgebra, ReedSolomonCPU):
+    """LRC(k, l, r) on the native host apply (no device)."""
+
+    def __init__(self, data_shards: int, local_groups: int, global_parities: int):
+        ReedSolomonCPU.__init__(self, data_shards, local_groups + global_parities)
+        self.local_groups = local_groups
+        self.global_parities = global_parities
+        self.matrix = lrc_matrix.build_lrc_matrix(data_shards, local_groups, global_parities)
 
 
 class LrcCuda(_LrcAlgebra, ReedSolomonCuda):

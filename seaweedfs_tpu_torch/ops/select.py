@@ -15,6 +15,10 @@ the mesh, ``=0`` disables it, and unset picks it when the process sees
 more than one CUDA device.  That choice has no link probe either, by
 design.  With ``device="cpu"`` the mesh is the one CPU device.
 
+Small degraded reads and the EC scrub's repairs decode on the host
+(``small_read_codec``, ``small_read_codec_for``): ReedSolomonCPU / LrcCPU
+on the native apply of csrc/gf256.cpp, as the JAX package's ReedSolomonCPU.
+
 The scheme carries the storage class (EcScheme = RS, LrcScheme = LRC via
 its ``local_groups``); ``pipeline_codec_for`` and ``small_read_codec_for``
 are the one dispatch point, so call sites never branch on the class.
@@ -85,11 +89,15 @@ def pipeline_codec(
     return _bulk_codec(data_shards, parity_shards, cauchy, device)
 
 
+@lru_cache(maxsize=64)
 def small_read_codec(data_shards: int, parity_shards: int, cauchy: bool = False):
     """Codec for small degraded reads: on the host by design, as in the JAX
     package (a 1 MB interval read is latency-bound, not worth a device
-    round trip)."""
-    return _bulk_codec(data_shards, parity_shards, cauchy, torch.device("cpu"))
+    round trip): ReedSolomonCPU on the native apply of csrc/gf256.cpp,
+    whose build raises if it fails."""
+    from seaweedfs_tpu_torch.ops.rs_cpu import ReedSolomonCPU
+
+    return ReedSolomonCPU(data_shards, parity_shards, cauchy)
 
 
 def _lrc_params(scheme) -> tuple[int, int, int] | None:
@@ -119,8 +127,15 @@ def pipeline_codec_for(scheme, device: str | torch.device | None = None):
 
 def small_read_codec_for(scheme):
     """small_read_codec for the scheme's geometry and storage class: the
-    host codec, LRC- or RS-planned per the scheme."""
+    native host codec, LRC- or RS-planned per the scheme."""
     params = _lrc_params(scheme)
     if params is None:
         return small_read_codec(scheme.data_shards, scheme.parity_shards)
-    return _lrc_codec(*params, torch.device("cpu"))
+    return _lrc_host_codec(*params)
+
+
+@lru_cache(maxsize=16)
+def _lrc_host_codec(k: int, l: int, r: int):  # noqa: E741
+    from seaweedfs_tpu_torch.ops.lrc_codec import LrcCPU
+
+    return LrcCPU(k, l, r)

@@ -26,7 +26,9 @@ volume_grpc_client_to_master.go:51-113):
   the source's ``CopyFile`` and mounts them; ``disk_type`` pins the
   landing disk), ``VolumeScrub``, ``VolumeConfigureReplication``,
   ``VolumeNeedleIds`` and ``VolumeServerLeave`` (the heartbeat stops, the
-  data plane stays up); and, with master addresses, the heartbeat stream
+  data plane stays up); ``VolumeTierMove`` (a sealed volume's .dat to a
+  directory object store and back; ``force_seal`` seals a writable one,
+  else FAILED_PRECONDITION); and, with master addresses, the heartbeat stream
   (full state, then the store's deltas, a full resync every
   ``FULL_SYNC_EVERY`` beats).  ``master_address`` is a comma-separated
   list (HA): the stream follows the ``leader`` a master answers with and
@@ -41,9 +43,12 @@ Generate and rebuild stream the volume through
 ``select.pipeline_codec_for(scheme, device)``: K1 (csrc/gf_apply.cu) on the
 card.  Status codes, bodies and messages are the JAX package's.
 
-Not ported: the native C++ data plane, ``VolumeTierMove`` (it needs the
-remote tier backend; it answers UNIMPLEMENTED), the tracing spans and
-latency sketch on the handlers, and the other ``/debug/`` pages.
+The Store's options (``needle_map_kind``, ``backend_kind``,
+``offset_width``) pass through; ``public_url`` (default ``ip:port``) is
+what the heartbeat advertises for reads.
+
+Not ported: the native C++ data plane, the tracing spans and latency
+sketch on the handlers, and the other ``/debug/`` pages.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ from seaweedfs_tpu_torch.server.store_ec import EcShardLocator
 from seaweedfs_tpu_torch.storage import compression
 from seaweedfs_tpu_torch.storage import scrub as scrub_mod
 from seaweedfs_tpu_torch.storage import vacuum as vacuum_mod
+from seaweedfs_tpu_torch.storage.backend import LocalObjectStoreClient
 from seaweedfs_tpu_torch.storage.erasure_coding import ec_decoder, ec_encoder
 from seaweedfs_tpu_torch.storage.erasure_coding.ec_volume import ec_offset_width, rebuild_ecx_file
 from seaweedfs_tpu_torch.storage.erasure_coding.lrc import make_scheme, scheme_local_groups
@@ -383,6 +389,25 @@ class VolumeServerGrpcServicer:
         for in-flight reads until the process exits."""
         self.vs._leaving.set()
         return vs_pb.VolumeServerLeaveResponse()
+
+    def volume_tier_move(self, request, context):
+        """Move a sealed volume's .dat to or from an object-store tier
+        (reference volume_grpc_tier.go VolumeTierMoveDatToRemote /
+        FromRemote over storage/backend/s3_backend)."""
+        vol = self._volume(request.volume_id, context)
+        client = LocalObjectStoreClient(request.dest)
+        try:
+            if request.download:
+                vol.tier_download(client)
+                return vs_pb.VolumeTierMoveResponse()
+            if not vol.read_only:
+                if not request.force_seal:
+                    context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                                  f"volume {request.volume_id} is not sealed readonly")
+                vol.set_read_only(True)
+            return vs_pb.VolumeTierMoveResponse(key=vol.tier_upload(client))
+        except OSError as e:
+            context.abort(grpc.StatusCode.INTERNAL, f"tier move: {e}")
 
     def _volume(self, vid: int, context):
         vol = self.vs.store.find_volume(vid)
@@ -944,7 +969,9 @@ class VolumeServer:
     the caller asks for the CPU; without CUDA, start raises.  ``fsync`` is
     the volumes' fsync policy (default ``$WEED_FSYNC`` or ``close``);
     ``jwt_key`` (default ``$WEED_JWT_KEY``) makes writes and deletes
-    require a per-fid token."""
+    require a per-fid token.  ``needle_map_kind``, ``backend_kind`` and
+    ``offset_width`` are the Store's; ``public_url`` (default ``ip:port``)
+    is the read address the heartbeat advertises."""
 
     FULL_SYNC_EVERY = 5  # beats between full-state resyncs
 
@@ -955,6 +982,7 @@ class VolumeServer:
         ip: str = "127.0.0.1",
         port: int = 8080,
         grpc_port: int = 0,
+        public_url: str = "",
         metrics_port: int | None = None,
         device: str | None = None,
         data_center: str = "",
@@ -968,9 +996,14 @@ class VolumeServer:
         scrub_rate_mb_s: float | None = None,
         vacuum_interval_s: float | None = None,
         vacuum_garbage: float | None = None,
+        needle_map_kind: str = "memory",
+        backend_kind: str = "disk",
+        offset_width: int = 4,
     ):
         self.store = Store(directories, max_volume_counts, disk_types=disk_types,
-                           fsync=fsync or os.environ.get("WEED_FSYNC", "close"))
+                           fsync=fsync or os.environ.get("WEED_FSYNC", "close"),
+                           needle_map_kind=needle_map_kind, backend_kind=backend_kind,
+                           offset_width=offset_width)
         self.store.load_existing_volumes()
         # comma-separated master gRPC addresses (HA); the active one follows
         # the leader field of the heartbeat responses
@@ -979,6 +1012,7 @@ class VolumeServer:
         self.ip = ip
         self.port = port
         self.grpc_port = grpc_port if (grpc_port or port == 0) else port + 10000
+        self._public_url = public_url
         self.metrics_port = metrics_port
         self.data_center = data_center
         self.rack = rack
@@ -1008,6 +1042,10 @@ class VolumeServer:
         self.upload_limiter = InFlightLimiter(_IN_FLIGHT_LIMIT)
         self.download_limiter = InFlightLimiter(_IN_FLIGHT_LIMIT)
         self.jwt_key = jwt_key or os.environ.get("WEED_JWT_KEY", "")
+
+    @property
+    def public_url(self) -> str:
+        return self._public_url or self.url
 
     @property
     def url(self) -> str:
@@ -1064,9 +1102,22 @@ class VolumeServer:
             return list(cached[0])
         if not self.master_address:
             return []
+        address = self.master_address
+
+        def invoke():
+            try:
+                return rpc.master_stub(address).LookupVolume(
+                    m_pb.LookupVolumeRequest(volume_or_file_ids=[str(vid)]), timeout=10)
+            except grpc.RpcError as e:
+                if e.code() is grpc.StatusCode.UNAVAILABLE:
+                    rpc.evict_channel(address)  # the retry re-dials
+                raise
+
         try:
-            resp = rpc.master_stub(self.master_address).LookupVolume(
-                m_pb.LookupVolumeRequest(volume_or_file_ids=[str(vid)]), timeout=10)
+            # a transient UNAVAILABLE is retried, as every JAX stub does: an
+            # empty answer here fails a replicated write ("replication short")
+            resp = resilience.call_unary(invoke, service="master", method="LookupVolume",
+                                         address=address)
         except grpc.RpcError:
             return []  # master unreachable: do not cache
         urls = [loc.url for vl in resp.volume_id_locations for loc in vl.locations]
@@ -1129,7 +1180,7 @@ class VolumeServer:
             ip=self.ip,
             port=self.port,
             grpc_port=self.grpc_port,
-            public_url=self.url,
+            public_url=self.public_url,
             data_center=self.data_center,
             rack=self.rack,
             max_volume_count=store.max_volume_count(),
@@ -1213,7 +1264,7 @@ class VolumeServer:
                 ip=self.ip,
                 port=self.port,
                 grpc_port=self.grpc_port,
-                public_url=self.url,
+                public_url=self.public_url,
                 data_center=self.data_center,
                 rack=self.rack,
                 max_volume_count=store.max_volume_count(),

@@ -4,9 +4,9 @@ The port's copy of seaweedfs_tpu/shell/command_volume_ops.py: the
 reference's shell/command_volume_copy.go, _move.go, _mount.go,
 _unmount.go, _grow (master vol/grow), _configure_replication.go,
 _fix_replication.go, _delete_empty.go, _server_evacuate.go,
-_server_leave.go and _tier_move.go, driven over the master and volume
-gRPC contracts.  ``volume.tier.upload``/``download`` (they need the remote
-tier backend) and ``volume.fsck`` (it needs the filer) are not ported."""
+_server_leave.go, _tier_move.go, _tier_upload.go and _tier_download.go,
+driven over the master and volume gRPC contracts.  ``volume.fsck`` (it
+needs the filer) is not ported."""
 
 from __future__ import annotations
 
@@ -410,6 +410,51 @@ def cmd_server_leave(env, args, out):
 cmd_server_leave.configure = lambda p: p.add_argument(
     "-node", required=True, help="node id/url"
 )
+
+
+# ---------------------------------------------------------------------------
+# tiering to an object store (reference command_volume_tier_upload.go,
+# command_volume_tier_download.go)
+# ---------------------------------------------------------------------------
+
+@shell_command("volume.tier.upload", "move a sealed volume's .dat to a tier")
+def cmd_tier_upload(env, args, out):
+    env.confirm_is_locked()
+    node = _find_node(_collect_nodes(env), args.node)
+    resp = env.volume(node.grpc).VolumeTierMove(vs_pb.VolumeTierMoveRequest(
+        volume_id=args.volumeId, collection=args.collection, dest=args.dest,
+        force_seal=args.force))
+    print(f"volume {args.volumeId} tiered to {args.dest} as {resp.key}", file=out)
+
+
+def _tier_up_flags(p):
+    p.add_argument("-node", required=True)
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-dest", required=True, help="object-store location")
+    p.add_argument("-force", action="store_true", help="seal if writable")
+
+
+cmd_tier_upload.configure = _tier_up_flags
+
+
+@shell_command("volume.tier.download", "bring a tiered volume's .dat back")
+def cmd_tier_download(env, args, out):
+    env.confirm_is_locked()
+    node = _find_node(_collect_nodes(env), args.node)
+    env.volume(node.grpc).VolumeTierMove(vs_pb.VolumeTierMoveRequest(
+        volume_id=args.volumeId, collection=args.collection, dest=args.dest, download=True))
+    print(f"volume {args.volumeId} downloaded from {args.dest}", file=out)
+
+
+def _tier_down_flags(p):
+    p.add_argument("-node", required=True)
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-dest", required=True)
+
+
+cmd_tier_download.configure = _tier_down_flags
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,3 @@
-"""Storage layer: the volume index and superblock formats the EC encoder
-reads, and erasure coding, file-format compatible with seaweedfs_tpu."""
+"""Storage layer: needles, volumes (needle-map kinds, disk/mmap/memory
+backends, the object-store tier), the store of a volume server, and
+erasure coding, file-format compatible with seaweedfs_tpu."""

@@ -1,17 +1,24 @@
 """Volume storage backends: where a .dat's bytes physically live.
 
-The port's copy of the disk half of seaweedfs_tpu/storage/backend.py
-(reference weed/storage/backend/backend.go, disk_file.go): the volume
-layer reads and appends through ``BackendStorageFile``, and every byte is
-billed to the calling plane (stats/plane).  Only the plain local file
-(``DiskFile``, ``open_backend("disk")``) is ported; the mmap, memory and
-tiered (object-store) files and the ``disk:`` fault injector are not.
+The port's copy of seaweedfs_tpu/storage/backend.py (reference
+weed/storage/backend/backend.go, disk_file.go, memory_map/,
+s3_backend/): the volume layer reads and appends through
+``BackendStorageFile``, and every byte of a local file is billed to the
+calling plane (stats/plane).  ``open_backend`` makes the plain local file
+(``disk``), the mmap-read local file (``mmap``) and the RAM-only file
+(``memory``).  A sealed volume whose .dat moved to an object store reads
+through ``TieredFile`` over an ``ObjectStoreClient``; the client shipped is
+``LocalObjectStoreClient``, a directory (as in the JAX package, which has
+no S3 client either).  Not ported: the ``disk:`` fault injector
+(util/faults.py) that the JAX DiskFile consults on every call.
 """
 
 from __future__ import annotations
 
 import errno
+import mmap
 import os
+import shutil
 import threading
 import time
 from abc import ABC, abstractmethod
@@ -134,7 +141,214 @@ class DiskFile(BackendStorageFile):
         self._f.close()
 
 
-_BACKENDS = {"disk": DiskFile}
+class MmapDiskFile(DiskFile):
+    """Disk file with mmap-backed reads (reference memory_map/): repeated
+    hot reads skip the pread syscall; the map follows the file's growth.
+
+    Invariant: the map is read-only (ACCESS_READ) and serves only
+    ``read_at``; every mutation (append, write_at, truncate) goes through
+    the inherited pwrite path on the fd, so the map can never tear a
+    record or write around the fsync policy: it is a page-cache window
+    that follows the file."""
+
+    name = "mmap"
+
+    def __init__(self, path: str, create: bool = True):
+        super().__init__(path, create)
+        # (map or None, mapped size), swapped as one reference so a
+        # lock-free reader never pairs one map with another's size
+        self._view: tuple[mmap.mmap | None, int] = (None, 0)
+        self._remap()
+
+    def _remap(self) -> None:
+        # the superseded map is never closed: a lock-free reader may hold
+        # a reference taken before the swap; refcounting reclaims it once
+        # the last reader drops it
+        size = self.size()
+        mm = mmap.mmap(self._f.fileno(), size, access=mmap.ACCESS_READ) if size > 0 else None
+        self._view = (mm, size)
+
+    def read_at(self, offset: int, length: int) -> bytes:
+        if offset + length > self._view[1]:
+            with self._io_lock:
+                if offset + length > self._view[1]:
+                    self._remap()
+        mm, mm_size = self._view
+        if mm is None or offset + length > mm_size:
+            return super().read_at(offset, length)  # racing growth: pread
+        data = mm[offset : offset + length]
+        plane.account(len(data), "read")
+        return data
+
+    def truncate(self, size: int) -> None:
+        with self._io_lock:
+            # drop the map first: a shrunk file under a live map would
+            # SIGBUS any reader touching the now-unbacked tail pages
+            self._view = (None, 0)
+            os.ftruncate(self._f.fileno(), size)
+            self._remap()
+
+    def close(self) -> None:
+        mm, _ = self._view
+        self._view = (None, 0)
+        if mm is not None:
+            mm.close()
+        super().close()
+
+
+class MemoryFile(BackendStorageFile):
+    """RAM-only backing: ephemeral scratch volumes and tests.  The path and
+    create arguments only fit the open_backend factory's shape; nothing
+    persists (sync() is a no-op by construction)."""
+
+    name = "memory"
+
+    def __init__(self, path: str = "", create: bool = True):
+        self._buf = bytearray()
+        self._lock = threading.Lock()
+
+    def read_at(self, offset: int, length: int) -> bytes:
+        with self._lock:
+            return bytes(self._buf[offset : offset + length])
+
+    def append(self, data: bytes) -> int:
+        with self._lock:
+            offset = len(self._buf)
+            self._buf += data
+            return offset
+
+    def write_at(self, offset: int, data: bytes) -> None:
+        with self._lock:
+            end = offset + len(data)
+            if end > len(self._buf):
+                self._buf += b"\x00" * (end - len(self._buf))
+            self._buf[offset:end] = data
+
+    def truncate(self, size: int) -> None:
+        with self._lock:
+            del self._buf[size:]
+
+    def size(self) -> int:
+        with self._lock:
+            return len(self._buf)
+
+
+class ObjectStoreClient(ABC):
+    """What a remote tier must provide (the S3-client shape the
+    reference's s3_backend wraps)."""
+
+    name = "abstract"
+
+    @abstractmethod
+    def put(self, key: str, local_path: str) -> None: ...
+
+    @abstractmethod
+    def read_range(self, key: str, offset: int, length: int) -> bytes: ...
+
+    @abstractmethod
+    def object_size(self, key: str) -> int: ...
+
+    @abstractmethod
+    def get(self, key: str, local_path: str) -> None: ...
+
+    @abstractmethod
+    def delete(self, key: str) -> None: ...
+
+
+class LocalObjectStoreClient(ObjectStoreClient):
+    """Directory-backed object store, the in-tree tier target: object
+    ``a/b/c`` is the file ``root/a_b_c``, as in the JAX package, so each
+    package reads the other's uploads."""
+
+    name = "local"
+
+    def __init__(self, root: str):
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+
+    def _path(self, key: str) -> str:
+        return os.path.join(self.root, key.replace("/", "_"))
+
+    def put(self, key: str, local_path: str) -> None:
+        tmp = self._path(key) + ".part"
+        shutil.copyfile(local_path, tmp)
+        os.replace(tmp, self._path(key))
+
+    def read_range(self, key: str, offset: int, length: int) -> bytes:
+        with open(self._path(key), "rb") as f:
+            f.seek(offset)
+            return f.read(length)
+
+    def object_size(self, key: str) -> int:
+        return os.path.getsize(self._path(key))
+
+    def get(self, key: str, local_path: str) -> None:
+        tmp = local_path + ".part"
+        shutil.copyfile(self._path(key), tmp)
+        os.replace(tmp, local_path)
+
+    def delete(self, key: str) -> None:
+        try:
+            os.remove(self._path(key))
+        except FileNotFoundError:
+            pass
+
+
+class TieredFile(BackendStorageFile):
+    """Read-only view of a .dat living in an object store (reference
+    s3_backend.S3BackendStorageFile): sealed volumes only.  Appends are
+    refused; reads are ranged GETs of 1 MiB blocks behind a 32-block
+    (32 MiB) cache that evicts the oldest block first."""
+
+    name = "remote"
+
+    _BLOCK = 1024 * 1024
+    _CACHE_BLOCKS = 32
+
+    def __init__(self, client: ObjectStoreClient, key: str, size: int | None = None):
+        self.client = client
+        self.key = key
+        self._size = size if size is not None else client.object_size(key)
+        self._cache: dict[int, bytes] = {}
+        self._cache_order: list[int] = []
+        self._lock = threading.Lock()
+
+    def _block(self, idx: int) -> bytes:
+        with self._lock:
+            if idx in self._cache:
+                return self._cache[idx]
+        data = self.client.read_range(self.key, idx * self._BLOCK, self._BLOCK)
+        with self._lock:
+            if idx not in self._cache:
+                self._cache[idx] = data
+                self._cache_order.append(idx)
+                if len(self._cache_order) > self._CACHE_BLOCKS:
+                    self._cache.pop(self._cache_order.pop(0), None)
+        return data
+
+    def read_at(self, offset: int, length: int) -> bytes:
+        out = bytearray()
+        while length > 0 and offset < self._size:
+            idx, within = divmod(offset, self._BLOCK)
+            piece = self._block(idx)[within : within + length]
+            if not piece:
+                break
+            out += piece
+            offset += len(piece)
+            length -= len(piece)
+        return bytes(out)
+
+    def append(self, data: bytes) -> int:
+        raise IOError(f"tiered volume {self.key} is sealed (read-only)")
+
+    def write_at(self, offset: int, data: bytes) -> None:
+        raise IOError(f"tiered volume {self.key} is sealed (read-only)")
+
+    def size(self) -> int:
+        return self._size
+
+
+_BACKENDS = {"disk": DiskFile, "mmap": MmapDiskFile, "memory": MemoryFile}
 
 
 def open_backend(kind: str, path: str, create: bool = True) -> BackendStorageFile:

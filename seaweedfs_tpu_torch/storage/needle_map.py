@@ -1,17 +1,28 @@
-"""Needle maps: id -> (offset, size) indexes, plus .idx I/O.
+"""Needle maps: id -> (offset, size) indexes in three kinds, plus .idx I/O.
 
-The port's copy of the memory kind of seaweedfs_tpu/storage/needle_map.py
-(reference NeedleMapInMemory, weed/storage/needle_map.go): ``MemDb``, the
-dict replay of an index log, and ``AppendIndex``, the live .idx writer of
-an open volume, with its torn-tail truncation and replay; and
-``walk_index_file``, which the EC decoder also reads.  ``MemDb.ascending``
+The port's copy of seaweedfs_tpu/storage/needle_map.py.  The .idx file is
+an append-only log of 16-byte entries (17 with 5-byte offsets; the
+reference's layout, weed/storage/needle_map/needle_value.go ToBytes); a
+deletion appends an entry with zero offset and tombstone size.  Map kinds
+mirror the reference's NeedleMapInMemory / CompactMap / LevelDb kinds
+(weed/storage/needle_map.go:17-20, needle_map/compact_map.go,
+needle_map_leveldb.go):
+
+- ``MemDb``: dict replay of the log; simplest, heaviest per entry.
+- ``CompactMap``: a numpy-columnar sorted base plus a small dict overlay
+  (about 24 bytes per entry), binary-search gets, vectorized folds.
+- ``LevelDbNeedleMap``: backed by util/lsm.LsmStore beside the .idx
+  (``<base>.idx.ldb``) with a durable high-water mark of indexed .idx
+  bytes, so reopening a large volume replays only the .idx tail.  Its
+  keys, values and meta key are the JAX package's, so each package opens
+  the other's ``.ldb``.
+
+``AppendIndex`` is the live .idx writer of an open volume over one of
+them; ``walk_index_file`` also serves the EC decoder.  ``MemDb.ascending``
 and ``save_to_idx`` write the compacted index of a vacuum and of an index
-rebuild (sorted by key, staged and renamed), as the JAX package's do.  The .idx file is an
-append-only log of 16-byte entries (same layout as the reference's,
-weed/storage/needle_map/needle_value.go ToBytes); a deletion appends an
-entry with zero offset and tombstone size.  (The encoder replays the log
-in bulk: ec_encoder.write_sorted_ecx_file.)  ``CompactMap`` and the
-LSM-backed ``LevelDbNeedleMap`` are not ported.
+rebuild, and ``reset_persistent_map`` drops the LSM map such a rewrite
+invalidates.  (The encoder replays the log in bulk:
+ec_encoder.write_sorted_ecx_file.)
 """
 
 from __future__ import annotations
@@ -19,8 +30,13 @@ from __future__ import annotations
 import io
 import logging
 import os
+import shutil
+import struct
+import threading
 from dataclasses import dataclass
 from typing import Callable, Iterator
+
+import numpy as np
 
 from seaweedfs_tpu_torch.storage.types import (
     OFFSET_SIZE,
@@ -123,29 +139,192 @@ class MemDb:
         os.replace(tmp, idx_path)
 
 
-def _replay_visitor(db: MemDb) -> Callable[[int, int, int], None]:
-    def visit(key: int, offset: int, size: int) -> None:
-        if offset > 0 and not size_is_deleted(size):
-            db.set(key, offset, size)
-        else:
-            db.delete(key)
+_COMPACT_DTYPE = np.dtype([("key", "<u8"), ("offset", "<u8"), ("size", "<i8")])
 
-    return visit
+
+class CompactMap:
+    """Sorted numpy-columnar base + dict overlay (reference CompactMap,
+    needle_map/compact_map.go, array-first): lookups binary-search the
+    base with np.searchsorted; writes land in the overlay and fold into
+    the base, vectorized, once it grows past ``fold_at``."""
+
+    def __init__(self, fold_at: int = 16384):
+        self._base = np.empty(0, dtype=_COMPACT_DTYPE)
+        self._overlay: dict[int, tuple[int, int]] = {}  # key -> (off, size); size<0 = tombstone
+        self.fold_at = fold_at
+        # folds are triggered from reader paths (len/ascending) too, e.g.
+        # the heartbeat thread's file_count() racing an HTTP write, so
+        # every structural access serializes here
+        self._lock = threading.RLock()
+
+    def set(self, key: int, offset: int, size: int) -> None:
+        with self._lock:
+            self._overlay[key] = (offset, size)
+            if len(self._overlay) >= self.fold_at:
+                self._fold_locked()
+
+    def delete(self, key: int) -> None:
+        with self._lock:
+            self._overlay[key] = (0, -1)
+            if len(self._overlay) >= self.fold_at:
+                self._fold_locked()
+
+    def _fold_locked(self) -> None:
+        if not self._overlay:
+            return
+        over = np.fromiter(((k, o, s) for k, (o, s) in self._overlay.items()),
+                           dtype=_COMPACT_DTYPE, count=len(self._overlay))
+        merged = np.concatenate([self._base, over])
+        # the stable sort keeps the overlay (appended last) after the base
+        # on equal keys; keep the last occurrence per key, then drop
+        # tombstones
+        merged = merged[np.argsort(merged["key"], kind="stable")]
+        keys = merged["key"]
+        last = np.ones(len(merged), dtype=bool)
+        if len(merged) > 1:
+            last[:-1] = keys[:-1] != keys[1:]
+        merged = merged[last]
+        self._base = merged[merged["size"] >= 0]
+        self._overlay = {}
+
+    def get(self, key: int) -> NeedleValue | None:
+        with self._lock:
+            if key in self._overlay:
+                off, size = self._overlay[key]
+                return None if size < 0 else NeedleValue(key, off, size)
+            i = np.searchsorted(self._base["key"], key)
+            if i < len(self._base) and int(self._base["key"][i]) == key:
+                row = self._base[i]
+                return NeedleValue(key, int(row["offset"]), int(row["size"]))
+            return None
+
+    def __len__(self) -> int:
+        with self._lock:
+            self._fold_locked()
+            return len(self._base)
+
+    def ascending(self) -> Iterator[NeedleValue]:
+        with self._lock:
+            self._fold_locked()
+            base = self._base  # a folded base is never mutated: iterate lock-free
+        for row in base:
+            yield NeedleValue(int(row["key"]), int(row["offset"]), int(row["size"]))
+
+    values = ascending  # already cheap; the order is free from the layout
+
+
+class LevelDbNeedleMap:
+    """LSM-backed persistent map (reference needle_map_leveldb.go): keys
+    are 8-byte big-endian needle ids (numeric order == byte order), values
+    packed (offset, size).  A meta key records how many .idx bytes have
+    been indexed, so reopening replays only the tail."""
+
+    _META_OFFSET = b"\x00meta:idx_offset"
+    _VALUE = struct.Struct("<Qi")
+
+    def __init__(self, kv_dir: str):
+        from seaweedfs_tpu_torch.util.lsm import LsmStore
+
+        self.kv = LsmStore(kv_dir)
+        self._count: int | None = None
+        # writers and the heartbeat thread's len() both touch _count; the
+        # first recount must not interleave with writers either
+        self._io_lock = threading.RLock()
+
+    def set(self, key: int, offset: int, size: int) -> None:
+        kb = key.to_bytes(8, "big")
+        with self._io_lock:
+            # the existence probe is an in-memory bisect (memtable + SST
+            # indexes), noise next to the needle's disk write it follows
+            if self._count is not None and self.kv.get(kb) is None:
+                self._count += 1
+            self.kv.put(kb, self._VALUE.pack(offset, size))
+
+    def delete(self, key: int) -> None:
+        kb = key.to_bytes(8, "big")
+        with self._io_lock:
+            if self._count is not None and self.kv.get(kb) is not None:
+                self._count -= 1
+            self.kv.delete(kb)
+
+    def get(self, key: int) -> NeedleValue | None:
+        blob = self.kv.get(key.to_bytes(8, "big"))
+        if blob is None:
+            return None
+        offset, size = self._VALUE.unpack(blob)
+        return NeedleValue(key, offset, size)
+
+    def __len__(self) -> int:
+        with self._io_lock:
+            if self._count is None:
+                self._count = sum(1 for _ in self._scan())
+            return self._count
+
+    def _scan(self):
+        # needle keys are exactly 8 bytes and meta keys longer: length is
+        # the namespace (a byte prefix cannot be, most ids start with \x00)
+        for kb, blob in self.kv.scan():
+            if len(kb) == 8:
+                yield kb, blob
+
+    def ascending(self) -> Iterator[NeedleValue]:
+        for kb, blob in self._scan():
+            offset, size = self._VALUE.unpack(blob)
+            yield NeedleValue(int.from_bytes(kb, "big"), offset, size)
+
+    values = ascending
+
+    @property
+    def indexed_idx_bytes(self) -> int:
+        """The durable high-water mark: .idx bytes already in the map."""
+        blob = self.kv.get(self._META_OFFSET)
+        return int(blob) if blob else 0
+
+    def mark_indexed(self, idx_bytes: int) -> None:
+        self.kv.put(self._META_OFFSET, str(idx_bytes).encode())
+
+    def close(self) -> None:
+        self.kv.close()
+
+
+def reset_persistent_map(idx_path: str | os.PathLike) -> None:
+    """Drop the LSM map beside an .idx that was rewritten in place (vacuum,
+    index rebuild): the tail replay is sound only over an append-only log,
+    so a rewrite invalidates the whole map."""
+    shutil.rmtree(os.fspath(idx_path) + ".ldb", ignore_errors=True)
 
 
 class AppendIndex:
-    """Live append-only .idx writer backing an open volume, over a
-    ``MemDb`` (the JAX package's ``kind="memory"``, the only kind ported)."""
+    """Live append-only .idx writer backing an open volume.
 
-    def __init__(self, idx_path: str | os.PathLike, offset_width: int = OFFSET_SIZE):
+    ``kind`` picks the in-process map: "memory" (MemDb), "compact"
+    (CompactMap) or "leveldb" (LSM-persisted beside the .idx; a restart
+    replays only the un-indexed .idx tail, and a .idx shorter than the
+    map's mark, rewritten since, rebuilds the map)."""
+
+    def __init__(self, idx_path: str | os.PathLike, kind: str = "memory",
+                 offset_width: int = OFFSET_SIZE):
         self.path = os.fspath(idx_path)
+        self.kind = kind
         self.offset_width = offset_width
         self._truncate_torn_tail()
         self._f = open(self.path, "ab")
-        self.db = MemDb()
-        if os.path.getsize(self.path):
-            with open(self.path, "rb") as f:
-                walk_index_file(f, _replay_visitor(self.db), offset_width=self.offset_width)
+        idx_size = os.path.getsize(self.path)
+        if kind == "leveldb":
+            self.db = LevelDbNeedleMap(self.path + ".ldb")
+            start = self.db.indexed_idx_bytes
+            if start > idx_size:  # the .idx was truncated or replaced: rebuild
+                self.db.close()
+                reset_persistent_map(self.path)
+                self.db = LevelDbNeedleMap(self.path + ".ldb")
+                start = 0
+            if start < idx_size:
+                self._replay(start)
+                self.db.mark_indexed(idx_size)
+        else:
+            self.db = MemDb() if kind == "memory" else CompactMap()
+            if idx_size:
+                self._replay(0)
 
     def _truncate_torn_tail(self) -> None:
         """Drop a mid-record torn .idx tail (crash between the bytes of
@@ -165,6 +344,18 @@ class AppendIndex:
                       self.path, rem, size, size - rem)
             os.truncate(self.path, size - rem)
 
+    def _replay(self, start: int) -> None:
+        db = self.db
+
+        def visit(key: int, offset: int, size: int) -> None:
+            if offset > 0 and not size_is_deleted(size):
+                db.set(key, offset, size)
+            else:
+                db.delete(key)
+
+        with open(self.path, "rb") as f:
+            walk_index_file(f, visit, start=start, offset_width=self.offset_width)
+
     def put(self, key: int, offset: int, size: int) -> None:
         self._f.write(pack_index_entry(key, offset, size, self.offset_width))
         self._f.flush()  # .idx must be on disk for EC generate / crash rebuild
@@ -180,6 +371,8 @@ class AppendIndex:
 
     def flush(self) -> None:
         self._f.flush()
+        if self.kind == "leveldb":
+            self.db.mark_indexed(os.path.getsize(self.path))
 
     def sync(self) -> None:
         """fsync the .idx (the volume fsync policy's index half)."""
@@ -193,3 +386,8 @@ class AppendIndex:
         except OSError:
             pass
         self._f.close()
+        if self.kind == "leveldb":
+            # the tail replay is idempotent, so the high-water mark needs
+            # to be durable only at a clean close
+            self.db.mark_indexed(os.path.getsize(self.path))
+            self.db.close()

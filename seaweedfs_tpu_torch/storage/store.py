@@ -7,12 +7,14 @@ create, mount, unmount and destroy volumes; mount, unmount and destroy EC
 shards; and the stats plus delta queues (``volume_deltas``,
 ``ec_shard_deltas``) that the volume server's heartbeat drains.  Every
 volume it opens or creates takes the store's fsync policy
-(``storage.volume.parse_fsync_policy``).  The native data plane, the
-store-level needle I/O and the needle-map kinds, backends and offset
-widths of the JAX Store's options are not ported (every volume has an
-in-memory needle map and the disk backend, width 4 when new).  Each disk
+(``storage.volume.parse_fsync_policy``) and its storage options, as the
+JAX Store's: ``needle_map_kind`` (memory, compact, leveldb),
+``backend_kind`` (disk, mmap, memory) and, for new volumes,
+``offset_width`` (4 or 5).  The loader opens every ``.dat`` and every
+``.vif`` without one whose ``remote`` names a tiered object.  Each disk
 directory has a type (``disk_types``, default hdd), the placement
-dimension of growth, ``VolumeCopy`` and ``volume.tier.move``.
+dimension of growth, ``VolumeCopy`` and ``volume.tier.move``.  Not
+ported: the native data plane and the store-level needle I/O.
 """
 
 from __future__ import annotations
@@ -33,6 +35,15 @@ from seaweedfs_tpu_torch.storage.volume import (
     parse_fsync_policy,
     volume_file_name,
 )
+from seaweedfs_tpu_torch.storage.volume_info import maybe_load_volume_info
+
+
+def _names_remote(vif: Path) -> bool:
+    try:
+        info = maybe_load_volume_info(vif)
+    except (OSError, ValueError):
+        return False
+    return info is not None and bool(info.remote.get("key"))
 
 
 class DiskLocation:
@@ -40,20 +51,27 @@ class DiskLocation:
     (reference types.DiskType: hdd, ssd, ...)."""
 
     def __init__(self, directory: str | os.PathLike, max_volume_count: int = 8,
-                 fsync: str = "close", disk_type: str = "hdd"):
+                 fsync: str = "close", disk_type: str = "hdd", needle_map_kind: str = "memory",
+                 backend_kind: str = "disk"):
         self.directory = str(directory)
         self.disk_type = disk_type
         self.max_volume_count = max_volume_count
         self.fsync = fsync
+        self.needle_map_kind = needle_map_kind
+        self.backend_kind = backend_kind
         self.volumes: dict[int, Volume] = {}
         self.ec_volumes: dict[int, EcVolume] = {}
         self.lock = threading.RLock()
         os.makedirs(self.directory, exist_ok=True)
 
     def load_existing_volumes(self) -> None:
-        """Open every volume with a .dat (+.idx) pair in the directory."""
+        """Open every volume with a .dat (+.idx) pair in the directory,
+        plus the tiered volumes whose .dat lives in an object store (their
+        .vif names the object; the .vif of an EC volume names none)."""
+        tiered = [p for p in Path(self.directory).glob("*.vif")
+                  if not p.with_suffix(".dat").exists() and _names_remote(p)]
         with self.lock:
-            for dat in Path(self.directory).glob("*.dat"):
+            for dat in [*Path(self.directory).glob("*.dat"), *tiered]:
                 collection, _, vid_part = dat.stem.rpartition("_")
                 try:
                     vid = int(vid_part)
@@ -62,7 +80,9 @@ class DiskLocation:
                 if vid in self.volumes:
                     continue
                 try:
-                    vol = Volume(self.directory, vid, collection, create=False, fsync=self.fsync)
+                    vol = Volume(self.directory, vid, collection, create=False,
+                                 needle_map_kind=self.needle_map_kind,
+                                 backend_kind=self.backend_kind, fsync=self.fsync)
                 except (OSError, ValueError):
                     continue
                 self.volumes[vid] = vol
@@ -90,7 +110,8 @@ class Store:
 
     def __init__(self, directories: list[str | os.PathLike],
                  max_volume_counts: list[int] | None = None, fsync: str = "close",
-                 disk_types: list[str] | None = None):
+                 disk_types: list[str] | None = None, needle_map_kind: str = "memory",
+                 backend_kind: str = "disk", offset_width: int = 4):
         counts = max_volume_counts or [8] * len(directories)
         types = disk_types or ["hdd"] * len(directories)
         if len(types) == 1 and len(directories) > 1:
@@ -101,7 +122,13 @@ class Store:
                              f"counts (got {len(types)}/{len(counts)})")
         parse_fsync_policy(fsync)  # refuse a bad policy before any volume opens
         self.fsync = fsync
-        self.locations = [DiskLocation(d, c, fsync, t)
+        self.needle_map_kind = needle_map_kind
+        self.backend_kind = backend_kind
+        # index offset width of NEW volumes (existing ones keep their
+        # superblock's): 4 = 32GB cap, reference-interoperable; 5 = 8TB
+        # (the reference's 5BytesOffset build flavor as a store option)
+        self.offset_width = offset_width
+        self.locations = [DiskLocation(d, c, fsync, t, needle_map_kind, backend_kind)
                           for d, c, t in zip(directories, counts, types)]
         # incremental heartbeat deltas (reference: NewVolumesChan /
         # NewEcShardsChan, store.go:69-74): (kind, volume, disk_type) and
@@ -150,7 +177,8 @@ class Store:
         if loc is None:
             raise ValueError(f"no {disk_type or 'hdd'} disk location has room for a new volume")
         vol = Volume(loc.directory, vid, collection, replica_placement, ttl_seconds=ttl_seconds,
-                     fsync=self.fsync)
+                     needle_map_kind=self.needle_map_kind, backend_kind=self.backend_kind,
+                     offset_width=self.offset_width, fsync=self.fsync)
         with loc.lock:
             loc.volumes[vid] = vol
         self.volume_deltas.put(("new", vol, loc.disk_type))
@@ -165,7 +193,9 @@ class Store:
         for loc in self.locations:
             if not os.path.exists(volume_file_name(loc.directory, collection, vid) + ".dat"):
                 continue
-            vol = Volume(loc.directory, vid, collection, create=False, fsync=self.fsync)
+            vol = Volume(loc.directory, vid, collection, create=False,
+                         needle_map_kind=self.needle_map_kind, backend_kind=self.backend_kind,
+                         fsync=self.fsync)
             with loc.lock:
                 loc.volumes[vid] = vol
             self.volume_deltas.put(("new", vol, loc.disk_type))

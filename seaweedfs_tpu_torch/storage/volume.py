@@ -17,8 +17,16 @@ handed to the EC pipeline (storage/erasure_coding).
 Each volume applies its fsync policy (``parse_fsync_policy``: always,
 interval[:N], close or never) after every append, as the JAX package does.
 
-Not ported: the needle-map kinds other than memory, the memory backend (and
-its in-memory vacuum), the native data plane and tiering.
+Storage options, as the JAX Volume's: ``needle_map_kind`` (memory, compact
+or leveldb; storage/needle_map.py), ``backend_kind`` (disk, mmap or memory;
+storage/backend.py; a memory volume vacuums buffer to buffer) and, for a new
+volume, ``offset_width`` (4 or 5 bytes per .idx offset).  Tiering: a sealed
+volume's .dat moves to an object store (``tier_upload``) and back
+(``tier_download``); its .vif's ``remote`` names the object, and a volume
+with such a .vif and no .dat opens read-only on a ``TieredFile``.  A tiered
+volume refuses writes and vacuum, and ``destroy`` drops its object.
+
+Not ported: the native data plane.
 """
 
 from __future__ import annotations
@@ -32,9 +40,14 @@ from pathlib import Path
 from seaweedfs_tpu_torch import stats
 from seaweedfs_tpu_torch.stats import plane
 from seaweedfs_tpu_torch.storage import needle as needle_mod
-from seaweedfs_tpu_torch.storage.backend import open_backend
+from seaweedfs_tpu_torch.storage.backend import (
+    LocalObjectStoreClient,
+    MemoryFile,
+    TieredFile,
+    open_backend,
+)
 from seaweedfs_tpu_torch.storage.needle import CookieMismatch, Needle, NeedleError
-from seaweedfs_tpu_torch.storage.needle_map import AppendIndex, MemDb
+from seaweedfs_tpu_torch.storage.needle_map import AppendIndex, MemDb, reset_persistent_map
 from seaweedfs_tpu_torch.storage.super_block import (
     SUPER_BLOCK_SIZE,
     ReplicaPlacement,
@@ -101,6 +114,8 @@ class Volume:
         version: Version = CURRENT_VERSION,
         create: bool = True,
         ttl_seconds: int = 0,
+        needle_map_kind: str = "memory",
+        backend_kind: str = "disk",
         offset_width: int = 4,
         fsync: str = "close",
     ):
@@ -108,6 +123,9 @@ class Volume:
         self.collection = collection
         self.base = volume_file_name(directory, collection, vid)
         self.read_only = False
+        self.needle_map_kind = needle_map_kind
+        self.backend_kind = backend_kind
+        self.tiered = False
         self.fsync_mode, self.fsync_interval_s = parse_fsync_policy(fsync)
         self._last_fsync = time.monotonic()
         # scrubber state (storage/scrub.py): fed into the heartbeat's
@@ -117,8 +135,9 @@ class Volume:
         self._write_lock = threading.RLock()
         # guards _deleted_bytes / last_append_at_ns increments
         self._acct_lock = threading.Lock()
-        # odd while a vacuum or an index rebuild swaps the .dat/.idx in:
-        # a read that overlapped a swap is re-read (read_needle)
+        # odd while a vacuum, an index rebuild or a tier move swaps the
+        # .dat/.idx in: a read that overlapped a swap is re-read
+        # (read_needle)
         self._swap_seq = 0
 
         dat_path = self.base + ".dat"
@@ -126,9 +145,29 @@ class Volume:
         # restart-surviving last-write clock: the .dat mtime is the append
         # time of the newest needle (the EC quiet window reads it)
         self.last_append_at_ns = int(os.path.getmtime(dat_path) * 1e9) if exists else 0
-        if not exists and not create:
+        remote = None if exists or create else self._remote_info()
+        if not exists and not create and remote is None:
             raise FileNotFoundError(dat_path)
-        self._dat = open_backend("disk", dat_path, create=True)
+        if remote is not None:
+            # a sealed volume tiered off-disk: reads come from the object
+            # store (reference backend/s3_backend S3BackendStorageFile)
+            self._dat = TieredFile(LocalObjectStoreClient(remote["root"]), remote["key"],
+                                   size=int(remote.get("fileSize", 0)) or None)
+            self.tiered = True
+            self.read_only = True
+        else:
+            if backend_kind == "memory":
+                # a RAM backend over on-disk volume files would present an
+                # empty volume whose .idx points at nothing: refuse, and
+                # drop any stale index of an earlier ephemeral run
+                if exists:
+                    raise ValueError(f"volume {vid}: memory backend cannot open on-disk .dat")
+                try:
+                    os.remove(self.base + ".idx")
+                except FileNotFoundError:
+                    pass
+                reset_persistent_map(self.base + ".idx")
+            self._dat = open_backend(backend_kind, dat_path, create=True)
         if self._dat.size() >= SUPER_BLOCK_SIZE:
             self.super_block = SuperBlock.from_bytes(self._dat.read_at(0, SUPER_BLOCK_SIZE))
         else:
@@ -142,10 +181,12 @@ class Volume:
             # .dat whose partial superblock must be overwritten
             self._dat.write_at(0, self.super_block.to_bytes())
         # on reopen the superblock wins: width is a durable volume property
-        self.nm = AppendIndex(self.base + ".idx", offset_width=self.super_block.offset_width)
-        # crash consistency: drop vacuum staging, truncate a torn .dat
-        # tail, replay un-indexed tail records into the .idx
-        self._recover_crash_state(existed=exists)
+        self.nm = AppendIndex(self.base + ".idx", kind=needle_map_kind,
+                              offset_width=self.super_block.offset_width)
+        if not self.tiered and backend_kind != "memory":
+            # crash consistency: drop vacuum staging, truncate a torn .dat
+            # tail, replay un-indexed tail records into the .idx
+            self._recover_crash_state(existed=exists)
         # a persisted seal (.vif readOnly) survives restarts
         info = maybe_load_volume_info(self.base + ".vif")
         if info is not None and info.read_only:
@@ -324,6 +365,14 @@ class Volume:
     def dat_size(self) -> int:
         return self._dat.size()
 
+    def _remote_info(self) -> dict | None:
+        """The .vif's ``remote`` (backend, key, root, fileSize) when this
+        volume's .dat lives in an object store, else None."""
+        info = maybe_load_volume_info(self.base + ".vif")
+        if info is not None and info.remote.get("key"):
+            return info.remote
+        return None
+
     def file_count(self) -> int:
         return len(self.nm.db)
 
@@ -333,8 +382,62 @@ class Volume:
             self._dat.flush()
             self._dat.close()
 
+    # -- tiering (reference backend tiering: a sealed .dat moves to an
+    # object store; reads become ranged GETs) ------------------------------
+
+    def tier_upload(self, client, key: str | None = None) -> str:
+        """Move this sealed volume's .dat into ``client``'s store; the local
+        .dat is removed and reads flip to the remote backend.  Returns the
+        object key (default ``vol/<collection or default>/<id>.dat``)."""
+        if not self.read_only:
+            raise NeedleError(f"volume {self.id}: tier requires readonly")
+        if self.tiered:
+            raise NeedleError(f"volume {self.id} already tiered")
+        key = key or f"vol/{self.collection or 'default'}/{self.id}.dat"
+        with self._write_lock:
+            self._dat.flush()
+            size = self._dat.size()
+            client.put(key, self.base + ".dat")
+            info = maybe_load_volume_info(self.base + ".vif") or VolumeInfo(
+                version=int(self.version))
+            info.remote = {"backend": client.name, "key": key,
+                           "root": getattr(client, "root", ""), "fileSize": size}
+            save_volume_info(self.base + ".vif", info)
+            self._swap_seq += 1
+            self._dat.close()
+            os.remove(self.base + ".dat")
+            self._dat = TieredFile(client, key, size=size)
+            self.tiered = True
+            self._swap_seq += 1
+        return key
+
+    def tier_download(self, client) -> None:
+        """Bring a tiered volume's .dat back to local disk (it stays
+        sealed) and drop the object."""
+        remote = self._remote_info()
+        if not self.tiered or remote is None:
+            raise NeedleError(f"volume {self.id} is not tiered")
+        with self._write_lock:
+            client.get(remote["key"], self.base + ".dat")
+            info = maybe_load_volume_info(self.base + ".vif")
+            info.remote = {}
+            save_volume_info(self.base + ".vif", info)
+            client.delete(remote["key"])
+            self._swap_seq += 1
+            self._dat = open_backend(self.backend_kind, self.base + ".dat")
+            self.tiered = False
+            self._swap_seq += 1
+
     def destroy(self) -> None:
+        remote = self._remote_info() if self.tiered else None
         self.close()
+        if remote is not None:
+            # best effort: the tiered object goes with the volume
+            try:
+                LocalObjectStoreClient(remote["root"]).delete(remote["key"])
+            except OSError:
+                pass
+        reset_persistent_map(self.base + ".idx")
         exts = [".dat", ".idx", ".cpt"]
         # after ec.encode the .vif (DatFileSize) belongs to the EC volume;
         # deleting the original replica must not orphan the shard geometry
@@ -464,6 +567,10 @@ class Volume:
             return self._vacuum()
 
     def _vacuum(self) -> int:
+        if self.tiered:
+            raise NeedleError(f"volume {self.id} is tiered (sealed)")
+        if self.backend_kind == "memory":
+            return self._vacuum_in_memory()
         with self._write_lock:
             old_size = self.dat_size()
             cpd, cpx = self.base + ".cpd", self.base + ".cpx"
@@ -498,10 +605,46 @@ class Volume:
             os.replace(cpd, self.base + ".dat")
             os.replace(cpx, self.base + ".idx")
             os.remove(marker)
-            self._dat = open_backend("disk", self.base + ".dat")
+            reset_persistent_map(self.base + ".idx")
+            # a new backend over the new file: an mmap volume maps the
+            # compacted .dat, never the one it replaced
+            self._dat = open_backend(self.backend_kind, self.base + ".dat")
             self.super_block = SuperBlock.from_bytes(self._pread(0, SUPER_BLOCK_SIZE))
-            self.nm = AppendIndex(self.base + ".idx", offset_width=self.offset_width)
+            self.nm = AppendIndex(self.base + ".idx", kind=self.needle_map_kind,
+                                  offset_width=self.offset_width)
             self._deleted_bytes = 0  # compaction kept only live needles
+            self._swap_seq += 1
+            return old_size - self.dat_size()
+
+    def _vacuum_in_memory(self) -> int:
+        """Compaction for the RAM backend: the .dat never touches disk, so
+        the copy runs buffer to buffer and only the .idx is rewritten."""
+        with self._write_lock:
+            old_size = self.dat_size()
+            new_dat = MemoryFile()
+            sb = SuperBlock(
+                version=self.version,
+                replica_placement=self.super_block.replica_placement,
+                ttl=self.super_block.ttl,
+                compaction_revision=self.super_block.compaction_revision + 1,
+                offset_width=self.offset_width,
+            )
+            new_dat.append(sb.to_bytes())
+            new_db = MemDb()
+            for nv in self.nm.db.ascending():
+                record = self._pread(nv.offset, get_actual_size(nv.size, self.version))
+                if not self._vacuum_record_ok(nv, record):
+                    continue
+                new_db.set(nv.key, new_dat.append(record), nv.size)
+            self._swap_seq += 1
+            self.nm.close()
+            new_db.save_to_idx(self.base + ".idx", self.offset_width)
+            reset_persistent_map(self.base + ".idx")
+            self._dat = new_dat
+            self.super_block = sb
+            self.nm = AppendIndex(self.base + ".idx", kind=self.needle_map_kind,
+                                  offset_width=self.offset_width)
+            self._deleted_bytes = 0
             self._swap_seq += 1
             return old_size - self.dat_size()
 
@@ -539,5 +682,7 @@ class Volume:
             self._swap_seq += 1
             self.nm.close()
             db.save_to_idx(self.base + ".idx", self.offset_width)
-            self.nm = AppendIndex(self.base + ".idx", offset_width=self.offset_width)
+            reset_persistent_map(self.base + ".idx")
+            self.nm = AppendIndex(self.base + ".idx", kind=self.needle_map_kind,
+                                  offset_width=self.offset_width)
             self._swap_seq += 1

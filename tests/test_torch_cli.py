@@ -22,7 +22,8 @@ from seaweedfs_tpu.storage.needle import new_needle
 from seaweedfs_tpu.storage.volume import Volume
 from seaweedfs_tpu_torch import cli
 from seaweedfs_tpu_torch.ops import select
-from seaweedfs_tpu_torch.ops.lrc_codec import LrcCuda, LrcTorch
+from seaweedfs_tpu_torch.ops.lrc_codec import LrcCPU, LrcCuda, LrcTorch
+from seaweedfs_tpu_torch.ops.rs_cpu import ReedSolomonCPU
 from seaweedfs_tpu_torch.ops.rs_cuda import ReedSolomonCuda
 from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
 from seaweedfs_tpu_torch.storage.erasure_coding.lrc import LrcScheme as PortLrcScheme
@@ -151,7 +152,7 @@ def test_codec_selection():
     assert type(codec) is ReedSolomonTorch and codec.device.type == "cpu"
     assert select.bulk_codec(10, 4, device="cpu") is codec  # cached
     assert select.pipeline_codec_for(EcScheme(6, 3), device="cpu").data_shards == 6
-    assert select.small_read_codec_for(EcScheme()).device.type == "cpu"
+    assert type(select.small_read_codec_for(EcScheme())) is ReedSolomonCPU  # native host apply
     # the JAX package's LrcScheme selects the port's LRC codecs too: only
     # local_groups is read
     for scheme in (LrcScheme(), PortLrcScheme()):
@@ -159,7 +160,7 @@ def test_codec_selection():
         assert type(lrc) is LrcTorch and lrc.device.type == "cpu"
         assert (lrc.local_groups, lrc.global_parities) == (2, 2)
         small = select.small_read_codec_for(scheme)
-        assert type(small) is LrcTorch and small.device.type == "cpu"
+        assert type(small) is LrcCPU and (small.local_groups, small.global_parities) == (2, 2)
     if torch.cuda.is_available():
         assert type(select.pipeline_codec_for(EcScheme())) is ReedSolomonCuda
         assert type(select.pipeline_codec_for(PortLrcScheme())) is LrcCuda

@@ -119,6 +119,19 @@ def leader_of(nodes):
     return leaders[0] if len(leaders) == 1 else None
 
 
+def wait_leader(nodes, timeout=DEADLINE):
+    """The one node that leads, waited for.  The lookup that ends the wait
+    is the one returned: a second lookup can land mid-election (under load,
+    a follower's timer fires between the two) and find none, or two."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        ldr = leader_of(nodes)
+        if ldr is not None:
+            return ldr
+        time.sleep(0.02)
+    return None
+
+
 def propose_as_leader(nodes, cmd, timeout=DEADLINE):
     """Propose against whoever leads, re-resolving only when the leader was
     deposed between the lookup and the propose (test_raft.py's helper)."""
@@ -236,8 +249,8 @@ def test_snapshot_compaction_and_install_on_lagging_follower(tmp_path, group):
     applied = {f"n{i}": [] for i in range(3)}
     nodes = make_cluster(tmp_path, net, group, applied=applied, snapshot_threshold=10)
     try:
-        assert wait_for(lambda: leader_of(nodes) is not None)
-        ldr = leader_of(nodes)
+        ldr = wait_leader(nodes)
+        assert ldr is not None
         followers = [n for n in nodes if n is not ldr]
         # in a mixed group, lag a follower of the other package so the
         # snapshot crosses packages
@@ -266,8 +279,8 @@ def test_membership_add_passive_joiner(tmp_path, group):
     net = Net()
     nodes = make_cluster(tmp_path, net, group)
     try:
-        assert wait_for(lambda: leader_of(nodes) is not None)
-        ldr = leader_of(nodes)
+        ldr = wait_leader(nodes)
+        assert ldr is not None
         # the joiner is of the package the group has fewest of
         kinds = GROUPS[group]
         jkind = min(("port", "jax"), key=kinds.count) if "jax" in kinds else "port"
@@ -275,13 +288,14 @@ def test_membership_add_passive_joiner(tmp_path, group):
         joiner.start()
         time.sleep(0.8)
         assert not joiner.is_leader  # stayed passive
-        ldr = leader_of(nodes)
+        ldr = wait_leader(nodes)
         assert ldr is not None
         assert ldr.add_member("n3")
         assert wait_for(lambda: "n3" in joiner.members)
         assert propose_as_leader(nodes, {"k": "post-join"}) is not None
-        assert wait_for(lambda: joiner.commit_index >= leader_of(nodes).commit_index - 1)
-        ldr = leader_of(nodes)
+        assert wait_for(lambda: (cur := leader_of(nodes)) is not None
+                        and joiner.commit_index >= cur.commit_index - 1)
+        ldr = wait_leader(nodes)
         assert ldr.remove_member("n3")
         assert propose_as_leader(nodes, {"k": "post-remove"}) is not None
     finally:
@@ -317,8 +331,8 @@ def test_self_removal_commits_only_on_a_majority_of_the_new_configuration(tmp_pa
     net = Net()
     nodes = make_cluster(tmp_path, net, "port")
     try:
-        assert wait_for(lambda: leader_of(nodes) is not None)
-        ldr = leader_of(nodes)
+        ldr = wait_leader(nodes)
+        assert ldr is not None
         a, b = [n for n in nodes if n is not ldr]
         with net.lock:
             net.cut.add(frozenset((ldr.id, b.id)))
@@ -326,8 +340,9 @@ def test_self_removal_commits_only_on_a_majority_of_the_new_configuration(tmp_pa
         assert ldr.commit_index < ldr._last_index()
         assert ldr.is_leader and ldr.members == sorted([a.id, b.id])
         net.heal()
-        assert wait_for(lambda: not ldr.is_leader and leader_of([a, b]) is not None)
-        new = leader_of([a, b])
+        assert wait_for(lambda: not ldr.is_leader)
+        new = wait_leader([a, b])
+        assert new is not None
         assert new.members == sorted([a.id, b.id])
         assert propose_as_leader([a, b], {"k": "after"}) is not None
     finally:
@@ -359,8 +374,8 @@ def test_partitioned_leader_steps_down_check_quorum(tmp_path, group):
     net = Net()
     nodes = make_cluster(tmp_path, net, group)
     try:
-        assert wait_for(lambda: leader_of(nodes) is not None)
-        old = leader_of(nodes)
+        old = wait_leader(nodes)
+        assert old is not None
         net.isolate(old.id)
         # without quorum contact the leader demotes itself within about one
         # election timeout
@@ -374,8 +389,8 @@ def test_prevote_rejoining_follower_does_not_disrupt(tmp_path, group):
     net = Net()
     nodes = make_cluster(tmp_path, net, group)
     try:
-        assert wait_for(lambda: leader_of(nodes) is not None)
-        ldr = leader_of(nodes)
+        ldr = wait_leader(nodes)
+        assert ldr is not None
         term_before = ldr.status()["term"]
         victim = next(n for n in nodes if not n.is_leader)
         net.isolate(victim.id)
@@ -396,8 +411,8 @@ def test_rejoined_minority_leader_discards_uncommitted(tmp_path, group):
     applied = {f"n{i}": [] for i in range(5)}
     nodes = make_cluster(tmp_path, net, group, n=5, applied=applied)
     try:
-        assert wait_for(lambda: leader_of(nodes) is not None)
-        old = leader_of(nodes)
+        old = wait_leader(nodes)
+        assert old is not None
         net.isolate(old.id)
         threading.Thread(target=lambda: old.propose({"k": "uncommitted"}, timeout=0.3),
                          daemon=True).start()

@@ -102,8 +102,8 @@ def test_shell_rules():
         "volume.check.disk", "volume.configure.replication", "volume.copy", "volume.delete",
         "volume.deleteEmpty", "volume.fix.replication", "volume.grow", "volume.list",
         "volume.mark", "volume.mount", "volume.move", "volume.repair.status", "volume.scrub",
-        "volume.server.evacuate", "volume.server.leave", "volume.tier.move", "volume.unmount",
-        "volume.vacuum"]
+        "volume.server.evacuate", "volume.server.leave", "volume.tier.download",
+        "volume.tier.move", "volume.tier.upload", "volume.unmount", "volume.vacuum"]
     for name in SHELL_REGISTRY:
         assert name in out.getvalue()
 

@@ -271,9 +271,11 @@ def test_grpc_round_trip_through_the_cli_server(tmp_path):
         vac = stub.VolumeVacuum(pb.VolumeVacuumRequest(volume_id=1, garbage_threshold=1.1),
                                 timeout=30)
         assert vac.reclaimed_bytes == 0  # under the threshold: answered, nothing compacted
-        with pytest.raises(grpc.RpcError) as err:
-            stub.VolumeTierMove(pb.VolumeTierMoveRequest(volume_id=1), timeout=30)
-        assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
+        with pytest.raises(grpc.RpcError) as err:  # answered: an unsealed volume is refused
+            stub.VolumeTierMove(pb.VolumeTierMoveRequest(volume_id=1, dest=str(tmp_path / "obj")),
+                                timeout=30)
+        assert err.value.code() == grpc.StatusCode.FAILED_PRECONDITION
+        assert err.value.details() == "volume 1 is not sealed readonly"
         with urllib.request.urlopen(f"http://127.0.0.1:{metrics_port}/metrics", timeout=30) as r:
             text = r.read().decode()
         assert 'weedtpu_ec_operations_total{op="encode"} 1' in text

@@ -35,6 +35,7 @@ import threading
 import time
 import types
 
+import grpc
 import numpy as np
 import pytest
 
@@ -478,6 +479,39 @@ def test_replicated_write_is_on_both_holders_as_jax(clusters):
 
     got = _both(clusters, script)
     assert got[1] == 2 and got[2] == got[3] == (200, b"replica me") and got[4]
+
+
+def test_a_transient_lookup_failure_does_not_fail_a_replicated_write(clusters, monkeypatch):
+    """The primary's master lookup for the replica holders answers
+    UNAVAILABLE once (a channel re-dialling under load): the lookup is
+    retried, as the JAX package's stubs retry it, and the write is
+    acknowledged on both holders instead of failing "replication short"."""
+    c = clusters["port"]
+    a = c.assign("?replication=001&collection=flaky")
+    vid = int(a["fid"].split(",")[0])
+    primary = next(vs for vs in c.servers if vs.url == a["url"])
+    primary._lookup_cache.pop(vid, None)
+    real, failed = rpc.master_stub, []
+
+    class Unavailable(grpc.RpcError):
+        def code(self):
+            return grpc.StatusCode.UNAVAILABLE
+
+    def flaky(address):
+        stub = real(address)
+        if not failed:
+            def lookup(*_args, **_kw):
+                failed.append(address)
+                raise Unavailable()
+
+            stub.LookupVolume = lookup
+        return stub
+
+    monkeypatch.setattr(rpc, "master_stub", flaky)
+    assert _http(a["url"], "POST", f"/{a['fid']}", b"retried")[0] == 201
+    assert failed == [c.master.grpc_address]
+    assert [_http(vs.url, "GET", f"/{a['fid']}") for vs in c.holders(vid)] == [
+        (200, b"retried")] * 2
 
 
 def test_redirect_range_head_and_gzip_as_jax(clusters):
