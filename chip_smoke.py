@@ -221,6 +221,34 @@ Phases, each printing what it found; any failure exits non-zero:
    host codec (``ReedSolomonCPU`` on csrc/gf256.cpp, which phases 7 and 11
    decode on and name) is held byte-equal to the plain torch codec on a
    10 x 1 MiB encode and a 4-loss rebuild, each timed in µs.
+13. The filer: a fresh ``cli master -volumeSizeLimitMB 256``, four ``cli
+   volume -device cuda -scrubInterval 0 -scrubRateMB 0`` on two racks and
+   ``cli filer -db <dir> -maxMB 4`` (the LSM store; logs under
+   ``filer/``).  ``fs.configure`` puts /data/ in collection filerdata; 16
+   writers fill it through the filer's HTTP API, bodies streamed from
+   --seed: one 1 GiB file (256 chunks), 16 of 4-32 MiB and 8,192 of 1-64
+   KiB over 64 directories (512 of them at most 2 KiB, inline), files/s,
+   MB/s and p50/p99 per class; every file reads back sha256-equal, with
+   32 Range reads across chunk boundaries of the 1 GiB file, a 416, a
+   HEAD and paged JSON listings equal to the names written, and the
+   filer's RSS under FILER_RSS_LIMIT while it moves the 1 GiB file.  ``cli
+   shell -filer``: fs.du equals the bytes written, fs.verify finds 0
+   broken, fs.ls and fs.tree run; 64 needles written by ``cli upload`` are
+   exactly the orphans ``volume.fsck`` finds (their bytes too), purges
+   with ``-reallyDeleteFromVolume -cutoffAgeSeconds 0`` and then finds 0
+   of; ``fs.rm -r`` of one directory of 128 files 404s its paths and its
+   chunks' fids.  An in-process filer splits one 4 MiB and one 16 KiB
+   upload and one 16 KiB read into body read, assign (FidPool hit or
+   miss), volume POST, store insert, find_entry, lookup and volume GET.
+   The filer restarts on its -db: listings byte-identical, 512 sampled
+   reads equal.  ``ec.encode -collection filerdata`` launches K1 in the
+   servers exactly once per batch (their /metrics) and every file reads
+   back from the shards; the server holding the most data shards is
+   SIGKILLed and, once the master prunes it, every file reads back through
+   degraded reads (intervals reconstructed); ``ec.rebuild -collection
+   filerdata`` launches K1 and 1,024 files read back; ``cli server -filer
+   -device cuda`` takes an upload and a read in one process and stops on
+   SIGTERM with rc 0.  Its figures go on ``filer:`` lines.
 
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
@@ -859,6 +887,10 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         storage = phase_storage(args, tmp, ident, dev)
         host_codec = phase_host_codec(ident)
+        for name in os.listdir(tmp):  # room for phase 13's volumes
+            path = os.path.join(tmp, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+        filer = phase_filer(args, tmp, ident, dev)
         degraded = {label: (r["p50_us"], r["p99_us"]) for label, r in ec_service["reads"].items()}
         print(f"host codec paths on {ident}: phase 7 reads p50/p99 us {degraded}; phase 11 EC "
               f"scrub {maintenance['walls']['ec_scrub']:.3f}s")
@@ -866,7 +898,7 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
                     encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
                     lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster, write=write,
                     failover=failover, maintenance=maintenance, storage=storage,
-                    host_codec=host_codec)
+                    host_codec=host_codec, filer=filer)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1430,14 +1462,16 @@ class _Server:
         parsed into grpc_port, http_port and metrics_port)."""
         line = self.proc.stdout.readline().strip()
         self.start_s = time.perf_counter() - self._t
-        bound = re.search(r"gRPC on 127\.0\.0\.1:(\d+)(?: .*metrics on 127\.0\.0\.1:(\d+))?", line)
+        # a volume server's or master's "gRPC on", a filer's "(gRPC ...)"
+        bound = re.search(r"gRPC (?:on )?127\.0\.0\.1:(\d+)(?: .*metrics on 127\.0\.0\.1:(\d+))?",
+                          line)
         if bound is None:
             self.stop()
             raise SmokeFailure(f"the server did not start: {line!r}; "
                                f"log: {self.log_text()[-2000:]}")
         self.grpc_port = int(bound[1])
         self.metrics_port = int(bound[2]) if bound[2] else None
-        http = re.search(r"HTTP on 127\.0\.0\.1:(\d+)", line)
+        http = re.search(r"(?:HTTP|filer) on 127\.0\.0\.1:(\d+)", line)
         self.http_port = int(http[1]) if http else None
         print(f"server subprocess pid {self.proc.pid} up in {self.start_s:.3f}s: {line}")
         return line
@@ -1854,16 +1888,16 @@ def _disk_shards(dirs_by_addr: dict, name: str) -> dict:
     return out
 
 
-def _shell(master: str, commands: str, log: str) -> tuple[float, str]:
-    """``cli shell -master M -c commands`` in a subprocess: (wall, stdout);
-    a non-zero exit fails the phase."""
+def _shell(master: str, commands: str, log: str, filer: str = "") -> tuple[float, str]:
+    """``cli shell -master M [-filer F] -c commands`` in a subprocess:
+    (wall, stdout); a non-zero exit fails the phase."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ,
                PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
     t = time.perf_counter()
     run = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch.cli", "shell", "-master",
-                          master, "-c", commands], cwd=root, env=env, capture_output=True,
-                         text=True, timeout=900)
+                          master, *(("-filer", filer) if filer else ()), "-c", commands],
+                         cwd=root, env=env, capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t
     with open(log, "a") as f:
         f.write(f"$ shell -c {commands!r} ({wall:.3f}s, rc {run.returncode})\n{run.stdout}{run.stderr}")
@@ -3743,6 +3777,709 @@ def phase_storage(args, directory: str, ident: str, dev) -> dict:
     return rec
 
 
+# -- phase 13 -------------------------------------------------------------------
+
+
+FILER_DIRS = 64
+FILER_SMALL_N = 8192  # 1-64 KiB files over FILER_DIRS directories
+FILER_INLINE_N = 512  # of them at most 2 KiB: inlined in their entries
+FILER_LARGE_N = 16  # 4-32 MiB files
+FILER_BIG_BYTES = 1 << 30  # one file of 256 chunks at -maxMB 4
+FILER_CHUNK_MB = 4  # -maxMB: the default of upstream's `weed filer` and of the JAX CLI
+FILER_VOLUME_MB = 256  # -volumeSizeLimitMB: upstream's 30 GB cut 120x
+FILER_WRITERS = 16
+FILER_RANGE_READS = 32
+FILER_ORPHANS = 64
+FILER_RM_DIR = 5  # /data/d05: one directory of FILER_SMALL_N / FILER_DIRS files
+FILER_RESTART_SAMPLE = 512
+FILER_REBUILD_SAMPLE = 1024
+# the filer's peak RSS while it moves the 1 GiB file: its windows hold 8 x 4
+# MiB up and 4 x 4 MiB down; the rest is the interpreter, the allocator's
+# retained arenas and the server threads (121 and 191 MiB measured on an H100
+# machine's host)
+FILER_RSS_LIMIT = 384 * MIB
+FILER_PROFILE = dict(big=16, small=256, reads=256)  # the in-process split of one request
+
+
+def _filer_files(seed: int) -> list:
+    """[(path, size, key)] of the phase's files: the 1 GiB file, the large
+    ones and the small ones (FILER_INLINE_N of them inline), sizes from
+    ``seed``; ``key`` seeds the body."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 13])
+    files = [("/data/big/one.bin", FILER_BIG_BYTES, 0)]
+    for i in range(FILER_LARGE_N):
+        files.append((f"/data/large/l{i:02d}.bin", int(rng.integers(4 * MIB, 32 * MIB + 1)), 1 + i))
+    sizes = np.concatenate([rng.integers(1024, 2049, FILER_INLINE_N),
+                            rng.integers(2049, 64 * 1024 + 1, FILER_SMALL_N - FILER_INLINE_N)])
+    rng.shuffle(sizes)
+    for i, size in enumerate(sizes):
+        files.append((f"/data/d{i % FILER_DIRS:02d}/f{i:05d}.bin", int(size), 100 + i))
+    return files
+
+
+def _filer_blocks(seed: int, key: int, size: int, lo: int = 0, hi: int | None = None):
+    """The bytes [lo, hi) of file ``key``'s body, made 1 MiB block by block
+    from ``seed`` (any range regenerates without the rest)."""
+    import numpy as np
+
+    hi = size if hi is None else hi
+    for b in range(lo // MIB, (hi + MIB - 1) // MIB):
+        start = b * MIB
+        block = np.random.default_rng([seed, key, b]).bytes(min(MIB, size - start))
+        yield block[max(lo, start) - start:min(hi, start + MIB) - start]
+
+
+class _RssPeak:
+    """The largest VmRSS of process ``pid`` sampled every 20 ms while the
+    block runs (the filer's memory while it streams)."""
+
+    def __init__(self, pid: int):
+        self.pid, self.peak, self._stop = pid, 0, threading.Event()
+
+    def _rss(self) -> int:
+        with open(f"/proc/{self.pid}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        self.peak = self._rss()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def _filer_conn(addr: str):
+    import http.client
+
+    host, port = addr.rsplit(":", 1)
+    return http.client.HTTPConnection(host, int(port), timeout=300)
+
+
+def _filer_put(conn, seed: int, path: str, size: int, key: int) -> tuple:
+    """POST one file streamed from its blocks; (sha256, md5, seconds)."""
+    sha, md5 = hashlib.sha256(), hashlib.md5()
+
+    def body():
+        for piece in _filer_blocks(seed, key, size):
+            sha.update(piece)
+            md5.update(piece)
+            yield piece
+
+    t0 = time.perf_counter()
+    conn.request("POST", path, body=body(), headers={"Content-Length": str(size)})
+    resp = conn.getresponse()
+    reply = resp.read()
+    dt = time.perf_counter() - t0
+    check(resp.status == 201, f"POST {path}: {resp.status} {reply[:200]!r}")
+    doc = json.loads(reply)
+    check(doc["size"] == size and doc["eTag"] == md5.hexdigest(),
+          f"POST {path}: {doc} for {size} bytes, md5 {md5.hexdigest()}")
+    return sha.hexdigest(), dt
+
+
+def _filer_get(conn, path: str, headers: dict | None = None) -> tuple:
+    """GET one file streamed into sha256; (status, sha256, bytes, headers, seconds)."""
+    sha = hashlib.sha256()
+    t0 = time.perf_counter()
+    conn.request("GET", path, headers=headers or {})
+    resp = conn.getresponse()
+    n = 0
+    while True:
+        piece = resp.read(MIB)
+        if not piece:
+            break
+        sha.update(piece)
+        n += len(piece)
+    return resp.status, sha.hexdigest(), n, dict(resp.getheaders()), time.perf_counter() - t0
+
+
+def _filer_pool(addr: str, items: list, fn, writers: int = FILER_WRITERS) -> list:
+    """``fn(conn, item)`` over ``items`` by ``writers`` threads, each on
+    its own keep-alive connection; results in item order.  Any failure
+    fails the phase."""
+    tickets = iter(range(len(items)))
+    lock = threading.Lock()
+    out: list = [None] * len(items)
+    failures: list = []
+
+    def worker() -> None:
+        conn = _filer_conn(addr)
+        try:
+            while True:
+                with lock:
+                    i = next(tickets, None)
+                    if i is None or failures:
+                        return
+                try:
+                    out[i] = fn(conn, items[i])
+                except Exception as e:  # noqa: BLE001 — reported, fails the phase
+                    failures.append(f"{items[i][0] if isinstance(items[i], tuple) else items[i]}: "
+                                    f"{type(e).__name__}: {e}")
+                    return
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=worker, daemon=True) for _ in range(writers)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=1200)
+    check(not failures and not any(th.is_alive() for th in threads) and None not in out,
+          f"{sum(r is not None for r in out)} of {len(items)} done; {failures[:3]}")
+    return out
+
+
+def _class_figures(label: str, sizes: list, lat: list, wall: float) -> dict:
+    import numpy as np
+
+    lat_ms = np.array(lat) * 1e3
+    return dict(files=len(sizes), bytes=int(sum(sizes)), wall_s=wall, files_per_s=len(sizes) / wall,
+                mb_per_s=sum(sizes) / wall / 1e6, p50_ms=float(np.percentile(lat_ms, 50)),
+                p99_ms=float(np.percentile(lat_ms, 99)))
+
+
+def _filer_read_all(faddr: str, files: list, want: dict, label: str) -> dict:
+    """Every file GET through the filer, sha256-equal to what was
+    written; figures per class."""
+    classes = {"big": [f for f in files if f[1] == FILER_BIG_BYTES],
+               "large": [f for f in files if "/large/" in f[0]],
+               "small": [f for f in files if f[1] <= 64 * 1024]}
+    rec = {}
+    for cls, items in classes.items():
+        if not items:
+            continue
+
+        def one(conn, f):
+            status, sha, n, _h, dt = _filer_get(conn, f[0])
+            check(status == 200 and n == f[1] and sha == want[f[0]],
+                  f"{label}: GET {f[0]}: {status}, {n} of {f[1]} bytes, sha256 "
+                  f"{'equal' if sha == want[f[0]] else 'differs'}")
+            return dt
+
+        t = time.perf_counter()
+        lat = _filer_pool(faddr, items, one)
+        rec[cls] = _class_figures(cls, [f[1] for f in items], lat, time.perf_counter() - t)
+    print(f"filer: read {label}: " + "; ".join(
+        f"{cls} {r['files']} files {r['files_per_s']:.1f}/s {r['mb_per_s']:.1f} MB/s p50 "
+        f"{r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms" for cls, r in rec.items())
+        + ", every one sha256-equal")
+    return rec
+
+
+def _filer_profile(maddr: str, seed: int, ident: str) -> dict:
+    """What one filer upload and one filer read wait on: an in-process
+    FilerServer (the same code as ``cli filer``) on the phase's master and
+    volume servers, with its body read, assign (FidPool hit or miss),
+    volume POST, store insert, find_entry, location lookup and volume GET
+    timed; requests one at a time.  Its files go to the default collection
+    and are deleted, chunks included, at the end."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.filer import reader, upload
+    from seaweedfs_tpu_torch.server import filer_server
+
+    parts: dict = {}
+    tls = threading.local()
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    class TimedBody(filer_server.StreamingBody):
+        def read(self, n=-1):
+            t0 = time.perf_counter()
+            try:
+                return super().read(n)
+            finally:
+                parts["body_read"] = parts.get("body_read", 0.0) + time.perf_counter() - t0
+
+    fs = filer_server.FilerServer(maddr, port=0, grpc_port=0,
+                                  chunk_size=FILER_CHUNK_MB * MIB)
+    saved = (filer_server.StreamingBody, upload.http_put_chunk, reader._fetch_chunk_from)
+    filer_server.StreamingBody = TimedBody
+    upload.http_put_chunk = timed("volume_post", upload.http_put_chunk)
+    reader._fetch_chunk_from = timed("volume_get", reader._fetch_chunk_from)
+    batch = fs.master.assign_batch_located
+
+    def assign(*a, **k):
+        tls.missed = True
+        return batch(*a, **k)
+
+    fs.master.assign_batch_located = assign
+    take = fs.fid_pool.take
+
+    def take_timed(*a, **k):
+        tls.missed = False
+        t0 = time.perf_counter()
+        out = take(*a, **k)
+        key = "assign_miss" if tls.missed else "assign_hit"
+        parts[key] = parts.get(key, 0.0) + time.perf_counter() - t0
+        parts[key + "_n"] = parts.get(key + "_n", 0) + 1
+        return out
+
+    fs.fid_pool.take = take_timed
+    fs.filer.store.insert_entry = timed("insert_entry", fs.filer.store.insert_entry)
+    fs.filer.find_entry = timed("find_entry", fs.filer.find_entry)
+    fs.master.lookup = timed("lookup", fs.master.lookup)
+    fs.start()
+    rec = {}
+    try:
+        conn = _filer_conn(fs.url)
+        for label, n, size in (("upload_4MiB", FILER_PROFILE["big"], 4 * MIB),
+                               ("upload_16KiB", FILER_PROFILE["small"], 16 * 1024)):
+            # bodies made before the clock starts: the client only sends
+            bodies = [b"".join(_filer_blocks(seed, 10_000 + i, size)) for i in range(n)]
+            parts.clear()
+            lat = []
+            for i, body in enumerate(bodies):
+                t0 = time.perf_counter()
+                conn.request("POST", f"/profile/{label}/{i:04d}", body=body)
+                resp = conn.getresponse()
+                resp.read()
+                lat.append(time.perf_counter() - t0)
+                check(resp.status == 201, f"profile upload {label} {i}: {resp.status}")
+            del bodies
+            total = sum(lat)
+            split = {k: v / n * 1e3 for k, v in parts.items() if not k.endswith("_n")}
+            split.update({k: v for k, v in parts.items() if k.endswith("_n")})
+            split["request_ms"] = total / n * 1e3
+            split["p50_ms"] = float(np.percentile(np.array(lat) * 1e3, 50))
+            split["other_ms"] = split["request_ms"] - sum(
+                split.get(k, 0.0) for k in ("body_read", "assign_hit", "assign_miss",
+                                            "volume_post", "insert_entry", "find_entry",
+                                            "lookup"))
+            rec[label] = split
+        parts.clear()
+        lat = []
+        for i in range(FILER_PROFILE["reads"]):
+            status, _sha, n, _h, dt = _filer_get(conn, f"/profile/upload_16KiB/{i:04d}")
+            check(status == 200 and n == 16 * 1024, f"profile read {i}: {status}, {n} bytes")
+            lat.append(dt)
+        n = FILER_PROFILE["reads"]
+        split = {k: v / n * 1e3 for k, v in parts.items()}
+        split["request_ms"] = sum(lat) / n * 1e3
+        split["p50_ms"] = float(np.percentile(np.array(lat) * 1e3, 50))
+        split["other_ms"] = split["request_ms"] - sum(
+            split.get(k, 0.0) for k in ("find_entry", "lookup", "volume_get"))
+        rec["read_16KiB"] = split
+        conn.close()
+        fs.filer.delete_entry("/profile", recursive=True)
+    finally:
+        filer_server.StreamingBody, upload.http_put_chunk, reader._fetch_chunk_from = saved
+        fs.stop()
+    for label, split in rec.items():
+        print(f"filer: profile {label} on {ident} (host time, ms a request): " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in split.items()))
+    return rec
+
+
+def phase_filer(args, directory: str, ident: str, dev) -> dict:
+    """Phase 13: the filer.  One ``cli master -volumeSizeLimitMB 256``,
+    four ``cli volume -device cuda -scrubInterval 0 -scrubRateMB 0`` on two
+    racks and one ``cli filer -db <dir> -maxMB 4`` (the LSM store).
+    ``fs.configure`` puts /data/ in collection filerdata; 16 writers fill
+    it through the filer's HTTP API (8,192 files of 1-64 KiB over 64
+    directories, 512 of them inline; 16 of 4-32 MiB; one of 1 GiB, 256
+    chunks, streamed) and every file reads back sha256-equal, with Range
+    reads, a 416, a HEAD and paged listings; the filer's RSS stays under
+    FILER_RSS_LIMIT while it moves the 1 GiB file.  ``cli shell -filer``:
+    fs.du equals the bytes written, fs.verify finds 0 broken, fs.ls and
+    fs.tree run; 64 needles from ``cli upload`` are the orphans
+    ``volume.fsck`` finds, purges, and then finds 0 of; ``fs.rm -r`` of a
+    directory 404s its paths and its chunks; the filer restarts on its
+    -db and lists and reads the same; ``ec.encode`` of every filerdata
+    volume launches K1 once per batch in the servers and every file reads
+    back from the shards; a volume server is SIGKILLed and, once pruned,
+    every file reads back through degraded reads; ``ec.rebuild`` launches
+    K1 and a sample reads back; and ``cli server -filer -device cuda``
+    takes an upload and a read in one process.  Its figures go on
+    ``filer:`` lines."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.filer.entry import Entry
+    from seaweedfs_tpu_torch.pb import filer_pb2 as f_pb
+    from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs_pb
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.util.http_pool import HttpConnectionPool
+    from seaweedfs_tpu_torch.wdclient import MasterClient
+
+    seed = args.seed
+    root = os.path.join(directory, "filer")
+    dirs = [os.path.join(root, f"v{i}") for i in range(4)]
+    for d in dirs:
+        os.makedirs(d)
+    db = os.path.join(root, "db")
+    log = os.path.join(root, "shell.log")
+    walls: dict = {}
+    rec: dict = {}
+    servers: list = []
+    filer = None
+    t_phase = time.perf_counter()
+    pool = HttpConnectionPool(timeout=60.0, max_per_host=64)
+    files = _filer_files(seed)
+    sizes = {p: s for p, s, _k in files}
+    master = _Server("", "", os.path.join(root, "master.log"),
+                     argv=["master", "-port", "0", "-volumeSizeLimitMB", str(FILER_VOLUME_MB)])
+    try:
+        maddr = f"127.0.0.1:{master.grpc_port}"
+        mstub = rpc.master_stub(maddr)
+        t = time.perf_counter()
+        servers = [_Server(d, dev.type, os.path.join(root, f"v{i}.log"), wait=False, argv=[
+            "volume", "-dir", d, "-ip", "127.0.0.1", "-port", "0", "-grpcPort", "0",
+            "-metricsPort", "0", "-device", dev.type, "-mserver", maddr, "-rack", f"r{i % 2}",
+            "-scrubInterval", "0", "-scrubRateMB", "0"]) for i, d in enumerate(dirs)]
+        for s_ in servers:
+            s_.ready()
+            s_.url = f"127.0.0.1:{s_.http_port}"
+        urls = [s_.url for s_ in servers]
+
+        def start_filer(logname: str):
+            f = _Server("", "", os.path.join(root, logname), argv=[
+                "filer", "-master", maddr, "-port", "0", "-db", db, "-maxMB", str(FILER_CHUNK_MB)])
+            f.faddr = f"127.0.0.1:{f.http_port}"
+            f.gaddr = f"127.0.0.1:{f.grpc_port}"
+            return f
+
+        filer = start_filer("filer.log")
+        walls["servers_up"] = time.perf_counter() - t
+
+        def nodes() -> set:
+            topo = mstub.VolumeList(m_pb.VolumeListRequest(), timeout=60).topology_info
+            return {dn.id for dc in topo.data_center_infos for r in dc.rack_infos
+                    for dn in r.data_node_infos}
+
+        walls["registered"] = _poll(lambda: nodes() == set(urls), "all four nodes", 60)
+        print(f"filer: master {maddr}, four volume servers at {urls} on {ident}, filer "
+              f"{filer.faddr} (gRPC {filer.gaddr}, -db {db}), up in {walls['servers_up']:.3f}s")
+
+        def shell(commands: str) -> tuple[float, str]:
+            return _shell(maddr, commands, log, filer=filer.gaddr)
+
+        # 1. /data/ -> collection filerdata
+        _w, out = shell("fs.configure -locationPrefix /data/ -collection filerdata "
+                        "-replication 000 -apply")
+        check("applied" in out and '"collection": "filerdata"' in out, f"fs.configure: {out!r}")
+        time.sleep(1.1)  # the filer's conf cache lives one second
+
+        # 2. the fill: the 1 GiB file alone (its RSS sampled), then the
+        # large files and the small ones, 16 writers each
+        want: dict = {}
+        big = files[0]
+        with _RssPeak(filer.proc.pid) as rss_up:
+            t = time.perf_counter()
+            conn = _filer_conn(filer.faddr)
+            want[big[0]], dt = _filer_put(conn, seed, *big)
+            conn.close()
+        fill = {"big": _class_figures("big", [big[1]], [dt], time.perf_counter() - t)}
+        for cls, items in (("large", files[1:1 + FILER_LARGE_N]),
+                           ("small", files[1 + FILER_LARGE_N:])):
+            t = time.perf_counter()
+            got = _filer_pool(filer.faddr, items, lambda conn, f: _filer_put(conn, seed, *f))
+            fill[cls] = _class_figures(cls, [f[1] for f in items], [g[1] for g in got],
+                                       time.perf_counter() - t)
+            want.update({f[0]: g[0] for f, g in zip(items, got)})
+        rec["fill"] = fill
+        total_bytes = sum(sizes.values())
+        print(f"filer: fill on {ident}: " + "; ".join(
+            f"{cls} {r['files']} files {r['files_per_s']:.1f}/s {r['mb_per_s']:.1f} MB/s p50 "
+            f"{r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms" for cls, r in fill.items())
+            + f"; {len(files)} files, {total_bytes} bytes; the filer's peak RSS while it took the "
+            f"1 GiB file {rss_up.peak / MIB:.1f} MiB")
+        fstub = rpc.filer_stub(filer.gaddr)
+        big_entry = fstub.LookupDirectoryEntry(f_pb.LookupDirectoryEntryRequest(
+            directory="/data/big", name="one.bin")).entry
+        check(len(big_entry.chunks) == FILER_BIG_BYTES // (FILER_CHUNK_MB * MIB)
+              and big_entry.attributes.collection == "filerdata",
+              f"the 1 GiB file's entry: {len(big_entry.chunks)} chunks, collection "
+              f"{big_entry.attributes.collection!r}")
+        inline = [f for f in files if f[1] <= 2048]
+        sample = fstub.LookupDirectoryEntry(f_pb.LookupDirectoryEntryRequest(
+            directory=inline[0][0].rsplit("/", 1)[0], name=inline[0][0].rsplit("/", 1)[1])).entry
+        check(len(inline) == FILER_INLINE_N and not sample.chunks and len(sample.content) == inline[0][1],
+              f"{inline[0][0]} is not inline: {len(sample.chunks)} chunks")
+
+        # 3. read everything back; ranges, 416, HEAD, paged listings
+        with _RssPeak(filer.proc.pid) as rss_down:
+            rec["read"] = _filer_read_all(filer.faddr, files[:1], want, "the 1 GiB file")
+        rec["read"].update(_filer_read_all(filer.faddr, files[1:], want, "the rest"))
+        check(rss_up.peak < FILER_RSS_LIMIT and rss_down.peak < FILER_RSS_LIMIT,
+              f"the filer's peak RSS moving the 1 GiB file: {rss_up.peak} B up, "
+              f"{rss_down.peak} B down (limit {FILER_RSS_LIMIT})")
+        rng = np.random.default_rng([seed, 1313])
+        conn = _filer_conn(filer.faddr)
+        chunk = FILER_CHUNK_MB * MIB
+        for _ in range(FILER_RANGE_READS):
+            edge = int(rng.integers(1, FILER_BIG_BYTES // chunk)) * chunk
+            lo = edge - int(rng.integers(1, 2 * MIB))
+            hi = edge + int(rng.integers(0, 2 * MIB))
+            status, sha, n, hdrs, _dt = _filer_get(conn, big[0], {"Range": f"bytes={lo}-{hi}"})
+            expect = hashlib.sha256(b"".join(_filer_blocks(seed, 0, big[1], lo, hi + 1))).hexdigest()
+            check(status == 206 and n == hi - lo + 1 and sha == expect
+                  and hdrs.get("Content-Range") == f"bytes {lo}-{hi}/{big[1]}",
+                  f"Range {lo}-{hi} of the 1 GiB file: {status}, {n} bytes, {hdrs}")
+        status, _sha, n, hdrs, _dt = _filer_get(conn, big[0], {"Range": f"bytes={big[1]}-"})
+        check(status == 416 and n == 0 and hdrs.get("Content-Range") == f"bytes */{big[1]}",
+              f"an unsatisfiable Range answered {status} {hdrs}")
+        conn.request("HEAD", big[0])
+        resp = conn.getresponse()
+        resp.read()
+        check(resp.status == 200 and resp.getheader("Content-Length") == str(big[1]),
+              f"HEAD of the 1 GiB file: {resp.status} {resp.getheader('Content-Length')}")
+        listed: dict = {}
+        pages = 0
+        for d in range(FILER_DIRS):
+            last, names = "", []
+            while True:
+                status, body = pool.request(filer.faddr, "GET",
+                                            f"/data/d{d:02d}?limit=50&lastFileName={last}")
+                check(status == 200, f"listing /data/d{d:02d}: {status}")
+                doc = json.loads(body)
+                pages += 1
+                names += [(e["FullPath"], e["FileSize"]) for e in doc["Entries"]]
+                if not doc["ShouldDisplayLoadMore"]:
+                    break
+                last = doc["LastFileName"]
+            listed.update(dict(names))
+        written = {p: s for p, s, _k in files if p.startswith("/data/d")}
+        check(listed == written, f"the paged listings hold {len(listed)} names, "
+                                 f"{len(written)} were written")
+        conn.close()
+        print(f"filer: {FILER_RANGE_READS} Range reads across chunk boundaries of the 1 GiB file "
+              f"equal, a 416 and a HEAD answered; {pages} listing pages of {FILER_DIRS} "
+              f"directories name exactly the {len(written)} files written; the filer's peak RSS "
+              f"reading the 1 GiB file {rss_down.peak / MIB:.1f} MiB")
+        rec["rss_mib"] = dict(upload_1gib=rss_up.peak / MIB, read_1gib=rss_down.peak / MIB)
+
+        # 4. shell checks
+        walls["fs_du"], out = shell("fs.du /data")
+        n_chunked = sum(1 for f in files if f[1] > 2048)
+        check(f"file:{len(files)} size:{total_bytes} /data" in out, f"fs.du: {out!r}")
+        walls["fs_verify"], out = shell("fs.verify /data")
+        check(f"verified {n_chunked} files, 0 broken" in out, f"fs.verify: {out!r}")
+        _w, out = shell("fs.ls -l /data/d00; fs.tree /data/d01")
+        check(out.count("\n") >= 2 * FILER_SMALL_N // FILER_DIRS, f"fs.ls/fs.tree: {out[:400]!r}")
+
+        # 5. orphans: 64 needles no entry references
+        blobs = os.path.join(root, "orphans")
+        os.makedirs(blobs)
+        for i in range(FILER_ORPHANS):
+            with open(os.path.join(blobs, f"o{i:02d}.bin"), "wb") as f:
+                f.write(b"".join(_filer_blocks(seed, 20_000 + i, 1000 + 37 * i)))
+        t = time.perf_counter()
+        up = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch.cli", "upload", "-master",
+                             maddr, "-collection", "filerdata",
+                             *sorted(os.path.join(blobs, n) for n in os.listdir(blobs))],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                            text=True, timeout=300, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                                filter(None, [os.path.dirname(os.path.abspath(__file__)),
+                                              os.environ.get("PYTHONPATH")]))))
+        walls["cli_upload"] = time.perf_counter() - t
+        check(up.returncode == 0, f"cli upload exited {up.returncode}: {up.stderr[-2000:]}")
+        orphans = [json.loads(line)["fid"] for line in up.stdout.splitlines()]
+        check(len(orphans) == FILER_ORPHANS, f"cli upload printed {len(orphans)} fids")
+        walls["fsck"], out = shell("lock; volume.fsck; unlock")
+        m = re.search(r"checked (\d+) needles: found (\d+) orphans \((\d+)B\)", out)
+        found = sorted(re.findall(r"orphan needle (\d+,[0-9a-f]+) \((\d+)B\)", out))
+        want_ids = sorted(f"{f.split(',')[0]},{int(f.split(',')[1][:-8], 16):x}" for f in orphans)
+        mc = MasterClient(maddr)
+        orphan_bytes = 0
+        for fid in orphans:  # the needle sizes the holders' needle maps give
+            vid = int(fid.split(",")[0])
+            key = int(fid.split(",")[1][:-8], 16)
+            holder = next(s_ for s_ in servers if s_.url == mc.lookup_file_id(fid))
+            ids = rpc.volume_stub(f"127.0.0.1:{holder.grpc_port}").VolumeNeedleIds(
+                vs_pb.VolumeNeedleIdsRequest(volume_id=vid))
+            orphan_bytes += dict(zip(ids.keys, ids.sizes))[key]
+        check(m is not None and int(m[2]) == FILER_ORPHANS and int(m[3]) == orphan_bytes
+              and [f for f, _b in found] == want_ids,
+              f"volume.fsck: {m[0] if m else out[-400:]!r}; want {FILER_ORPHANS} orphans of "
+              f"{orphan_bytes} B")
+        rec["fsck"] = dict(needles=int(m[1]), orphans=int(m[2]), orphan_bytes=int(m[3]))
+        walls["fsck_purge"], out = shell(
+            "lock; volume.fsck -reallyDeleteFromVolume -cutoffAgeSeconds 0; unlock")
+        check(f"purged {FILER_ORPHANS} orphans ({orphan_bytes}B)" in out, f"fsck purge: {out[-400:]!r}")
+        _w, out = shell("lock; volume.fsck; unlock")
+        check("found 0 orphans (0B)" in out, f"fsck after the purge: {out[-400:]!r}")
+        for fid in orphans:
+            status, _b = pool.request(mc.lookup_file_id(fid), "GET", f"/{fid}")
+            check(status == 404, f"purged orphan {fid}: {status}")
+        print(f"filer: cli upload of {FILER_ORPHANS} needles {walls['cli_upload']:.3f}s; "
+              f"volume.fsck checked {rec['fsck']['needles']} needles and found exactly those "
+              f"{FILER_ORPHANS} ({orphan_bytes} B) in {walls['fsck']:.3f}s; purged in "
+              f"{walls['fsck_purge']:.3f}s, then 0, the purged fids 404")
+
+        # 6. fs.rm -r of one directory: paths and chunks 404
+        rm_dir = f"/data/d{FILER_RM_DIR:02d}"
+        doomed = [Entry.from_pb(rm_dir, r.entry) for r in fstub.ListEntries(
+            f_pb.ListEntriesRequest(directory=rm_dir, limit=10_000))]
+        check(len(doomed) == FILER_SMALL_N // FILER_DIRS, f"{rm_dir} holds {len(doomed)} entries")
+        fids = [c.fid for e in doomed for c in e.chunks]
+        walls["fs_rm"], out = shell(f"fs.rm -r {rm_dir}")
+        for e in doomed:
+            status, _b = pool.request(filer.faddr, "GET", e.full_path)
+            check(status == 404, f"{e.full_path} after fs.rm: {status}")
+        for fid in fids:
+            for url in mc.lookup_urls(fid):
+                status, _b = pool.request(url, "GET", f"/{fid}")
+                check(status == 404, f"chunk {fid} of {rm_dir} on {url}: {status}")
+        files = [f for f in files if not f[0].startswith(rm_dir + "/")]
+        total_bytes = sum(f[1] for f in files)
+        print(f"filer: fs.rm -r {rm_dir} ({len(doomed)} files, {len(fids)} chunks) "
+              f"{walls['fs_rm']:.3f}s; every path and chunk answers 404")
+
+        # the split of one upload and one read (in process, then deleted)
+        rec["profile"] = _filer_profile(maddr, seed, ident)
+
+        # 7. the filer restarts on its -db
+        before = {d: pool.request(filer.faddr, "GET", f"/data/d{d:02d}?limit=1000")[1]
+                  for d in range(FILER_DIRS) if d != FILER_RM_DIR}
+        check(filer.stop() == 0, "the filer did not stop cleanly")
+        t = time.perf_counter()
+        filer = start_filer("filer.restart.log")
+        walls["filer_restart"] = time.perf_counter() - t
+        after = {d: pool.request(filer.faddr, "GET", f"/data/d{d:02d}?limit=1000")[1]
+                 for d in before}
+        check(after == before, "the listings differ after the restart")
+        rng = np.random.default_rng([seed, 1307])
+        picks = [files[i] for i in rng.choice(len(files), FILER_RESTART_SAMPLE, replace=False)]
+        _filer_read_all(filer.faddr, picks, want, "after the restart (a sample)")
+        print(f"filer: restarted on its -db in {walls['filer_restart']:.3f}s: {len(before)} "
+              f"listings byte-identical, {FILER_RESTART_SAMPLE} sampled files equal")
+
+        # 8. ec.encode of every filerdata volume; K1 in the servers
+        vols: dict = {}
+        for d in dirs:
+            for n in os.listdir(d):
+                mm = re.fullmatch(r"filerdata_(\d+)\.dat", n)
+                if mm:
+                    vols[int(mm[1])] = os.path.getsize(os.path.join(d, n))
+        tasks = sum(len(ec_encoder._plan_tasks(DEFAULT_SCHEME, s, ec_encoder.DEFAULT_CHUNK))
+                    for s in vols.values())
+        k1_before = {s_.url: metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply")
+                     for s_ in servers}
+        check(not any(k1_before.values()), f"K1 launched before the encode: {k1_before}")
+        walls["ec_encode"], _out = shell(
+            "lock; ec.encode -collection filerdata -fullPercent 0 -quietFor 0; unlock")
+        by_grpc = {f"127.0.0.1:{s_.grpc_port}": d for s_, d in zip(servers, dirs)}
+        for vid in vols:
+            _poll(lambda: _ec_census(mstub, vid)["holders"] == _disk_shards(by_grpc, f"filerdata_{vid}"),
+                  f"the master's EC census of {vid} to match the disks", 60)
+        k1 = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply"))
+              for s_ in servers}
+        check(sum(k1.values()) == tasks and tasks > 0,
+              f"K1 launches by server {k1}; the generates of {len(vols)} volumes have {tasks} batches")
+        check(not any(re.fullmatch(r"filerdata_\d+\.dat", n) for d in dirs for n in os.listdir(d)),
+              "a filerdata .dat survived the encode")
+        print(f"filer: ec.encode of {len(vols)} filerdata volumes ({sum(vols.values())} B) "
+              f"{walls['ec_encode']:.3f}s on {ident}; K1 launches by server {k1} (= {tasks} "
+              f"batches)")
+        rec["read_ec"] = _filer_read_all(filer.faddr, files, want, "from EC shards")
+
+        # 9. a volume server SIGKILLed: degraded reads; ec.rebuild
+        census = {vid: _ec_census(mstub, vid)["holders"] for vid in vols}
+
+        def data_shards(s_) -> int:
+            return sum(sid < 10 for h in census.values()
+                       for sid in h.get(f"127.0.0.1:{s_.grpc_port}", []))
+
+        victim = max(servers, key=data_shards)  # the most data shards: reads must reconstruct
+        victim_addr = f"127.0.0.1:{victim.grpc_port}"
+        lost = {vid: h.get(victim_addr, []) for vid, h in census.items()}
+        live = [s_ for s_ in servers if s_ is not victim]
+        victim.proc.send_signal(signal.SIGKILL)
+        victim.proc.wait()
+        walls["prune_wait"] = _poll(lambda: victim.url not in nodes(),
+                                    f"the master to prune {victim.url}", PRUNE_WAIT_S)
+        print(f"filer: SIGKILL {victim.url} (shards {lost}); pruned after {walls['prune_wait']:.3f}s")
+        rec["read_degraded"] = _filer_read_all(filer.faddr, files, want, "degraded")
+        rec["reconstructed_intervals"] = int(sum(
+            metric(s_.metrics(), "weedtpu_ec_degraded_reads_total", mode="reconstruct")
+            for s_ in live))
+        check(rec["reconstructed_intervals"] > 0 and data_shards(victim) > 0,
+              f"the degraded reads reconstructed {rec['reconstructed_intervals']} intervals; the "
+              f"victim held {data_shards(victim)} data shards")
+        k1_live = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches",
+                                      kernel="gf_apply")) for s_ in live}
+        walls["ec_rebuild"], _out = shell("lock; ec.rebuild -collection filerdata; unlock")
+        k1_rebuild = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches",
+                                         kernel="gf_apply")) - k1_live[s_.url] for s_ in live}
+        check(sum(k1_rebuild.values()) > 0, f"ec.rebuild launched no K1: {k1_rebuild}")
+        live_grpc = {a: d for a, d in by_grpc.items() if a != victim_addr}
+        for vid in vols:
+            _poll(lambda: sorted(s for sids in _disk_shards(live_grpc, f"filerdata_{vid}").values()
+                                 for s in sids) == list(range(14)),
+                  f"14 shards of {vid} on the live servers", 60)
+        rng = np.random.default_rng([seed, 1309])
+        picks = [files[0]] + [files[i] for i in rng.choice(
+            np.arange(1, len(files)), FILER_REBUILD_SAMPLE - 1, replace=False)]
+        rec["read_rebuilt"] = _filer_read_all(filer.faddr, picks, want, "after ec.rebuild")
+        print(f"filer: ec.rebuild -collection filerdata {walls['ec_rebuild']:.3f}s on {ident}; K1 "
+              f"launches {k1_rebuild}; every volume has 14 shards on the live servers")
+
+        # 10. cli server -filer -device <dev>: one process
+        srv_dir = os.path.join(root, "server")
+        os.makedirs(srv_dir)
+        t = time.perf_counter()
+        one = _Server("", "", os.path.join(root, "server.log"), wait=False, argv=[
+            "server", "-filer", "-device", dev.type, "-dir", srv_dir, "-masterPort", "0",
+            "-port", "0", "-filerPort", "0"])
+        line = one.proc.stdout.readline().strip()
+        walls["server_up"] = time.perf_counter() - t
+        m = re.search(r"filer (127\.0\.0\.1:\d+) \(gRPC", line)
+        if m is None:
+            one.stop()
+            raise SmokeFailure(f"cli server -filer did not start: {line!r}: {one.log_text()[-2000:]}")
+        body = b"".join(_filer_blocks(seed, 30_000, 3 * MIB + 5))
+        deadline = time.perf_counter() + 60
+        while True:
+            status, reply = pool.request(m[1], "POST", "/one/x.bin", body=body)
+            if status == 201 or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)  # until the volume server's first heartbeat
+        status2, got = pool.request(m[1], "GET", "/one/x.bin")
+        rc_one = one.stop()
+        check(status == 201 and status2 == 200 and got == body and rc_one == 0,
+              f"cli server -filer: POST {status} {reply[:200]!r}, GET {status2} "
+              f"({'equal' if got == body else 'differs'}), rc {rc_one}")
+        print(f"filer: cli server -filer -device {dev.type} up in {walls['server_up']:.3f}s "
+              f"({line}); one upload and one read equal; SIGTERM rc 0")
+    finally:
+        pool.close()
+        rcs = {getattr(s_, "url", s_.proc.pid): s_.stop() for s_ in servers}
+        if filer is not None:
+            rcs["filer"] = filer.stop()
+        rcs["master"] = master.stop()
+    check(all(rc == 0 for k, rc in rcs.items() if k != victim.url) and rcs[victim.url] == -signal.SIGKILL,
+          f"filer phase processes exited {rcs}")
+    walls["phase"] = time.perf_counter() - t_phase
+    rec.update(walls=walls, launches=tasks + sum(k1_rebuild.values()), launches_encode=tasks,
+               launches_rebuild=sum(k1_rebuild.values()), volumes=len(vols), files=len(files),
+               bytes=total_bytes, rcs={str(k): v for k, v in rcs.items()})
+    print("filer: " + json.dumps(rec, sort_keys=True))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3951,6 +4688,17 @@ def main() -> int:
         storage_walls_s=storage["walls"],
         storage_tiered_reads=storage["tiered_reads"],
         host_codec=main_path["host_codec"],
+    )
+    filer = main_path["filer"]
+    record["kernels"][0]["launches"] += filer["launches"]
+    record["kernels"][0].update(
+        launches_filer=filer["launches"],
+        launches_filer_encode=filer["launches_encode"],
+        launches_filer_rebuild=filer["launches_rebuild"],
+        filer_walls_s=filer["walls"],
+        filer_fill={cls: {k: r[k] for k in ("files", "files_per_s", "mb_per_s", "p50_ms", "p99_ms")}
+                    for cls, r in filer["fill"].items()},
+        filer_rss_mib=filer["rss_mib"],
     )
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)

@@ -49,6 +49,7 @@ def _import_all() -> None:
     from seaweedfs_tpu_torch.commands import (  # noqa: F401
         backup_cmd,
         benchmark_cmd,
+        client_cmd,
         ec_local,
         servers,
         shell_cmd,

@@ -1,7 +1,8 @@
-"""``master`` and ``volume``: run the port's master and volume server.
+"""``master``, ``volume``, ``filer`` and ``server``: run the port's master,
+volume server and filer, apart or in one process.
 
-The port of seaweedfs_tpu/commands/servers.py's ``master`` and ``volume``
-commands.  ``master`` takes ``-ip``, ``-port`` (its HTTP endpoints; 0
+The port of seaweedfs_tpu/commands/servers.py's ``master``, ``volume``,
+``filer`` and ``server`` commands.  ``master`` takes ``-ip``, ``-port`` (its HTTP endpoints; 0
 binds a free port), ``-grpcPort`` (default ``-port`` + 10000; with
 ``-port 0``, a free port), ``-volumeSizeLimitMB``, ``-defaultReplication``,
 ``-jwtKey`` and, for HA, ``-peers`` (every master's ``ip:port``, itself
@@ -23,7 +24,14 @@ listener; 0 picks a free port, none when left out) and ``-device``
 (default ``cuda``; ``cpu`` runs the codec on the host).  Each prints one
 first line on stdout that names the ports it bound.  The volume server
 resolves its device at start: without CUDA, and without ``-device cpu``,
-it raises and exits.  SIGINT or SIGTERM stops either.
+it raises and exits.  ``filer`` takes ``-master``, ``-ip``, ``-port``,
+``-grpcPort``, ``-db`` (the store: filer.make_store), ``-maxMB`` (the chunk
+size), ``-metricsPort`` (0: none) and ``-metaLogDir``; it runs no kernel
+and takes no device, and its ``-notify``, ``-tlsCert`` and ``-tlsKey``
+raise (not ported).  ``server`` runs a master, one volume server (its
+``-device`` as ``volume``'s) and, with ``-filer``, a filer in one process;
+its ``-s3`` and ``-webdav`` raise (not ported).  SIGINT or SIGTERM stops
+any of them.
 """
 
 from __future__ import annotations
@@ -166,3 +174,113 @@ def _volume_flags(p) -> None:
 
 
 run_volume.configure = _volume_flags
+
+
+@command("filer", "run a filer (path metadata + chunked file) server")
+def run_filer(args) -> int:
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+
+    fs = FilerServer(
+        args.master,
+        ip=args.ip,
+        port=args.port,
+        grpc_port=args.grpcPort,
+        store_path=args.db or None,
+        chunk_size=args.maxMB * 1024 * 1024,
+        meta_log_dir=args.metaLogDir or None,
+        tls_cert=args.tlsCert,
+        tls_key=args.tlsKey,
+        notify=args.notify,
+    )
+    fs.start()
+    if args.metricsPort:
+        from seaweedfs_tpu_torch import stats
+
+        stats.start_metrics_server(args.metricsPort, args.ip)
+    print(f"filer on {fs.url} (gRPC {fs.grpc_address}, store={fs.filer.store.name})",
+          flush=True)
+    try:
+        _wait_forever()
+    finally:
+        fs.stop()
+    return 0
+
+
+def _filer_flags(p) -> None:
+    p.add_argument("-master", default="127.0.0.1:19333", help="master gRPC address")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8888)
+    p.add_argument("-grpcPort", type=int, default=0, help="default port+10000")
+    p.add_argument("-db", default="",
+                   help="store: *.db = sqlite, sqlite2:F, directory = LSM, leveldb2:D, "
+                   "leveldb3:D, btree:F or *.btree (default: in-memory)")
+    p.add_argument("-maxMB", type=int, default=4, help="chunk size in MiB")
+    p.add_argument("-metricsPort", type=int, default=0, help="Prometheus /metrics")
+    p.add_argument("-metaLogDir", default="", help="persist the metadata event log here")
+    p.add_argument("-notify", default="", help="metadata event bus (not ported: raises)")
+    p.add_argument("-tlsCert", default="", help="TLS certificate (not ported: raises)")
+    p.add_argument("-tlsKey", default="", help="TLS key (not ported: raises)")
+
+
+run_filer.configure = _filer_flags
+
+
+@command("server", "run master + volume (+ filer) in one process")
+def run_server(args) -> int:
+    """All-in-one node (reference `weed server -filer`)."""
+    if args.s3 or args.webdav:
+        raise NotImplementedError(
+            "server -s3 and -webdav are not ported to seaweedfs_tpu_torch yet "
+            "(ROADMAP Queue A items 2 and 4)")
+    from seaweedfs_tpu_torch.server.master_server import MasterServer
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+
+    ms = MasterServer(ip=args.ip, port=args.masterPort,
+                      volume_size_limit_mb=args.volumeSizeLimitMB)
+    ms.start()
+    services = [ms]
+    try:
+        vs = VolumeServer(args.dir.split(","), ms.grpc_address, ip=args.ip, port=args.port,
+                          device=args.device, data_center=args.dataCenter, rack=args.rack,
+                          offset_width=args.offsetWidth)
+        vs.start()
+        services.append(vs)
+        parts = [f"master {ms.advertise} (gRPC {ms.grpc_address})",
+                 f"volume {vs.url} (gRPC {vs.ip}:{vs.grpc_port}, device {vs.device})"]
+        if args.filer:
+            from seaweedfs_tpu_torch.server.filer_server import FilerServer
+
+            fs = FilerServer(ms.grpc_address, ip=args.ip, port=args.filerPort,
+                             store_path=args.db or None)
+            fs.start()
+            services.append(fs)
+            parts.append(f"filer {fs.url} (gRPC {fs.grpc_address})")
+        print("server: " + ", ".join(parts), flush=True)
+        _wait_forever()
+    finally:
+        for svc in reversed(services):
+            svc.stop()
+    return 0
+
+
+def _server_flags(p) -> None:
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-masterPort", type=int, default=9333)
+    p.add_argument("-port", type=int, default=8080, help="volume server port")
+    p.add_argument("-dir", default="./data")
+    p.add_argument("-offsetWidth", type=int, default=4, choices=[4, 5],
+                   help="index offset bytes for NEW volumes (5 = 8TB volumes)")
+    p.add_argument("-volumeSizeLimitMB", type=int, default=30 * 1024)
+    p.add_argument("-dataCenter", default="DefaultDataCenter")
+    p.add_argument("-rack", default="DefaultRack")
+    p.add_argument("-device", default="cuda",
+                   help="the volume server's codec device: cuda (default; raises "
+                   "without a GPU) or cpu")
+    p.add_argument("-filer", action="store_true", help="also run a filer")
+    p.add_argument("-filerPort", type=int, default=8888)
+    p.add_argument("-db", default="", help="filer store (see `filer -h`)")
+    p.add_argument("-s3", action="store_true", help="S3 gateway (not ported: raises)")
+    p.add_argument("-webdav", action="store_true", help="WebDAV (not ported: raises)")
+
+
+run_server.configure = _server_flags

@@ -3,7 +3,8 @@
 The port of seaweedfs_tpu/commands/shell_cmd.py (reference `weed shell`,
 weed/shell/shell_liner.go): a REPL, or one-shot ``-c "cmd; cmd"``, of the
 port's shell commands (seaweedfs_tpu_torch/shell), under the master-leased
-admin lock.  ``-filer`` is not ported (no fs.* commands).
+admin lock.  ``-filer`` names the filer's gRPC address for the fs.*
+commands and ``volume.fsck``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ def run(args) -> int:
     from seaweedfs_tpu_torch.shell import ShellError, run_command, split_commands
     from seaweedfs_tpu_torch.shell.command_env import CommandEnv
 
-    env = CommandEnv(args.master)
+    env = CommandEnv(args.master, filer_grpc_address=args.filer)
     try:
         if args.c:
             for words in split_commands(args.c):
@@ -50,6 +51,8 @@ def _configure(p):
     p.add_argument("-master", default="127.0.0.1:19333",
                    help="master gRPC address (host:grpc_port), or a comma list of them")
     p.add_argument("-c", default="", help="run `;`-separated commands and exit")
+    p.add_argument("-filer", default="",
+                   help="filer gRPC address (host:grpc_port) for fs.* commands")
 
 
 run.configure = _configure

@@ -131,3 +131,9 @@ def master_stub(address: str) -> Stub:
     from seaweedfs_tpu_torch.pb import master_pb2
 
     return Stub(address, master_pb2, "Master")
+
+
+def filer_stub(address: str) -> Stub:
+    from seaweedfs_tpu_torch.pb import filer_pb2
+
+    return Stub(address, filer_pb2, "Filer")

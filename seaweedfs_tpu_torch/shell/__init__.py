@@ -14,7 +14,11 @@ lock.  Commands self-register via @shell_command; the REPL and one-shot
 ``volume.configure.replication``, ``volume.fix.replication``,
 ``volume.deleteEmpty``, ``volume.server.evacuate``,
 ``volume.server.leave``, ``volume.tier.move``, ``volume.balance``,
-``volume.check.disk``, ``volume.scrub`` and ``volume.repair.status``.  The
+``volume.check.disk``, ``volume.scrub``, ``volume.repair.status``,
+``volume.fsck`` and the fs.* commands (``fs.cd``, ``fs.pwd``, ``fs.ls``,
+``fs.tree``, ``fs.du``, ``fs.cat``, ``fs.mkdir``, ``fs.mv``, ``fs.rm``,
+``fs.meta.save``, ``fs.meta.load``, ``fs.meta.cat``, ``fs.log``,
+``fs.verify``, ``fs.configure``) against the shell's ``-filer``.  The
 shell runs no kernel and takes no device: the EC work happens inside the
 volume servers it drives."""
 
@@ -107,6 +111,7 @@ def _import_all() -> None:
         command_cluster,
         command_ec,
         command_ec_balance,
+        command_fs,
         command_volume,
         command_volume_balance,
         command_volume_check,

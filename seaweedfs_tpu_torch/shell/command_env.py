@@ -8,8 +8,11 @@ renewed in the background while held
 be a comma-separated list (HA): ``master()`` then fails over across it
 (wdclient.FailoverStub), where the JAX package's ``CommandEnv`` hands the
 string to one stub; followers forward every RPC to the leader, so any
-live master of the list serves the shell.  The filer clients (``filer``,
-``remote_filer``) and the fs.* working directory are not ported.
+live master of the list serves the shell.  ``filer()`` and
+``remote_filer()`` reach the filer of ``-filer`` for the fs.* commands and
+``volume.fsck``; ``current_dir`` is fs.cd's working directory.  A
+comma-separated filer list (the JAX shard router, filer/shard_ring.py)
+is not ported: it raises.
 """
 
 from __future__ import annotations
@@ -34,13 +37,20 @@ class NotLockedError(RuntimeError):
 
 
 class CommandEnv:
-    def __init__(self, master_grpc_address: str, client_name: str = "shell"):
+    def __init__(self, master_grpc_address: str, client_name: str = "shell",
+                 filer_grpc_address: str = ""):
         self.master_addresses = [a.strip() for a in master_grpc_address.split(",") if a.strip()]
         # the master tried first; with a list it follows the one that answered
         self.master_address = self.master_addresses[0]
         self.client_name = client_name
         self.lock_token = 0
         self._renew_stop: threading.Event | None = None
+        # fs.* command state (reference: CommandEnv option.FilerAddress and
+        # the shell's working directory, shell/command_fs_cd.go)
+        self.filer_address = filer_grpc_address
+        self.current_dir = "/"
+        self._remote_filer = None
+        self._remote_filer_key = ""
 
     # -- clients -----------------------------------------------------------
 
@@ -51,6 +61,31 @@ class CommandEnv:
 
     def volume(self, grpc_address: str) -> rpc.Stub:
         return rpc.volume_stub(grpc_address)
+
+    def filer(self) -> rpc.Stub:
+        if not self.filer_address:
+            raise RuntimeError(
+                "no filer configured: start the shell with -filer "
+                "host:grpc_port (or fs.cd host:port/path)"
+            )
+        if "," in self.filer_address:
+            raise NotImplementedError(
+                "a sharded filer list is not ported to seaweedfs_tpu_torch yet "
+                "(ROADMAP Queue A item 1: shard_ring and filer.shard.*)")
+        return rpc.filer_stub(self.filer_address.strip())
+
+    def remote_filer(self):
+        """Filer-API view of the configured filer (filer/remote.py, the
+        client code the gateways share), cached per address."""
+        from seaweedfs_tpu_torch.filer.remote import RemoteFiler
+        from seaweedfs_tpu_torch.wdclient import MasterClient
+
+        self.filer()  # raises when no (or a sharded) filer is configured
+        if self._remote_filer is None or self._remote_filer_key != self.filer_address:
+            self._remote_filer = RemoteFiler(self.filer_address.strip(),
+                                             MasterClient(",".join(self.master_addresses)))
+            self._remote_filer_key = self.filer_address
+        return self._remote_filer
 
     # -- cluster-exclusive lock --------------------------------------------
 

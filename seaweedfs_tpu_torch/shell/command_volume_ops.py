@@ -5,8 +5,14 @@ reference's shell/command_volume_copy.go, _move.go, _mount.go,
 _unmount.go, _grow (master vol/grow), _configure_replication.go,
 _fix_replication.go, _delete_empty.go, _server_evacuate.go,
 _server_leave.go, _tier_move.go, _tier_upload.go and _tier_download.go,
-driven over the master and volume gRPC contracts.  ``volume.fsck`` (it
-needs the filer) is not ported."""
+and command_volume_fsck.go (``volume.fsck``, which walks the filer of the
+shell's ``-filer``), driven over the master, volume and filer gRPC
+contracts.  Two repairs against the JAX ``volume.fsck``, each of a needle
+the JAX command reports as an orphan while a file references it (and
+``-reallyDeleteFromVolume`` would delete, leaving the file unreadable): a
+batch-assigned chunk's ``fid_N`` names needle key + N (the JAX parse
+reads the ``_N`` into the key's hex), and a manifest file's manifest
+chunks count as referenced beside its data chunks."""
 
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
 from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs_pb
 from seaweedfs_tpu_torch.shell import shell_command
 from seaweedfs_tpu_torch.shell.ec_common import grpc_addr
+from seaweedfs_tpu_torch.util import wlog
 
 
 # ---------------------------------------------------------------------------
@@ -460,6 +467,121 @@ cmd_tier_download.configure = _tier_down_flags
 # ---------------------------------------------------------------------------
 # volume.tier.move (reference command_volume_tier_move.go)
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# fsck
+# ---------------------------------------------------------------------------
+
+@shell_command("volume.fsck", "find needles no filer entry references")
+def cmd_volume_fsck(env, args, out):
+    """Orphan census (reference command_volume_fsck.go): walk the filer
+    for referenced fids, walk every volume's needle map, diff."""
+    env.confirm_is_locked()
+    from seaweedfs_tpu_torch.filer import manifest
+    from seaweedfs_tpu_torch.filer.reader import fetch_chunk
+    from seaweedfs_tpu_torch.shell.command_fs import _master_client, _walk
+
+    mc = _master_client(env)
+    referenced: dict[int, set[int]] = {}  # vid -> needle keys
+    for e in _walk(env, "/"):
+        if e.is_directory or e.content:
+            continue
+        try:
+            data, manifests = manifest.resolve_chunk_manifest(
+                lambda fid: fetch_chunk(mc, fid), e.chunks)
+        except Exception as err:  # noqa: BLE001 — counted by fs.verify instead
+            if wlog.V(2):
+                wlog.info("volume.orphans: resolve %s failed: %s", e.full_path, err)
+            continue
+        for c in data + manifests:
+            vid_str, _, rest = c.fid.partition(",")
+            # batch assigns: fid_N is needle key + N, under the base's cookie
+            rest, _, index = rest.partition("_")
+            try:
+                vid = int(vid_str)
+                key = int(rest[:-8] or "0", 16)  # strip 8-hex-digit cookie
+            except ValueError:
+                continue
+            key += int(index) if index.isdigit() else 0
+            referenced.setdefault(vid, set()).add(key)
+
+    import time as _time
+
+    cutoff_ns = (_time.time() - args.cutoffAgeSeconds) * 1e9
+    orphans = orphan_bytes = checked = skipped_fresh = 0
+    for n in _collect_nodes(env):
+        for vid in sorted(n.volumes):
+            if args.reallyDeleteFromVolume:
+                # in-flight uploads write needles before their filer entry
+                # exists; never purge from a volume written to after the
+                # cutoff (reference fsck -cutoffTimeAgo guard)
+                st = env.volume(n.grpc).VolumeStatus(
+                    vs_pb.VolumeStatusRequest(volume_id=vid)
+                )
+                if st.last_modified_ns > cutoff_ns:
+                    skipped_fresh += 1
+                    print(
+                        f"volume {vid} on {n.id}: modified within "
+                        f"{args.cutoffAgeSeconds}s — not purging",
+                        file=out,
+                    )
+                    continue
+            resp = env.volume(n.grpc).VolumeNeedleIds(
+                vs_pb.VolumeNeedleIdsRequest(volume_id=vid)
+            )
+            refs = referenced.get(vid, set())
+            checked += len(resp.keys)
+            for key, size, offset in zip(resp.keys, resp.sizes, resp.offsets):
+                if key in refs:
+                    continue
+                orphans += 1
+                orphan_bytes += size
+                print(f"orphan needle {vid},{key:x} ({size}B) on {n.id}",
+                      file=out)
+                if args.reallyDeleteFromVolume:
+                    # recover the cookie from the needle header to form a
+                    # deletable fid (cookie 4B big-endian leads the header)
+                    blob = env.volume(n.grpc).ReadNeedleBlob(
+                        vs_pb.ReadNeedleBlobRequest(
+                            volume_id=vid, needle_id=key,
+                            offset=offset, size=16,
+                        )
+                    ).needle_blob
+                    cookie = int.from_bytes(blob[0:4], "big")
+                    fid = f"{vid},{key:x}{cookie:08x}"
+                    _http_delete(n.url, fid, mc.sign_write(fid))
+    verdict = "purged" if args.reallyDeleteFromVolume else "found"
+    print(
+        f"checked {checked} needles: {verdict} {orphans} orphans "
+        f"({orphan_bytes}B)",
+        file=out,
+    )
+
+
+def _http_delete(url: str, fid: str, auth: str) -> None:
+    from seaweedfs_tpu_torch.util.http_pool import shared_pool
+
+    headers = {"Authorization": f"Bearer {auth}"} if auth else {}
+    status, _body = shared_pool().request(
+        url, "DELETE", f"/{fid}", headers=headers, timeout=15
+    )
+    if status >= 300:
+        raise IOError(f"delete {fid}: HTTP {status}")
+
+
+def _fsck_flags(p):
+    p.add_argument(
+        "-reallyDeleteFromVolume", action="store_true",
+        help="delete the orphaned needles from the volumes",
+    )
+    p.add_argument(
+        "-cutoffAgeSeconds", type=int, default=300,
+        help="never purge from volumes written to this recently",
+    )
+
+
+cmd_volume_fsck.configure = _fsck_flags
+
 
 def _nodes_with_disks(env):
     """Like _collect_nodes but keeps the per-disk-type split the tier

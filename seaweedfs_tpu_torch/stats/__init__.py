@@ -4,7 +4,8 @@ Only the families the port emits so far, with the JAX package's names and
 help strings: the repair budget's (ops/repair_budget), the plane
 billing's (stats/plane), the EC service's (``EC_OPS``,
 ``EC_DEGRADED_READS``), the HTTP data plane's (``VOLUME_REQUESTS``,
-``VOLUME_REQUEST_SECONDS``, ``MASTER_REQUESTS``), the raft master's
+``VOLUME_REQUEST_SECONDS``, ``MASTER_REQUESTS``), the filer's
+(``FILER_REQUESTS``, ``FILER_REQUEST_SECONDS``), the raft master's
 (``RAFT_STATE``), the scrubber's and vacuum's (``DISK_CORRUPTION``,
 ``SCRUB_*``), the flight recorder's (``EVENTS_DROPPED``) and, in
 ops/sched_cache,
@@ -186,6 +187,14 @@ VOLUME_REQUESTS = Counter(
 VOLUME_REQUEST_SECONDS = Histogram(
     "weedtpu_volume_server_request_seconds",
     "Volume server HTTP request latency by type",
+)
+FILER_REQUESTS = Counter(
+    "weedtpu_filer_request_total",
+    "Filer HTTP requests by type",
+)
+FILER_REQUEST_SECONDS = Histogram(
+    "weedtpu_filer_request_seconds",
+    "Filer HTTP request latency by type",
 )
 MASTER_REQUESTS = Counter(
     "weedtpu_master_request_total",

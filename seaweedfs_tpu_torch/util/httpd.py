@@ -1,18 +1,64 @@
-"""HTTP server and handler base for the port's master and volume server:
-the port's copy of seaweedfs_tpu/util/httpd.py's ``PooledHTTPServer`` and
-``QuietHandler`` (quiet logging, TCP_NODELAY, length-aware replies and
-single-range RFC 7233 replies).
+"""HTTP server and handler base for the port's master, volume server and
+filer: the port's copy of seaweedfs_tpu/util/httpd.py's ``PooledHTTPServer``,
+``QuietHandler`` (quiet logging, TCP_NODELAY, length-aware replies,
+single-range RFC 7233 replies, bodies streamed piece by piece) and
+``StreamingBody`` (a request body read off the socket on demand).
 
-Not ported: graceful drain, request ids, streamed and spliced bodies, and
-the tracing span (the port has no tracing layer yet).
+Not ported: graceful drain, request ids, the native splice's hooks
+(``StreamingBody.take_buffered``/``pushback``, ``reply_ranged(splice=)``;
+ROADMAP Queue A item 9) and the tracing span (the port has no tracing
+layer yet).
 """
 
 from __future__ import annotations
 
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable
+from typing import Callable, Iterable
 
+from seaweedfs_tpu_torch.util import wlog
 from seaweedfs_tpu_torch.util.http_range import RangeNotSatisfiable, parse_range
+
+
+class StreamingBody:
+    """A request body read off the socket on demand (sized by
+    Content-Length): the filer hands this to the chunk uploader so an
+    upload streams through a bounded window instead of materializing.
+
+    ``len()`` reports the declared length; ``remaining`` tracks unread
+    bytes so the handler can keep the keep-alive stream parseable when an
+    upload aborts early."""
+
+    def __init__(self, rfile, length: int):
+        self._rfile = rfile
+        self.length = length
+        self.remaining = length
+
+    def read(self, n: int = -1) -> bytes:
+        if self.remaining <= 0:
+            return b""
+        want = self.remaining if n is None or n < 0 else min(n, self.remaining)
+        data = self._rfile.read(want)
+        if not data:  # peer cut the stream short of Content-Length
+            self.remaining = 0
+            return b""
+        self.remaining -= len(data)
+        return data
+
+    def __len__(self) -> int:
+        return self.length
+
+    def finish(self, handler: BaseHTTPRequestHandler, drain_limit: int = 1 << 20) -> None:
+        """Restore keep-alive framing after the handler replied: drain a
+        small unread remainder, or cut the connection when draining an
+        aborted large upload would cost more than a reconnect."""
+        if self.remaining <= 0:
+            return
+        if self.remaining > drain_limit:
+            handler.close_connection = True
+            self.remaining = 0
+            return
+        while self.read(65536):
+            pass
 
 
 class PooledHTTPServer(ThreadingHTTPServer):
@@ -55,18 +101,27 @@ class QuietHandler(BaseHTTPRequestHandler):
         self.send_response(code)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body) if length is None else length))
+        if self.close_connection:
+            # an earlier framing decision ends the connection after this
+            # response: advertise it so clients do not race a silently
+            # closed keep-alive socket with their next request
+            self.send_header("Connection", "close")
         for k, v in (headers or {}).items():
             self.send_header(k, v)
         self.end_headers()
         if self.command != "HEAD" and body:
             self.wfile.write(body)
 
-    def reply_ranged(self, size: int, ctype: str, fetch: Callable[[int, int], bytes],
-                     extra_headers: dict | None = None) -> None:
+    def reply_ranged(self, size: int, ctype: str, fetch: Callable[[int, int], bytes] | None,
+                     extra_headers: dict | None = None,
+                     stream: Callable[[int, int], Iterable[bytes]] | None = None) -> None:
         """Serve a body of ``size`` bytes honoring the request's Range
         header: 206 + Content-Range for a satisfiable range, 416 for an
         unsatisfiable one, 200 otherwise.  ``fetch(lo, hi)`` materializes
-        the inclusive byte range; HEAD replies from ``size`` alone.
+        the inclusive byte range; when ``stream(lo, hi)`` is given the
+        body goes out piece by piece instead (Content-Length framed: a
+        multi-chunk file never materializes in server memory).  HEAD
+        replies from ``size`` alone without calling either.
         ``extra_headers`` ride on every non-416 response."""
         extra = extra_headers or {}
         try:
@@ -87,4 +142,37 @@ class QuietHandler(BaseHTTPRequestHandler):
             lo, hi = rng
             status = 206
             headers = {**extra, "Content-Range": f"bytes {lo}-{hi}/{size}"}
+        if stream is not None and size:
+            self._reply_streamed(status, lo, hi, ctype, headers, stream)
+            return
         self._reply(status, fetch(lo, hi) if size else b"", ctype, headers=headers)
+
+    def _reply_streamed(self, status, lo, hi, ctype, headers, stream) -> None:
+        """Send an inclusive [lo, hi] body as pieces from ``stream``.  The
+        first piece is pulled *before* the status line goes out, so the
+        common upstream failures (dead volume holder, vanished vid) still
+        produce a clean error response; once headers are sent the only
+        honest signal left for a failure is cutting the connection short
+        of Content-Length."""
+        total = hi - lo + 1
+        it = iter(stream(lo, hi))
+        try:
+            first = next(it)
+        except StopIteration:
+            first = b""
+        self._reply(status, first, ctype, headers=headers, length=total)
+        sent = len(first)
+        try:
+            for piece in it:
+                if piece:
+                    self.wfile.write(piece)
+                    sent += len(piece)
+        except OSError:
+            self.close_connection = True  # client went away mid-body
+            return
+        except Exception as e:  # noqa: BLE001 — headers are out; see docstring
+            wlog.warning("streamed reply aborted after %d/%d bytes: %s", sent, total, e)
+            self.close_connection = True
+            return
+        if sent != total:
+            self.close_connection = True

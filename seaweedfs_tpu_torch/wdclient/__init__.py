@@ -10,8 +10,11 @@ util/resilience.failover_call, like the reference's KeepConnectedToMaster
 rotation (wdclient/masterclient.go:134).
 
 ``sign_write`` mints a per-fid write token when the cluster signs writes
-(``jwt_key`` or ``$WEED_JWT_KEY``).  Not ported: batch assigns and the EC
-shard-location cache.
+(``jwt_key`` or ``$WEED_JWT_KEY``).  Batch assigns (``assign_batch``,
+``assign_batch_located``: one Assign covering ``count`` fids by the
+``fid_N`` convention), the read path's failover order (``lookup_urls``,
+``forget_location``) and the EC shard-location cache
+(``lookup_ec_shards``, vid_map.go:192 addEcLocation) serve the filer.
 """
 
 from __future__ import annotations
@@ -92,6 +95,8 @@ class MasterClient:
         self.cache_ttl = cache_ttl
         self._lock = threading.Lock()
         self._vid_cache: dict[int, tuple[float, list[str]]] = {}  # vid -> (expiry, urls)
+        # vid -> (expiry, {shard_id: [url, ...]})
+        self._ec_cache: dict[int, tuple[float, dict[int, list[str]]]] = {}
 
     @property
     def _stub(self) -> FailoverStub:
@@ -115,6 +120,32 @@ class MasterClient:
             raise AssignError(resp.error)
         return resp
 
+    def assign_batch(self, count: int, *, collection: str = "", replication: str = "",
+                     ttl_seconds: int = 0, disk_type: str = "",
+                     writable_volume_count: int = 0) -> list[tuple[str, str, str]]:
+        """One Assign RPC covering ``count`` fids via the ``fid_N``
+        convention (the master reserves ``count`` sequential keys;
+        derivatives share the base fid's cookie and locations, and the
+        base fid's write token covers them).  Returns [(fid, url, auth),
+        ...] in write order."""
+        return [t[:3] for t in self.assign_batch_located(
+            count, collection=collection, replication=replication, ttl_seconds=ttl_seconds,
+            disk_type=disk_type, writable_volume_count=writable_volume_count)]
+
+    def assign_batch_located(self, count: int, *, collection: str = "", replication: str = "",
+                             ttl_seconds: int = 0, disk_type: str = "",
+                             writable_volume_count: int = 0
+                             ) -> list[tuple[str, str, str, tuple[str, ...]]]:
+        """assign_batch plus the OTHER holders of the assigned volume:
+        [(fid, primary_url, auth, (replica_url, ...)), ...]."""
+        resp = self.assign(count=count, collection=collection, replication=replication,
+                           ttl_seconds=ttl_seconds, disk_type=disk_type,
+                           writable_volume_count=writable_volume_count)
+        url = resp.location.url
+        replicas = tuple(loc.url for loc in resp.replicas)
+        return [(resp.fid if i == 0 else f"{resp.fid}_{i}", url, resp.auth, replicas)
+                for i in range(max(1, resp.count))]
+
     def lookup(self, vid: int) -> list[str]:
         """Volume-server URLs holding ``vid`` (replicas or EC shard holders)."""
         now = time.monotonic()
@@ -137,13 +168,45 @@ class MasterClient:
 
     def lookup_file_id(self, fid: str) -> str:
         """One URL (randomized among replicas) serving ``fid``."""
+        return self.lookup_urls(fid)[0]
+
+    def lookup_urls(self, fid: str) -> list[str]:
+        """Every replica URL serving ``fid``, shuffled: the read path's
+        failover order (try them in turn, forget the dead ones)."""
         vid = int(fid.split(",")[0])
         urls = self.lookup(vid)
         if not urls:
             raise KeyError(f"volume {vid} not found")
-        return random.choice(urls)
+        random.shuffle(urls)
+        return urls
+
+    def lookup_ec_shards(self, vid: int) -> dict[int, list[str]]:
+        """{shard id: [holder url, ...]} of an EC volume, TTL-cached."""
+        now = time.monotonic()
+        with self._lock:
+            hit = self._ec_cache.get(vid)
+            if hit and hit[0] > now:
+                return dict(hit[1])
+        resp = self._stub.LookupEcVolume(m_pb.LookupEcVolumeRequest(volume_id=vid))
+        shards = {sl.shard_id: [l.url for l in sl.locations] for sl in resp.shard_id_locations}
+        with self._lock:
+            self._ec_cache[vid] = (now + self.cache_ttl, shards)
+        return dict(shards)
 
     def invalidate(self, vid: int) -> None:
         """Forget cached locations (a dead replica: vid_map deleteLocation)."""
         with self._lock:
             self._vid_cache.pop(vid, None)
+            self._ec_cache.pop(vid, None)
+
+    def forget_location(self, vid: int, url: str) -> None:
+        """Drop one dead replica URL, keeping its siblings cached; the last
+        one dropped empties the entry so the next lookup re-fetches
+        (vid_map deleteLocation)."""
+        with self._lock:
+            hit = self._vid_cache.get(vid)
+            if hit is None or url not in hit[1]:
+                return
+            hit[1].remove(url)
+            if not hit[1]:
+                self._vid_cache.pop(vid, None)

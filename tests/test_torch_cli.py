@@ -4,7 +4,10 @@
 the port's ``cli.main`` must leave the same files as ``seaweedfs_tpu.cli``,
 for RS and for LRC (``-code lrc`` / ``-localGroups 2``; a flag-less rebuild
 takes the storage class from the .vif); without ``-device cpu`` on a
-machine with no CUDA device they raise.
+machine with no CUDA device they raise.  The filer's entry points: ``cli
+filer`` and ``cli server -filer -device cpu`` as processes, the flags that
+wait for later work raising, and ``upload``, ``download`` and
+``filer.copy`` against an in-process cluster.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import os
 import random
 import shutil
+import time
 
 import pytest
 import torch
@@ -168,3 +172,135 @@ def test_codec_selection():
         for scheme in (EcScheme(), PortLrcScheme()):
             with pytest.raises(RuntimeError, match="CUDA"):
                 select.pipeline_codec_for(scheme)
+
+
+# -- the filer's entry points --------------------------------------------------
+
+
+def _get(addr: str, path: str, method: str = "GET", body: bytes = b""):
+    import http.client
+
+    host, port = addr.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=30)
+    conn.request(method, path, body=body or None)
+    resp = conn.getresponse()
+    out = resp.status, resp.read()
+    conn.close()
+    return out
+
+
+def test_cli_master_volume_and_filer_processes(tmp_path):
+    """``cli master``, ``cli volume -device cpu`` and ``cli filer -db D``
+    as processes: an upload, a read and a listing through the filer, and
+    each stops on SIGTERM with rc 0.  The filer takes no ``-device``."""
+    from test_torch_shell import _start, _stop
+
+    procs = []
+    try:
+        m, mb = _start(["master", "-port", "0"], r"master gRPC on (127\.0\.0\.1:\d+)")
+        procs.append(m)
+        (tmp_path / "v").mkdir()
+        v, _vb = _start(["volume", "-dir", str(tmp_path / "v"), "-port", "0", "-device", "cpu",
+                         "-mserver", mb[1]], r"gRPC on")
+        procs.append(v)
+        f, fb = _start(["filer", "-master", mb[1], "-port", "0", "-db", str(tmp_path / "db"),
+                        "-maxMB", "1"],
+                       r"filer on (127\.0\.0\.1:\d+) \(gRPC 127\.0\.0\.1:\d+, store=leveldb\)")
+        procs.append(f)
+        data = os.urandom(3 * 1024 * 1024 + 5)
+        deadline = 60
+        while _get(fb[1], "/cli/a.bin", "POST", data)[0] != 201:  # until the first heartbeat
+            deadline -= 1
+            assert deadline > 0
+            time.sleep(0.5)
+        assert _get(fb[1], "/cli/a.bin") == (200, data)
+        status, body = _get(fb[1], "/cli")
+        assert status == 200 and '"FullPath": "/cli/a.bin"' in body.decode()
+    finally:
+        rcs = [_stop(p) for p in reversed(procs)]
+    assert rcs == [0] * len(procs), [p.stderr.read() for p in procs]
+
+
+def test_cli_server_with_filer_on_the_cpu(tmp_path):
+    """``cli server -filer -device cpu``: master, volume server and filer
+    in one process take an upload and a read, and stop on SIGTERM."""
+    from test_torch_shell import _start, _stop
+
+    proc, bound = _start(["server", "-filer", "-device", "cpu", "-dir", str(tmp_path),
+                          "-masterPort", "0", "-port", "0", "-filerPort", "0"],
+                         r"server: master .*volume .*device cpu.*filer (127\.0\.0\.1:\d+) ")
+    try:
+        data = os.urandom(5000)
+        deadline = 60
+        while _get(bound[1], "/s/x.bin", "POST", data)[0] != 201:
+            deadline -= 1
+            assert deadline > 0
+            time.sleep(0.5)
+        assert _get(bound[1], "/s/x.bin") == (200, data)
+    finally:
+        rc = _stop(proc)
+    assert rc == 0, proc.stderr.read()
+
+
+def test_cli_server_needs_a_gpu_without_device_cpu(tmp_path):
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="no CUDA device available"):
+        cli.main(["server", "-dir", str(tmp_path), "-masterPort", "0", "-port", "0"])
+
+
+@pytest.mark.parametrize("argv", [["server", "-s3"], ["server", "-webdav"],
+                                  ["filer", "-notify", "log:/x", "-port", "0"],
+                                  ["filer", "-tlsCert", "c", "-tlsKey", "k", "-port", "0"]],
+                         ids=["server-s3", "server-webdav", "filer-notify", "filer-tls"])
+def test_cli_flags_that_wait_for_later_work_raise(argv):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        cli.main(argv)
+
+
+def test_cli_upload_download_and_filer_copy(tmp_path, capsys):
+    """``upload`` prints the JAX command's JSON line per file, ``download``
+    fetches the needles back, and ``filer.copy`` puts a local tree into the
+    filer namespace."""
+    import json
+
+    from seaweedfs_tpu_torch.server.filer_server import FilerServer
+    from seaweedfs_tpu_torch.server.master_server import MasterServer
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+
+    ms = MasterServer(port=0, grpc_port=0)
+    ms.start()
+    (tmp_path / "v").mkdir()
+    vs = VolumeServer([str(tmp_path / "v")], ms.grpc_address, port=0, grpc_port=0,
+                      heartbeat_interval=0.2, device="cpu")
+    vs.start()
+    fs = FilerServer(ms.grpc_address, port=0, grpc_port=0, chunk_size=4096)
+    fs.start()
+    try:
+        deadline = time.monotonic() + 60
+        while not ms.topology.nodes:
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        src = tmp_path / "src"
+        (src / "deep").mkdir(parents=True)
+        files = {"a.txt": b"alpha" * 10, "b.bin": os.urandom(9000),
+                 "deep/c.bin": os.urandom(20000)}
+        for name, data in files.items():
+            (src / name).write_bytes(data)
+        capsys.readouterr()
+        assert cli.main(["upload", "-master", ms.grpc_address, str(src / "a.txt"),
+                         str(src / "b.bin")]) == 0
+        lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+        assert [(d["file"], d["size"]) for d in lines] == [("a.txt", 50), ("b.bin", 9000)]
+        assert all(set(d) == {"file", "fid", "url", "size"} for d in lines)
+        assert cli.main(["download", "-master", ms.grpc_address, "-dir", str(tmp_path / "dl"),
+                         *[d["fid"] for d in lines]]) == 0
+        for d, name in zip(lines, ("a.txt", "b.bin")):
+            assert (tmp_path / "dl" / d["fid"].replace(",", "_")).read_bytes() == files[name]
+        assert cli.main(["filer.copy", "-filer", fs.url, "-path", "/copied", str(src)]) == 0
+        assert "copied 3 files" in capsys.readouterr().out
+        for name, data in files.items():
+            assert _get(fs.url, f"/copied/src/{name}") == (200, data)
+    finally:
+        fs.stop()
+        vs.stop()
+        ms.stop()

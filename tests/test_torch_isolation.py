@@ -84,7 +84,16 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/shell/command_volume_repair.py",
             "seaweedfs_tpu_torch/util/lsm.py", "seaweedfs_tpu_torch/ops/gf256_native.py",
             "seaweedfs_tpu_torch/ops/rs_cpu.py", "seaweedfs_tpu_torch/commands/tier_cmd.py",
-            "seaweedfs_tpu_torch/commands/backup_cmd.py"} <= names
+            "seaweedfs_tpu_torch/commands/backup_cmd.py",
+            "seaweedfs_tpu_torch/pb/filer_pb2.py", "seaweedfs_tpu_torch/util/btree.py",
+            "seaweedfs_tpu_torch/filer/__init__.py", "seaweedfs_tpu_torch/filer/entry.py",
+            "seaweedfs_tpu_torch/filer/filechunks.py", "seaweedfs_tpu_torch/filer/filerstore.py",
+            "seaweedfs_tpu_torch/filer/leveldb_store.py", "seaweedfs_tpu_torch/filer/meta_log.py",
+            "seaweedfs_tpu_torch/filer/filer.py", "seaweedfs_tpu_torch/filer/manifest.py",
+            "seaweedfs_tpu_torch/filer/upload.py", "seaweedfs_tpu_torch/filer/reader.py",
+            "seaweedfs_tpu_torch/filer/filer_conf.py", "seaweedfs_tpu_torch/filer/remote.py",
+            "seaweedfs_tpu_torch/server/filer_server.py", "seaweedfs_tpu_torch/shell/command_fs.py",
+            "seaweedfs_tpu_torch/commands/client_cmd.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())

@@ -87,7 +87,9 @@ def test_shell_rules():
     with pytest.raises(NotLockedError):
         run_command(env, "ec.encode -volumeId 9", io.StringIO())
     with pytest.raises(ShellError, match="unknown command"):
-        run_command(env, "volume.fsck", io.StringIO())  # needs the filer: not ported
+        run_command(env, "filer.shard.ps", io.StringIO())  # the shard ring: not ported
+    with pytest.raises(NotLockedError):
+        run_command(env, "volume.fsck", io.StringIO())
     with pytest.raises(ShellError, match="bad arguments"):
         run_command(env, "ec.rebuild -noSuchFlag", io.StringIO())
     env.lock_token = 1  # as if leased: -streaming is parsed and goes on to the (absent) master
@@ -98,9 +100,11 @@ def test_shell_rules():
     assert sorted(SHELL_REGISTRY) == [
         "cluster.check", "cluster.ps", "cluster.raft.add", "cluster.raft.ps",
         "cluster.raft.remove", "collection.delete", "collection.list", "ec.balance", "ec.decode",
-        "ec.encode", "ec.rebuild", "help", "lock", "unlock", "volume.balance",
+        "ec.encode", "ec.rebuild", "fs.cat", "fs.cd", "fs.configure", "fs.du", "fs.log",
+        "fs.ls", "fs.meta.cat", "fs.meta.load", "fs.meta.save", "fs.mkdir", "fs.mv", "fs.pwd",
+        "fs.rm", "fs.tree", "fs.verify", "help", "lock", "unlock", "volume.balance",
         "volume.check.disk", "volume.configure.replication", "volume.copy", "volume.delete",
-        "volume.deleteEmpty", "volume.fix.replication", "volume.grow", "volume.list",
+        "volume.deleteEmpty", "volume.fix.replication", "volume.fsck", "volume.grow", "volume.list",
         "volume.mark", "volume.mount", "volume.move", "volume.repair.status", "volume.scrub",
         "volume.server.evacuate", "volume.server.leave", "volume.tier.download",
         "volume.tier.move", "volume.tier.upload", "volume.unmount", "volume.vacuum"]

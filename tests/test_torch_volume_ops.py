@@ -150,10 +150,10 @@ def test_plan_only_commands_print_what_the_jax_shell_prints(seed):
 
 def test_ported_commands_are_the_jax_shell_s():
     """Every volume.* and collection.* command of the JAX shell is ported,
-    with the same help, but volume.fsck (it needs the filer)."""
+    with the same help (volume.fsck with the filer)."""
     jax_names = {n for n in JAX_REGISTRY if n.startswith(("volume.", "collection."))}
     names = {n for n in SHELL_REGISTRY if n.startswith(("volume.", "collection."))}
-    assert jax_names - names == {"volume.fsck"}
+    assert jax_names - names == set()
     assert names <= jax_names
     assert {n: SHELL_REGISTRY[n].help for n in names} == {n: JAX_REGISTRY[n].help for n in names}
 
