@@ -93,7 +93,7 @@ Phases, each printing what it found; any failure exits non-zero:
    new process).  The same .dat is
    encoded as LRC(10,2,2) by ``ec.encode.local -code lrc`` and with 64 MiB
    large blocks by write_ec_files (one 10 x 64 MiB large row: parity
-   sampled in both areas, needles read back).  Then about 7,000 needles
+   sampled in both areas, needles read back).  Then about 4,000 needles
    (every one that crosses a 1 MiB block, and the big ones) are read here
    through Store, EcVolume.read_needle and EcShardLocator's local
    reconstruction, in five states (RS healthy, RS without {0, 3, 10, 13},
@@ -110,7 +110,7 @@ Phases, each printing what it found; any failure exits non-zero:
    leaves 14 shards at the master over both racks, at most 4 on a node,
    each sha256-identical to phase 7's generate, the original volume gone,
    and server 0's K1 launches (its /metrics) equal to the generate's
-   batches (18 a GiB); about 2,000 needles are read here through Store
+   batches (18 a GiB); about 1,500 needles are read here through Store
    (one server's shards), EcVolume.read_needle and EcShardLocator(master)
    with remote EcShardRead answers and no reconstruction, then again after
    the server (other than the reader and server 1) holding the most
@@ -128,8 +128,8 @@ Phases, each printing what it found; any failure exits non-zero:
 9. The write path: a fresh ``cli master`` and four ``cli volume -device
    cuda -max 8 -mserver ...`` subprocesses (racks alternating), each with
    its HTTP port bound and registered at the master as ``ip:httpport``.
-   9a: ``cli benchmark -n 32768 -size 1024 -c 16`` (upstream `weed
-   benchmark`'s shape, -n cut 32x for time), 0 errors in its write and
+   9a: ``cli benchmark -n 16384 -size 1024 -c 16`` (upstream `weed
+   benchmark`'s shape, -n cut 64x for time), 0 errors in its write and
    read reports; 9b: 5,000 writes at replication 001, then every needle
    read from both holders ``/dir/lookup`` names; 9c: ``cli benchmark -n
    16384 -size 65536`` fills one 1 GiB volume, and 1,024 needles of
@@ -139,7 +139,7 @@ Phases, each printing what it found; any failure exits non-zero:
    batches (18), every shard lands once on its holder (14 at the master,
    at most 4 a node, both racks), no .dat, .idx or .tmp remains, and the
    targets' received bytes, the generate's stage split and the balance's
-   moves are printed; 9e: the 1,024 seeded needles and 4,096 benchmark
+   moves are printed; 9e: the 1,024 seeded needles and 2,048 benchmark
    needles read over HTTP, each resolved through ``/dir/lookup``, equal to
    their payloads (p50, p99, and the intervals the serving holder had to
    read from others, counted from the .ecx and the census); 9f: 64
@@ -161,7 +161,7 @@ Phases, each printing what it found; any failure exits non-zero:
    every acknowledged fid and file key unique, every acknowledged needle
    byte-identical from both holders, every volume id's .dat on its copies
    only and no needle id in two volumes (no id issued twice across the
-   failover and the restart); ``cli benchmark -master m0,m1,m2 -n 16384
+   failover and the restart); ``cli benchmark -master m0,m1,m2 -n 8192
    -size 1024 -c 16`` with 0 errors; ``cli benchmark`` of 4,096 x 64 KiB
    fills one 256 MiB volume, and ``cli shell -master m0,m1,m2 -c "lock;
    ec.encode -volumeId V -collection haec; unlock"`` encodes it with K1 on
@@ -171,9 +171,9 @@ Phases, each printing what it found; any failure exits non-zero:
 11. Volume maintenance: a fresh ``cli master`` and four ``cli volume
    -device cuda -max 8 -scrubInterval 0 -scrubRateMB 0`` subprocesses
    (racks alternating; no background scrub pass races the phase's
-   counts).  16 writers fill one volume with 8,192 x 64 KiB at
-   replication 001 (512 MiB a holder; upstream volumes are 30 GB) and
-   40% of it (3,277 needles) is deleted; ``volume.vacuum
+   counts).  16 writers fill one volume with 4,096 x 64 KiB at
+   replication 001 (256 MiB a holder; upstream volumes are 30 GB) and
+   40% of it (1,638 needles) is deleted; ``volume.vacuum
    -garbageThreshold 0.3`` through ``cli shell`` must reclaim on both
    holders exactly the bytes of the records the .idx no longer names and
    raise the superblock's compaction revision to 1, while one writer to
@@ -226,8 +226,8 @@ Phases, each printing what it found; any failure exits non-zero:
    ``cli filer -db <dir> -maxMB 4`` (the LSM store; logs under
    ``filer/``).  ``fs.configure`` puts /data/ in collection filerdata; 16
    writers fill it through the filer's HTTP API, bodies streamed from
-   --seed: one 1 GiB file (256 chunks), 16 of 4-32 MiB and 8,192 of 1-64
-   KiB over 64 directories (512 of them at most 2 KiB, inline), files/s,
+   --seed: one 1 GiB file (256 chunks), 16 of 4-32 MiB and 4,096 of 1-64
+   KiB over 64 directories (256 of them at most 2 KiB, inline), files/s,
    MB/s and p50/p99 per class; every file reads back sha256-equal, with
    32 Range reads across chunk boundaries of the 1 GiB file, a 416, a
    HEAD and paged JSON listings equal to the names written, and the
@@ -236,7 +236,7 @@ Phases, each printing what it found; any failure exits non-zero:
    broken, fs.ls and fs.tree run; 64 needles written by ``cli upload`` are
    exactly the orphans ``volume.fsck`` finds (their bytes too), purges
    with ``-reallyDeleteFromVolume -cutoffAgeSeconds 0`` and then finds 0
-   of; ``fs.rm -r`` of one directory of 128 files 404s its paths and its
+   of; ``fs.rm -r`` of one directory of 64 files 404s its paths and its
    chunks' fids.  An in-process filer splits one 4 MiB and one 16 KiB
    upload and one 16 KiB read into body read, assign (FidPool hit or
    miss), volume POST, store insert, find_entry, lookup and volume GET.
@@ -249,6 +249,38 @@ Phases, each printing what it found; any failure exits non-zero:
    filerdata`` launches K1 and 1,024 files read back; ``cli server -filer
    -device cuda`` takes an upload and a read in one process and stops on
    SIGTERM with rc 0.  Its figures go on ``filer:`` lines.
+14. S3 on the card: a fresh ``cli master -volumeSizeLimitMB 256``, four
+   ``cli volume -device cuda -scrubInterval 0 -scrubRateMB 0`` on two
+   racks, ``cli filer -db <dir>`` and in front ``cli s3 -filer <its gRPC>
+   -accessKey K -secretKey S -cacheMB 64 -kmsKeyFile F`` (SigV4 required;
+   logs under ``s3/``); every request is signed by ``client_sign``.  Fill:
+   16 clients put 8,192 objects of 1-64 KiB (a quarter as signed
+   aws-chunked bodies), and 16 of 8-64 MiB and one of 1 GiB go up as
+   multipart in 8 MiB parts, 10 at a time (aws-cli's defaults); objects/s,
+   MB/s and p50/p99 per class.  Mixed: MinIO warp mixed's 45% GET, 30%
+   HEAD, 15% PUT, 10% DELETE over the small objects, 16 clients, 20,000
+   ops, every answer held to a model of key -> sha256 (404 for a deleted
+   key, the ETag on HEAD); a ListObjectsV2 walk (max-keys 1000) equals the
+   model.  Features: CopyObject, 16 Range GETs across the 1 GiB object's
+   part boundaries, a presigned GET, three versions read by versionId,
+   tagging, an anonymous 403 that a bucket policy turns into 200, SSE-S3
+   and SSE-C of a 16 MiB object (501 where the card's machine lacks the
+   cryptography package), and a bucket frozen by ``s3.bucket.quota.check``.
+   Coherence: an overwrite through the filer's HTTP API is seen through the
+   gateway (its metadata subscriber; the time printed), and a hot set's
+   second GET pass prints the chunk cache's hit ratio from /debug/cachez.
+   An in-process gateway splits a 16 KiB aws-chunked PUT, an 8 MiB part
+   PUT and a 16 KiB GET into SigV4 verify, body read, aws-chunked decode,
+   FidPool, volume POST/GET, filer insert/find and entry-cache hits.
+   ``ec.encode -volumeId`` of every volume that holds the buckets launches
+   K1 in the servers exactly once per batch; every object reads back
+   through S3 from the shards (ETag and sha256); the server holding the
+   most data shards is SIGKILLed and, once pruned, every object reads back
+   degraded; ``ec.rebuild`` launches K1 and 1,024 objects read back; the
+   gateway restarts before each of those passes, so that its chunk cache
+   cannot answer for the shards.  ``cli server -filer -s3 -device cuda``
+   takes a signed PUT and GET in one process and stops on SIGTERM with rc
+   0.  Its figures go on ``s3:`` lines.
 
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
@@ -269,8 +301,10 @@ rest of the repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import hashlib
+import http.client
 import io
 import json
 import os
@@ -282,6 +316,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.parse
 from concurrent.futures import ThreadPoolExecutor
 
 MIB = 1 << 20
@@ -891,6 +926,10 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
             path = os.path.join(tmp, name)
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         filer = phase_filer(args, tmp, ident, dev)
+        for name in os.listdir(tmp):  # room for phase 14's volumes
+            path = os.path.join(tmp, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+        s3 = phase_s3(args, tmp, ident, dev)
         degraded = {label: (r["p50_us"], r["p99_us"]) for label, r in ec_service["reads"].items()}
         print(f"host codec paths on {ident}: phase 7 reads p50/p99 us {degraded}; phase 11 EC "
               f"scrub {maintenance['walls']['ec_scrub']:.3f}s")
@@ -898,7 +937,7 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
                     encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
                     lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster, write=write,
                     failover=failover, maintenance=maintenance, storage=storage,
-                    host_codec=host_codec, filer=filer)
+                    host_codec=host_codec, filer=filer, s3=s3)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1315,7 +1354,7 @@ def phase_mesh(args, directory: str, hashes: dict, ident: str, dev, rates) -> di
 NEEDLE_PAYLOAD = 1024  # `weed benchmark`'s default -size
 BIG_NEEDLES = 8  # 256 KiB - 1 MiB payloads: reads of several intervals
 DEAD_NEEDLES = 64
-READ_SAMPLE = 6_000  # cut from 20,000 to leave phase 9 room in the time limit
+READ_SAMPLE = 3_000  # cut from 20,000 to leave phases 9-14 room in the time limit
 LARGE_ROW_BLOCK = 64 * MIB  # the large-row pipeline's large blocks
 READ_STATES = [  # label, volume, shards removed
     ("RS healthy", "rs", ()),
@@ -1840,7 +1879,7 @@ def phase_ec_service(args, directory: str, ident: str, dev) -> dict:
                 launches_server=server["launches"]["gf_apply"], launches_local=launches["gf_apply"])
 
 CLUSTER_SERVERS = 4
-CLUSTER_READ_SAMPLE = 1_000  # cut from 2,000 to leave phase 9 room in the time limit
+CLUSTER_READ_SAMPLE = 500  # cut from 2,000 to leave phases 9-14 room in the time limit
 LRC_CLUSTER_GIB = 0.25  # the LRC volume of phase 8, cut to stay inside the time limit
 PRUNE_WAIT_S = 60.0  # the master prunes after 15 s without a heartbeat, checked every 5 s
 
@@ -2204,13 +2243,13 @@ def phase_cluster(args, directory: str, svc: dict, ident: str, dev) -> dict:
 
 # -- phase 9 ------------------------------------------------------------------
 
-BENCH_N = 32768  # `weed benchmark` -n 1048576, cut 32x for the time limit
+BENCH_N = 16384  # `weed benchmark` -n 1048576, cut 64x for the time limit
 BENCH_SIZE = 1024  # `weed benchmark` -size
 BENCH_C = 16  # `weed benchmark` -c
 REP_N = 5000  # DATA_PLANE.md's replicated-write row
 FILL_N, FILL_SIZE = 16384, 64 * 1024  # 1 GiB of DATA_PLANE.md's 64 KB payloads
 SEEDED_NEEDLES = 1024
-EC_READ_SAMPLE = 4096
+EC_READ_SAMPLE = 2048  # cut from 4,096 for the time limit
 EC_DELETES = 64
 
 
@@ -2522,7 +2561,7 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
 HA_MASTERS = 3
 HA_WRITERS = 16  # `weed benchmark`'s -c
 HA_WINDOW_S = 10.0  # writes before the kill, and after a new leader answers
-HA_BENCH_N = 16384
+HA_BENCH_N = 8192  # cut from 16,384 for the time limit
 HA_EC_N, HA_EC_SIZE = 4096, 64 * 1024  # one 256 MiB volume of 64 KiB needles
 
 
@@ -2851,8 +2890,8 @@ def phase_failover(args, directory: str, ident: str, dev) -> dict:
 
 # -- phase 11 -----------------------------------------------------------------
 
-MAINT_N, MAINT_SIZE = 8192, 64 * 1024  # one volume at 001: 512 MiB of payload a holder
-MAINT_DELETES = 3277  # 40% of the needles: a garbage ratio above upstream's 0.3
+MAINT_N, MAINT_SIZE = 4096, 64 * 1024  # one volume at 001: 256 MiB of payload a holder
+MAINT_DELETES = 1638  # 40% of the needles: a garbage ratio above upstream's 0.3
 MAINT_WRITERS = 16  # `weed benchmark`'s -c
 AUTO_N = 1024  # the second volume, compacted by -vacuumInterval with no shell command
 MAINT_CORRUPT = 8
@@ -2957,7 +2996,7 @@ def _read_all(pool, url_of, fids, payload, want404: bool = False):
 def phase_maintenance(args, directory: str, ident: str, dev) -> dict:
     """Phase 11: volume maintenance.  One ``cli master`` and four ``cli
     volume -device cuda -max 8 -scrubInterval 0 -scrubRateMB 0``
-    subprocesses (racks alternating); one volume of 8,192 x 64 KiB at 001,
+    subprocesses (racks alternating); one volume of 4,096 x 64 KiB at 001,
     40% deleted and ``volume.vacuum``-ed under a writer; a second volume
     compacted by a restart with ``-vacuumInterval 2``; ``volume.delete`` +
     ``volume.fix.replication``; 8 corrupt records repaired by
@@ -3781,8 +3820,8 @@ def phase_storage(args, directory: str, ident: str, dev) -> dict:
 
 
 FILER_DIRS = 64
-FILER_SMALL_N = 8192  # 1-64 KiB files over FILER_DIRS directories
-FILER_INLINE_N = 512  # of them at most 2 KiB: inlined in their entries
+FILER_SMALL_N = 4096  # 1-64 KiB files over FILER_DIRS directories (cut from 8,192)
+FILER_INLINE_N = 256  # of them at most 2 KiB: inlined in their entries
 FILER_LARGE_N = 16  # 4-32 MiB files
 FILER_BIG_BYTES = 1 << 30  # one file of 256 chunks at -maxMB 4
 FILER_CHUNK_MB = 4  # -maxMB: the default of upstream's `weed filer` and of the JAX CLI
@@ -4096,8 +4135,8 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
     four ``cli volume -device cuda -scrubInterval 0 -scrubRateMB 0`` on two
     racks and one ``cli filer -db <dir> -maxMB 4`` (the LSM store).
     ``fs.configure`` puts /data/ in collection filerdata; 16 writers fill
-    it through the filer's HTTP API (8,192 files of 1-64 KiB over 64
-    directories, 512 of them inline; 16 of 4-32 MiB; one of 1 GiB, 256
+    it through the filer's HTTP API (4,096 files of 1-64 KiB over 64
+    directories, 256 of them inline; 16 of 4-32 MiB; one of 1 GiB, 256
     chunks, streamed) and every file reads back sha256-equal, with Range
     reads, a 416, a HEAD and paged listings; the filer's RSS stays under
     FILER_RSS_LIMIT while it moves the 1 GiB file.  ``cli shell -filer``:
@@ -4480,6 +4519,909 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
     return rec
 
 
+# -- phase 14 -----------------------------------------------------------------
+
+S3_AK, S3_SK = "AKIDSMOKE", "smoke-secret-key"
+S3_BUCKET = "bench"
+S3_SMALL_N = 8192  # 1-64 KiB objects
+S3_CHUNKED_EVERY = 4  # a quarter of them as signed aws-chunked bodies
+S3_STREAM_CHUNK = 64 * 1024  # the aws-chunked chunk size of botocore's streaming signer
+S3_LARGE_N = 16  # 8-64 MiB objects, multipart
+S3_BIG_BYTES = 1 << 30  # one object of 128 parts
+S3_PART = 8 * MIB  # aws-cli's multipart_chunksize default
+S3_PART_CONCURRENCY = 10  # aws-cli's max_concurrent_requests default
+S3_CLIENTS = 16
+S3_MIXED_OPS = 20_000  # MinIO warp mixed, cut for the time limit
+S3_MIX = (("GET", 45), ("HEAD", 30), ("PUT", 15), ("DELETE", 10))  # warp mixed's defaults
+S3_LIST_PAGE = 1000
+S3_RANGE_READS = 16
+S3_SSE_BYTES = 16 * MIB
+S3_HOT_SET = 128  # keys of the hot set whose second GET pass reads the chunk cache
+S3_CACHE_MB = 64
+S3_REBUILD_SAMPLE = 1024
+S3_PROFILE = dict(small=256, part=16, reads=256)  # the in-process split of one request
+
+
+def _s3_objects(seed: int) -> list:
+    """[(key, size, kind, body key)] of the fill: the small objects (a
+    quarter ``chunked``), the large ones and the 1 GiB one, sizes from
+    ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 14])
+    objs = [(f"small/{i % 64:02d}/o{i:05d}.bin", int(s),
+             "chunked" if i % S3_CHUNKED_EVERY == 0 else "small", 200 + i)
+            for i, s in enumerate(rng.integers(1024, 64 * 1024 + 1, S3_SMALL_N))]
+    objs += [(f"large/l{i:02d}.bin", int(rng.integers(8 * MIB, 64 * MIB + 1)), "large", 100 + i)
+             for i in range(S3_LARGE_N)]
+    objs.append(("big/one.bin", S3_BIG_BYTES, "big", 99))
+    return objs
+
+
+def _s3_body(seed: int, key: int, size: int, lo: int = 0, hi: int | None = None) -> bytes:
+    return b"".join(_filer_blocks(seed, key, size, lo, hi))
+
+
+class _S3Client:
+    """One keep-alive connection to the gateway whose requests are signed
+    by ``client_sign`` at the current time (SigV4 headers, aws-chunked
+    streaming, presigned URLs) or sent anonymously."""
+
+    def __init__(self, addr: str):
+        self.addr = addr
+        self.conn = _filer_conn(addr)
+
+    def close(self) -> None:
+        self.conn.close()
+
+    def request(self, method: str, path: str, query: str = "", body: bytes = b"",
+                headers: dict | None = None, mode: str = "v4", sink: bool = False) -> tuple:
+        """(status, body or (sha256, length) when ``sink``, headers, seconds)."""
+        from seaweedfs_tpu_torch.s3 import client_sign
+
+        headers = dict(headers or {})
+        quoted = urllib.parse.quote(path)
+        target = quoted + (f"?{query}" if query else "")
+        t0 = time.perf_counter()
+        if mode == "v4":
+            headers.update(client_sign.sign_headers(method, quoted, query, self.addr, body,
+                                                    S3_AK, S3_SK, extra_headers=headers))
+        elif mode == "stream":
+            signed, body = client_sign.sign_streaming(method, quoted, query, self.addr, body,
+                                                      S3_AK, S3_SK, chunk_size=S3_STREAM_CHUNK)
+            headers.update(signed)
+        elif mode == "presign":
+            target = quoted + "?" + client_sign.presign_url(method, quoted, self.addr, S3_AK,
+                                                            S3_SK, expires=600)
+        try:
+            self.conn.request(method, target, body=body or None, headers=headers)
+            resp = self.conn.getresponse()
+            if sink:
+                sha, n = hashlib.sha256(), 0
+                while True:
+                    piece = resp.read(MIB)
+                    if not piece:
+                        break
+                    sha.update(piece)
+                    n += len(piece)
+                data = (sha.hexdigest(), n)
+            else:
+                data = resp.read()
+        except (OSError, http.client.HTTPException):
+            self.conn.close()
+            self.conn = _filer_conn(self.addr)
+            raise
+        return resp.status, data, {k.lower(): v for k, v in resp.getheaders()}, \
+            time.perf_counter() - t0
+
+
+def _s3_pool(addr: str, items: list, fn, clients: int = S3_CLIENTS) -> list:
+    """``fn(client, item)`` over ``items`` by ``clients`` threads, each with
+    its own keep-alive ``_S3Client``; results in item order; any failure
+    fails the phase."""
+    tickets = iter(range(len(items)))
+    lock = threading.Lock()
+    out: list = [None] * len(items)
+    failures: list = []
+
+    def worker() -> None:
+        client = _S3Client(addr)
+        try:
+            while True:
+                with lock:
+                    i = next(tickets, None)
+                    if i is None or failures:
+                        return
+                try:
+                    out[i] = fn(client, items[i])
+                except Exception as e:  # noqa: BLE001 — reported, fails the phase
+                    failures.append(f"{items[i]!r:.80}: {type(e).__name__}: {e}")
+                    return
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=worker, daemon=True) for _ in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=1200)
+    check(not failures and not any(th.is_alive() for th in threads) and None not in out,
+          f"{sum(r is not None for r in out)} of {len(items)} done; {failures[:3]}")
+    return out
+
+
+def _s3_multipart(addr: str, seed: int, objs: list, path_of) -> list:
+    """Multipart uploads of ``objs`` through one pool of
+    S3_PART_CONCURRENCY part uploads (aws-cli's transfer manager): create,
+    S3_PART parts, complete.  [(sha256, multipart ETag, seconds)] in order;
+    every part's and the final ETag are checked."""
+    import xml.etree.ElementTree as ET
+
+    ns = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+    admin = _S3Client(addr)
+    uploads = []
+    for key, size, _kind, bkey in objs:
+        status, data, _h, _dt = admin.request("POST", path_of(key), "uploads=")
+        check(status == 200, f"CreateMultipartUpload {key}: {status} {data[:200]!r}")
+        uploads.append(ET.fromstring(data).findtext(f"{ns}UploadId"))
+    parts = [(i, n, lo, min(lo + S3_PART, size))
+             for i, (key, size, _kind, _b) in enumerate(objs)
+             for n, lo in enumerate(range(0, size, S3_PART), start=1)]
+
+    def put_part(client, part):
+        i, n, lo, hi = part
+        key, size, _kind, bkey = objs[i]
+        body = _s3_body(seed, bkey, size, lo, hi)
+        md5 = hashlib.md5(body).hexdigest()
+        t0 = time.perf_counter()
+        status, data, hdrs, _dt = client.request(
+            "PUT", path_of(key), f"partNumber={n}&uploadId={uploads[i]}", body)
+        check(status == 200 and hdrs.get("etag") == f'"{md5}"',
+              f"UploadPart {key} #{n}: {status} {hdrs.get('etag')} != {md5}: {data[:200]!r}")
+        return md5, t0, time.perf_counter()
+
+    got = _s3_pool(addr, parts, put_part, clients=S3_PART_CONCURRENCY)
+    out = []
+    for i, (key, size, _kind, _b) in enumerate(objs):
+        mine = [(p[1], g) for p, g in zip(parts, got) if p[0] == i]
+        doc = "".join(f"<Part><PartNumber>{n}</PartNumber><ETag>\"{g[0]}\"</ETag></Part>"
+                      for n, g in mine)
+        t_first = min(g[1] for _n, g in mine)
+        status, data, _h, _dt = admin.request(
+            "POST", path_of(key), f"uploadId={uploads[i]}",
+            f"<CompleteMultipartUpload>{doc}</CompleteMultipartUpload>".encode())
+        etag = hashlib.md5(b"".join(bytes.fromhex(g[0]) for _n, g in mine)).hexdigest()
+        etag = f"{etag}-{len(mine)}"
+        t_done = time.perf_counter()
+        check(status == 200 and ET.fromstring(data).findtext(f"{ns}ETag") == f'"{etag}"',
+              f"CompleteMultipartUpload {key}: {status} {data[:300]!r}, want {etag}")
+        sha = hashlib.sha256()
+        for piece in _filer_blocks(seed, objs[i][3], size):
+            sha.update(piece)
+        # an object's latency: its first part sent to its completion answered
+        out.append((sha.hexdigest(), etag, t_done - t_first))
+    admin.close()
+    return out
+
+
+def _s3_read_all(addr: str, bucket: str, model: dict, label: str) -> dict:
+    """Every live object of ``model`` ({key: (size, sha256, etag)}) GET
+    through the gateway, ETag- and sha256-equal; figures per class."""
+    classes: dict = {}
+    for key, (size, _sha, _etag) in model.items():
+        cls = key.split("/", 1)[0]
+        classes.setdefault(cls, []).append(key)
+    rec = {}
+    for cls in ("big", "large", "small"):
+        keys = classes.get(cls)
+        if not keys:
+            continue
+
+        def one(client, key):
+            size, sha, etag = model[key]
+            status, (got, n), hdrs, dt = client.request("GET", f"/{bucket}/{key}", sink=True)
+            check(status == 200 and n == size and got == sha and hdrs.get("etag") == f'"{etag}"',
+                  f"{label}: GET {key}: {status}, {n} of {size} bytes, sha256 "
+                  f"{'equal' if got == sha else 'differs'}, ETag {hdrs.get('etag')} / {etag}")
+            return dt
+
+        t = time.perf_counter()
+        lat = _s3_pool(addr, keys, one)
+        rec[cls] = _class_figures(cls, [model[k][0] for k in keys], lat, time.perf_counter() - t)
+    print(f"s3: read {label}: " + "; ".join(
+        f"{cls} {r['files']} objects {r['files_per_s']:.1f}/s {r['mb_per_s']:.1f} MB/s p50 "
+        f"{r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms" for cls, r in rec.items())
+        + ", every one ETag- and sha256-equal")
+    return rec
+
+
+def _s3_list(client, bucket: str) -> tuple[dict, int]:
+    """A ListObjectsV2 walk (max-keys S3_LIST_PAGE, continuation tokens):
+    ({key: (size, etag)}, pages)."""
+    import xml.etree.ElementTree as ET
+
+    ns = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+    listed, token, pages = {}, "", 0
+    while True:
+        query = f"list-type=2&max-keys={S3_LIST_PAGE}"
+        if token:
+            query = f"continuation-token={urllib.parse.quote(token, safe='')}&" + query
+        status, data, _h, _dt = client.request("GET", f"/{bucket}", query)
+        check(status == 200, f"ListObjectsV2 {bucket}: {status} {data[:200]!r}")
+        root = ET.fromstring(data)
+        pages += 1
+        for c in root.iter(f"{ns}Contents"):
+            listed[c.findtext(f"{ns}Key")] = (int(c.findtext(f"{ns}Size")),
+                                              c.findtext(f"{ns}ETag").strip('"'))
+        if root.findtext(f"{ns}IsTruncated") != "true":
+            return listed, pages
+        token = root.findtext(f"{ns}NextContinuationToken")
+
+
+def _s3_mixed(addr: str, seed: int, model: dict) -> dict:
+    """MinIO warp ``mixed`` over the small objects: S3_CLIENTS clients,
+    each owning its share of the keys (so the model stays exact), draw
+    S3_MIXED_OPS operations by S3_MIX.  Every answer is held to the model
+    ({key: (size, sha256, md5)}): GET bytes, HEAD ETag and length, 404 for
+    a deleted key; PUTs and DELETEs update it."""
+    import numpy as np
+
+    keys = sorted(k for k in model if k.startswith("small/"))
+    ops = [op for op, _w in S3_MIX]
+    weights = np.array([w for _op, w in S3_MIX], dtype=float)
+    per_client = S3_MIXED_OPS // S3_CLIENTS
+    lat: dict = {op: [] for op in ops}
+    lock = threading.Lock()
+
+    def run(client, c):
+        rng = np.random.default_rng([seed, 1400, c])
+        mine = keys[c::S3_CLIENTS]
+        local = {op: [] for op in ops}
+        for j in range(per_client):
+            op = ops[rng.choice(len(ops), p=weights / weights.sum())]
+            key = mine[int(rng.integers(len(mine)))]
+            path = f"/{S3_BUCKET}/{key}"
+            want = model[key]
+            if op == "GET":
+                status, (sha, n), _h, dt = client.request("GET", path, sink=True)
+                check((status, n, sha) == ((200, want[0], want[1]) if want else (404, n, sha)),
+                      f"mixed GET {key}: {status}, {n} bytes, model {want and want[0]}")
+            elif op == "HEAD":
+                status, _d, hdrs, dt = client.request("HEAD", path)
+                check(status == 404 if want is None else
+                      (status == 200 and hdrs.get("etag") == f'"{want[2]}"'
+                       and hdrs.get("content-length") == str(want[0])),
+                      f"mixed HEAD {key}: {status} {hdrs.get('etag')}, model {want}")
+            elif op == "PUT":
+                size = int(rng.integers(1024, 64 * 1024 + 1))
+                body = _s3_body(seed, 1_000_000 + c * per_client + j, size)
+                md5 = hashlib.md5(body).hexdigest()
+                status, data, hdrs, dt = client.request("PUT", path, body=body)
+                check(status == 200 and hdrs.get("etag") == f'"{md5}"',
+                      f"mixed PUT {key}: {status} {data[:200]!r}")
+                model[key] = (size, hashlib.sha256(body).hexdigest(), md5)
+            else:
+                status, data, _h, dt = client.request("DELETE", path)
+                check(status == 204, f"mixed DELETE {key}: {status} {data[:200]!r}")
+                model[key] = None
+            local[op].append(dt)
+        with lock:
+            for op in ops:
+                lat[op] += local[op]
+        return True
+
+    t = time.perf_counter()
+    _s3_pool(addr, list(range(S3_CLIENTS)), run)
+    wall = time.perf_counter() - t
+    n = per_client * S3_CLIENTS
+    rec = dict(ops=n, wall_s=wall, ops_per_s=n / wall)
+    for op in ops:
+        ms = np.array(lat[op]) * 1e3
+        rec[op] = dict(n=len(ms), p50_ms=float(np.percentile(ms, 50)),
+                       p99_ms=float(np.percentile(ms, 99)))
+    return rec
+
+
+def _s3_profile(maddr: str, gaddr: str, seed: int, ident: str) -> dict:
+    """What one S3 request waits on: an in-process S3ApiServer (the code
+    of ``cli s3 -filer``) over RemoteFiler to the phase's filer, with its
+    SigV4 verify (the payload hash and the signature), body read,
+    aws-chunked decode, FidPool take, volume POST/GET, filer insert/find
+    and entry-cache hits and misses timed;
+    requests one at a time (16 KiB PUTs as aws-chunked bodies, 8 MiB
+    multipart parts, 16 KiB GETs).  Its bucket is deleted at the end."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.filer import reader, upload
+    from seaweedfs_tpu_torch.filer.remote import RemoteFiler
+    from seaweedfs_tpu_torch.s3 import s3_server
+    from seaweedfs_tpu_torch.s3.auth import Identity
+    from seaweedfs_tpu_torch.wdclient import MasterClient
+
+    parts: dict = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    remote = RemoteFiler(gaddr, MasterClient(maddr))
+    gw = s3_server.S3ApiServer(maddr, port=0, filer=remote,
+                               identities={S3_AK: Identity(S3_AK, S3_SK, "admin")},
+                               chunk_size=FILER_CHUNK_MB * MIB, chunk_cache_mb=0,
+                               lifecycle_sweep_interval=0)
+    handler = s3_server._S3HttpHandler
+    saved = (handler._read_body, handler._auth_and_decode, s3_server.decode_aws_chunked,
+             upload.http_put_chunk, reader._fetch_chunk_from)
+    handler._read_body = timed("body_read", handler._read_body)
+    # the payload hash, the signature and (aws-chunked) the decode: SigV4
+    # verify is this less the decode
+    handler._auth_and_decode = timed("auth", handler._auth_and_decode)
+    s3_server.decode_aws_chunked = timed("chunked_decode", s3_server.decode_aws_chunked)
+    upload.http_put_chunk = timed("volume_post", upload.http_put_chunk)
+    reader._fetch_chunk_from = timed("volume_get", reader._fetch_chunk_from)
+    gw.fid_pool.take = timed("fidpool", gw.fid_pool.take)
+    remote.create_entry = timed("filer_insert", remote.create_entry)
+    remote.update_entry = timed("filer_update", remote.update_entry)
+    find = remote.find_entry
+
+    def find_timed(path):
+        parts["entry_cache_miss_n"] = parts.get("entry_cache_miss_n", 0) + 1
+        t0 = time.perf_counter()
+        try:
+            return find(path)
+        finally:
+            parts["filer_find"] = parts.get("filer_find", 0.0) + time.perf_counter() - t0
+
+    remote.find_entry = find_timed
+    cache_get = gw.entry_cache.get
+
+    def cache_get_counted(path, loader):
+        parts["entry_cache_get_n"] = parts.get("entry_cache_get_n", 0) + 1
+        return cache_get(path, loader)
+
+    gw.entry_cache.get = cache_get_counted
+    gw.start()
+    rec = {}
+    keys = ("sigv4_verify", "body_read", "chunked_decode", "fidpool", "volume_post",
+            "volume_get", "filer_insert", "filer_update", "filer_find")
+
+    def split_of(lat: list) -> dict:
+        n = len(lat)
+        split = {k: v / n * 1e3 for k, v in parts.items() if not k.endswith("_n")}
+        split.update({k: v for k, v in parts.items() if k.endswith("_n")})
+        split["sigv4_verify"] = split.pop("auth", 0.0) - split.get("chunked_decode", 0.0)
+        if "entry_cache_get_n" in split:
+            split["entry_cache_hit_n"] = split["entry_cache_get_n"] - min(
+                split.get("entry_cache_miss_n", 0), split["entry_cache_get_n"])
+        split["request_ms"] = sum(lat) / n * 1e3
+        split["p50_ms"] = float(np.percentile(np.array(lat) * 1e3, 50))
+        split["other_ms"] = split["request_ms"] - sum(split.get(k, 0.0) for k in keys)
+        return split
+
+    try:
+        client = _S3Client(gw.url)
+        status, _d, _h, _dt = client.request("PUT", "/profile")
+        check(status == 200, f"profile bucket: {status}")
+        bodies = [_s3_body(seed, 40_000 + i, 16 * 1024) for i in range(S3_PROFILE["small"])]
+        parts.clear()
+        lat = []
+        for i, body in enumerate(bodies):
+            status, data, _h, dt = client.request("PUT", f"/profile/s{i:04d}", body=body,
+                                                  mode="stream")
+            check(status == 200, f"profile PUT {i}: {status} {data[:200]!r}")
+            lat.append(dt)
+        rec["put_16KiB_chunked"] = split_of(lat)
+        import xml.etree.ElementTree as ET
+
+        status, data, _h, _dt = client.request("POST", "/profile/part.bin", "uploads=")
+        upload_id = ET.fromstring(data).findtext(
+            "{http://s3.amazonaws.com/doc/2006-03-01/}UploadId")
+        bodies = [_s3_body(seed, 41_000 + i, S3_PART) for i in range(S3_PROFILE["part"])]
+        parts.clear()
+        lat = []
+        for i, body in enumerate(bodies):
+            status, data, _h, dt = client.request(
+                "PUT", "/profile/part.bin", f"partNumber={i + 1}&uploadId={upload_id}", body)
+            check(status == 200, f"profile part {i}: {status} {data[:200]!r}")
+            lat.append(dt)
+        rec["put_part_8MiB"] = split_of(lat)
+        del bodies
+        client.request("DELETE", "/profile/part.bin", f"uploadId={upload_id}")
+        parts.clear()
+        lat = []
+        for i in range(S3_PROFILE["reads"]):
+            status, (_sha, n), _h, dt = client.request("GET", f"/profile/s{i % S3_PROFILE['small']:04d}",
+                                                       sink=True)
+            check(status == 200 and n == 16 * 1024, f"profile GET {i}: {status}, {n} bytes")
+            lat.append(dt)
+        rec["get_16KiB"] = split_of(lat)
+        for i in range(S3_PROFILE["small"]):
+            client.request("DELETE", f"/profile/s{i:04d}")
+        status, _d, _h, _dt = client.request("DELETE", "/profile")
+        check(status == 204, f"profile bucket delete: {status}")
+        client.close()
+    finally:
+        (handler._read_body, handler._auth_and_decode, s3_server.decode_aws_chunked,
+         upload.http_put_chunk, reader._fetch_chunk_from) = saved
+        gw.stop()
+    for label, split in rec.items():
+        print(f"s3: split {label} on {ident} (host time, ms a request): " + ", ".join(
+            f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in split.items()))
+    return rec
+
+
+def phase_s3(args, directory: str, ident: str, dev) -> dict:
+    """Phase 14: the S3 gateway.  One ``cli master -volumeSizeLimitMB 256``,
+    four ``cli volume -device cuda -scrubInterval 0 -scrubRateMB 0`` on two
+    racks, one ``cli filer -db <dir>`` and, in front, one ``cli s3 -filer
+    <the filer's gRPC> -accessKey K -secretKey S -cacheMB 64 -kmsKeyFile
+    F`` (SigV4 required; every request is signed by ``client_sign``).
+    Fill (16 clients): 8,192 objects of 1-64 KiB (a quarter as signed
+    aws-chunked bodies), 16 of 8-64 MiB and one of 1 GiB as multipart in
+    8 MiB parts, 10 parts at a time.  Mixed: MinIO warp mixed's 45/30/15/10
+    GET/HEAD/PUT/DELETE over the small objects, every answer held to a
+    model of key -> sha256, then a ListObjectsV2 walk equal to the model.
+    Features: CopyObject, Range GETs, a presigned GET, versions, tagging,
+    an anonymous 403 turned 200 by a bucket policy, SSE-S3 and SSE-C of a
+    16 MiB object, and a quota freeze by ``s3.bucket.quota.check``.
+    Coherence: an overwrite through the filer's HTTP API is seen through
+    the gateway (the metadata subscriber), and a hot set's second GET pass
+    reads the chunk cache.  The split of one PUT, one part and one GET.
+    EC: ``ec.encode -volumeId`` of every volume that holds the buckets
+    launches K1 once per batch in the servers; every object reads back
+    from the shards, again degraded after a SIGKILL, and a sample after
+    ``ec.rebuild`` (K1 again); the gateway restarts before each of those
+    passes so that its chunk cache cannot answer for the shards.  And
+    ``cli server -filer -s3 -device cuda`` takes a signed PUT and GET in
+    one process and stops on SIGTERM with rc 0.  Figures on ``s3:``
+    lines."""
+    import importlib.util
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.util.http_pool import HttpConnectionPool
+
+    ns = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+    seed = args.seed
+    root = os.path.join(directory, "s3")
+    dirs = [os.path.join(root, f"v{i}") for i in range(4)]
+    for d in dirs:
+        os.makedirs(d)
+    db = os.path.join(root, "db")
+    key_file = os.path.join(root, "kms.json")
+    log = os.path.join(root, "shell.log")
+    crypto = importlib.util.find_spec("cryptography") is not None
+    walls: dict = {}
+    rec: dict = dict(cryptography=crypto)
+    servers: list = []
+    filer = gw = None
+    victim = None
+    t_phase = time.perf_counter()
+    pool = HttpConnectionPool(timeout=60.0, max_per_host=64)
+    objs = _s3_objects(seed)
+    master = _Server("", "", os.path.join(root, "master.log"),
+                     argv=["master", "-port", "0", "-volumeSizeLimitMB", str(FILER_VOLUME_MB)])
+    try:
+        maddr = f"127.0.0.1:{master.grpc_port}"
+        mstub = rpc.master_stub(maddr)
+        t = time.perf_counter()
+        servers = [_Server(d, dev.type, os.path.join(root, f"v{i}.log"), wait=False, argv=[
+            "volume", "-dir", d, "-ip", "127.0.0.1", "-port", "0", "-grpcPort", "0",
+            "-metricsPort", "0", "-device", dev.type, "-mserver", maddr, "-rack", f"r{i % 2}",
+            "-scrubInterval", "0", "-scrubRateMB", "0"]) for i, d in enumerate(dirs)]
+        for s_ in servers:
+            s_.ready()
+            s_.url = f"127.0.0.1:{s_.http_port}"
+        urls = [s_.url for s_ in servers]
+        filer = _Server("", "", os.path.join(root, "filer.log"), argv=[
+            "filer", "-master", maddr, "-port", "0", "-db", db])
+        filer.faddr = f"127.0.0.1:{filer.http_port}"
+        filer.gaddr = f"127.0.0.1:{filer.grpc_port}"
+        gw_metrics = _free_ports(1)[0]
+        n_gw = [0]
+
+        def start_gateway():
+            n_gw[0] += 1
+            g = _Server("", "", os.path.join(root, f"s3.{n_gw[0]}.log"), wait=False, argv=[
+                "s3", "-master", maddr, "-filer", filer.gaddr, "-port", "0",
+                "-accessKey", S3_AK, "-secretKey", S3_SK, "-cacheMB", str(S3_CACHE_MB),
+                "-metricsPort", str(gw_metrics),
+                *(("-kmsKeyFile", key_file) if crypto else ())])
+            line = g.proc.stdout.readline().strip()
+            m = re.search(r"s3 gateway on (127\.0\.0\.1:\d+) \(auth=sigv4\)", line)
+            if m is None:
+                g.stop()
+                raise SmokeFailure(f"cli s3 did not start: {line!r}: {g.log_text()[-2000:]}")
+            g.addr = m[1]
+            return g
+
+        gw = start_gateway()
+        walls["servers_up"] = time.perf_counter() - t
+
+        def nodes() -> set:
+            topo = mstub.VolumeList(m_pb.VolumeListRequest(), timeout=60).topology_info
+            return {dn.id for dc in topo.data_center_infos for r in dc.rack_infos
+                    for dn in r.data_node_infos}
+
+        walls["registered"] = _poll(lambda: nodes() == set(urls), "all four nodes", 60)
+        print(f"s3: master {maddr}, four volume servers at {urls} on {ident}, filer "
+              f"{filer.faddr} (gRPC {filer.gaddr}), gateway {gw.addr} (SigV4, chunk cache "
+              f"{S3_CACHE_MB} MB, KMS {'on' if crypto else 'off: no cryptography package'}), "
+              f"up in {walls['servers_up']:.3f}s")
+        admin = _S3Client(gw.addr)
+        status, data, _h, _dt = admin.request("PUT", f"/{S3_BUCKET}")
+        check(status == 200, f"CreateBucket {S3_BUCKET}: {status} {data[:200]!r}")
+
+        # 1. the fill: 16 clients of small objects, then the multipart classes
+        model: dict = {}  # key -> (size, sha256, etag)
+
+        def put_small(client, o):
+            key, size, kind, bkey = o
+            body = _s3_body(seed, bkey, size)
+            md5 = hashlib.md5(body).hexdigest()
+            status, data, hdrs, dt = client.request(
+                "PUT", f"/{S3_BUCKET}/{key}", body=body,
+                mode="stream" if kind == "chunked" else "v4")
+            check(status == 200 and hdrs.get("etag") == f'"{md5}"',
+                  f"PUT {key} ({kind}): {status} {hdrs.get('etag')} != {md5}: {data[:200]!r}")
+            return hashlib.sha256(body).hexdigest(), md5, dt
+
+        smalls = [o for o in objs if o[2] in ("small", "chunked")]
+        t = time.perf_counter()
+        got = _s3_pool(gw.addr, smalls, put_small)
+        filled_md5 = {o[0]: g[1] for o, g in zip(smalls, got)}
+        fill = {"small": _class_figures("small", [o[1] for o in smalls], [g[2] for g in got],
+                                        time.perf_counter() - t)}
+        model.update({o[0]: (o[1], g[0], g[1]) for o, g in zip(smalls, got)})
+        for cls in ("large", "big"):
+            items = [o for o in objs if o[2] == cls]
+            t = time.perf_counter()
+            got = _s3_multipart(gw.addr, seed, items, lambda k: f"/{S3_BUCKET}/{k}")
+            fill[cls] = _class_figures(cls, [o[1] for o in items], [g[2] for g in got],
+                                       time.perf_counter() - t)
+            model.update({o[0]: (o[1], g[0], g[1]) for o, g in zip(items, got)})
+        rec["fill"] = fill
+        print(f"s3: fill on {ident}: " + "; ".join(
+            f"{cls} {r['files']} objects {r['files_per_s']:.1f}/s {r['mb_per_s']:.1f} MB/s p50 "
+            f"{r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms" for cls, r in fill.items())
+            + f"; {len(objs)} objects, {sum(o[1] for o in objs)} bytes; "
+            f"{sum(o[2] == 'chunked' for o in objs)} small ones as aws-chunked bodies")
+
+        # 2. mixed: warp's distribution over the small objects; the final listing
+        mixed_model = {k: (v[0], v[1], v[2]) for k, v in model.items()}
+        rec["mixed"] = mx = _s3_mixed(gw.addr, seed, mixed_model)
+        model = {k: v for k, v in mixed_model.items() if v is not None}
+        t = time.perf_counter()
+        listed, pages = _s3_list(admin, S3_BUCKET)
+        walls["list"] = time.perf_counter() - t
+        want_list = {k: (v[0], v[2]) for k, v in model.items()}
+        check(listed == want_list, f"the ListObjectsV2 walk holds {len(listed)} keys, the model "
+              f"{len(want_list)}; {len(set(listed) ^ set(want_list))} differ in name")
+        print(f"s3: mixed on {ident}: {mx['ops']} ops by {S3_CLIENTS} clients "
+              f"{mx['ops_per_s']:.1f} ops/s; " + "; ".join(
+                  f"{op} {mx[op]['n']} p50 {mx[op]['p50_ms']:.2f} ms p99 {mx[op]['p99_ms']:.2f} ms"
+                  for op, _w in S3_MIX)
+              + f"; every answer held to the model; ListObjectsV2 walk ({pages} pages of "
+              f"{S3_LIST_PAGE}) equals the model's {len(want_list)} keys in {walls['list']:.3f}s")
+
+        # 3. features
+        big_key = next(o for o in objs if o[2] == "big")
+        large = next(o for o in objs if o[2] == "large")
+        status, data, _h, _dt = admin.request(
+            "PUT", f"/{S3_BUCKET}/copies/{large[0]}",
+            headers={"x-amz-copy-source": f"/{S3_BUCKET}/{large[0]}"})
+        check(status == 200 and ET.fromstring(data).tag == f"{ns}CopyObjectResult",
+              f"CopyObject: {status} {data[:200]!r}")
+        status, (sha, n), _h, _dt = admin.request("GET", f"/{S3_BUCKET}/copies/{large[0]}",
+                                                  sink=True)
+        check(status == 200 and (n, sha) == model[large[0]][:2], f"the copy reads {status}, {n} B")
+        rng = np.random.default_rng([seed, 1401])
+        for _ in range(S3_RANGE_READS):
+            edge = int(rng.integers(1, S3_BIG_BYTES // S3_PART)) * S3_PART
+            lo = edge - int(rng.integers(1, 3 * MIB))
+            hi = edge + int(rng.integers(0, 3 * MIB))
+            status, data, hdrs, _dt = admin.request(
+                "GET", f"/{S3_BUCKET}/{big_key[0]}", headers={"Range": f"bytes={lo}-{hi}"})
+            check(status == 206 and data == _s3_body(seed, big_key[3], big_key[1], lo, hi + 1)
+                  and hdrs.get("content-range") == f"bytes {lo}-{hi}/{big_key[1]}",
+                  f"Range {lo}-{hi} of the 1 GiB object: {status}, {len(data)} B, {hdrs}")
+        small_key = next(k for k in sorted(model) if k.startswith("small/"))
+        status, (sha, n), _h, _dt = admin.request("GET", f"/{S3_BUCKET}/{small_key}",
+                                                  mode="presign", sink=True)
+        check(status == 200 and (n, sha) == model[small_key][:2], f"presigned GET: {status}")
+        status, _d, _h, _dt = admin.request("GET", f"/{S3_BUCKET}/{small_key}", mode="anon")
+        check(status == 403, f"an anonymous GET answered {status}")
+        # versions
+        admin.request("PUT", "/versioned")
+        status, _d, _h, _dt = admin.request(
+            "PUT", "/versioned", "versioning=",
+            b"<VersioningConfiguration><Status>Enabled</Status></VersioningConfiguration>")
+        check(status == 200, f"PutBucketVersioning: {status}")
+        vids = []
+        for i in range(3):
+            body = _s3_body(seed, 50_000 + i, 10_000 + i)
+            status, _d, hdrs, _dt = admin.request("PUT", "/versioned/doc.txt", body=body)
+            check(status == 200 and hdrs.get("x-amz-version-id"), f"versioned PUT {i}: {status}")
+            vids.append((hdrs["x-amz-version-id"], body))
+        check(len({v for v, _b in vids}) == 3, f"three PUTs gave version ids {vids}")
+        for vid, body in vids:
+            status, data, hdrs, _dt = admin.request("GET", "/versioned/doc.txt",
+                                                    f"versionId={vid}")
+            check(status == 200 and data == body and hdrs.get("x-amz-version-id") == vid,
+                  f"GET versionId={vid}: {status}")
+        status, data, _h, _dt = admin.request("GET", "/versioned", "versions=")
+        check(status == 200 and sorted(v.findtext(f"{ns}VersionId") for v in
+                                       ET.fromstring(data).iter(f"{ns}Version"))
+              == sorted(v for v, _b in vids), f"ListObjectVersions: {data[:300]!r}")
+        # tagging
+        tags = (b"<Tagging><TagSet><Tag><Key>team</Key><Value>storage</Value></Tag></TagSet>"
+                b"</Tagging>")
+        status, _d, _h, _dt = admin.request("PUT", f"/{S3_BUCKET}/{small_key}", "tagging=", tags)
+        status2, data, _h, _dt = admin.request("GET", f"/{S3_BUCKET}/{small_key}", "tagging=")
+        check(status == 200 and status2 == 200 and b"<Key>team</Key><Value>storage</Value>" in data,
+              f"tagging: {status} {status2} {data[:300]!r}")
+        # an anonymous read turned 200 by a bucket policy
+        admin.request("PUT", "/public")
+        page = _s3_body(seed, 51_000, 20_000)
+        admin.request("PUT", "/public/page.html", body=page)
+        status, _d, _h, _dt = admin.request("GET", "/public/page.html", mode="anon")
+        check(status == 403, f"anonymous GET before the policy: {status}")
+        policy = json.dumps({"Version": "2012-10-17", "Statement": [{
+            "Effect": "Allow", "Principal": "*", "Action": "s3:GetObject",
+            "Resource": "arn:aws:s3:::public/*"}]}).encode()
+        status, _d, _h, _dt = admin.request("PUT", "/public", "policy=", policy)
+        check(status == 204, f"PutBucketPolicy: {status}")
+        status, data, _h, _dt = admin.request("GET", "/public/page.html", mode="anon")
+        check(status == 200 and data == page, f"anonymous GET after the policy: {status}")
+        # SSE-S3 and SSE-C of a 16 MiB object
+        secret = _s3_body(seed, 52_000, S3_SSE_BYTES)
+        ckey = hashlib.sha256(b"customer key").digest()
+        sse_c = {"x-amz-server-side-encryption-customer-algorithm": "AES256",
+                 "x-amz-server-side-encryption-customer-key": base64.b64encode(ckey).decode(),
+                 "x-amz-server-side-encryption-customer-key-md5":
+                     base64.b64encode(hashlib.md5(ckey).digest()).decode()}
+        sse = {}
+        for label, hdrs in (("sse_s3", {"x-amz-server-side-encryption": "AES256"}),
+                            ("sse_c", sse_c)):
+            t = time.perf_counter()
+            status, data, _h, _dt = admin.request("PUT", f"/{S3_BUCKET}/sealed/{label}.bin",
+                                                  body=secret, headers=hdrs)
+            if not crypto:
+                check(status == 501 and b"NotImplemented" in data,
+                      f"{label} without cryptography answered {status} {data[:200]!r}")
+                sse[label] = "501"
+                continue
+            check(status == 200, f"{label} PUT: {status} {data[:200]!r}")
+            get_hdrs = sse_c if label == "sse_c" else {}
+            status, data, rh, _dt = admin.request("GET", f"/{S3_BUCKET}/sealed/{label}.bin",
+                                                  headers=get_hdrs)
+            check(status == 200 and data == secret, f"{label} GET: {status}, {len(data)} B")
+            sse[label] = time.perf_counter() - t
+            if label == "sse_c":
+                status, _d, _h, _dt = admin.request("GET", f"/{S3_BUCKET}/sealed/{label}.bin")
+                check(status == 400, f"an SSE-C GET without the key answered {status}")
+        rec["sse"] = sse
+        # a quota freezes a bucket through s3.bucket.quota.check
+        admin.request("PUT", "/quota")
+        for i in range(3):
+            admin.request("PUT", f"/quota/q{i}.bin", body=_s3_body(seed, 53_000 + i, MIB))
+        walls["quota_check"], out = _shell(
+            maddr, "lock; s3.bucket.quota -name quota -sizeMB 2; s3.bucket.quota.check; unlock",
+            log, filer=filer.gaddr)
+        check("quota: used" in out and "FREEZING" in out, f"s3.bucket.quota.check: {out!r}")
+        def refused() -> bool:
+            status, data, _h, _dt = admin.request("PUT", "/quota/q9.bin", body=b"x" * 1000)
+            return status == 403 and b"QuotaExceeded" in data
+
+        walls["quota_visible"] = _poll(refused, "the frozen bucket to refuse a PUT", 10)
+        status, _d, _h, _dt = admin.request("GET", "/quota/q0.bin")
+        check(status == 200, f"a GET of the frozen bucket: {status}")
+        print(f"s3: features on {ident}: CopyObject of a {large[1]} B object, {S3_RANGE_READS} "
+              f"Range GETs across the 1 GiB object's part boundaries, a presigned GET, 3 versions "
+              f"read by versionId, tagging, an anonymous 403 turned 200 by a bucket policy, "
+              f"SSE {sse} (s, PUT + GET of {S3_SSE_BYTES} B), quota freeze by "
+              f"s3.bucket.quota.check visible in {walls['quota_visible']:.3f}s")
+
+        # 4. coherence: an overwrite through the filer's HTTP API
+        # a small object the mixed run left as the fill wrote it
+        k_over = next(o for o in smalls if o[0] != small_key and o[0] in model
+                      and model[o[0]][2] == filled_md5[o[0]])
+        status, data, _h, _dt = admin.request("GET", f"/{S3_BUCKET}/{k_over[0]}")
+        check(status == 200, f"GET {k_over[0]} before the overwrite: {status}")
+        fresh = _s3_body(seed, 54_000, 30_000)
+        t = time.perf_counter()
+        status, reply = pool.request(filer.faddr, "POST", f"/buckets/{S3_BUCKET}/{k_over[0]}",
+                                     body=fresh)
+        check(status == 201, f"the filer POST of {k_over[0]}: {status} {reply[:200]!r}")
+        t_written = time.perf_counter()
+
+        def fresh_visible() -> bool:
+            status, data, _h, _dt = admin.request("GET", f"/{S3_BUCKET}/{k_over[0]}")
+            return status == 200 and data == fresh
+
+        _poll(fresh_visible, "the filer-side overwrite through the gateway", 10)
+        walls["coherence_visible"] = time.perf_counter() - t_written
+        walls["coherence_post"] = t_written - t
+        # put the object back through the gateway so that its ETag is S3's again
+        status, _d, _h, _dt = admin.request("PUT", f"/{S3_BUCKET}/{k_over[0]}",
+                                            body=_s3_body(seed, k_over[3], k_over[1]))
+        check(status == 200, f"re-PUT of {k_over[0]}: {status}")
+
+        def cachez() -> dict:
+            status, body = pool.request(f"127.0.0.1:{gw_metrics}", "GET", "/debug/cachez")
+            check(status == 200, f"/debug/cachez: {status}")
+            caches = json.loads(body)["caches"]
+            check(len(caches) == 1, f"/debug/cachez lists {len(caches)} caches")
+            return caches[0]
+
+        hot = [k for k in sorted(model) if k.startswith("small/")][:S3_HOT_SET]
+
+        def get_hot(client, key):
+            status, (sha, n), _h, dt = client.request("GET", f"/{S3_BUCKET}/{key}", sink=True)
+            check(status == 200 and (n, sha) == model[key][:2], f"hot GET {key}: {status}")
+            return dt
+
+        _s3_pool(gw.addr, hot, get_hot)
+        c0 = cachez()
+        lat = _s3_pool(gw.addr, hot, get_hot)
+        c1 = cachez()
+        hits, misses = c1["hits"] - c0["hits"], c1["misses"] - c0["misses"]
+        rec["cache"] = dict(hits=hits, misses=misses, hit_ratio=hits / max(1, hits + misses),
+                            p50_ms=float(np.percentile(np.array(lat) * 1e3, 50)),
+                            snapshot=c1)
+        check(hits > 0, f"the second pass over the hot set hit the chunk cache {hits} times")
+        print(f"s3: coherence on {ident}: a filer-side overwrite of {k_over[0]} visible through the "
+              f"gateway {walls['coherence_visible'] * 1e3:.3f} ms after the filer's 201; the hot "
+              f"set's second pass ({len(hot)} GETs) hit ratio {rec['cache']['hit_ratio']:.4f} "
+              f"({hits} hits, {misses} misses; p50 {rec['cache']['p50_ms']:.3f} ms), "
+              f"/debug/cachez: {c1['entries']} entries, {c1['ram_bytes']} RAM bytes, "
+              f"{c1['segment_files']} segment files")
+
+        # 5. the split of one request (in process, its bucket deleted at the end)
+        rec["split"] = _s3_profile(maddr, filer.gaddr, seed, ident)
+        admin.close()
+
+        # 6. ec.encode of every volume that holds the buckets
+        vols: dict = {}
+        for d in dirs:
+            for n_ in os.listdir(d):
+                mm = re.fullmatch(r"(\d+)\.dat", n_)
+                if mm and os.path.getsize(os.path.join(d, n_)) > 8:
+                    vols[int(mm[1])] = max(vols.get(int(mm[1]), 0),
+                                           os.path.getsize(os.path.join(d, n_)))
+        tasks = sum(len(ec_encoder._plan_tasks(DEFAULT_SCHEME, s, ec_encoder.DEFAULT_CHUNK))
+                    for s in vols.values())
+        k1_before = {s_.url: metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply")
+                     for s_ in servers}
+        check(not any(k1_before.values()), f"K1 launched before the encode: {k1_before}")
+        walls["ec_encode"], _out = _shell(maddr, "lock; " + "; ".join(
+            f"ec.encode -volumeId {vid}" for vid in sorted(vols)) + "; unlock", log)
+        by_grpc = {f"127.0.0.1:{s_.grpc_port}": d for s_, d in zip(servers, dirs)}
+        for vid in vols:
+            _poll(lambda: _ec_census(mstub, vid)["holders"] == _disk_shards(by_grpc, str(vid)),
+                  f"the master's EC census of {vid} to match the disks", 60)
+        k1 = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply"))
+              for s_ in servers}
+        check(sum(k1.values()) == tasks and tasks > 0,
+              f"K1 launches by server {k1}; the generates of {len(vols)} volumes have {tasks} batches")
+        check(not any(re.fullmatch(r"\d+\.dat", n_) for d in dirs for n_ in os.listdir(d)
+                      if int(n_.split(".")[0]) in vols), "an encoded volume's .dat survived")
+        print(f"s3: ec.encode -volumeId of {len(vols)} volumes ({sum(vols.values())} B) "
+              f"{walls['ec_encode']:.3f}s on {ident}; K1 launches by server {k1} (= {tasks} "
+              f"batches)")
+        model_etag = model
+        check(gw.stop() == 0, "the gateway did not stop cleanly")
+        gw = start_gateway()  # an empty chunk cache: every read comes from the shards
+        rec["read_ec"] = _s3_read_all(gw.addr, S3_BUCKET, model_etag, "from EC shards")
+
+        # a volume server SIGKILLed: degraded reads; ec.rebuild
+        census = {vid: _ec_census(mstub, vid)["holders"] for vid in vols}
+
+        def data_shards(s_) -> int:
+            return sum(sid < 10 for h in census.values()
+                       for sid in h.get(f"127.0.0.1:{s_.grpc_port}", []))
+
+        victim = max(servers, key=data_shards)
+        victim_addr = f"127.0.0.1:{victim.grpc_port}"
+        live = [s_ for s_ in servers if s_ is not victim]
+        victim.proc.send_signal(signal.SIGKILL)
+        victim.proc.wait()
+        walls["prune_wait"] = _poll(lambda: victim.url not in nodes(),
+                                    f"the master to prune {victim.url}", PRUNE_WAIT_S)
+        print(f"s3: SIGKILL {victim.url} ({data_shards(victim)} data shards); pruned after "
+              f"{walls['prune_wait']:.3f}s")
+        check(gw.stop() == 0, "the gateway did not stop cleanly")
+        gw = start_gateway()
+        rec["read_degraded"] = _s3_read_all(gw.addr, S3_BUCKET, model_etag, "degraded")
+        rec["reconstructed_intervals"] = int(sum(
+            metric(s_.metrics(), "weedtpu_ec_degraded_reads_total", mode="reconstruct")
+            for s_ in live))
+        check(rec["reconstructed_intervals"] > 0 and data_shards(victim) > 0,
+              f"the degraded reads reconstructed {rec['reconstructed_intervals']} intervals")
+        k1_live = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches",
+                                      kernel="gf_apply")) for s_ in live}
+        walls["ec_rebuild"], _out = _shell(maddr, "lock; " + "; ".join(
+            f"ec.rebuild -volumeId {vid}" for vid in sorted(vols)) + "; unlock", log)
+        k1_rebuild = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches",
+                                         kernel="gf_apply")) - k1_live[s_.url] for s_ in live}
+        check(sum(k1_rebuild.values()) > 0, f"ec.rebuild launched no K1: {k1_rebuild}")
+        live_grpc = {a: d for a, d in by_grpc.items() if a != victim_addr}
+        for vid in vols:
+            _poll(lambda: sorted(s for sids in _disk_shards(live_grpc, str(vid)).values()
+                                 for s in sids) == list(range(14)),
+                  f"14 shards of {vid} on the live servers", 60)
+        check(gw.stop() == 0, "the gateway did not stop cleanly")
+        gw = start_gateway()
+        rng = np.random.default_rng([seed, 1409])
+        keys = sorted(model_etag)
+        picks = {k: model_etag[k] for k in [big_key[0]] + [
+            keys[i] for i in rng.choice(len(keys), min(S3_REBUILD_SAMPLE - 1, len(keys)),
+                                        replace=False)]}
+        rec["read_rebuilt"] = _s3_read_all(gw.addr, S3_BUCKET, picks, "after ec.rebuild")
+        print(f"s3: ec.rebuild of {len(vols)} volumes {walls['ec_rebuild']:.3f}s on {ident}; K1 "
+              f"launches {k1_rebuild}; every volume has 14 shards on the live servers")
+
+        # 7. cli server -filer -s3 -device <dev>: one process
+        srv_dir = os.path.join(root, "server")
+        os.makedirs(srv_dir)
+        t = time.perf_counter()
+        one = _Server("", "", os.path.join(root, "server.log"), wait=False, argv=[
+            "server", "-filer", "-s3", "-device", dev.type, "-dir", srv_dir, "-masterPort", "0",
+            "-port", "0", "-filerPort", "0", "-s3Port", "0", "-s3AccessKey", S3_AK,
+            "-s3SecretKey", S3_SK])
+        line = one.proc.stdout.readline().strip()
+        walls["server_up"] = time.perf_counter() - t
+        m = re.search(r"s3 (127\.0\.0\.1:\d+) \(sigv4\)", line)
+        if m is None:
+            one.stop()
+            raise SmokeFailure(f"cli server -filer -s3 did not start: {line!r}: "
+                               f"{one.log_text()[-2000:]}")
+        c1_ = _S3Client(m[1])
+        body = _s3_body(seed, 55_000, 3 * MIB + 5)
+        status0, _d, _h, _dt = c1_.request("PUT", "/one")
+        deadline = time.perf_counter() + 60
+        while True:
+            status, reply, _h, _dt = c1_.request("PUT", "/one/x.bin", body=body)
+            if status == 200 or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)  # until the volume server's first heartbeat
+        status2, got, _h, _dt = c1_.request("GET", "/one/x.bin")
+        c1_.close()
+        rc_one = one.stop()
+        check(status0 == 200 and status == 200 and status2 == 200 and got == body and rc_one == 0,
+              f"cli server -filer -s3: CreateBucket {status0}, PUT {status} {reply[:200]!r}, GET "
+              f"{status2} ({'equal' if got == body else 'differs'}), rc {rc_one}")
+        print(f"s3: cli server -filer -s3 -device {dev.type} up in {walls['server_up']:.3f}s "
+              f"({line}); one signed PUT and GET equal; SIGTERM rc 0")
+    finally:
+        pool.close()
+        rcs = {getattr(s_, "url", s_.proc.pid): s_.stop() for s_ in servers}
+        if gw is not None:
+            rcs["s3"] = gw.stop()
+        if filer is not None:
+            rcs["filer"] = filer.stop()
+        rcs["master"] = master.stop()
+    check(all(rc == 0 for k, rc in rcs.items() if victim is None or k != victim.url)
+          and victim is not None and rcs[victim.url] == -signal.SIGKILL,
+          f"s3 phase processes exited {rcs}")
+    walls["phase"] = time.perf_counter() - t_phase
+    rec.update(walls=walls, launches=tasks + sum(k1_rebuild.values()), launches_encode=tasks,
+               launches_rebuild=sum(k1_rebuild.values()), volumes=len(vols), objects=len(objs),
+               bytes=sum(o[1] for o in objs), rcs={str(k): v for k, v in rcs.items()})
+    print("s3: " + json.dumps(rec, sort_keys=True))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4699,6 +5641,17 @@ def main() -> int:
         filer_fill={cls: {k: r[k] for k in ("files", "files_per_s", "mb_per_s", "p50_ms", "p99_ms")}
                     for cls, r in filer["fill"].items()},
         filer_rss_mib=filer["rss_mib"],
+    )
+    s3 = main_path["s3"]
+    record["kernels"][0]["launches"] += s3["launches"]
+    record["kernels"][0].update(
+        launches_s3=s3["launches"],
+        launches_s3_encode=s3["launches_encode"],
+        launches_s3_rebuild=s3["launches_rebuild"],
+        s3_walls_s=s3["walls"],
+        s3_fill={cls: {k: r[k] for k in ("files", "files_per_s", "mb_per_s", "p50_ms", "p99_ms")}
+                 for cls, r in s3["fill"].items()},
+        s3_mixed_ops_per_s=s3["mixed"]["ops_per_s"],
     )
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)

@@ -1,8 +1,8 @@
-"""``master``, ``volume``, ``filer`` and ``server``: run the port's master,
-volume server and filer, apart or in one process.
+"""``master``, ``volume``, ``filer``, ``s3`` and ``server``: run the port's
+master, volume server, filer and S3 gateway, apart or in one process.
 
 The port of seaweedfs_tpu/commands/servers.py's ``master``, ``volume``,
-``filer`` and ``server`` commands.  ``master`` takes ``-ip``, ``-port`` (its HTTP endpoints; 0
+``filer``, ``s3`` and ``server`` commands.  ``master`` takes ``-ip``, ``-port`` (its HTTP endpoints; 0
 binds a free port), ``-grpcPort`` (default ``-port`` + 10000; with
 ``-port 0``, a free port), ``-volumeSizeLimitMB``, ``-defaultReplication``,
 ``-jwtKey`` and, for HA, ``-peers`` (every master's ``ip:port``, itself
@@ -28,10 +28,19 @@ it raises and exits.  ``filer`` takes ``-master``, ``-ip``, ``-port``,
 ``-grpcPort``, ``-db`` (the store: filer.make_store), ``-maxMB`` (the chunk
 size), ``-metricsPort`` (0: none) and ``-metaLogDir``; it runs no kernel
 and takes no device, and its ``-notify``, ``-tlsCert`` and ``-tlsKey``
-raise (not ported).  ``server`` runs a master, one volume server (its
-``-device`` as ``volume``'s) and, with ``-filer``, a filer in one process;
-its ``-s3`` and ``-webdav`` raise (not ported).  SIGINT or SIGTERM stops
-any of them.
+raise (not ported).  ``s3`` runs the S3 gateway in one process: over an
+embedded filer, or with ``-filer`` (one filer's gRPC address) over
+``RemoteFiler`` and the metadata subscriber; it takes ``-master``,
+``-ip``, ``-port`` (0 binds a free port), ``-accessKey``/``-secretKey``
+(SigV4 and V2 required), ``-kmsKeyFile`` or ``-kms`` (SSE-S3),
+``-cacheMB`` (the hot-chunk cache), ``-circuitBreakerFile``, ``-qosFile``,
+``-accessLog``, ``-lifecycleSweepSec``, ``-metricsPort`` and
+``-reusePort``; it runs no kernel and takes no device, and ``-workers``
+above 1, a comma list in ``-filer``, ``-tlsCert`` and ``-tlsKey`` raise
+(not ported).  ``server`` runs a master, one volume server (its
+``-device`` as ``volume``'s) and, with ``-filer``, a filer, and with
+``-s3`` a gateway over that filer, in one process; its ``-webdav``
+raises (not ported).  SIGINT or SIGTERM stops any of them.
 """
 
 from __future__ import annotations
@@ -225,13 +234,125 @@ def _filer_flags(p) -> None:
 run_filer.configure = _filer_flags
 
 
-@command("server", "run master + volume (+ filer) in one process")
+@command("s3", "run an S3-compatible gateway over the filer")
+def run_s3(args) -> int:
+    from seaweedfs_tpu_torch.s3 import S3ApiServer
+    from seaweedfs_tpu_torch.s3.auth import Identity
+    from seaweedfs_tpu_torch.s3.s3_server import NOT_PORTED
+
+    if args.workers > 1:
+        raise NotImplementedError(f"s3 -workers {args.workers}: {NOT_PORTED}")
+    if args.tlsCert or args.tlsKey:
+        raise NotImplementedError(f"s3 -tlsCert/-tlsKey: {NOT_PORTED}")
+
+    identities = None
+    if args.accessKey:
+        identities = {args.accessKey: Identity(args.accessKey, args.secretKey, "admin")}
+    kms = None
+    if args.kms:
+        from seaweedfs_tpu_torch.security.kms import make_kms
+
+        kms = make_kms(args.kms)
+    elif args.kmsKeyFile:
+        from seaweedfs_tpu_torch.security.kms import LocalKms
+
+        kms = LocalKms(args.kmsKeyFile)
+    cb_config = qos_config = None
+    if args.circuitBreakerFile:
+        import json
+
+        with open(args.circuitBreakerFile) as f:
+            cb_config = json.load(f)
+    if args.qosFile:
+        import json
+
+        with open(args.qosFile) as f:
+            qos_config = json.load(f)
+    shared_filer = None
+    if args.filer:
+        from seaweedfs_tpu_torch.filer.remote import RemoteFiler
+        from seaweedfs_tpu_torch.wdclient import MasterClient
+
+        addrs = [a.strip() for a in args.filer.split(",") if a.strip()]
+        if len(addrs) > 1:
+            raise NotImplementedError(
+                f"s3 -filer with {len(addrs)} addresses (the shard ring): "
+                "not ported to seaweedfs_tpu_torch (ROADMAP Queue A item 1)")
+        shared_filer = RemoteFiler(addrs[0], MasterClient(args.master))
+    gw = S3ApiServer(
+        args.master,
+        ip=args.ip,
+        port=args.port,
+        filer=shared_filer,
+        identities=identities,
+        kms=kms,
+        lifecycle_sweep_interval=args.lifecycleSweepSec,
+        circuit_breaker_config=cb_config,
+        qos_config=qos_config,
+        access_log=args.accessLog,
+        reuse_port=args.reusePort,
+        chunk_cache_mb=(args.cacheMB if args.cacheMB >= 0 else None),
+    )
+    gw.start()
+    try:
+        if args.metricsPort:
+            from seaweedfs_tpu_torch import stats
+
+            stats.start_metrics_server(args.metricsPort, args.ip)
+        mode = "sigv4" if identities else "open"
+        print(f"s3 gateway on {gw.url} (auth={mode})", flush=True)
+        _wait_forever()
+    finally:
+        gw.stop()
+    return 0
+
+
+def _s3_flags(p) -> None:
+    p.add_argument("-master", default="127.0.0.1:19333", help="master gRPC address")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8333)
+    p.add_argument("-accessKey", default="", help="enable SigV4 with this key")
+    p.add_argument("-secretKey", default="")
+    p.add_argument("-metricsPort", type=int, default=0, help="Prometheus /metrics")
+    p.add_argument("-accessLog", default="",
+                   help="per-request S3 access log: '-' for stderr or a file path")
+    p.add_argument("-kmsKeyFile", default="",
+                   help="enable SSE-S3 with this local KMS key file")
+    p.add_argument("-kms", default="",
+                   help="KMS provider spec: local:file.json, openbao://h:8200/"
+                   "transit?token=..., aws://region, gcp://, azure://vault-url")
+    p.add_argument("-circuitBreakerFile", default="",
+                   help="static request-limit JSON (else polled from the filer's "
+                   "/etc/s3/circuit_breaker.json via s3.circuitbreaker)")
+    p.add_argument("-filer", default="",
+                   help="ride a shared filer server (host:grpc_port) instead of an "
+                   "embedded in-process filer (a comma list is not ported: raises)")
+    p.add_argument("-qosFile", default="",
+                   help="static tenant/bucket QoS JSON (else polled from the "
+                   "filer's /etc/s3/qos.json via the s3.qos shell command)")
+    p.add_argument("-tlsCert", default="", help="TLS certificate (not ported: raises)")
+    p.add_argument("-tlsKey", default="", help="TLS key (not ported: raises)")
+    p.add_argument("-lifecycleSweepSec", type=float, default=3600.0,
+                   help="seconds between lifecycle expiration sweeps (0 disables)")
+    p.add_argument("-workers", type=int, default=1,
+                   help="gateway processes sharing the port (above 1 not ported: raises)")
+    p.add_argument("-reusePort", action="store_true",
+                   help="bind the listen port with SO_REUSEPORT")
+    p.add_argument("-cacheMB", type=float, default=-1,
+                   help="hot-chunk cache (util/chunk_cache): S3-FIFO over mmap'd "
+                   "segment files; default -1 reads WEED_CHUNK_CACHE_MB (0/unset = off)")
+
+
+run_s3.configure = _s3_flags
+
+
+@command("server", "run master + volume (+ filer, s3) in one process")
 def run_server(args) -> int:
-    """All-in-one node (reference `weed server -filer`)."""
-    if args.s3 or args.webdav:
+    """All-in-one node (reference `weed server -filer -s3`)."""
+    if args.webdav:
         raise NotImplementedError(
-            "server -s3 and -webdav are not ported to seaweedfs_tpu_torch yet "
-            "(ROADMAP Queue A items 2 and 4)")
+            "server -webdav is not ported to seaweedfs_tpu_torch yet "
+            "(ROADMAP Queue A item 4)")
     from seaweedfs_tpu_torch.server.master_server import MasterServer
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 
@@ -247,7 +368,7 @@ def run_server(args) -> int:
         services.append(vs)
         parts = [f"master {ms.advertise} (gRPC {ms.grpc_address})",
                  f"volume {vs.url} (gRPC {vs.ip}:{vs.grpc_port}, device {vs.device})"]
-        if args.filer:
+        if args.filer or args.s3:
             from seaweedfs_tpu_torch.server.filer_server import FilerServer
 
             fs = FilerServer(ms.grpc_address, ip=args.ip, port=args.filerPort,
@@ -255,6 +376,21 @@ def run_server(args) -> int:
             fs.start()
             services.append(fs)
             parts.append(f"filer {fs.url} (gRPC {fs.grpc_address})")
+        if args.s3:
+            from seaweedfs_tpu_torch.s3 import S3ApiServer
+            from seaweedfs_tpu_torch.s3.auth import Identity
+
+            identities = None
+            if args.s3AccessKey:
+                identities = {args.s3AccessKey: Identity(args.s3AccessKey, args.s3SecretKey,
+                                                         "admin")}
+            # ride the filer's metadata engine: shell s3.* and the S3 API
+            # see one namespace (the reference's weed server -s3 shape)
+            gw = S3ApiServer(ms.grpc_address, ip=args.ip, port=args.s3Port, filer=fs.filer,
+                             identities=identities)
+            gw.start()
+            services.append(gw)
+            parts.append(f"s3 {gw.url} ({'sigv4' if identities else 'open'})")
         print("server: " + ", ".join(parts), flush=True)
         _wait_forever()
     finally:
@@ -279,7 +415,11 @@ def _server_flags(p) -> None:
     p.add_argument("-filer", action="store_true", help="also run a filer")
     p.add_argument("-filerPort", type=int, default=8888)
     p.add_argument("-db", default="", help="filer store (see `filer -h`)")
-    p.add_argument("-s3", action="store_true", help="S3 gateway (not ported: raises)")
+    p.add_argument("-s3", action="store_true", help="also run the S3 gateway")
+    p.add_argument("-s3Port", type=int, default=8333)
+    p.add_argument("-s3AccessKey", default="",
+                   help="require SigV4 with this key (default: OPEN, unauthenticated)")
+    p.add_argument("-s3SecretKey", default="")
     p.add_argument("-webdav", action="store_true", help="WebDAV (not ported: raises)")
 
 

@@ -11,10 +11,10 @@ response write and never holds more than the window in memory.
 All chunk HTTP rides the shared keep-alive pool (util/http_pool) instead
 of a TCP connect/close per chunk.
 
-The port's copy of seaweedfs_tpu/filer/reader.py.  Two parts of the JAX
-module wait for later work: the client spans of its tracing layer
-(ROADMAP Queue A item 3) and the gateway hot-chunk cache
-(``chunk_cache``, which only the S3 gateway passes; Queue A item 2).
+The port's copy of seaweedfs_tpu/filer/reader.py, with the gateway
+hot-chunk cache (``fetch_chunk_cached``, ``stream_entry(chunk_cache=)``).
+The client spans of the JAX module's tracing layer wait for later work
+(ROADMAP Queue A item 3).
 """
 
 from __future__ import annotations
@@ -155,6 +155,35 @@ def fetch_chunk(master: MasterClient, fid: str, offset: int = 0, size: int = -1)
     raise last_err
 
 
+def fetch_chunk_cached(
+    cache, master: MasterClient, fid: str, offset: int, size: int,
+) -> bytes:
+    """:func:`fetch_chunk` through the gateway hot-chunk cache
+    (util/chunk_cache): a hit never touches the volume server, a
+    cacheable miss fills single-flight, and anything the cache rejects
+    (oversized, whole-chunk ``size < 0`` reads) rides the plain fetch.
+    ``cache`` may be None: the zero-cost passthrough."""
+    if cache is None or size < 0 or not cache.cacheable(size):
+        return fetch_chunk(master, fid, offset, size)
+    hit = cache.lookup(fid, offset, offset + size - 1)
+    if hit is not None:
+        try:
+            return hit.bytes_view()
+        finally:
+            hit.close()
+
+    def loader() -> bytes:
+        from seaweedfs_tpu_torch.stats import plane
+
+        # the upstream fetch exists to populate the cache: bill it to
+        # the cache_fill plane so warm-up traffic is distinguishable
+        # from plain serve reads in weedtpu_plane_bytes_total
+        with plane.tagged(plane.CACHE_FILL):
+            return fetch_chunk(master, fid, offset, size)
+
+    return cache.fill(fid, offset, offset + size - 1, loader)
+
+
 def delete_chunk(master: MasterClient, fid: str) -> None:
     url = master.lookup_file_id(fid)
     auth = master.sign_write(fid)
@@ -191,15 +220,25 @@ def delete_entry_chunks(master: MasterClient, entry: Entry) -> None:
                 wlog.info("delete: chunk %s not deleted (vacuum will): %s", chunk.fid, e)
 
 
-def resolve_chunks(master: MasterClient, entry: Entry):
-    """Expand any manifest chunks in the entry's list (no-op otherwise)."""
+def resolve_chunks(master: MasterClient, entry: Entry, chunk_cache=None):
+    """Expand any manifest chunks in the entry's list (no-op otherwise).
+
+    With a ``chunk_cache``, the manifest lineage is recorded
+    (``link_fids``): delete/overwrite events carry only the top-level
+    chunk fids, so the cache must know which data-chunk ranges a retired
+    manifest fid expands to, or they would sit unreclaimed until
+    organic eviction."""
     from seaweedfs_tpu_torch.filer import manifest
 
     if not manifest.has_chunk_manifest(entry.chunks):
         return entry.chunks
-    data, _manifests = manifest.resolve_chunk_manifest(
+    data, manifests = manifest.resolve_chunk_manifest(
         lambda fid: fetch_chunk(master, fid), entry.chunks
     )
+    if chunk_cache is not None:
+        data_fids = [c.fid for c in data]
+        for m in manifests:
+            chunk_cache.link_fids(m.fid, data_fids)
     return data
 
 
@@ -217,6 +256,7 @@ def stream_entry(
     size: int = -1,
     *,
     window: int = PREFETCH_WINDOW,
+    chunk_cache=None,
 ) -> Iterator[bytes]:
     """Yield [offset, offset+size) of a file entry as an ordered series
     of byte pieces.
@@ -226,14 +266,16 @@ def stream_entry(
     fan-out of view N+1..N+window overlaps writing view N to the client.
     Gaps between visible intervals (sparse files) yield zero blocks;
     Range reads, overlapping chunk versions and manifest chunks resolve
-    through the same interval fold as the materializing reader."""
+    through the same interval fold as the materializing reader.  With a
+    ``chunk_cache`` (util/chunk_cache) every view consults the gateway
+    hot-chunk tier before touching a volume server."""
     if entry.content:
         data = entry.content
         piece = data[offset:] if size < 0 else data[offset : offset + size]
         if piece:
             yield bytes(piece)
         return
-    chunks = resolve_chunks(master, entry)
+    chunks = resolve_chunks(master, entry, chunk_cache)
     file_size = total_size(chunks)
     if size < 0:
         size = max(0, file_size - offset)
@@ -246,7 +288,9 @@ def stream_entry(
         # single-view read (1MB objects on the S3 hot path): fetch on
         # the calling thread — the prefetch pool has nothing to overlap
         v = views[0]
-        data = fetch_chunk(master, v.fid, v.offset_in_chunk, v.size)
+        data = fetch_chunk_cached(
+            chunk_cache, master, v.fid, v.offset_in_chunk, v.size
+        )
         if len(data) < v.size:
             data = data + bytes(v.size - len(data))
         if v.logical_offset > offset:
@@ -266,7 +310,8 @@ def stream_entry(
                 v = views[idx]
                 idx += 1
                 pending.append(
-                    (v, pool.submit(fetch_chunk, master, v.fid, v.offset_in_chunk, v.size))
+                    (v, pool.submit(fetch_chunk_cached, chunk_cache, master, v.fid,
+                                    v.offset_in_chunk, v.size))
                 )
             v, fut = pending.popleft()
             data = fut.result()

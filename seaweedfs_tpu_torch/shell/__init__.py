@@ -18,7 +18,11 @@ lock.  Commands self-register via @shell_command; the REPL and one-shot
 ``volume.fsck`` and the fs.* commands (``fs.cd``, ``fs.pwd``, ``fs.ls``,
 ``fs.tree``, ``fs.du``, ``fs.cat``, ``fs.mkdir``, ``fs.mv``, ``fs.rm``,
 ``fs.meta.save``, ``fs.meta.load``, ``fs.meta.cat``, ``fs.log``,
-``fs.verify``, ``fs.configure``) against the shell's ``-filer``.  The
+``fs.verify``, ``fs.configure``) and the s3.* commands (``s3.bucket.list``,
+``s3.bucket.create``, ``s3.bucket.delete``, ``s3.bucket.quota``,
+``s3.bucket.quota.check``, ``s3.clean.uploads``, ``s3.circuitbreaker``,
+``s3.qos``; ``s3.configure`` raises, not ported) against the shell's
+``-filer``.  The
 shell runs no kernel and takes no device: the EC work happens inside the
 volume servers it drives."""
 
@@ -112,6 +116,7 @@ def _import_all() -> None:
         command_ec,
         command_ec_balance,
         command_fs,
+        command_s3,
         command_volume,
         command_volume_balance,
         command_volume_check,

@@ -7,7 +7,9 @@ billing's (stats/plane), the EC service's (``EC_OPS``,
 ``VOLUME_REQUEST_SECONDS``, ``MASTER_REQUESTS``), the filer's
 (``FILER_REQUESTS``, ``FILER_REQUEST_SECONDS``), the raft master's
 (``RAFT_STATE``), the scrubber's and vacuum's (``DISK_CORRUPTION``,
-``SCRUB_*``), the flight recorder's (``EVENTS_DROPPED``) and, in
+``SCRUB_*``), the flight recorder's (``EVENTS_DROPPED``), the S3
+gateway's (``S3_*``), its tenant QoS's (``QOS_*``) and caches'
+(``ENTRY_CACHE``, ``CHUNK_CACHE*``, ``META_SUB``) and, in
 ops/sched_cache,
 the schedule cache's; and
 one of its own, ``CUDA_KERNEL_LAUNCHES``, which a server samples from the
@@ -15,8 +17,9 @@ kernels' launch counters so a client can see them.
 ``series()`` is how callers read a family; ``render_text()`` renders every
 family in the Prometheus text format of the JAX package's
 ``Registry.render_text``, and ``start_metrics_server`` serves it at
-``/metrics`` (of the ``/debug/`` pages only the volume server's scrub, vacuum
-and repair ones are ported).
+``/metrics``, with the gateway's ``/debug/cachez`` (the hot-chunk cache) and
+``/debug/qos`` (tenant QoS) pages beside it (of the other ``/debug/`` pages
+only the volume server's scrub, vacuum and repair ones are ported).
 """
 
 from __future__ import annotations
@@ -155,6 +158,14 @@ def render_text() -> str:
     return "\n".join(f.render() for f in families) + "\n"
 
 
+# the JSON debug pages of the metrics listener: path -> the module whose
+# ``debug_snapshot()`` renders it
+_DEBUG_PAGES = {
+    "/debug/cachez": "seaweedfs_tpu_torch.util.chunk_cache",
+    "/debug/qos": "seaweedfs_tpu_torch.util.limiter",
+}
+
+
 def start_metrics_server(port: int, ip: str = "127.0.0.1"):
     """Standalone ``/metrics`` listener (the reference's -metricsPort).
     Returns the server (it has .server_address and .shutdown())."""
@@ -167,6 +178,13 @@ def start_metrics_server(port: int, ip: str = "127.0.0.1"):
         def do_GET(self):
             if self.path == "/metrics":
                 code, body = 200, render_text().encode()
+            elif self.path in _DEBUG_PAGES:
+                import importlib
+                import json
+
+                snapshot = getattr(importlib.import_module(_DEBUG_PAGES[self.path]),
+                                   "debug_snapshot")
+                code, body = 200, json.dumps(snapshot(), indent=2).encode()
             else:
                 code, body = 404, b"not found\n"
             self.send_response(code)
@@ -266,4 +284,45 @@ CUDA_KERNEL_LAUNCHES = Gauge(
     "CUDA kernel launches of this process by kernel, read from the launch "
     "counters of ops/rs_cuda (gf_apply = K1, gf_planes_apply = K2, gf_pack = "
     "K3, gf_unpack = K4)",
+)
+S3_REQUESTS = Counter(
+    "weedtpu_s3_request_total",
+    "S3 gateway requests by action and code",
+)
+S3_REQUEST_SECONDS = Histogram(
+    "weedtpu_s3_request_seconds",
+    "S3 gateway request latency by action",
+)
+S3_THROTTLED = Counter(
+    "weedtpu_s3_throttled_total",
+    "Requests shed by the S3 circuit breaker, by scope and limit key",
+)
+QOS_REQUESTS = Counter(
+    "weedtpu_qos_requests_total",
+    "Tenant/bucket QoS admission decisions by scope and outcome "
+    "(admitted / shed_ops / shed_bytes / shed_quota)",
+)
+QOS_WAIT_SECONDS = Counter(
+    "weedtpu_qos_retry_after_seconds_total",
+    "Seconds of Retry-After handed to shed requests (load pushed back "
+    "to clients), by scope",
+)
+ENTRY_CACHE = Counter(
+    "weedtpu_entry_cache_total",
+    "Gateway entry-cache events (hit / neg_hit / miss / neg_miss / "
+    "invalidate)",
+)
+META_SUB = Counter(
+    "weedtpu_filer_meta_sub_total",
+    "Cross-process metadata-subscription invalidation plane events "
+    "(event / reconnect / gap), by kind",
+)
+CHUNK_CACHE = Counter(
+    "weedtpu_chunk_cache_total",
+    "Gateway hot-chunk cache events (hit / miss / admit / reject / "
+    "evict / invalidate)",
+)
+CHUNK_CACHE_BYTES = Gauge(
+    "weedtpu_chunk_cache_bytes",
+    "Bytes held by the gateway hot-chunk cache, by tier (ram / segment)",
 )

@@ -4,6 +4,8 @@ filer: the port's copy of seaweedfs_tpu/util/httpd.py's ``PooledHTTPServer``,
 single-range RFC 7233 replies, bodies streamed piece by piece) and
 ``StreamingBody`` (a request body read off the socket on demand).
 
+``PooledHTTPServer(reuse_port=True)`` binds with SO_REUSEPORT.
+
 Not ported: graceful drain, request ids, the native splice's hooks
 (``StreamingBody.take_buffered``/``pushback``, ``reply_ranged(splice=)``;
 ROADMAP Queue A item 9) and the tracing span (the port has no tracing
@@ -12,6 +14,7 @@ layer yet).
 
 from __future__ import annotations
 
+import socket
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Iterable
 
@@ -64,10 +67,25 @@ class StreamingBody:
 class PooledHTTPServer(ThreadingHTTPServer):
     """ThreadingHTTPServer tuned for data-plane load: the stdlib's 5-entry
     listen backlog drops connections (ECONNRESET) under concurrent
-    bursts."""
+    bursts.
+
+    ``reuse_port=True`` binds with SO_REUSEPORT so several processes can
+    share one listen address and the kernel spreads accepted connections
+    across them (the S3 gateway's ``-reusePort``)."""
 
     request_queue_size = 128
     daemon_threads = True
+
+    def __init__(self, server_address, handler_class, *, reuse_port: bool = False):
+        self.reuse_port = reuse_port
+        super().__init__(server_address, handler_class)
+
+    def server_bind(self):
+        if self.reuse_port:
+            if not hasattr(socket, "SO_REUSEPORT"):
+                raise OSError("SO_REUSEPORT is not available on this platform")
+            self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        super().server_bind()
 
 
 class QuietHandler(BaseHTTPRequestHandler):

@@ -7,7 +7,9 @@ takes the storage class from the .vif); without ``-device cpu`` on a
 machine with no CUDA device they raise.  The filer's entry points: ``cli
 filer`` and ``cli server -filer -device cpu`` as processes, the flags that
 wait for later work raising, and ``upload``, ``download`` and
-``filer.copy`` against an in-process cluster.
+``filer.copy`` against an in-process cluster.  The S3 gateway's: ``cli s3
+-filer`` over ``cli filer`` and ``cli server -filer -s3 -device cpu`` as
+processes, each taking signed requests and stopping on SIGTERM with rc 0.
 """
 
 from __future__ import annotations
@@ -248,13 +250,98 @@ def test_cli_server_needs_a_gpu_without_device_cpu(tmp_path):
         cli.main(["server", "-dir", str(tmp_path), "-masterPort", "0", "-port", "0"])
 
 
-@pytest.mark.parametrize("argv", [["server", "-s3"], ["server", "-webdav"],
+@pytest.mark.parametrize("argv", [["server", "-s3", "-webdav"], ["server", "-webdav"],
                                   ["filer", "-notify", "log:/x", "-port", "0"],
-                                  ["filer", "-tlsCert", "c", "-tlsKey", "k", "-port", "0"]],
-                         ids=["server-s3", "server-webdav", "filer-notify", "filer-tls"])
+                                  ["filer", "-tlsCert", "c", "-tlsKey", "k", "-port", "0"],
+                                  ["s3", "-workers", "2", "-port", "8334"],
+                                  ["s3", "-tlsCert", "c", "-tlsKey", "k", "-port", "0"],
+                                  ["s3", "-filer", "127.0.0.1:1,127.0.0.1:2", "-port", "0"]],
+                         ids=["server-s3", "server-webdav", "filer-notify", "filer-tls",
+                              "s3-workers", "s3-tls", "s3-filer-list"])
 def test_cli_flags_that_wait_for_later_work_raise(argv):
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.main(argv)
+
+
+def _s3(addr: str, method: str, path: str, body: bytes = b"", access: str = "AKCLI",
+        secret: str = "cli-secret"):
+    """One request signed by the port's ``client_sign``."""
+    import http.client
+
+    from seaweedfs_tpu_torch.s3 import client_sign
+
+    headers = client_sign.sign_headers(method, path, "", addr, body, access, secret)
+    host, port = addr.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=30)
+    try:
+        conn.request(method, path, body=body or None, headers=headers)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def test_cli_s3_over_cli_filer(tmp_path):
+    """``cli s3 -filer`` over ``cli filer`` (and ``cli master``, ``cli
+    volume -device cpu``), SigV4 required: a bucket, a signed PUT and GET,
+    an unsigned GET refused, and every process stops on SIGTERM with rc 0.
+    The gateway takes no ``-device``."""
+    from test_torch_shell import _start, _stop
+
+    procs = []
+    try:
+        m, mb = _start(["master", "-port", "0"], r"master gRPC on (127\.0\.0\.1:\d+)")
+        procs.append(m)
+        (tmp_path / "v").mkdir()
+        v, _vb = _start(["volume", "-dir", str(tmp_path / "v"), "-port", "0", "-device", "cpu",
+                         "-mserver", mb[1]], r"gRPC on")
+        procs.append(v)
+        f, fb = _start(["filer", "-master", mb[1], "-port", "0", "-db", str(tmp_path / "db")],
+                       r"filer on (127\.0\.0\.1:\d+) \(gRPC (127\.0\.0\.1:\d+), store=leveldb\)")
+        procs.append(f)
+        g, gb = _start(["s3", "-master", mb[1], "-filer", fb[2], "-port", "0", "-accessKey",
+                        "AKCLI", "-secretKey", "cli-secret", "-cacheMB", "4"],
+                       r"s3 gateway on (127\.0\.0\.1:\d+) \(auth=sigv4\)")
+        procs.append(g)
+        assert _s3(gb[1], "PUT", "/clib")[0] == 200
+        data = os.urandom(300_000)
+        deadline = 60
+        while _s3(gb[1], "PUT", "/clib/a.bin", data)[0] != 200:  # until the first heartbeat
+            deadline -= 1
+            assert deadline > 0
+            time.sleep(0.5)
+        assert _s3(gb[1], "GET", "/clib/a.bin") == (200, data)
+        assert _get(gb[1], "/clib/a.bin")[0] == 403
+        assert _s3(gb[1], "GET", "/clib/a.bin", secret="wrong")[0] == 403
+        # the filer serves what the gateway wrote
+        assert _get(fb[1], "/buckets/clib/a.bin") == (200, data)
+    finally:
+        rcs = [_stop(p) for p in reversed(procs)]
+    assert rcs == [0] * len(procs), [p.stderr.read() for p in procs]
+
+
+def test_cli_server_with_s3_on_the_cpu(tmp_path):
+    """``cli server -filer -s3 -device cpu``: master, volume server, filer
+    and gateway in one process take a signed PUT and GET and stop on
+    SIGTERM with rc 0."""
+    from test_torch_shell import _start, _stop
+
+    proc, bound = _start(["server", "-filer", "-s3", "-device", "cpu", "-dir", str(tmp_path),
+                          "-masterPort", "0", "-port", "0", "-filerPort", "0", "-s3Port", "0",
+                          "-s3AccessKey", "AKCLI", "-s3SecretKey", "cli-secret"],
+                         r"server: master .*device cpu.*filer .*s3 (127\.0\.0\.1:\d+) \(sigv4\)")
+    try:
+        assert _s3(bound[1], "PUT", "/one")[0] == 200
+        data = os.urandom(70_000)
+        deadline = 60
+        while _s3(bound[1], "PUT", "/one/x.bin", data)[0] != 200:
+            deadline -= 1
+            assert deadline > 0
+            time.sleep(0.5)
+        assert _s3(bound[1], "GET", "/one/x.bin") == (200, data)
+    finally:
+        rc = _stop(proc)
+    assert rc == 0, proc.stderr.read()
 
 
 def test_cli_upload_download_and_filer_copy(tmp_path, capsys):

@@ -93,7 +93,16 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/filer/upload.py", "seaweedfs_tpu_torch/filer/reader.py",
             "seaweedfs_tpu_torch/filer/filer_conf.py", "seaweedfs_tpu_torch/filer/remote.py",
             "seaweedfs_tpu_torch/server/filer_server.py", "seaweedfs_tpu_torch/shell/command_fs.py",
-            "seaweedfs_tpu_torch/commands/client_cmd.py"} <= names
+            "seaweedfs_tpu_torch/commands/client_cmd.py",
+            "seaweedfs_tpu_torch/s3/__init__.py", "seaweedfs_tpu_torch/s3/s3_server.py",
+            "seaweedfs_tpu_torch/s3/auth.py", "seaweedfs_tpu_torch/s3/client_sign.py",
+            "seaweedfs_tpu_torch/s3/sigv2.py", "seaweedfs_tpu_torch/s3/acl.py",
+            "seaweedfs_tpu_torch/s3/policy.py", "seaweedfs_tpu_torch/s3/cors.py",
+            "seaweedfs_tpu_torch/s3/sse.py", "seaweedfs_tpu_torch/s3/circuit_breaker.py",
+            "seaweedfs_tpu_torch/util/chunk_cache.py", "seaweedfs_tpu_torch/filer/entry_cache.py",
+            "seaweedfs_tpu_torch/filer/meta_subscriber.py",
+            "seaweedfs_tpu_torch/security/kms.py",
+            "seaweedfs_tpu_torch/shell/command_s3.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())

@@ -102,7 +102,9 @@ def test_shell_rules():
         "cluster.raft.remove", "collection.delete", "collection.list", "ec.balance", "ec.decode",
         "ec.encode", "ec.rebuild", "fs.cat", "fs.cd", "fs.configure", "fs.du", "fs.log",
         "fs.ls", "fs.meta.cat", "fs.meta.load", "fs.meta.save", "fs.mkdir", "fs.mv", "fs.pwd",
-        "fs.rm", "fs.tree", "fs.verify", "help", "lock", "unlock", "volume.balance",
+        "fs.rm", "fs.tree", "fs.verify", "help", "lock", "s3.bucket.create", "s3.bucket.delete",
+        "s3.bucket.list", "s3.bucket.quota", "s3.bucket.quota.check", "s3.circuitbreaker",
+        "s3.clean.uploads", "s3.configure", "s3.qos", "unlock", "volume.balance",
         "volume.check.disk", "volume.configure.replication", "volume.copy", "volume.delete",
         "volume.deleteEmpty", "volume.fix.replication", "volume.fsck", "volume.grow", "volume.list",
         "volume.mark", "volume.mount", "volume.move", "volume.repair.status", "volume.scrub",
