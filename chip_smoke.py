@@ -128,9 +128,9 @@ Phases, each printing what it found; any failure exits non-zero:
 9. The write path: a fresh ``cli master`` and four ``cli volume -device
    cuda -max 8 -mserver ...`` subprocesses (racks alternating), each with
    its HTTP port bound and registered at the master as ``ip:httpport``.
-   9a: ``cli benchmark -n 16384 -size 1024 -c 16`` (upstream `weed
-   benchmark`'s shape, -n cut 64x for time), 0 errors in its write and
-   read reports; 9b: 5,000 writes at replication 001, then every needle
+   9a: ``cli benchmark -n 8192 -size 1024 -c 16`` (upstream `weed
+   benchmark`'s shape, -n cut 128x for time), 0 errors in its write and
+   read reports; 9b: 2,500 writes at replication 001, then every needle
    read from both holders ``/dir/lookup`` names; 9c: ``cli benchmark -n
    16384 -size 65536`` fills one 1 GiB volume, and 1,024 needles of
    seeded payloads go in through MasterClient and the pool; 9d: ``cli
@@ -139,7 +139,7 @@ Phases, each printing what it found; any failure exits non-zero:
    batches (18), every shard lands once on its holder (14 at the master,
    at most 4 a node, both racks), no .dat, .idx or .tmp remains, and the
    targets' received bytes, the generate's stage split and the balance's
-   moves are printed; 9e: the 1,024 seeded needles and 2,048 benchmark
+   moves are printed; 9e: the 1,024 seeded needles and 1,024 benchmark
    needles read over HTTP, each resolved through ``/dir/lookup``, equal to
    their payloads (p50, p99, and the intervals the serving holder had to
    read from others, counted from the .ecx and the census); 9f: 64
@@ -161,9 +161,9 @@ Phases, each printing what it found; any failure exits non-zero:
    every acknowledged fid and file key unique, every acknowledged needle
    byte-identical from both holders, every volume id's .dat on its copies
    only and no needle id in two volumes (no id issued twice across the
-   failover and the restart); ``cli benchmark -master m0,m1,m2 -n 8192
-   -size 1024 -c 16`` with 0 errors; ``cli benchmark`` of 4,096 x 64 KiB
-   fills one 256 MiB volume, and ``cli shell -master m0,m1,m2 -c "lock;
+   failover and the restart); ``cli benchmark -master m0,m1,m2 -n 4096
+   -size 1024 -c 16`` with 0 errors; ``cli benchmark`` of 2,048 x 64 KiB
+   fills one 128 MiB volume, and ``cli shell -master m0,m1,m2 -c "lock;
    ec.encode -volumeId V -collection haec; unlock"`` encodes it with K1 on
    its server's card (launches from its /metrics equal to the generate's
    batches), every shard sha256-identical to the CPU plain version's
@@ -171,9 +171,9 @@ Phases, each printing what it found; any failure exits non-zero:
 11. Volume maintenance: a fresh ``cli master`` and four ``cli volume
    -device cuda -max 8 -scrubInterval 0 -scrubRateMB 0`` subprocesses
    (racks alternating; no background scrub pass races the phase's
-   counts).  16 writers fill one volume with 4,096 x 64 KiB at
-   replication 001 (256 MiB a holder; upstream volumes are 30 GB) and
-   40% of it (1,638 needles) is deleted; ``volume.vacuum
+   counts).  16 writers fill one volume with 2,048 x 64 KiB at
+   replication 001 (128 MiB a holder; upstream volumes are 30 GB) and
+   40% of it (819 needles) is deleted; ``volume.vacuum
    -garbageThreshold 0.3`` through ``cli shell`` must reclaim on both
    holders exactly the bytes of the records the .idx no longer names and
    raise the superblock's compaction revision to 1, while one writer to
@@ -195,24 +195,24 @@ Phases, each printing what it found; any failure exits non-zero:
    plain version's encoding of the same .dat; a byte flipped in one shard
    interval is rebuilt by ``volume.scrub`` (the holder reports 1 corrupt,
    1 repaired; the shard's sha256 is restored; K1 does not launch: the
-   repair decodes on the host), and 1,000 needles read over HTTP
+   repair decodes on the host), and 500 needles read over HTTP
    (``/dir/lookup``, then GET) equal their payloads.  Its figures go on a
    ``maintenance:`` JSON line.
 12. Storage options and the tier: a fresh ``cli master`` and four ``cli
    volume -device cuda -scrubInterval 0 -scrubRateMB 0``: A and B
    ``-index leveldb -backend mmap`` (rack r0), C ``-disk ssd -index compact
    -offsetWidth 5`` and D ``-disk mem -backend memory -index compact`` (rack
-   r1; the disk tags pin the fills of C and D).  V, 4,096 x 64 KiB at 001
-   on A and B (256 MiB a holder; upstream volumes are 30 GB), reads back
+   r1; the disk tags pin the fills of C and D).  V, 2,048 x 64 KiB at 001
+   on A and B (128 MiB a holder; upstream volumes are 30 GB), reads back
    equal from both; A restarts on its ports with a new ``-publicUrl`` (its
    LSM map's mark equals the .idx, so nothing is replayed; the time to the
    first heartbeat is printed); ``cli backup`` lands its holder's .dat and
    .idx byte for byte; ``volume.mark`` and ``volume.tier.upload -node A``
    move A's .dat to a directory object store (the .vif names the object;
-   1,024 reads through TieredFile equal, reads/s and p50/p99 printed; a
+   512 reads through TieredFile equal, reads/s and p50/p99 printed; a
    write is refused); A restarts onto the .vif alone and the master lists
    V on it again; ``volume.tier.download`` restores A's .dat sha256-equal
-   to what was uploaded; C and D take 1,024 x 64 KiB at 000 each (C's .idx
+   to what was uploaded; C and D take 512 x 64 KiB at 000 each (C's .idx
    of 17-byte entries whose offsets name their records; 40% of D deleted,
    ``volume.vacuum`` reclaims exactly those records' bytes in memory,
    survivors equal, the deleted 404); ``ec.encode`` of V launches K1 on its
@@ -226,8 +226,8 @@ Phases, each printing what it found; any failure exits non-zero:
    ``cli filer -db <dir> -maxMB 4`` (the LSM store; logs under
    ``filer/``).  ``fs.configure`` puts /data/ in collection filerdata; 16
    writers fill it through the filer's HTTP API, bodies streamed from
-   --seed: one 1 GiB file (256 chunks), 16 of 4-32 MiB and 4,096 of 1-64
-   KiB over 64 directories (256 of them at most 2 KiB, inline), files/s,
+   --seed: one 1 GiB file (256 chunks), 8 of 4-32 MiB and 1,024 of 1-64
+   KiB over 64 directories (64 of them at most 2 KiB, inline), files/s,
    MB/s and p50/p99 per class; every file reads back sha256-equal, with
    32 Range reads across chunk boundaries of the 1 GiB file, a 416, a
    HEAD and paged JSON listings equal to the names written, and the
@@ -236,17 +236,17 @@ Phases, each printing what it found; any failure exits non-zero:
    broken, fs.ls and fs.tree run; 64 needles written by ``cli upload`` are
    exactly the orphans ``volume.fsck`` finds (their bytes too), purges
    with ``-reallyDeleteFromVolume -cutoffAgeSeconds 0`` and then finds 0
-   of; ``fs.rm -r`` of one directory of 64 files 404s its paths and its
+   of; ``fs.rm -r`` of one directory of 32 files 404s its paths and its
    chunks' fids.  An in-process filer splits one 4 MiB and one 16 KiB
    upload and one 16 KiB read into body read, assign (FidPool hit or
    miss), volume POST, store insert, find_entry, lookup and volume GET.
-   The filer restarts on its -db: listings byte-identical, 512 sampled
+   The filer restarts on its -db: listings byte-identical, 256 sampled
    reads equal.  ``ec.encode -collection filerdata`` launches K1 in the
    servers exactly once per batch (their /metrics) and every file reads
    back from the shards; the server holding the most data shards is
    SIGKILLed and, once the master prunes it, every file reads back through
    degraded reads (intervals reconstructed); ``ec.rebuild -collection
-   filerdata`` launches K1 and 1,024 files read back; ``cli server -filer
+   filerdata`` launches K1 and 512 files read back; ``cli server -filer
    -device cuda`` takes an upload and a read in one process and stops on
    SIGTERM with rc 0.  Its figures go on ``filer:`` lines.
 14. S3 on the card: a fresh ``cli master -volumeSizeLimitMB 256``, four
@@ -254,11 +254,11 @@ Phases, each printing what it found; any failure exits non-zero:
    racks, ``cli filer -db <dir>`` and in front ``cli s3 -filer <its gRPC>
    -accessKey K -secretKey S -cacheMB 64 -kmsKeyFile F`` (SigV4 required;
    logs under ``s3/``); every request is signed by ``client_sign``.  Fill:
-   16 clients put 8,192 objects of 1-64 KiB (a quarter as signed
-   aws-chunked bodies), and 16 of 8-64 MiB and one of 1 GiB go up as
+   16 clients put 1,024 objects of 1-64 KiB (a quarter as signed
+   aws-chunked bodies), and 8 of 8-64 MiB and one of 1 GiB go up as
    multipart in 8 MiB parts, 10 at a time (aws-cli's defaults); objects/s,
    MB/s and p50/p99 per class.  Mixed: MinIO warp mixed's 45% GET, 30%
-   HEAD, 15% PUT, 10% DELETE over the small objects, 16 clients, 20,000
+   HEAD, 15% PUT, 10% DELETE over the small objects, 16 clients, 2,500
    ops, every answer held to a model of key -> sha256 (404 for a deleted
    key, the ETag on HEAD); a ListObjectsV2 walk (max-keys 1000) equals the
    model.  Features: CopyObject, 16 Range GETs across the 1 GiB object's
@@ -276,11 +276,41 @@ Phases, each printing what it found; any failure exits non-zero:
    K1 in the servers exactly once per batch; every object reads back
    through S3 from the shards (ETag and sha256); the server holding the
    most data shards is SIGKILLed and, once pruned, every object reads back
-   degraded; ``ec.rebuild`` launches K1 and 1,024 objects read back; the
+   degraded; ``ec.rebuild`` launches K1 and 512 objects read back; the
    gateway restarts before each of those passes, so that its chunk cache
    cannot answer for the shards.  ``cli server -filer -s3 -device cuda``
    takes a signed PUT and GET in one process and stops on SIGTERM with rc
    0.  Its figures go on ``s3:`` lines.
+15. The RPC and observability layers: ``cli tls.gen`` mints a CA and a node
+   certificate for 127.0.0.1; phase 14's cluster shape (``cli master
+   -volumeSizeLimitMB 256``, four ``cli volume -device cuda`` on two racks,
+   ``cli filer -db``, ``cli s3 -filer ... -tlsCert -tlsKey -kmsKeyFile``,
+   SigV4) runs with ``WEEDTPU_TLS_*`` (every gRPC hop mutual TLS; logs under
+   ``tls/``), a ``-metricsPort`` each, one ``WEED_FAULTS`` spec and seed
+   (UNAVAILABLE on 2% of the volume servers' EcShardRead calls and of the
+   gateway's LookupDirectoryEntry calls, a 2 ms delay on 5% of the filer's
+   gRPC) and a ``WEED_SLO``; plaintext gRPC, plain HTTP and a client that
+   does not trust the CA are refused.  Over HTTPS, 2,048 objects of 1-64
+   KiB at 16 clients and one 1 GiB object as multipart; one PUT sent with
+   a traceparent is one trace in the gateway (PutObject, its put_chunk),
+   the filer (CreateEntry, the PutObject's child) and the volume server
+   holding the chunk (write), printed by ``trace.dump``; ``cluster.status``
+   over the seven metrics listeners merges an s3.put count equal to the
+   members' /debug/sketchz sum and to the PUTs sent; ``slo.status`` passes.
+   ``ec.encode`` of every volume over mutual TLS (the shell traced by
+   ``TRACEPARENT``) launches K1 once per batch (the servers' /metrics) and
+   each source's EcShardsGenerate span, which ``trace.dump`` prints, covers
+   its generate; every object
+   reads back ETag- and sha256-equal from the shards and, after a SIGKILL
+   of the holder of shard 0, degraded, with every fault rule fired and 0
+   client-visible errors.
+   ``fault.inject`` of UNAVAILABLE x6 on a live peer's VolumeStatus walks
+   its breaker open -> half-open -> open -> half-open -> closed
+   (``cluster.check``, ``resilience.status``, ``events.dump``).  A server
+   restarted with ``disk@*.dat:append:torn:x1`` answers 500 to a write;
+   restarted without it, its .dat is truncated back and every acknowledged
+   write reads back.  Its figures go on ``tls:`` lines.  What TLS and
+   tracing cost a request is ``chip_layer_costs.py``'s to measure.
 
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
@@ -853,6 +883,11 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
 
     size = int(args.gib * (1 << 30))
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
+    laps = [("start", time.perf_counter())]
+
+    def lap(name: str) -> None:
+        laps.append((name, time.perf_counter()))
+
     try:
         t = time.perf_counter()
         want_ecx = make_volume(tmp, size, args.seed)
@@ -897,39 +932,57 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
               f"{stage_line(reb)}")
         for sid in range(14):  # room for phase 5's shards
             os.remove(base + f".ec{sid:02d}")
+        lap("3-4")
         lrc = phase_lrc(lrc_dir, size, ident, dev, dat_sha, want_ecx)
+        lap("5")
         shutil.rmtree(lrc_dir)  # room for phase 6's shards
         mesh = phase_mesh(args, tmp, hashes, ident, dev, rates)
+        lap("6")
         for name in os.listdir(tmp):  # room for phase 7's volumes
             path = os.path.join(tmp, name)
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         ec_service = phase_ec_service(args, tmp, ident, dev)
+        lap("7")
         cluster = phase_cluster(args, tmp, ec_service, ident, dev)
+        lap("8")
         for name in os.listdir(tmp):  # room for phase 9's volumes
             path = os.path.join(tmp, name)
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         write = phase_write_path(args, tmp, ident, dev)
+        lap("9")
         for name in os.listdir(tmp):  # room for phase 10's volumes
             path = os.path.join(tmp, name)
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         failover = phase_failover(args, tmp, ident, dev)
+        lap("10")
         for name in os.listdir(tmp):  # room for phase 11's volumes
             path = os.path.join(tmp, name)
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         maintenance = phase_maintenance(args, tmp, ident, dev)
+        lap("11")
         for name in os.listdir(tmp):  # room for phase 12's volumes
             path = os.path.join(tmp, name)
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         storage = phase_storage(args, tmp, ident, dev)
         host_codec = phase_host_codec(ident)
+        lap("12")
         for name in os.listdir(tmp):  # room for phase 13's volumes
             path = os.path.join(tmp, name)
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         filer = phase_filer(args, tmp, ident, dev)
+        lap("13")
         for name in os.listdir(tmp):  # room for phase 14's volumes
             path = os.path.join(tmp, name)
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         s3 = phase_s3(args, tmp, ident, dev)
+        lap("14")
+        for name in os.listdir(tmp):  # room for phase 15's volumes
+            path = os.path.join(tmp, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+        tls = phase_tls(args, tmp, ident, dev)
+        lap("15")
+        print("phase walls (s, with the clean-up before each): " + ", ".join(
+            f"{name} {t1 - t0:.3f}" for (_n, t0), (name, t1) in zip(laps, laps[1:])))
         degraded = {label: (r["p50_us"], r["p99_us"]) for label, r in ec_service["reads"].items()}
         print(f"host codec paths on {ident}: phase 7 reads p50/p99 us {degraded}; phase 11 EC "
               f"scrub {maintenance['walls']['ec_scrub']:.3f}s")
@@ -937,7 +990,7 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
                     encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
                     lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster, write=write,
                     failover=failover, maintenance=maintenance, storage=storage,
-                    host_codec=host_codec, filer=filer, s3=s3)
+                    host_codec=host_codec, filer=filer, s3=s3, tls=tls)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1478,9 +1531,9 @@ class _Server:
     does not exit)."""
 
     def __init__(self, directory: str, device: str, log: str, extra: tuple = (),
-                 argv: list | None = None, wait: bool = True):
+                 argv: list | None = None, wait: bool = True, env: dict | None = None):
         root = os.path.dirname(os.path.abspath(__file__))
-        env = dict(os.environ, WEEDTPU_V="1",
+        env = dict(os.environ, **(env or {}), WEEDTPU_V="1",
                    PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
         self.log = log
         self._log_file = open(log, "w")
@@ -1927,11 +1980,13 @@ def _disk_shards(dirs_by_addr: dict, name: str) -> dict:
     return out
 
 
-def _shell(master: str, commands: str, log: str, filer: str = "") -> tuple[float, str]:
-    """``cli shell -master M [-filer F] -c commands`` in a subprocess:
-    (wall, stdout); a non-zero exit fails the phase."""
+def _shell(master: str, commands: str, log: str, filer: str = "",
+           env: dict | None = None) -> tuple[float, str]:
+    """``cli shell -master M [-filer F] -c commands`` in a subprocess (with
+    ``env`` added to its environment): (wall, stdout); a non-zero exit
+    fails the phase."""
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ,
+    env = dict(os.environ, **(env or {}),
                PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
     t = time.perf_counter()
     run = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch.cli", "shell", "-master",
@@ -2243,13 +2298,13 @@ def phase_cluster(args, directory: str, svc: dict, ident: str, dev) -> dict:
 
 # -- phase 9 ------------------------------------------------------------------
 
-BENCH_N = 16384  # `weed benchmark` -n 1048576, cut 64x for the time limit
+BENCH_N = 8192  # `weed benchmark` -n 1048576, cut 128x for the time limit
 BENCH_SIZE = 1024  # `weed benchmark` -size
 BENCH_C = 16  # `weed benchmark` -c
-REP_N = 5000  # DATA_PLANE.md's replicated-write row
+REP_N = 2500  # DATA_PLANE.md's replicated-write row (5,000), halved for the time limit
 FILL_N, FILL_SIZE = 16384, 64 * 1024  # 1 GiB of DATA_PLANE.md's 64 KB payloads
 SEEDED_NEEDLES = 1024
-EC_READ_SAMPLE = 2048  # cut from 4,096 for the time limit
+EC_READ_SAMPLE = 1024  # cut from 4,096 for the time limit
 EC_DELETES = 64
 
 
@@ -2561,8 +2616,8 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
 HA_MASTERS = 3
 HA_WRITERS = 16  # `weed benchmark`'s -c
 HA_WINDOW_S = 10.0  # writes before the kill, and after a new leader answers
-HA_BENCH_N = 8192  # cut from 16,384 for the time limit
-HA_EC_N, HA_EC_SIZE = 4096, 64 * 1024  # one 256 MiB volume of 64 KiB needles
+HA_BENCH_N = 4096  # cut from 16,384 for the time limit
+HA_EC_N, HA_EC_SIZE = 2048, 64 * 1024  # one 128 MiB volume of 64 KiB needles
 
 
 def _free_ports(n: int) -> list[int]:
@@ -2605,7 +2660,7 @@ def phase_failover(args, directory: str, ident: str, dev) -> dict:
     writers through MasterClient(m0,m1,m2) at replication 001 while the
     leading master is SIGKILLed; the killed master restarts on its -mdir
     and rejoins; every acknowledged write unique and on both holders;
-    ``cli benchmark`` through the master list; ``ec.encode`` of a 256 MiB
+    ``cli benchmark`` through the master list; ``ec.encode`` of a 128 MiB
     volume through the new leader, K1 on its server (module docstring)."""
     import numpy as np
 
@@ -2650,12 +2705,31 @@ def phase_failover(args, directory: str, ident: str, dev) -> dict:
         return leads[0]
 
     def census(i: int) -> dict:
-        """{node id: {vid: collection}} at master i."""
-        topo = rpc.master_stub(grpc_addrs[i]).VolumeList(m_pb.VolumeListRequest(),
-                                                         timeout=30).topology_info
+        """{node id: {vid: collection}} at master i, asked on a channel of
+        its own: the observer must not wait out the breaker that the
+        writers' failed calls opened in this process's stub, or the
+        re-homing it times is the client's cooldown, not the servers'."""
+        import grpc
+
+        with grpc.insecure_channel(grpc_addrs[i]) as ch:
+            topo = ch.unary_unary(
+                "/weedtpu.master.Master/VolumeList",
+                request_serializer=m_pb.VolumeListRequest.SerializeToString,
+                response_deserializer=m_pb.VolumeListResponse.FromString)(
+                    m_pb.VolumeListRequest(), timeout=30).topology_info
         return {dn.id: {v.id: v.collection for disk in dn.disk_infos.values()
                         for v in disk.volume_infos}
                 for dc in topo.data_center_infos for r in dc.rack_infos for dn in r.data_node_infos}
+
+    def census_now(i: int) -> dict:
+        """census(i), or {} while master i refuses (still electing).  What a
+        poll waits through."""
+        import grpc
+
+        try:
+            return census(i)
+        except grpc.RpcError:
+            return {}
 
     walls: dict = {}
     masters: list = []
@@ -2680,7 +2754,7 @@ def phase_failover(args, directory: str, ident: str, dev) -> dict:
         by_url = {s_.url: s_ for s_ in servers}
         walls["servers_up"] = time.perf_counter() - t
         first = leader()
-        walls["registered"] = _poll(lambda: set(census(first)) == set(by_url),
+        walls["registered"] = _poll(lambda: set(census_now(first)) == set(by_url),
                                     "4 nodes at the raft leader", 120)
         print(f"failover: masters {grpc_addrs} (HTTP {http_addrs}) up in "
               f"{walls['masters_up']:.3f}s, m{first} leads after {walls['first_leader']:.3f}s; "
@@ -2730,7 +2804,8 @@ def phase_failover(args, directory: str, ident: str, dev) -> dict:
             new = leader(exclude=victim)
             time.sleep(0.02)
         t_leader = time.perf_counter()
-        _poll(lambda: set(census(new)) == set(by_url), "the four servers at the new leader", 60)
+        _poll(lambda: set(census_now(new)) == set(by_url), "the four servers at the new leader",
+              60)
         t_rehomed = time.perf_counter()
         while time.perf_counter() < t_leader + HA_WINDOW_S:
             time.sleep(0.1)
@@ -2814,7 +2889,7 @@ def phase_failover(args, directory: str, ident: str, dev) -> dict:
               f"{len(holders)} volume(s), each read back byte-identical from both holders "
               f"({reads} GETs in {walls['read_back']:.3f}s)")
 
-        # the benchmark through the master list, then one 256 MiB volume
+        # the benchmark through the master list, then one 128 MiB volume
         bench = _benchmark(mlist, HA_BENCH_N, BENCH_SIZE, "habench", "000", log)
         fill = _benchmark(mlist, HA_EC_N, HA_EC_SIZE, "haec", "000", log)
         topo = census(new)
@@ -2890,14 +2965,14 @@ def phase_failover(args, directory: str, ident: str, dev) -> dict:
 
 # -- phase 11 -----------------------------------------------------------------
 
-MAINT_N, MAINT_SIZE = 4096, 64 * 1024  # one volume at 001: 256 MiB of payload a holder
-MAINT_DELETES = 1638  # 40% of the needles: a garbage ratio above upstream's 0.3
+MAINT_N, MAINT_SIZE = 2048, 64 * 1024  # one volume at 001: 128 MiB of payload a holder
+MAINT_DELETES = 819  # 40% of the needles: a garbage ratio above upstream's 0.3
 MAINT_WRITERS = 16  # `weed benchmark`'s -c
 AUTO_N = 1024  # the second volume, compacted by -vacuumInterval with no shell command
 MAINT_CORRUPT = 8
 MAINT_DIVERGE = 5
 MAINT_SAMPLE = 256  # needles read back after each move
-MAINT_EC_READS = 1000
+MAINT_EC_READS = 500  # cut from 1,000 for the time limit
 STALL_SIZE = 1024  # the writer during the vacuum: small, so it barely dilutes the garbage
 
 
@@ -2996,13 +3071,13 @@ def _read_all(pool, url_of, fids, payload, want404: bool = False):
 def phase_maintenance(args, directory: str, ident: str, dev) -> dict:
     """Phase 11: volume maintenance.  One ``cli master`` and four ``cli
     volume -device cuda -max 8 -scrubInterval 0 -scrubRateMB 0``
-    subprocesses (racks alternating); one volume of 4,096 x 64 KiB at 001,
+    subprocesses (racks alternating); one volume of 2,048 x 64 KiB at 001,
     40% deleted and ``volume.vacuum``-ed under a writer; a second volume
     compacted by a restart with ``-vacuumInterval 2``; ``volume.delete`` +
     ``volume.fix.replication``; 8 corrupt records repaired by
     ``volume.scrub``; ``volume.check.disk``; ``volume.move``,
     ``volume.balance`` and ``volume.server.evacuate``; ``ec.encode`` through
-    K1; a corrupt shard interval repaired by ``volume.scrub``; 1,000 EC
+    K1; a corrupt shard interval repaired by ``volume.scrub``; 500 EC
     reads over HTTP (module docstring)."""
     import numpy as np
 
@@ -3434,11 +3509,11 @@ def phase_maintenance(args, directory: str, ident: str, dev) -> dict:
 
 # -- phase 12 -------------------------------------------------------------------
 
-TIER_N = 4096  # needles of the tiered volume V: 256 MiB a holder at 001
+TIER_N = 2048  # needles of the tiered volume V: 128 MiB a holder at 001
 TIER_SIZE = 64 * 1024
-TIER_READS = 1024  # reads through TieredFile while V is tiered
-FILL_CD = 1024  # 64 KiB needles on each of C (5-byte offsets) and D (memory backend)
-D_DELETES = 410  # 40% of D's needles: a garbage ratio above upstream's 0.3
+TIER_READS = 512  # reads through TieredFile while V is tiered
+FILL_CD = 512  # 64 KiB needles on each of C (5-byte offsets) and D (memory backend)
+D_DELETES = 205  # 40% of D's needles: a garbage ratio above upstream's 0.3
 HOST_CODEC_ITERS = 20
 
 
@@ -3501,12 +3576,12 @@ def phase_storage(args, directory: str, ident: str, dev) -> dict:
     mmap`` (rack r0, where placement 001 keeps both copies), C ``-disk ssd
     -index compact -offsetWidth 5`` and D ``-disk mem -backend memory
     -index compact`` (rack r1; their disk tags pin the fills of step 8).
-    V, 4,096 x 64 KiB at 001 on A and B, is read back from both; A restarts
+    V, 2,048 x 64 KiB at 001 on A and B, is read back from both; A restarts
     and its LSM map replays nothing; ``cli backup`` copies V; V is sealed
     and ``volume.tier.upload``-ed off A (reads go on through TieredFile,
     writes are refused); A restarts onto the .vif alone and serves V;
     ``volume.tier.download`` restores A's .dat byte for byte; C and D take
-    1,024 x 64 KiB each (C's .idx of 17-byte entries, D's 40% deleted and
+    512 x 64 KiB each (C's .idx of 17-byte entries, D's 40% deleted and
     vacuumed in memory); and ``ec.encode`` of V launches K1 on its source
     (module docstring)."""
     import numpy as np
@@ -3715,7 +3790,7 @@ def phase_storage(args, directory: str, ident: str, dev) -> dict:
         print(f"storage: volume.tier.download {walls['tier_download']:.3f}s on {ident}: A's .dat "
               f"sha256-identical to A's before the upload{same_as_backup}")
 
-        # 7. C and D: 1,024 x 64 KiB each at 000 (disk tags pin them)
+        # 7. C and D: FILL_CD x 64 KiB each at 000 (disk tags pin them)
         t = time.perf_counter()
         acked_c = write_many("w5", "000", FILL_CD, disk="ssd")
         acked_d = write_many("mem", "000", FILL_CD, disk="mem")
@@ -3820,9 +3895,9 @@ def phase_storage(args, directory: str, ident: str, dev) -> dict:
 
 
 FILER_DIRS = 64
-FILER_SMALL_N = 4096  # 1-64 KiB files over FILER_DIRS directories (cut from 8,192)
-FILER_INLINE_N = 256  # of them at most 2 KiB: inlined in their entries
-FILER_LARGE_N = 16  # 4-32 MiB files
+FILER_SMALL_N = 1024  # 1-64 KiB files over FILER_DIRS directories (cut from 8,192)
+FILER_INLINE_N = 64  # of them at most 2 KiB: inlined in their entries
+FILER_LARGE_N = 8  # 4-32 MiB files (cut from 16 for phase 15)
 FILER_BIG_BYTES = 1 << 30  # one file of 256 chunks at -maxMB 4
 FILER_CHUNK_MB = 4  # -maxMB: the default of upstream's `weed filer` and of the JAX CLI
 FILER_VOLUME_MB = 256  # -volumeSizeLimitMB: upstream's 30 GB cut 120x
@@ -3830,8 +3905,8 @@ FILER_WRITERS = 16
 FILER_RANGE_READS = 32
 FILER_ORPHANS = 64
 FILER_RM_DIR = 5  # /data/d05: one directory of FILER_SMALL_N / FILER_DIRS files
-FILER_RESTART_SAMPLE = 512
-FILER_REBUILD_SAMPLE = 1024
+FILER_RESTART_SAMPLE = 256
+FILER_REBUILD_SAMPLE = 512
 # the filer's peak RSS while it moves the 1 GiB file: its windows hold 8 x 4
 # MiB up and 4 x 4 MiB down; the rest is the interpreter, the allocator's
 # retained arenas and the server threads (121 and 191 MiB measured on an H100
@@ -3900,10 +3975,16 @@ class _RssPeak:
         self.peak = max(self.peak, self._rss())
 
 
+_TLS_CONTEXTS: dict = {}  # address -> the ssl.SSLContext its HTTPS listener is reached with
+
+
 def _filer_conn(addr: str):
     import http.client
 
     host, port = addr.rsplit(":", 1)
+    ctx = _TLS_CONTEXTS.get(addr)
+    if ctx is not None:
+        return http.client.HTTPSConnection(host, int(port), timeout=300, context=ctx)
     return http.client.HTTPConnection(host, int(port), timeout=300)
 
 
@@ -4135,8 +4216,8 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
     four ``cli volume -device cuda -scrubInterval 0 -scrubRateMB 0`` on two
     racks and one ``cli filer -db <dir> -maxMB 4`` (the LSM store).
     ``fs.configure`` puts /data/ in collection filerdata; 16 writers fill
-    it through the filer's HTTP API (4,096 files of 1-64 KiB over 64
-    directories, 256 of them inline; 16 of 4-32 MiB; one of 1 GiB, 256
+    it through the filer's HTTP API (1,024 files of 1-64 KiB over 64
+    directories, 64 of them inline; 8 of 4-32 MiB; one of 1 GiB, 256
     chunks, streamed) and every file reads back sha256-equal, with Range
     reads, a 416, a HEAD and paged listings; the filer's RSS stays under
     FILER_RSS_LIMIT while it moves the 1 GiB file.  ``cli shell -filer``:
@@ -4523,22 +4604,22 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
 
 S3_AK, S3_SK = "AKIDSMOKE", "smoke-secret-key"
 S3_BUCKET = "bench"
-S3_SMALL_N = 8192  # 1-64 KiB objects
+S3_SMALL_N = 1024  # 1-64 KiB objects (cut from 8,192 to leave phase 15 room)
 S3_CHUNKED_EVERY = 4  # a quarter of them as signed aws-chunked bodies
 S3_STREAM_CHUNK = 64 * 1024  # the aws-chunked chunk size of botocore's streaming signer
-S3_LARGE_N = 16  # 8-64 MiB objects, multipart
+S3_LARGE_N = 8  # 8-64 MiB objects, multipart (cut from 16 for phase 15)
 S3_BIG_BYTES = 1 << 30  # one object of 128 parts
 S3_PART = 8 * MIB  # aws-cli's multipart_chunksize default
 S3_PART_CONCURRENCY = 10  # aws-cli's max_concurrent_requests default
 S3_CLIENTS = 16
-S3_MIXED_OPS = 20_000  # MinIO warp mixed, cut for the time limit
+S3_MIXED_OPS = 2_500  # MinIO warp mixed, cut for the time limit (20,000 before phase 15)
 S3_MIX = (("GET", 45), ("HEAD", 30), ("PUT", 15), ("DELETE", 10))  # warp mixed's defaults
 S3_LIST_PAGE = 1000
 S3_RANGE_READS = 16
 S3_SSE_BYTES = 16 * MIB
 S3_HOT_SET = 128  # keys of the hot set whose second GET pass reads the chunk cache
 S3_CACHE_MB = 64
-S3_REBUILD_SAMPLE = 1024
+S3_REBUILD_SAMPLE = 512
 S3_PROFILE = dict(small=256, part=16, reads=256)  # the in-process split of one request
 
 
@@ -4961,8 +5042,8 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
     racks, one ``cli filer -db <dir>`` and, in front, one ``cli s3 -filer
     <the filer's gRPC> -accessKey K -secretKey S -cacheMB 64 -kmsKeyFile
     F`` (SigV4 required; every request is signed by ``client_sign``).
-    Fill (16 clients): 8,192 objects of 1-64 KiB (a quarter as signed
-    aws-chunked bodies), 16 of 8-64 MiB and one of 1 GiB as multipart in
+    Fill (16 clients): 1,024 objects of 1-64 KiB (a quarter as signed
+    aws-chunked bodies), 8 of 8-64 MiB and one of 1 GiB as multipart in
     8 MiB parts, 10 parts at a time.  Mixed: MinIO warp mixed's 45/30/15/10
     GET/HEAD/PUT/DELETE over the small objects, every answer held to a
     model of key -> sha256, then a ListObjectsV2 walk equal to the model.
@@ -5422,6 +5503,495 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
     return rec
 
 
+# -- phase 15 -----------------------------------------------------------------
+
+TLS_SMALL_N = 2048  # 1-64 KiB objects over HTTPS at S3_CLIENTS clients
+TLS_BIG_BYTES = 1 << 30  # one object as multipart in S3_PART parts, S3_PART_CONCURRENCY at a time
+# one spec for every process: each fires the rules of its own side and
+# service; shares the retry budgets and the EC read chain absorb.  The
+# stub never replays a stream, but the EC locator asks a live holder
+# again after a refused EcShardRead and keeps it located; a read it
+# still cannot make is reconstructed, and a chunk the server cannot read
+# is asked of the next server holding the volume
+TLS_FAULTS = ("client/volume:EcShardRead:unavailable:0.02,"
+              "client/filer:LookupDirectoryEntry:unavailable:0.02,"
+              "server/filer:*:delay:2ms:0.05")
+TLS_FAULTS_SEED = 15
+TLS_SLO = {"ops": {"s3.put": {"p99_ms": 10_000, "min_count": 100},
+                   "s3.get.small": {"p99_ms": 10_000, "min_count": 100}},
+           "error_rate_max": 0.0}
+TLS_TORN_N = 64  # acknowledged 4 KiB writes before the torn one
+
+
+@contextlib.contextmanager
+def _cluster_env(extra: dict):
+    """This process as a client of a cluster whose processes run with
+    ``extra`` in their environment (``WEEDTPU_TLS_*``: mutual TLS on every
+    gRPC hop): rpc.py reads its TLS settings anew on the way in and out."""
+    from seaweedfs_tpu_torch import rpc
+
+    saved = {k: os.environ.get(k) for k in extra}
+    os.environ.update(extra)
+    rpc._tls_config = None
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        rpc._tls_config = None
+
+
+def _tracez(pool, addr: str, trace_id: str) -> list:
+    status, body = pool.request(addr, "GET", f"/debug/tracez?json=1&trace_id={trace_id}")
+    check(status == 200, f"{addr}/debug/tracez: {status}")
+    return json.loads(body)
+
+
+def phase_tls(args, directory: str, ident: str, dev) -> dict:
+    """Phase 15: the RPC and observability layers.  ``cli tls.gen`` mints a
+    CA and a node certificate for 127.0.0.1; one ``cli master
+    -volumeSizeLimitMB 256``, four ``cli volume -device cuda`` on two
+    racks, ``cli filer -db <dir>`` and ``cli s3 -filer ... -tlsCert
+    -tlsKey -kmsKeyFile`` (SigV4 required) run with ``WEEDTPU_TLS_*`` (every
+    gRPC hop mutual TLS), a ``-metricsPort`` each, one ``WEED_FAULTS`` spec
+    and seed (UNAVAILABLE on a share of the volume servers' EcShardRead
+    and the gateway's LookupDirectoryEntry calls, a delay on a share of
+    the filer's gRPC) and a ``WEED_SLO`` spec.  Over HTTPS: TLS_SMALL_N
+    objects of 1-64 KiB at 16 clients and one 1 GiB object as multipart;
+    a traced PUT is one trace across the gateway, the filer and the
+    volume server; ``cluster.status`` merges the members' sketches (the
+    s3.put count equals the members' sum and the PUTs sent);
+    ``slo.status``.  ``ec.encode`` of every volume over mutual TLS
+    launches K1 once per batch (the servers' /metrics), traced: each
+    source's EcShardsGenerate span covers its generate; every object reads
+    back from the shards, and again degraded after a SIGKILL, ETag- and
+    sha256-equal with 0 client-visible errors while the faults fire.
+    ``fault.inject`` makes a live peer's breaker open, half-open and close
+    (``resilience.status``, ``events.dump``).  A server restarted with
+    ``disk@*.dat:append:torn:x1`` fails a write; restarted without it,
+    recovery truncates the torn tail and every acknowledged write reads
+    back.  Figures on ``tls:`` lines."""
+    import ssl
+    import xml.etree.ElementTree as ET
+
+    import grpc
+    import numpy as np
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs_pb
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.util.http_pool import HttpConnectionPool
+
+    seed = args.seed
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(directory, "tls")
+    dirs = [os.path.join(root, f"v{i}") for i in range(4)]
+    for d in dirs:
+        os.makedirs(d)
+    log = os.path.join(root, "shell.log")
+    walls: dict = {}
+    rec: dict = {}
+    t_phase = time.perf_counter()
+
+    # 1. certificates, through the CLI
+    certs_dir = os.path.join(root, "certs")
+    t = time.perf_counter()
+    gen = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch.cli", "tls.gen", "-dir",
+                          certs_dir, "-host", "127.0.0.1,localhost"], cwd=here, capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                             filter(None, [here, os.environ.get("PYTHONPATH")]))))
+    walls["tls_gen"] = time.perf_counter() - t
+    certs = {k: os.path.join(certs_dir, f) for k, f in (("ca", "ca.crt"), ("cert", "node.crt"),
+                                                        ("key", "node.key"))}
+    check(gen.returncode == 0 and all(os.path.exists(p) for p in certs.values()),
+          f"tls.gen exited {gen.returncode}: {gen.stdout} {gen.stderr[-2000:]}")
+    print(f"tls: tls.gen in {walls['tls_gen']:.3f}s: " + " | ".join(gen.stdout.splitlines()))
+    tls_env = {"WEEDTPU_TLS_CA": certs["ca"], "WEEDTPU_TLS_CERT": certs["cert"],
+               "WEEDTPU_TLS_KEY": certs["key"]}
+    env = dict(tls_env, WEED_FAULTS=TLS_FAULTS, WEED_FAULTS_SEED=str(TLS_FAULTS_SEED),
+               WEED_SLO=json.dumps(TLS_SLO), SEAWEEDFS_TPU_TRACE="1")
+    ca_ctx = ssl.create_default_context(cafile=certs["ca"])
+    pool = HttpConnectionPool(timeout=60.0, max_per_host=64)
+    servers: list = []
+    filer = gw = victim = None
+    tasks = 0
+    mports = _free_ports(3)  # the master's, the filer's and the gateway's metrics listeners
+    with _cluster_env(tls_env):
+        master = _Server("", "", os.path.join(root, "master.log"), env=env, argv=[
+            "master", "-port", "0", "-volumeSizeLimitMB", str(FILER_VOLUME_MB),
+            "-metricsPort", str(mports[0])])
+        try:
+            maddr = f"127.0.0.1:{master.grpc_port}"
+            master.metrics_port = mports[0]
+            mstub = rpc.master_stub(maddr)
+            t = time.perf_counter()
+
+            def volume_argv(d: str, i: int, ports: tuple = ("0", "0", "0")) -> list:
+                return ["volume", "-dir", d, "-ip", "127.0.0.1", "-port", ports[0], "-grpcPort",
+                        ports[1], "-metricsPort", ports[2], "-device", dev.type, "-mserver",
+                        maddr, "-rack", f"r{i % 2}", "-scrubInterval", "0", "-scrubRateMB", "0"]
+
+            servers = [_Server(d, dev.type, os.path.join(root, f"v{i}.log"), wait=False, env=env,
+                               argv=volume_argv(d, i)) for i, d in enumerate(dirs)]
+            for s_ in servers:
+                s_.ready()
+                s_.url = f"127.0.0.1:{s_.http_port}"
+            urls = [s_.url for s_ in servers]
+            filer = _Server("", "", os.path.join(root, "filer.log"), env=env, argv=[
+                "filer", "-master", maddr, "-port", "0", "-db", os.path.join(root, "db"),
+                "-metricsPort", str(mports[1])])
+            filer.gaddr = f"127.0.0.1:{filer.grpc_port}"
+            filer.metrics_port = mports[1]
+            gw = _Server("", "", os.path.join(root, "s3.log"), wait=False, env=env, argv=[
+                "s3", "-master", maddr, "-filer", filer.gaddr, "-port", "0", "-accessKey", S3_AK,
+                "-secretKey", S3_SK, "-metricsPort", str(mports[2]), "-kmsKeyFile",
+                os.path.join(root, "kms.json"), "-tlsCert", certs["cert"], "-tlsKey",
+                certs["key"]])
+            line = gw.proc.stdout.readline().strip()
+            m = re.search(r"s3 gateway on (127\.0\.0\.1:\d+) \(auth=sigv4\)", line)
+            if m is None:
+                raise SmokeFailure(f"cli s3 -tlsCert did not start: {line!r}: "
+                                   f"{gw.log_text()[-2000:]}")
+            gw.addr, gw.metrics_port = m[1], mports[2]
+            _TLS_CONTEXTS[gw.addr] = ca_ctx
+            walls["servers_up"] = time.perf_counter() - t
+            members = [f"127.0.0.1:{p.metrics_port}" for p in [master, *servers, filer, gw]]
+
+            def nodes() -> set:
+                topo = mstub.VolumeList(m_pb.VolumeListRequest(), timeout=60).topology_info
+                return {dn.id for dc in topo.data_center_infos for r in dc.rack_infos
+                        for dn in r.data_node_infos}
+
+            # the smoke's own VolumeList rides mutual TLS with the node certificate
+            walls["registered"] = _poll(lambda: nodes() == set(urls), "all four nodes", 60)
+            # no fallback: plaintext gRPC, plain HTTP and an untrusted CA all fail
+            plain = grpc.insecure_channel(maddr)
+            try:
+                plain.unary_unary("/weedtpu.master.Master/VolumeList",
+                                  request_serializer=m_pb.VolumeListRequest.SerializeToString,
+                                  response_deserializer=m_pb.VolumeListResponse.FromString)(
+                    m_pb.VolumeListRequest(), timeout=10)
+                raise SmokeFailure("a plaintext gRPC call to the mutual-TLS master answered")
+            except grpc.RpcError as e:
+                check(e.code() == grpc.StatusCode.UNAVAILABLE,
+                      f"a plaintext gRPC call failed with {e.code()}")
+            finally:
+                plain.close()
+            for bad_ctx in (None, ssl.create_default_context()):
+                host, port = gw.addr.split(":")
+                conn = (http.client.HTTPConnection(host, int(port), timeout=10) if bad_ctx is None
+                        else http.client.HTTPSConnection(host, int(port), timeout=10,
+                                                         context=bad_ctx))
+                try:
+                    conn.request("GET", "/")
+                    conn.getresponse().read()
+                    raise SmokeFailure(f"the HTTPS gateway answered a {'plain' if bad_ctx is None else 'untrusting'} client")
+                except (OSError, http.client.HTTPException):
+                    pass
+                finally:
+                    conn.close()
+            print(f"tls: master {maddr}, four volume servers at {urls} on {ident}, filer "
+                  f"{filer.gaddr}, HTTPS gateway {gw.addr}, all gRPC mutual TLS, faults "
+                  f"{TLS_FAULTS!r} seed {TLS_FAULTS_SEED}; up in {walls['servers_up']:.3f}s; "
+                  f"plaintext gRPC, plain HTTP and an untrusting client refused")
+
+            # 2. the fill over HTTPS
+            admin = _S3Client(gw.addr)
+            status, data, _h, _dt = admin.request("PUT", f"/{S3_BUCKET}")
+            check(status == 200, f"CreateBucket over HTTPS: {status} {data[:200]!r}")
+            rng = np.random.default_rng([seed, 15])
+            smalls = [(f"small/{i % 64:02d}/o{i:05d}.bin", int(sz), "small", 300 + i)
+                      for i, sz in enumerate(rng.integers(1024, 64 * 1024 + 1, TLS_SMALL_N))]
+            big = ("big/one.bin", TLS_BIG_BYTES, "big", 299)
+
+            def put_small(client, o):
+                key, size, _kind, bkey = o
+                body = _s3_body(seed, bkey, size)
+                md5 = hashlib.md5(body).hexdigest()
+                status, data, hdrs, dt = client.request("PUT", f"/{S3_BUCKET}/{key}", body=body)
+                check(status == 200 and hdrs.get("etag") == f'"{md5}"',
+                      f"PUT {key}: {status} {data[:200]!r}")
+                return hashlib.sha256(body).hexdigest(), md5, dt
+
+            t = time.perf_counter()
+            got = _s3_pool(gw.addr, smalls, put_small)
+            fill = {"small": _class_figures("small", [o[1] for o in smalls], [g[2] for g in got],
+                                            time.perf_counter() - t)}
+            model = {o[0]: (o[1], g[0], g[1]) for o, g in zip(smalls, got)}
+            t = time.perf_counter()
+            (big_got,) = _s3_multipart(gw.addr, seed, [big], lambda k: f"/{S3_BUCKET}/{k}")
+            fill["big"] = _class_figures("big", [big[1]], [big_got[2]], time.perf_counter() - t)
+            model[big[0]] = (big[1], big_got[0], big_got[1])
+            n_parts = -(-TLS_BIG_BYTES // S3_PART)
+            puts_sent = len(smalls) + n_parts + 2  # create, parts, complete: class s3.put
+            # one traced PUT, with the client's own span context
+            trace_id = hashlib.sha256(f"phase 15 put {seed}".encode()).hexdigest()[:32]
+            client_span = "c1" * 8
+            traced_body = _s3_body(seed, 298, 64 * 1024)
+            status, _d, _h, _dt = admin.request(
+                "PUT", f"/{S3_BUCKET}/traced/one.bin", body=traced_body,
+                headers={"traceparent": f"00-{trace_id}-{client_span}-01"})
+            check(status == 200, f"the traced PUT: {status}")
+            puts_sent += 1
+            model["traced/one.bin"] = (len(traced_body), hashlib.sha256(traced_body).hexdigest(),
+                                       hashlib.md5(traced_body).hexdigest())
+            rec["fill"] = fill
+            print(f"tls: fill over HTTPS on {ident}: " + "; ".join(
+                f"{cls} {r['files']} objects {r['files_per_s']:.1f}/s {r['mb_per_s']:.1f} MB/s "
+                f"p50 {r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms" for cls, r in fill.items()))
+
+            # the traced PUT: the gateway's request span, the filer's gRPC span
+            # as its child and the volume POST under the gateway's upload span
+            def trace_rows() -> dict:
+                return {name: _tracez(pool, f"127.0.0.1:{p.metrics_port}", trace_id)
+                        for name, p in (("s3", gw), ("filer", filer),
+                                        *((s_.url, s_) for s_ in servers))}
+
+            _poll(lambda: any(r["name"] == "write" for url in urls
+                              for r in trace_rows()[url]), "the traced PUT's volume span", 10)
+            rows = trace_rows()
+            put_span = [r for r in rows["s3"] if r["name"] == "PutObject"]
+            check(len(put_span) == 1 and put_span[0]["parent_id"] == client_span,
+                  f"the gateway's spans of the traced PUT: {rows['s3']}")
+            put_id = put_span[0]["span_id"]
+            chunk = [r for r in rows["s3"] if r["name"] == "put_chunk"]
+            check(len(chunk) == 1 and chunk[0]["parent_id"] == put_id,
+                  f"the gateway's upload span: {rows['s3']}")
+            created = [r for r in rows["filer"] if r["name"] == "CreateEntry"]
+            check(len(created) == 1 and created[0]["parent_id"] == put_id
+                  and created[0]["service"] == "filer", f"the filer's spans: {rows['filer']}")
+            writes = {url: [r for r in rows[url] if r["name"] == "write"] for url in urls}
+            holder = chunk[0]["attrs"]["url"]
+            check(len(writes.get(holder, [])) == 1
+                  and writes[holder][0]["parent_id"] == chunk[0]["span_id"]
+                  and sum(len(w) for w in writes.values()) == 1,
+                  f"the volume servers' write spans: {writes}")
+            walls["trace_dump"], out = _shell(maddr, "; ".join(
+                f"trace.dump -server 127.0.0.1:{p.metrics_port} -traceId {trace_id}"
+                for p in (gw, filer, servers[urls.index(holder)])), log, env=env)
+            check(out.count(f"trace {trace_id}") == 3 and "s3:PutObject" in out
+                  and "filer:CreateEntry" in out and "volume:write" in out,
+                  f"trace.dump of the traced PUT: {out!r}")
+
+            # cluster.status: the merged s3.put count against the members' own
+            walls["cluster_status"], out = _shell(
+                maddr, f"cluster.status -members {','.join(members)} -json", log, env=env)
+            view = json.loads(out)
+            own = []
+            for addr in members:
+                status, body = pool.request(addr, "GET", "/debug/sketchz")
+                check(status == 200, f"{addr}/debug/sketchz: {status}")
+                own.append(json.loads(body)["ops"].get("s3.put", {}).get("count", 0))
+            merged_puts = view["op_latency"].get("s3.put", {}).get("count", 0)
+            check(all(v["ok"] for v in view["members"].values())
+                  and merged_puts == sum(own) == puts_sent,
+                  f"cluster.status merged s3.put {merged_puts}, the members' own {own}, "
+                  f"{puts_sent} PUTs sent; members {view['members']}")
+            walls["slo_status"], slo_out = _shell(
+                maddr, f"slo.status -server 127.0.0.1:{gw.metrics_port}", log, env=env)
+            check(slo_out.startswith("SLO: PASS"), f"slo.status: {slo_out!r}")
+            rec["cluster_status"] = dict(s3_put=merged_puts, members=own,
+                                         op_latency=view["op_latency"],
+                                         requests=view["requests_total"],
+                                         errors=view["requests_errors"])
+            print(f"tls: cluster.status over {len(members)} members: merged s3.put {merged_puts} "
+                  f"= the members' {own} = {puts_sent} PUTs sent; " + "; ".join(
+                      f"{op} n={r['count']} p99 {r['p99_ms']:.2f} ms"
+                      for op, r in view["op_latency"].items() if r.get("count"))
+                  + f"; slo.status: {slo_out.splitlines()[0]}")
+
+            # 3. ec.encode over mutual TLS, traced
+            vols: dict = {}
+            for d in dirs:
+                for n_ in os.listdir(d):
+                    mm = re.fullmatch(r"(\d+)\.dat", n_)
+                    if mm and os.path.getsize(os.path.join(d, n_)) > 8:
+                        vols[int(mm[1])] = max(vols.get(int(mm[1]), 0),
+                                               os.path.getsize(os.path.join(d, n_)))
+            tasks = sum(len(ec_encoder._plan_tasks(DEFAULT_SCHEME, s_, ec_encoder.DEFAULT_CHUNK))
+                        for s_ in vols.values())
+            k1_before = {s_.url: metric(s_.metrics(), "weedtpu_cuda_kernel_launches",
+                                        kernel="gf_apply") for s_ in servers}
+            check(not any(k1_before.values()), f"K1 launched before the encode: {k1_before}")
+            ec_trace = hashlib.sha256(f"phase 15 ec.encode {seed}".encode()).hexdigest()[:32]
+            walls["ec_encode"], _out = _shell(maddr, "lock; " + "; ".join(
+                f"ec.encode -volumeId {vid}" for vid in sorted(vols)) + "; unlock", log,
+                env=dict(env, TRACEPARENT=f"00-{ec_trace}-{'e1' * 8}-01"))
+            by_grpc = {f"127.0.0.1:{s_.grpc_port}": d for s_, d in zip(servers, dirs)}
+            for vid in vols:
+                _poll(lambda: _ec_census(mstub, vid)["holders"] == _disk_shards(by_grpc, str(vid)),
+                      f"the master's EC census of {vid} to match the disks", 60)
+            k1 = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches",
+                                     kernel="gf_apply")) for s_ in servers}
+            check(sum(k1.values()) == tasks and tasks > 0,
+                  f"K1 launches by server {k1}; the generates of {len(vols)} volumes have "
+                  f"{tasks} batches")
+            spans = {}
+            for s_ in servers:
+                gens = [r for r in _tracez(pool, f"127.0.0.1:{s_.metrics_port}", ec_trace)
+                        if r["name"] == "EcShardsGenerate"]
+                walls_s = [st["wall_s"] for st in server_stages(s_.log_text(), "generate")]
+                spans[s_.url] = dict(spans=len(gens), span_s=sum(r["duration_ms"] for r in gens)
+                                     / 1e3, generate_s=sum(walls_s))
+                check(bool(gens) == (k1[s_.url] > 0) and len(gens) == len(walls_s)
+                      and all(r["service"] == "volume" and r["status"] == "ok" for r in gens)
+                      and spans[s_.url]["span_s"] >= spans[s_.url]["generate_s"],
+                      f"{s_.url}: EcShardsGenerate spans {gens}, generates {walls_s}, K1 "
+                      f"{k1[s_.url]}")
+            rec["ec_spans"] = spans
+            sources = [s_ for s_ in servers if spans[s_.url]["spans"]]
+            walls["trace_dump_ec"], out = _shell(maddr, "; ".join(
+                f"trace.dump -server 127.0.0.1:{s_.metrics_port} -traceId {ec_trace}"
+                for s_ in sources), log, env=env)
+            check(bool(sources) and out.count(f"trace {ec_trace}") == len(sources)
+                  and out.count("volume:EcShardsGenerate")
+                  == sum(spans[s_.url]["spans"] for s_ in sources),
+                  f"trace.dump of the traced ec.encode: {out!r}")
+            print(f"tls: ec.encode -volumeId of {len(vols)} volumes ({sum(vols.values())} B) over "
+                  f"mutual TLS {walls['ec_encode']:.3f}s on {ident}; K1 launches by server {k1} "
+                  f"(= {tasks} batches); traced: EcShardsGenerate spans cover the generates "
+                  f"{spans}")
+            rec["read_ec"] = _s3_read_all(gw.addr, S3_BUCKET, model, "tls: from EC shards")
+
+            # the holder of shard 0 SIGKILLed: degraded reads under the faults
+            census = {vid: _ec_census(mstub, vid)["holders"] for vid in vols}
+
+            def data_shards(s_) -> int:
+                return sum(sid < 10 for h in census.values()
+                           for sid in h.get(f"127.0.0.1:{s_.grpc_port}", []))
+
+            victim = next(s_ for s_ in servers
+                          if 0 in census[min(vols)].get(f"127.0.0.1:{s_.grpc_port}", []))
+            live = [s_ for s_ in servers if s_ is not victim]
+            victim.proc.send_signal(signal.SIGKILL)
+            victim.proc.wait()
+            walls["prune_wait"] = _poll(lambda: victim.url not in nodes(),
+                                        f"the master to prune {victim.url}", PRUNE_WAIT_S)
+            rec["read_degraded"] = _s3_read_all(gw.addr, S3_BUCKET, model, "tls: degraded")
+            rec["reconstructed_intervals"] = int(sum(
+                metric(s_.metrics(), "weedtpu_ec_degraded_reads_total", mode="reconstruct")
+                for s_ in live))
+            check(rec["reconstructed_intervals"] > 0 and data_shards(victim) > 0,
+                  f"the degraded reads reconstructed {rec['reconstructed_intervals']} intervals")
+            fired = {}
+            for name, p in (("s3", gw), ("filer", filer), *((s_.url, s_) for s_ in live)):
+                status, body = pool.request(f"127.0.0.1:{p.metrics_port}", "GET", "/debug/faults")
+                check(status == 200, f"/debug/faults of {name}: {status}")
+                snap = json.loads(body)
+                check(snap["active"] and snap["seed"] == TLS_FAULTS_SEED, f"{name}: {snap}")
+                for r in snap["rules"]:
+                    fired[r["rule"]] = fired.get(r["rule"], 0) + r["fired"]
+            check(all(fired.values()) and len(fired) == 3,
+                  f"every rule of the plan fired somewhere: {fired}")
+            rec["faults_fired"] = fired
+            print(f"tls: SIGKILL {victim.url} ({data_shards(victim)} data shards), pruned after "
+                  f"{walls['prune_wait']:.3f}s; {rec['reconstructed_intervals']} intervals "
+                  f"reconstructed; faults fired {fired} with 0 client-visible errors")
+
+            # 4. the operator's commands: a live peer's breaker under fault.inject
+            peer = f"127.0.0.1:{live[0].grpc_port}"
+            walls["breaker"], out = _shell(maddr, "; ".join([
+                # quoted: the shell reads an unquoted "#" as a comment
+                f"fault.inject -spec 'client/volume@{peer.replace(':', '#')}:VolumeStatus:"
+                f"unavailable:x6'", "cluster.check", "cluster.check", "resilience.status",
+                "cluster.check", "resilience.status", "events.dump -limit 0"]), log,
+                env=dict(env, WEED_RPC_BREAKER_COOLDOWN="0", WEED_RPC_BACKOFF_MS="1"))
+            states = re.findall(rf"^\s+{re.escape(peer)}\s+(\w+)\s+failures=(\d+)", out, re.M)
+            kinds = re.findall(rf"(breaker\.\w+)\s.*peer={re.escape(peer)}\b", out)
+            check(states == [("open", "6"), ("closed", "0")]
+                  and kinds == ["breaker.open", "breaker.half_open", "breaker.open",
+                                "breaker.half_open", "breaker.close"]
+                  and out.count(f"UNREACHABLE: {live[0].url}") == 2,
+                  f"the breaker walk: states {states}, events {kinds}: {out!r}")
+            walls["events_dump"], out = _shell(
+                maddr, f"events.dump -members {','.join(f'127.0.0.1:{p.metrics_port}' for p in [master, *live, filer, gw])} -limit 20",
+                log, env=env)
+            check("fault.injected" in out, f"events.dump -members: {out[-2000:]!r}")
+            print(f"tls: fault.inject on {peer}: resilience.status {states}, events {kinds}; "
+                  f"events.dump -members merged {len(out.splitlines())} lines")
+
+            # 5. a torn append on one server, recovered by a restart
+            s_ = live[-1]
+            vid = max(vols) + 100
+            rpc.volume_stub(f"127.0.0.1:{s_.grpc_port}").AllocateVolume(
+                vs_pb.AllocateVolumeRequest(volume_id=vid, collection="torn"), timeout=60)
+            payloads = {k: _s3_body(seed, 70_000 + k, 4096) for k in range(1, TLS_TORN_N + 3)}
+
+            def write(k: int) -> int:
+                status, _b = pool.request(s_.url, "POST", f"/{vid},{k:x}{k * 7919:08x}",
+                                          body=payloads[k])
+                return status
+
+            check(all(write(k) == 201 for k in range(1, TLS_TORN_N + 1)),
+                  "an acknowledged write before the torn one failed")
+            dat = next(os.path.join(d, n_) for d in dirs for n_ in os.listdir(d)
+                       if n_ == f"torn_{vid}.dat")
+            intact = os.path.getsize(dat)
+            ports = (str(s_.http_port), str(s_.grpc_port), str(s_.metrics_port))
+            i_s = servers.index(s_)
+
+            def restart(extra: dict, label: str):
+                rc = s_.stop()
+                check(rc == 0, f"{s_.url} did not stop cleanly: rc {rc}: {s_.log_text()[-3000:]}")
+                new = _Server(dirs[i_s], dev.type, os.path.join(root, f"v{i_s}.{label}.log"),
+                              env=dict(env, **extra), argv=volume_argv(dirs[i_s], i_s, ports))
+                new.url = s_.url
+                return new
+
+            t = time.perf_counter()
+            s_ = servers[i_s] = live[-1] = restart({"WEED_FAULTS": "disk@*.dat:append:torn:x1"},
+                                                   "torn")
+            torn_status = write(TLS_TORN_N + 1)
+            torn_size = os.path.getsize(dat)
+            status, body = pool.request(f"127.0.0.1:{s_.metrics_port}", "GET", "/debug/faults")
+            torn_fired = json.loads(body)["rules"][0]["fired"]
+            check(torn_status == 500 and intact < torn_size and torn_fired == 1,
+                  f"the torn write answered {torn_status}, .dat {intact} -> {torn_size} B, "
+                  f"fired {torn_fired}")
+            s_ = servers[i_s] = live[-1] = restart({"WEED_FAULTS": ""}, "recovered")
+            walls["torn_restarts"] = time.perf_counter() - t
+            recovered = os.path.getsize(dat)
+            reads = [pool.request(s_.url, "GET", f"/{vid},{k:x}{k * 7919:08x}")
+                     for k in range(1, TLS_TORN_N + 2)]
+            check(recovered == intact
+                  and all(r == (200, payloads[k]) for k, r in zip(range(1, TLS_TORN_N + 1), reads))
+                  and reads[-1][0] == 404 and write(TLS_TORN_N + 2) == 201,
+                  f"after recovery .dat {recovered} B (intact {intact}); "
+                  f"{sum(r[0] == 200 for r in reads[:-1])} of {TLS_TORN_N} acknowledged writes "
+                  f"read back; the torn one answers {reads[-1][0]}")
+            rec["torn"] = dict(intact=intact, torn=torn_size, recovered=recovered,
+                               acknowledged=TLS_TORN_N)
+            print(f"tls: disk@*.dat:append:torn:x1 on {s_.url}: the write answered 500, .dat "
+                  f"{intact} -> {torn_size} B; restarted without faults: .dat {recovered} B, "
+                  f"{TLS_TORN_N} acknowledged writes read back, the torn one 404, "
+                  f"restarts {walls['torn_restarts']:.3f}s")
+            admin.close()
+        finally:
+            pool.close()
+            if gw is not None:
+                _TLS_CONTEXTS.pop(getattr(gw, "addr", ""), None)
+            rcs = {getattr(s_, "url", s_.proc.pid): s_.stop() for s_ in servers}
+            if gw is not None:
+                rcs["s3"] = gw.stop()
+            if filer is not None:
+                rcs["filer"] = filer.stop()
+            rcs["master"] = master.stop()
+    check(victim is not None and rcs[victim.url] == -signal.SIGKILL
+          and all(rc == 0 for k, rc in rcs.items() if k != victim.url),
+          f"tls phase processes exited {rcs}")
+    walls["phase"] = time.perf_counter() - t_phase
+    rec.update(walls=walls, launches=tasks, volumes=len(vols), objects=len(model),
+               puts_sent=puts_sent, rcs={str(k): v for k, v in rcs.items()})
+    print("tls: " + json.dumps(rec, sort_keys=True))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5652,6 +6222,15 @@ def main() -> int:
         s3_fill={cls: {k: r[k] for k in ("files", "files_per_s", "mb_per_s", "p50_ms", "p99_ms")}
                  for cls, r in s3["fill"].items()},
         s3_mixed_ops_per_s=s3["mixed"]["ops_per_s"],
+    )
+    tls = main_path["tls"]
+    record["kernels"][0]["launches"] += tls["launches"]
+    record["kernels"][0].update(
+        launches_tls=tls["launches"],
+        tls_walls_s=tls["walls"],
+        tls_fill={cls: {k: r[k] for k in ("files", "files_per_s", "mb_per_s", "p50_ms", "p99_ms")}
+                  for cls, r in tls["fill"].items()},
+        tls_faults_fired=tls["faults_fired"],
     )
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)

@@ -54,6 +54,7 @@ def _import_all() -> None:
         servers,
         shell_cmd,
         tier_cmd,
+        tls_cmd,
         version,
     )
 

@@ -9,7 +9,8 @@ binds a free port), ``-grpcPort`` (default ``-port`` + 10000; with
 included), ``-mdir`` (durable sequence state, and the raft log) and ``-ha``
 (``lease``, the default, or ``raft``, which needs ``-mdir``; with
 ``-ha raft`` an empty ``-peers`` starts a passive joiner for
-``cluster.raft.add``); it runs no kernel and takes no device.  ``volume``
+``cluster.raft.add``) and ``-metricsPort`` (0: none); it runs no kernel and
+takes no device.  ``volume``
 takes ``-dir``, ``-mserver`` (the master's gRPC address, or a
 comma-separated list of them; the port's default is none: no heartbeat),
 ``-ip``, ``-port`` (the HTTP needle API; ``ip:port`` names the node at the
@@ -26,21 +27,28 @@ first line on stdout that names the ports it bound.  The volume server
 resolves its device at start: without CUDA, and without ``-device cpu``,
 it raises and exits.  ``filer`` takes ``-master``, ``-ip``, ``-port``,
 ``-grpcPort``, ``-db`` (the store: filer.make_store), ``-maxMB`` (the chunk
-size), ``-metricsPort`` (0: none) and ``-metaLogDir``; it runs no kernel
-and takes no device, and its ``-notify``, ``-tlsCert`` and ``-tlsKey``
-raise (not ported).  ``s3`` runs the S3 gateway in one process: over an
+size), ``-metricsPort`` (0: none), ``-metaLogDir`` and ``-tlsCert``/``-tlsKey``
+(HTTPS on its HTTP port); it runs no kernel and takes no device, and its
+``-notify`` raises (not ported).  ``s3`` runs the S3 gateway in one process: over an
 embedded filer, or with ``-filer`` (one filer's gRPC address) over
 ``RemoteFiler`` and the metadata subscriber; it takes ``-master``,
 ``-ip``, ``-port`` (0 binds a free port), ``-accessKey``/``-secretKey``
 (SigV4 and V2 required), ``-kmsKeyFile`` or ``-kms`` (SSE-S3),
 ``-cacheMB`` (the hot-chunk cache), ``-circuitBreakerFile``, ``-qosFile``,
-``-accessLog``, ``-lifecycleSweepSec``, ``-metricsPort`` and
-``-reusePort``; it runs no kernel and takes no device, and ``-workers``
-above 1, a comma list in ``-filer``, ``-tlsCert`` and ``-tlsKey`` raise
-(not ported).  ``server`` runs a master, one volume server (its
-``-device`` as ``volume``'s) and, with ``-filer``, a filer, and with
-``-s3`` a gateway over that filer, in one process; its ``-webdav``
-raises (not ported).  SIGINT or SIGTERM stops any of them.
+``-accessLog``, ``-lifecycleSweepSec``, ``-metricsPort``, ``-reusePort`` and
+``-tlsCert``/``-tlsKey`` (HTTPS); it runs no kernel and takes no device,
+and ``-workers`` above 1 and a comma list in ``-filer`` raise (not ported).
+``server`` runs a master, one volume server (its ``-device`` as
+``volume``'s) and, with ``-filer``, a filer, and with ``-s3`` a gateway over
+that filer, in one process (``-tlsCert``/``-tlsKey`` put the filer's and
+the gateway's HTTP ports behind TLS); its ``-webdav`` raises (not ported).
+SIGINT or SIGTERM stops any of them.
+
+Every process honours the environment as the JAX package's do:
+``WEEDTPU_TLS_CA``/``_CERT``/``_KEY`` (mutual TLS on every gRPC hop;
+``tls.gen`` mints them), ``WEED_FAULTS``/``WEED_FAULTS_SEED`` (fault
+injection), ``WEED_SLO`` (the /debug/sloz spec) and ``SEAWEEDFS_TPU_TRACE``
+(0 stops recording spans).
 """
 
 from __future__ import annotations
@@ -76,6 +84,10 @@ def run_master(args) -> int:
                       peers=[p.strip() for p in args.peers.split(",") if p.strip()],
                       meta_dir=args.mdir, ha=args.ha, jwt_key=args.jwtKey)
     ms.start()
+    if args.metricsPort:
+        from seaweedfs_tpu_torch import stats
+
+        stats.start_metrics_server(args.metricsPort, args.ip)
     print(f"master gRPC on {ms.grpc_address}, HTTP on {ms.advertise}", flush=True)
     try:
         _wait_forever()
@@ -96,9 +108,16 @@ def _master_flags(p) -> None:
                    help="HA mode: lease probing or raft consensus (needs -mdir; "
                    "empty -peers joins passively via cluster.raft.add)")
     p.add_argument("-jwtKey", default="", help="sign per-fid write JWTs (or WEED_JWT_KEY)")
+    p.add_argument("-metricsPort", type=int, default=0,
+                   help="standalone Prometheus /metrics + /debug listener (0: none)")
 
 
 run_master.configure = _master_flags
+
+
+def _tls_flags(p) -> None:
+    p.add_argument("-tlsCert", default="", help="serve HTTPS with this cert")
+    p.add_argument("-tlsKey", default="", help="key for -tlsCert")
 
 
 @command("volume", "run a volume server (HTTP needle API, EC shard service, heartbeats)")
@@ -227,8 +246,7 @@ def _filer_flags(p) -> None:
     p.add_argument("-metricsPort", type=int, default=0, help="Prometheus /metrics")
     p.add_argument("-metaLogDir", default="", help="persist the metadata event log here")
     p.add_argument("-notify", default="", help="metadata event bus (not ported: raises)")
-    p.add_argument("-tlsCert", default="", help="TLS certificate (not ported: raises)")
-    p.add_argument("-tlsKey", default="", help="TLS key (not ported: raises)")
+    _tls_flags(p)
 
 
 run_filer.configure = _filer_flags
@@ -242,8 +260,6 @@ def run_s3(args) -> int:
 
     if args.workers > 1:
         raise NotImplementedError(f"s3 -workers {args.workers}: {NOT_PORTED}")
-    if args.tlsCert or args.tlsKey:
-        raise NotImplementedError(f"s3 -tlsCert/-tlsKey: {NOT_PORTED}")
 
     identities = None
     if args.accessKey:
@@ -292,6 +308,8 @@ def run_s3(args) -> int:
         access_log=args.accessLog,
         reuse_port=args.reusePort,
         chunk_cache_mb=(args.cacheMB if args.cacheMB >= 0 else None),
+        tls_cert=args.tlsCert,
+        tls_key=args.tlsKey,
     )
     gw.start()
     try:
@@ -330,8 +348,7 @@ def _s3_flags(p) -> None:
     p.add_argument("-qosFile", default="",
                    help="static tenant/bucket QoS JSON (else polled from the "
                    "filer's /etc/s3/qos.json via the s3.qos shell command)")
-    p.add_argument("-tlsCert", default="", help="TLS certificate (not ported: raises)")
-    p.add_argument("-tlsKey", default="", help="TLS key (not ported: raises)")
+    _tls_flags(p)
     p.add_argument("-lifecycleSweepSec", type=float, default=3600.0,
                    help="seconds between lifecycle expiration sweeps (0 disables)")
     p.add_argument("-workers", type=int, default=1,
@@ -372,7 +389,8 @@ def run_server(args) -> int:
             from seaweedfs_tpu_torch.server.filer_server import FilerServer
 
             fs = FilerServer(ms.grpc_address, ip=args.ip, port=args.filerPort,
-                             store_path=args.db or None)
+                             store_path=args.db or None, tls_cert=args.tlsCert,
+                             tls_key=args.tlsKey)
             fs.start()
             services.append(fs)
             parts.append(f"filer {fs.url} (gRPC {fs.grpc_address})")
@@ -387,7 +405,8 @@ def run_server(args) -> int:
             # ride the filer's metadata engine: shell s3.* and the S3 API
             # see one namespace (the reference's weed server -s3 shape)
             gw = S3ApiServer(ms.grpc_address, ip=args.ip, port=args.s3Port, filer=fs.filer,
-                             identities=identities)
+                             identities=identities, tls_cert=args.tlsCert,
+                             tls_key=args.tlsKey)
             gw.start()
             services.append(gw)
             parts.append(f"s3 {gw.url} ({'sigv4' if identities else 'open'})")
@@ -421,6 +440,7 @@ def _server_flags(p) -> None:
                    help="require SigV4 with this key (default: OPEN, unauthenticated)")
     p.add_argument("-s3SecretKey", default="")
     p.add_argument("-webdav", action="store_true", help="WebDAV (not ported: raises)")
+    _tls_flags(p)
 
 
 run_server.configure = _server_flags

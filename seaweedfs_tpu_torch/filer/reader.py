@@ -13,8 +13,9 @@ of a TCP connect/close per chunk.
 
 The port's copy of seaweedfs_tpu/filer/reader.py, with the gateway
 hot-chunk cache (``fetch_chunk_cached``, ``stream_entry(chunk_cache=)``).
-The client spans of the JAX module's tracing layer wait for later work
-(ROADMAP Queue A item 3).
+Each chunk GET runs in a ``get_chunk`` client span whose traceparent the
+volume server's ``read`` span joins; ``trace_ctx`` carries the caller's
+context across the prefetch pool.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Iterator
 
 from seaweedfs_tpu_torch.filer.entry import Entry
 from seaweedfs_tpu_torch.filer.filechunks import read_chunk_views, total_size, visible_intervals
+from seaweedfs_tpu_torch.stats import trace
 from seaweedfs_tpu_torch.util.http_pool import PoolExhausted, shared_pool
 from seaweedfs_tpu_torch.wdclient import MasterClient
 
@@ -76,26 +78,33 @@ _VOLUME_GONE_BODY = b"volume not found"  # volume_server.py's volume-level 404
 _REDIRECT_STATUSES = frozenset({301, 302, 307, 308})
 
 
-def _fetch_chunk_from(url: str, fid: str, offset: int, size: int) -> bytes:
+def _fetch_chunk_from(url: str, fid: str, offset: int, size: int, trace_ctx=None) -> bytes:
     """GET one chunk (whole or range) from one replica holder over the
     shared keep-alive pool."""
-    headers = {}
-    if size >= 0:
-        headers["Range"] = f"bytes={offset}-{offset + size - 1}"
-    status, body = shared_pool().request(url, "GET", f"/{fid}", headers=headers)
-    if status not in (200, 206):
-        definitive = status in _DEFINITIVE_STATUSES and not (
-            status == 404 and body.strip() == _VOLUME_GONE_BODY
-        )
-        raise ReplicaStatusError(
-            f"read {fid} from {url}: HTTP {status}", status, definitive
-        )
+    # client span + traceparent: the hop the volume server joins when the
+    # calling request is traced.  ``trace_ctx`` carries the caller's
+    # context across the prefetch pool (thread-locals do not follow pool
+    # workers).
+    with trace.span("get_chunk", service="filer_client", parent=trace_ctx,
+                    attrs={"fid": fid, "url": url}):
+        headers = trace.inject_headers({})
+        if size >= 0:
+            headers["Range"] = f"bytes={offset}-{offset + size - 1}"
+        status, body = shared_pool().request(url, "GET", f"/{fid}", headers=headers)
+        if status not in (200, 206):
+            definitive = status in _DEFINITIVE_STATUSES and not (
+                status == 404 and body.strip() == _VOLUME_GONE_BODY
+            )
+            raise ReplicaStatusError(
+                f"read {fid} from {url}: HTTP {status}", status, definitive
+            )
     if status == 200 and size >= 0:
         body = body[offset : offset + size]  # server ignored Range
     return body
 
 
-def fetch_chunk(master: MasterClient, fid: str, offset: int = 0, size: int = -1) -> bytes:
+def fetch_chunk(master: MasterClient, fid: str, offset: int = 0, size: int = -1,
+                trace_ctx=None) -> bytes:
     """GET one chunk, failing over across replica holders.
 
     Only connection-class failures mark a replica dead (forgotten from
@@ -119,7 +128,7 @@ def fetch_chunk(master: MasterClient, fid: str, offset: int = 0, size: int = -1)
         saw_connection_failure = False
         for url in urls:
             try:
-                return _fetch_chunk_from(url, fid, offset, size)
+                return _fetch_chunk_from(url, fid, offset, size, trace_ctx)
             except ReplicaStatusError as e:
                 if e.definitive:
                     raise  # the answer, not a dead replica
@@ -156,7 +165,7 @@ def fetch_chunk(master: MasterClient, fid: str, offset: int = 0, size: int = -1)
 
 
 def fetch_chunk_cached(
-    cache, master: MasterClient, fid: str, offset: int, size: int,
+    cache, master: MasterClient, fid: str, offset: int, size: int, trace_ctx=None,
 ) -> bytes:
     """:func:`fetch_chunk` through the gateway hot-chunk cache
     (util/chunk_cache): a hit never touches the volume server, a
@@ -164,7 +173,7 @@ def fetch_chunk_cached(
     (oversized, whole-chunk ``size < 0`` reads) rides the plain fetch.
     ``cache`` may be None: the zero-cost passthrough."""
     if cache is None or size < 0 or not cache.cacheable(size):
-        return fetch_chunk(master, fid, offset, size)
+        return fetch_chunk(master, fid, offset, size, trace_ctx)
     hit = cache.lookup(fid, offset, offset + size - 1)
     if hit is not None:
         try:
@@ -179,7 +188,7 @@ def fetch_chunk_cached(
         # the cache_fill plane so warm-up traffic is distinguishable
         # from plain serve reads in weedtpu_plane_bytes_total
         with plane.tagged(plane.CACHE_FILL):
-            return fetch_chunk(master, fid, offset, size)
+            return fetch_chunk(master, fid, offset, size, trace_ctx)
 
     return cache.fill(fid, offset, offset + size - 1, loader)
 
@@ -299,6 +308,7 @@ def stream_entry(
         if v.logical_offset + v.size < end:
             yield from _zero_fill(end - (v.logical_offset + v.size))
         return
+    trace_ctx = trace.current()
     window = max(1, window)
     pool = _prefetcher()
     pending: deque = deque()  # (view, Future) in logical order
@@ -311,7 +321,7 @@ def stream_entry(
                 idx += 1
                 pending.append(
                     (v, pool.submit(fetch_chunk_cached, chunk_cache, master, v.fid,
-                                    v.offset_in_chunk, v.size))
+                                    v.offset_in_chunk, v.size, trace_ctx))
                 )
             v, fut = pending.popleft()
             data = fut.result()

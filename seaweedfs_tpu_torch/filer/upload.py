@@ -3,8 +3,9 @@ servers in parallel (reference filer_server_handlers_write_upload.go:56
 uploadReaderToChunks + assignNewFileInfo:37).  The port's copy of
 seaweedfs_tpu/filer/upload.py, its Python path: ``FidPool(native_stash=True)``
 behaves as the JAX one does without its native library (the Python pools
-serve), since the native data plane is not ported (ROADMAP Queue A item 9),
-and the client spans wait for the port's tracing layer.
+serve), since the native data plane is not ported (ROADMAP Queue A item 9).
+Each chunk POST runs in a ``put_chunk`` client span whose traceparent the
+volume server's ``write`` span joins (stats/trace.py).
 
 One Assign RPC covers a batch of chunks via the ``fid_N`` convention
 (the master reserves ``count`` sequential keys; derivatives share the
@@ -25,6 +26,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 from seaweedfs_tpu_torch.filer.entry import FileChunk
+from seaweedfs_tpu_torch.stats import trace
 from seaweedfs_tpu_torch.util.http_pool import shared_pool
 from seaweedfs_tpu_torch.wdclient import MasterClient
 
@@ -146,19 +148,26 @@ def http_put_chunk(
     timeout: float = 30.0,
     auth: str = "",
     content_type: str = "",
+    trace_ctx=None,
 ) -> None:
     headers = {"Authorization": f"Bearer {auth}"} if auth else {}
     if content_type:
         # lets the volume server's compress-on-write heuristic see the
         # file's real type (chunk bodies are opaque ranges otherwise)
         headers["Content-Type"] = content_type
-    status, body = shared_pool().request(
-        url, "POST", f"/{fid}", body=data, headers=headers, timeout=timeout
-    )
-    if status not in (200, 201):
-        raise IOError(
-            f"upload {fid} to {url}: HTTP {status} {body[:200]!r}"
+    # client span: ``trace_ctx`` carries the caller's context across the
+    # upload thread pool (thread-locals do not follow pool workers); the
+    # traceparent header hands it to the volume server
+    with trace.span("put_chunk", service="filer_client", parent=trace_ctx,
+                    attrs={"fid": fid, "url": url}):
+        trace.inject_headers(headers)
+        status, body = shared_pool().request(
+            url, "POST", f"/{fid}", body=data, headers=headers, timeout=timeout
         )
+        if status not in (200, 201):
+            raise IOError(
+                f"upload {fid} to {url}: HTTP {status} {body[:200]!r}"
+            )
 
 
 def save_blob(
@@ -219,6 +228,9 @@ def upload_stream(
     chunks: list[FileChunk] = []
     futures = []
     offset = 0
+    # captured once: the pool workers' thread-locals do not inherit the
+    # calling request's trace context
+    trace_ctx = trace.current()
 
     def assign_one() -> tuple[str, str, str]:
         if fid_pool is not None:
@@ -242,7 +254,7 @@ def upload_stream(
         e_tag = md5.copy().hexdigest()
         fid, url, assign_auth = assign_one()
         auth = master.sign_write(fid) or assign_auth
-        http_put_chunk(url, fid, first, auth=auth, content_type=mime)
+        http_put_chunk(url, fid, first, auth=auth, content_type=mime, trace_ctx=trace_ctx)
         return (
             [
                 FileChunk(
@@ -291,7 +303,8 @@ def upload_stream(
                 # prefer a token minted at send time: the assign-time token
                 # lives ~10s, shorter than a large upload's queueing delay
                 auth = master.sign_write(fid) or assign_auth
-                http_put_chunk(url, fid, data, auth=auth, content_type=mime)
+                http_put_chunk(url, fid, data, auth=auth, content_type=mime,
+                               trace_ctx=trace_ctx)
             except BaseException as e:
                 put_errors.append(e)
                 raise

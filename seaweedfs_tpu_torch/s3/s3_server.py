@@ -10,10 +10,12 @@ reference plays with its chunk manifests.
 The port's copy of seaweedfs_tpu/s3/s3_server.py.  The gateway launches no
 kernel: its objects live in volumes whose servers run the codec.  Bodies
 move on the Python path (the JAX package's path when its native splice is
-unavailable).  Not ported (ROADMAP Queue A item 2), each refused where it
-is asked for: SelectObjectContent (501 NotImplemented), the browser form
-POST (501), the IAM credential store, the worker-group invalidation bus,
-TLS, the tracing span and the latency sketch.
+unavailable).  Every request runs in an edge trace span (a new trace
+unless the client sent a ``traceparent``) and records into its op
+class's latency sketch (stats/sketch.py); ``tls_cert``/``tls_key`` serve
+HTTPS.  Not ported (ROADMAP Queue A item 2), each refused where it is
+asked for: SelectObjectContent (501 NotImplemented), the browser form POST
+(501), the IAM credential store and the worker-group invalidation bus.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from seaweedfs_tpu_torch.s3.auth import (
     Identity,
     SigV4Verifier,
 )
+from seaweedfs_tpu_torch.stats import sketch, trace
 from seaweedfs_tpu_torch.util.httpd import PooledHTTPServer, QuietHandler, StreamingBody
 from seaweedfs_tpu_torch.wdclient import MasterClient
 
@@ -154,8 +157,7 @@ def decode_aws_chunked(body: bytes, ctx=None, decoded_length: int | None = None)
 class S3AccessLog:
     """S3 access log: one space-separated line per request —
     ``time client method path action status bytes duration_ms trace_id``
-    (the reference's s3 -auditLogConfig analogue; the trailing trace id
-    is "-" until the tracing layer is ported).  ``path`` is "-" for
+    (the reference's s3 -auditLogConfig analogue).  ``path`` is "-" for
     stderr, else a file opened in append mode; lines flush per write so
     `tail -f` works."""
 
@@ -171,11 +173,11 @@ class S3AccessLog:
 
     def log(
         self, *, client: str, method: str, path: str, action: str,
-        status: int, nbytes: int, dur_ms: float,
+        status: int, nbytes: int, dur_ms: float, trace_id: str = "",
     ) -> None:
         line = (
             f"{time.strftime('%Y-%m-%dT%H:%M:%S%z')} {client} {method} "
-            f"{path} {action} {status} {nbytes} {dur_ms:.2f} -\n"
+            f"{path} {action} {status} {nbytes} {dur_ms:.2f} {trace_id or '-'}\n"
         )
         with self._lock:
             try:
@@ -210,7 +212,7 @@ class S3ApiServer:
         credential_refresh: float = 5.0,
         lifecycle_sweep_interval: float = 3600.0,  # 0 disables
         circuit_breaker_config: dict | None = None,
-        tls_cert: str = "",  # not ported (raises)
+        tls_cert: str = "",  # with tls_key: HTTPS on the gateway's port
         tls_key: str = "",
         access_log: str = "",  # "" disables; "-" = stderr; else file path
         entry_cache_ttl: float = 2.0,  # 0 disables the gateway entry cache
@@ -220,8 +222,15 @@ class S3ApiServer:
         qos_config: dict | None = None,  # static tenant QoS (else polled)
         chunk_cache_mb: float | None = None,  # None = WEED_CHUNK_CACHE_MB
     ):
-        if tls_cert or tls_key:
-            raise NotImplementedError(f"s3 -tlsCert/-tlsKey: {NOT_PORTED}")
+        if bool(tls_cert) != bool(tls_key):
+            raise ValueError("the gateway's HTTPS needs both tls_cert and tls_key")
+        if tls_cert:
+            from seaweedfs_tpu_torch.security.tls import server_ssl_context
+
+            # fail fast, before anything binds: a pair that does not load
+            # must never leave a plaintext listener behind
+            server_ssl_context(tls_cert, tls_key)
+        self.tls_cert, self.tls_key = tls_cert, tls_key
         if credential_store is not None:
             raise NotImplementedError(f"s3 credential_store (iam): {NOT_PORTED}")
         if inval_bus is not None:
@@ -443,6 +452,10 @@ class S3ApiServer:
         self._httpd = PooledHTTPServer(
             (self.ip, self._port), handler, reuse_port=self.reuse_port
         )
+        if self.tls_cert:
+            from seaweedfs_tpu_torch.security.tls import wrap_http_server
+
+            wrap_http_server(self._httpd, self.tls_cert, self.tls_key)
         threading.Thread(target=self._httpd.serve_forever, daemon=True).start()
         if self.meta_subscriber is not None:
             self.meta_subscriber.start()
@@ -2215,9 +2228,10 @@ class _S3HttpHandler(QuietHandler):
         }
 
     def _dispatch(self, raw: bytes = b""):
-        """Instrumentation shell around the request: per-action counter
-        + latency histogram, and the access log.  The actual S3
-        semantics live in _dispatch_inner."""
+        """Instrumentation shell around the request: edge trace span
+        (roots a new trace unless the client sent a traceparent),
+        per-action counter + latency histogram + op-class sketch, and the
+        access log.  The actual S3 semantics live in _dispatch_inner."""
         t0 = time.perf_counter()
         _url, q, bucket, key = self._route()
         action, arn = _request_action(self.command, q, bucket, key)
@@ -2237,24 +2251,31 @@ class _S3HttpHandler(QuietHandler):
             base_reply(code, body, ctype, headers=headers, length=length)
 
         self._reply = recording_reply
-        try:
-            self._dispatch_inner(raw, q, bucket, key, action, arn)
-        finally:
-            dur = time.perf_counter() - t0
-            code = self._last_status or 0
-            stats.S3_REQUESTS.inc(action=op, code=str(code))
-            stats.S3_REQUEST_SECONDS.observe(dur, action=op)
-            log = self.s3.access_log
-            if log is not None:
-                log.log(
-                    client=self.client_address[0],
-                    method=self.command,
-                    path=self.path,
-                    action=op,
-                    status=code,
-                    nbytes=len(raw) if raw else self._resp_bytes,
-                    dur_ms=dur * 1e3,
-                )
+        with trace.span(op, service="s3", headers=self.headers,
+                        attrs={"bucket": bucket, "key": key} if bucket else None) as sp:
+            try:
+                self._dispatch_inner(raw, q, bucket, key, action, arn)
+            finally:
+                dur = time.perf_counter() - t0
+                code = self._last_status or 0
+                stats.S3_REQUESTS.inc(action=op, code=str(code))
+                stats.S3_REQUEST_SECONDS.observe(dur, action=op)
+                # the mergeable tail-latency sketch, keyed by op class (small
+                # and large GETs split on response size): what the SLO engine
+                # and the cluster aggregator evaluate
+                sketch.record(sketch.s3_op_class(op, self._resp_bytes), dur)
+                log = self.s3.access_log
+                if log is not None:
+                    log.log(
+                        client=self.client_address[0],
+                        method=self.command,
+                        path=self.path,
+                        action=op,
+                        status=code,
+                        nbytes=len(raw) if raw else self._resp_bytes,
+                        dur_ms=dur * 1e3,
+                        trace_id=sp.trace_id,
+                    )
 
     def _claimed_access_key(self) -> str:
         """The access key the request CLAIMS, parsed cheaply (v4 header,

@@ -6,7 +6,10 @@ HMAC-SHA256 JWT to every assignment, and volume servers refuse writes and
 deletes that do not carry a token for that exact fid (reference
 weed/security/jwt.go:16-30, guard.go).  The key is symmetric and shared by
 masters and volume servers, so volume servers can also sign their
-replication fan-out.  TLS is not ported.
+replication fan-out.  TLS lives in security/tls.py: certificate minting
+(``cli tls.gen``), the HTTPS wrap of the filer's and gateway's listeners,
+and the mutual-TLS credentials rpc.py uses on every gRPC hop when
+``WEEDTPU_TLS_*`` are set.
 """
 
 from seaweedfs_tpu_torch.security.jwt import JwtError, decode_jwt, encode_jwt, sign_fid, verify_fid

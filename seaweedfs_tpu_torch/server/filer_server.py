@@ -11,11 +11,13 @@ contract (pb/filer.proto) for programmatic clients (S3 gateway, sync).
 The port's copy of seaweedfs_tpu/server/filer_server.py: the same routes,
 status codes, messages, JSON listings, gRPC contract and
 ``weedtpu_filer_request*`` metrics.  The filer runs no kernel and takes no
-device.  Left for later work, each refused when asked for rather than
-ignored: the native splice of chunk bodies (ROADMAP Queue A item 9), the
-``notify`` bus (item 6) and TLS (item 3); the server spans and the
-``meta.*`` latency sketches of the JAX tracing and SLO layers (item 3) are
-not recorded.
+device.  Its HTTP handlers run in server spans joined to the caller's
+``traceparent``, each metadata gRPC verb records into its ``meta.*``
+latency sketch (stats/sketch.py), and ``tls_cert``/``tls_key`` put the
+HTTP listener behind TLS (its gRPC is mutual TLS when ``WEEDTPU_TLS_*``
+are set, as every server's; rpc.py).  Left for later work, each refused
+when asked for rather than ignored: the native splice of chunk bodies
+(ROADMAP Queue A item 9) and the ``notify`` bus (item 6).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from seaweedfs_tpu_torch.filer import manifest as chunk_manifest
 from seaweedfs_tpu_torch.filer import reader as chunk_reader
 from seaweedfs_tpu_torch.filer import upload as chunk_upload
 from seaweedfs_tpu_torch.pb import filer_pb2 as f_pb
+from seaweedfs_tpu_torch.stats import sketch
 from seaweedfs_tpu_torch.util.httpd import PooledHTTPServer, QuietHandler, StreamingBody
 from seaweedfs_tpu_torch.wdclient import MasterClient
 
@@ -44,40 +47,60 @@ class FilerGrpcServicer:
     def __init__(self, fs: "FilerServer"):
         self.fs = fs
 
+    # each metadata verb records into its meta.* op-class sketch: the
+    # server-observed latencies the SLO engine evaluates
+
     def lookup_directory_entry(self, request, context):
-        path = request.directory.rstrip("/") + "/" + request.name
-        entry = self.fs.filer.find_entry(path)
-        if entry is None:
-            return f_pb.LookupDirectoryEntryResponse(error=f"{path} not found")
-        return f_pb.LookupDirectoryEntryResponse(entry=entry.to_pb())
+        t0 = time.perf_counter()
+        try:
+            path = request.directory.rstrip("/") + "/" + request.name
+            entry = self.fs.filer.find_entry(path)
+            if entry is None:
+                return f_pb.LookupDirectoryEntryResponse(error=f"{path} not found")
+            return f_pb.LookupDirectoryEntryResponse(entry=entry.to_pb())
+        finally:
+            sketch.record(sketch.OP_META_LOOKUP, time.perf_counter() - t0)
 
     def list_entries(self, request, context):
-        entries = self.fs.filer.list_entries(
-            request.directory,
-            start_file_name=request.start_from_file_name,
-            inclusive=request.inclusive_start_from,
-            limit=request.limit or 1024,
-            prefix=request.prefix,
-        )
+        t0 = time.perf_counter()
+        try:
+            entries = self.fs.filer.list_entries(
+                request.directory,
+                start_file_name=request.start_from_file_name,
+                inclusive=request.inclusive_start_from,
+                limit=request.limit or 1024,
+                prefix=request.prefix,
+            )
+        finally:
+            # the store scan is the listing's cost; the yield loop below
+            # runs at the client's consumption pace
+            sketch.record(sketch.OP_META_LIST, time.perf_counter() - t0)
         for e in entries:
             yield f_pb.ListEntriesResponse(entry=e.to_pb())
 
     def create_entry(self, request, context):
+        t0 = time.perf_counter()
         try:
             entry = Entry.from_pb(request.directory, request.entry)
             self.fs.filer.create_entry(entry)
         except (FilerError, ValueError) as e:
             return f_pb.CreateEntryResponse(error=str(e))
+        finally:
+            sketch.record(sketch.OP_META_CREATE, time.perf_counter() - t0)
         return f_pb.CreateEntryResponse()
 
     def update_entry(self, request, context):
+        t0 = time.perf_counter()
         try:
             self.fs.filer.update_entry(Entry.from_pb(request.directory, request.entry))
         except (FilerError, ValueError) as e:
             return f_pb.UpdateEntryResponse(error=str(e))
+        finally:
+            sketch.record(sketch.OP_META_UPDATE, time.perf_counter() - t0)
         return f_pb.UpdateEntryResponse()
 
     def delete_entry(self, request, context):
+        t0 = time.perf_counter()
         path = request.directory.rstrip("/") + "/" + request.name
         try:
             self.fs.filer.delete_entry(
@@ -89,15 +112,20 @@ class FilerGrpcServicer:
             pass  # idempotent, like the reference
         except FilerError as e:
             return f_pb.DeleteEntryResponse(error=str(e))
+        finally:
+            sketch.record(sketch.OP_META_DELETE, time.perf_counter() - t0)
         return f_pb.DeleteEntryResponse()
 
     def atomic_rename_entry(self, request, context):
+        t0 = time.perf_counter()
         old = request.old_directory.rstrip("/") + "/" + request.old_name
         new = request.new_directory.rstrip("/") + "/" + request.new_name
         try:
             self.fs.filer.rename(old, new)
         except (FileNotFoundError, FilerError) as e:
             return f_pb.AtomicRenameEntryResponse(error=str(e))
+        finally:
+            sketch.record(sketch.OP_META_RENAME, time.perf_counter() - t0)
         return f_pb.AtomicRenameEntryResponse()
 
     def assign_volume(self, request, context):
@@ -153,7 +181,8 @@ class _FilerHttpHandler(QuietHandler):
         stats.FILER_REQUESTS.inc(type="read")
         t0 = time.perf_counter()
         try:
-            self._get_inner()
+            with self.server_span("read", "filer"):
+                self._get_inner()
         finally:
             stats.FILER_REQUEST_SECONDS.observe(
                 time.perf_counter() - t0, type="read"
@@ -223,7 +252,8 @@ class _FilerHttpHandler(QuietHandler):
         stats.FILER_REQUESTS.inc(type="write")
         t0 = time.perf_counter()
         try:
-            self._upload_inner()
+            with self.server_span("write", "filer"):
+                self._upload_inner()
         finally:
             stats.FILER_REQUEST_SECONDS.observe(
                 time.perf_counter() - t0, type="write"
@@ -347,7 +377,8 @@ class _FilerHttpHandler(QuietHandler):
         stats.FILER_REQUESTS.inc(type="delete")
         t0 = time.perf_counter()
         try:
-            self._delete_inner()
+            with self.server_span("delete", "filer"):
+                self._delete_inner()
         finally:
             stats.FILER_REQUEST_SECONDS.observe(
                 time.perf_counter() - t0, type="delete"
@@ -396,9 +427,15 @@ class FilerServer:
             raise NotImplementedError(
                 "the filer's -notify bus is not ported to seaweedfs_tpu_torch yet "
                 "(ROADMAP Queue A item 6)")
-        if tls_cert or tls_key:
-            raise NotImplementedError(
-                "TLS is not ported to seaweedfs_tpu_torch yet (ROADMAP Queue A item 3)")
+        if bool(tls_cert) != bool(tls_key):
+            raise ValueError("the filer's HTTPS needs both tls_cert and tls_key")
+        if tls_cert:
+            from seaweedfs_tpu_torch.security.tls import server_ssl_context
+
+            # fail fast, before anything binds: a pair that does not load
+            # must never leave a plaintext listener behind
+            server_ssl_context(tls_cert, tls_key)
+        self.tls_cert, self.tls_key = tls_cert, tls_key
         self.master = MasterClient(master_address)
         if store is None and store_path:
             from seaweedfs_tpu_torch.filer import make_store
@@ -439,6 +476,10 @@ class FilerServer:
     def start(self) -> None:
         handler = type("Handler", (_FilerHttpHandler,), {"fs": self})
         self._httpd = PooledHTTPServer((self.ip, self._port), handler)
+        if self.tls_cert:
+            from seaweedfs_tpu_torch.security.tls import wrap_http_server
+
+            wrap_http_server(self._httpd, self.tls_cert, self.tls_key)
         threading.Thread(target=self._httpd.serve_forever, daemon=True).start()
 
         self._grpc_server = rpc.make_server()

@@ -156,12 +156,15 @@ def _leader_only(fn):
         if ms.is_leader or leader == ms.grpc_address:
             return fn(self, request, context)
         try:
+            # one attempt: the client rotates the master list and retries
+            # (wdclient.FailoverStub), so the forward must not retry
+            # underneath it (a dead leader would hold every follower's
+            # answer through the backoff and delay the client's failover)
             return getattr(rpc.master_stub(leader), camel)(
-                request, timeout=resilience.policy().deadline_s)
+                request, timeout=resilience.policy().deadline_s, wd_max_attempts=1)
         except grpc.RpcError as e:
-            if e.code() is grpc.StatusCode.UNAVAILABLE:
-                rpc.evict_channel(leader)
-            # surface the leader's status code and details, not UNKNOWN
+            # surface the leader's status code and details, not UNKNOWN (the
+            # stub evicted the channel of a leader that answered UNAVAILABLE)
             context.abort(e.code(), e.details() or str(e))
 
     return wrapper

@@ -4,7 +4,8 @@ The port's copy of seaweedfs_tpu/server/store_ec.py (reference
 store_ec.go): read locally mounted shards; for missing shards look up
 locations at the master (TTL-cached, store_ec.go:244-285), stream the
 interval from a peer volume server (``EcShardRead``, hedged to the next
-holder after ``WEED_EC_HEDGE_MS``, failing holders forgotten), and only
+holder after ``WEED_EC_HEDGE_MS``, failing holders forgotten unless the
+failure is a live holder's transient refusal), and only
 when no holder answers, fan out reads of the surviving shards (local or
 remote) and reconstruct the lost interval (recoverOneRemoteEcShardInterval,
 store_ec.go:345-399): the LRC local plan first (group_size reads instead
@@ -14,6 +15,18 @@ is throttled and accounted by ops/repair_budget as in the JAX package
 (``weedtpu_repair_bytes_total{code,mode,dir}``).  A locator built with no
 master address knows no remote holder: every missing interval is
 reconstructed from the local shards.
+
+Unlike the JAX package, a holder is not forgotten for one UNAVAILABLE
+while its breaker is still closed: the read is asked once more, and
+the location stays cached.  The JAX locator forgets it on any failure,
+for the cache's TTL (7 min once 10 shards are located), so a single
+transient refusal makes that server reconstruct every read of the
+shard, and with a server down as well can leave fewer than 10 shards.
+A dead holder still goes: its breaker opens after a few failures.  And
+an interval that cannot gather k shards raises ShardsUnreachableError,
+which the volume server answers with 503, so that the client asks the
+next server holding the volume; the JAX package raises NotFoundError, a
+404 that no client retries.
 """
 
 from __future__ import annotations
@@ -42,6 +55,11 @@ _TTL_FEW = 11.0
 _TTL_ENOUGH = 7 * 60.0
 
 
+class ShardsUnreachableError(NotFoundError):
+    """Fewer than k shards of an interval answered: the needle exists but
+    cannot be read from this server now."""
+
+
 class EcShardLocator:
     """Master-lookup cache + remote read + reconstruct fan-out."""
 
@@ -60,12 +78,13 @@ class EcShardLocator:
 
     # -- lookups -----------------------------------------------------------
 
-    def shard_locations(self, vid: int) -> dict[int, list[str]]:
-        """shard_id -> [grpc addresses], TTL-cached."""
+    def shard_locations(self, vid: int, fresh: bool = False) -> dict[int, list[str]]:
+        """shard_id -> [grpc addresses], TTL-cached; ``fresh`` asks the
+        master anew."""
         now = time.monotonic()
         with self._lock:
             hit = self._cache.get(vid)
-            if hit and now - hit[0] < hit[1]:
+            if hit and not fresh and now - hit[0] < hit[1]:
                 return hit[2]
         resp = rpc.master_stub(self.master_address).LookupEcVolume(
             m_pb.LookupEcVolumeRequest(volume_id=vid), timeout=resilience.policy().deadline_s)
@@ -85,6 +104,21 @@ class EcShardLocator:
                     hit[2][shard_id].remove(address)
                 except ValueError:
                     pass
+
+    @staticmethod
+    def _transient(address: str, e: Exception) -> bool:
+        """A live holder's passing refusal: UNAVAILABLE while its breaker
+        is closed (fewer than the policy's threshold of failures in a
+        row).  An open breaker, a deadline or any other error is not."""
+        br = resilience.breakers.get(address)
+        return (resilience.error_code(e) is grpc.StatusCode.UNAVAILABLE and br is not None
+                and br.state == "closed")
+
+    def _holder_failed(self, vid: int, shard_id: int, address: str, e: Exception) -> None:
+        """A failed interval read forgets its holder, unless the failure
+        is transient: a live holder stays located."""
+        if not self._transient(address, e):
+            self.forget_shard(vid, shard_id, address)
 
     # -- interval fetch chain ----------------------------------------------
 
@@ -120,7 +154,8 @@ class EcShardLocator:
                     length: int) -> bytes:
         """Race the interval read across holders: the primary gets
         ``hedge_delay_s`` to answer before the next holder is asked the
-        same question; first success wins, failures forget the holder."""
+        same question; first success wins, failures forget the holder
+        unless transient."""
         futs: dict = {}
         launched = 0
         pending: set = set()
@@ -165,7 +200,7 @@ class EcShardLocator:
                 continue
             failures += 1
             last_err = exc
-            self.forget_shard(vid, shard_id, futs[f])
+            self._holder_failed(vid, shard_id, futs[f], exc)
             if wlog.V(1):
                 wlog.info("ec: shard %d.%d read from %s failed: %s", vid, shard_id, futs[f], exc)
         for f in done:
@@ -183,7 +218,7 @@ class EcShardLocator:
             try:
                 f.result()
             except Exception as e:  # noqa: BLE001 — losing hedge failed late
-                self.forget_shard(vid, shard_id, addr)
+                self._holder_failed(vid, shard_id, addr, e)
                 if wlog.V(1):
                     wlog.info("ec: losing hedge %d.%d from %s failed: %s", vid, shard_id, addr, e)
 
@@ -193,23 +228,32 @@ class EcShardLocator:
 
     def read_remote(self, address: str, vid: int, shard_id: int, offset: int,
                     length: int) -> bytes:
-        """One interval from one holder over ``EcShardRead``, with the
-        policy deadline; the outcome feeds the holder's breaker."""
-        br = resilience.breakers.get(address)
-        chunks = []
+        """One interval from one holder over ``EcShardRead``, asked once
+        more after a transient refusal: the stub never replays a stream,
+        but this one only reads, so the locator may re-issue it."""
         try:
-            for resp in rpc.volume_stub(address).EcShardRead(
-                    vs_pb.EcShardReadRequest(volume_id=vid, shard_id=shard_id, offset=offset,
-                                             size=length),
-                    timeout=resilience.policy().deadline_s):
-                if resp.is_deleted:
-                    raise NotFoundError(f"vid {vid} deleted blob")
-                chunks.append(resp.data)
+            return self._read_remote_once(address, vid, shard_id, offset, length)
         except grpc.RpcError as e:
-            resilience.note_rpc_outcome(br, e.code(), on_deadline="failure")
-            raise
-        if br is not None:
-            br.record_success()
+            if not self._transient(address, e):
+                raise
+            if wlog.V(1):
+                wlog.info("ec: shard %d.%d read from %s refused (%s), asking again", vid,
+                          shard_id, address, e)
+        return self._read_remote_once(address, vid, shard_id, offset, length)
+
+    def _read_remote_once(self, address: str, vid: int, shard_id: int, offset: int,
+                          length: int) -> bytes:
+        """Streams get no default deadline (some are long-lived by design),
+        but a shard read must never hang a degraded read past the policy
+        deadline; the stub feeds the outcome to the holder's breaker."""
+        chunks = []
+        for resp in rpc.volume_stub(address).EcShardRead(
+                vs_pb.EcShardReadRequest(volume_id=vid, shard_id=shard_id, offset=offset,
+                                         size=length),
+                timeout=resilience.policy().deadline_s):
+            if resp.is_deleted:
+                raise NotFoundError(f"vid {vid} deleted blob")
+            chunks.append(resp.data)
         data = b"".join(chunks)
         if len(data) != length:
             raise OSError(f"short remote read {len(data)} != {length} from {address}")
@@ -241,7 +285,8 @@ class EcShardLocator:
 
         results = [r for r in self._pool.map(read_one, range(scheme.total_shards)) if r is not None]
         if len(results) < k:
-            raise NotFoundError(f"vid {ev.vid}: only {len(results)} shards reachable, need {k}")
+            raise ShardsUnreachableError(
+                f"vid {ev.vid}: only {len(results)} shards reachable, need {k}")
         shards: list = [None] * scheme.total_shards
         for sid, data, _remote in results:
             shards[sid] = np.frombuffer(data, dtype=np.uint8)
@@ -274,7 +319,7 @@ class EcShardLocator:
             except Exception as e:  # noqa: BLE001 — try the next holder
                 if wlog.V(1):
                     wlog.info("ec: shard %d.%d read from %s failed: %s", ev.vid, sid, addr, e)
-                self.forget_shard(ev.vid, sid, addr)
+                self._holder_failed(ev.vid, sid, addr, e)
         return b"", False
 
     def _recover_interval_local(self, ev: EcVolume, missing_shard: int, offset: int,

@@ -36,8 +36,12 @@ volume_grpc_client_to_master.go:51-113):
 - Background maintenance: the scrubber (storage/scrub.py: CRC walk at a
   bounded rate, repair from a replica's ``ReadNeedleBlob`` or by EC
   reconstruction, read-path CRC mismatches flagged to it) and auto-vacuum
-  (storage/vacuum.py), each feeding heartbeat deltas; ``/debug/scrub``,
-  ``/debug/vacuum`` and ``/debug/repair`` on the HTTP port.
+  (storage/vacuum.py), each feeding heartbeat deltas.
+- Observability: every ``/debug/`` page of util/debugz.py (scrub, vacuum,
+  repair, tracez, breakers, faults, sketchz, sloz, eventz, ...) on the HTTP
+  port as on the metrics listener; reads and writes run in a server span
+  joined to the caller's ``traceparent`` and record into the
+  ``volume.read``/``volume.write`` latency sketches.
 
 Generate and rebuild stream the volume through
 ``select.pipeline_codec_for(scheme, device)``: K1 (csrc/gf_apply.cu) on the
@@ -47,8 +51,7 @@ The Store's options (``needle_map_kind``, ``backend_kind``,
 ``offset_width``) pass through; ``public_url`` (default ``ip:port``) is
 what the heartbeat advertises for reads.
 
-Not ported: the native C++ data plane, the tracing spans and latency
-sketch on the handlers, and the other ``/debug/`` pages.
+Not ported: the native C++ data plane (ROADMAP Queue A item 9).
 """
 
 from __future__ import annotations
@@ -70,7 +73,8 @@ from seaweedfs_tpu_torch.ops import repair_budget
 from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
 from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs_pb
 from seaweedfs_tpu_torch.security import JwtError, sign_fid, verify_fid
-from seaweedfs_tpu_torch.server.store_ec import EcShardLocator
+from seaweedfs_tpu_torch.server.store_ec import EcShardLocator, ShardsUnreachableError
+from seaweedfs_tpu_torch.stats import sketch
 from seaweedfs_tpu_torch.storage import compression
 from seaweedfs_tpu_torch.storage import scrub as scrub_mod
 from seaweedfs_tpu_torch.storage import vacuum as vacuum_mod
@@ -719,13 +723,6 @@ class VolumeServerGrpcServicer:
         return vs_pb.ReadNeedleBlobResponse(needle_blob=vol._pread(offset, size))
 
 
-_DEBUG_PAGES = {
-    "/debug/scrub": scrub_mod.snapshot,
-    "/debug/vacuum": vacuum_mod.snapshot,
-    "/debug/repair": repair_budget.snapshot,
-}
-
-
 class _VolumeHttpHandler(QuietHandler):
     vs: "VolumeServer" = None  # class attribute injected per server
 
@@ -756,9 +753,11 @@ class _VolumeHttpHandler(QuietHandler):
         if url.path == "/metrics":
             self._reply(200, stats.render_text().encode(), "text/plain; version=0.0.4")
             return
-        if url.path in _DEBUG_PAGES:
-            self._reply(200, json.dumps(_DEBUG_PAGES[url.path](), indent=2).encode(),
-                        "application/json")
+        if url.path.startswith("/debug/"):
+            from seaweedfs_tpu_torch.util import debugz
+
+            code, body = debugz.handle(self.path)
+            self._reply(code, body, "text/plain")
             return
         if url.path == "/status":
             store = self.vs.store
@@ -770,9 +769,12 @@ class _VolumeHttpHandler(QuietHandler):
         t0 = time.perf_counter()
         stats.VOLUME_REQUESTS.inc(type="read")
         try:
-            self._read_inner(q, fid)
+            with self.server_span("read", "volume", fid=fid):
+                self._read_inner(q, fid)
         finally:
-            stats.VOLUME_REQUEST_SECONDS.observe(time.perf_counter() - t0, type="read")
+            dur = time.perf_counter() - t0
+            stats.VOLUME_REQUEST_SECONDS.observe(dur, type="read")
+            sketch.record(sketch.OP_VOLUME_READ, dur)
 
     def _read_inner(self, q, fid: str) -> None:
         try:
@@ -860,6 +862,10 @@ class _VolumeHttpHandler(QuietHandler):
             if self.vs.scrubber is not None:
                 self.vs.scrubber.flag(vid, nid)
             self._reply(500, b"crc mismatch", "text/plain")
+        except ShardsUnreachableError as e:
+            # not an answer about the needle: another holder of the
+            # volume may reach k shards, so the client asks it next
+            self._reply(503, str(e).encode(), "text/plain")
         except (NotFoundError, KeyError):
             self._reply(404, b"not found", "text/plain")
         except CookieMismatch:
@@ -871,10 +877,13 @@ class _VolumeHttpHandler(QuietHandler):
         t0 = time.perf_counter()
         stats.VOLUME_REQUESTS.inc(type="write")
         try:
-            self._post_inner()
+            with self.server_span("write", "volume"):
+                self._post_inner()
         finally:
             # error paths (400/401/404/429/500) count too, like do_GET
-            stats.VOLUME_REQUEST_SECONDS.observe(time.perf_counter() - t0, type="write")
+            dur = time.perf_counter() - t0
+            stats.VOLUME_REQUEST_SECONDS.observe(dur, type="write")
+            sketch.record(sketch.OP_VOLUME_WRITE, dur)
 
     def _post_inner(self) -> None:
         _url, q, fid = self._parse()
@@ -946,6 +955,7 @@ class _VolumeHttpHandler(QuietHandler):
                 self._reply(404, b"volume not found", "text/plain")
                 return
             ev.delete_needle(nid)
+            self.vs.delete_ec_needle_at_holders(vid, nid)
             self._reply(202, b"{}", "application/json")
             return
         try:
@@ -1053,6 +1063,30 @@ class VolumeServer:
 
     # -- replication fan-out (reference topology/store_replicate.go) -------
 
+    def delete_ec_needle_at_holders(self, vid: int, nid: int) -> None:
+        """An EC needle deleted here is deleted at every other holder of
+        the volume's shards too (EcBlobDelete), so that a read on any of
+        them answers 404.  Upstream's DeleteEcShardNeedle deletes at the
+        holders of the needle's shard and of the parity shards; the JAX
+        package deletes only here, so a read on another holder still finds
+        the needle in that holder's .ecx.  A holder that cannot be reached
+        keeps it, with a warning, as upstream's does."""
+        if self.locator is None or not self.locator.master_address:
+            return
+        try:
+            locs = self.locator.shard_locations(vid, fresh=True)
+        except grpc.RpcError as e:
+            wlog.warning("ec: delete of %d,%x: no shard locations from the master: %s", vid, nid,
+                         e.code())
+            return
+        for addr in sorted({a for addrs in locs.values() for a in addrs}
+                           - {self.locator.local_grpc_address}):
+            try:
+                rpc.volume_stub(addr).EcBlobDelete(
+                    vs_pb.EcBlobDeleteRequest(volume_id=vid, file_key=nid))
+            except grpc.RpcError as e:
+                wlog.warning("ec: delete of %d,%x at %s failed: %s", vid, nid, addr, e.code())
+
     def replicate(self, fid: str, method: str, data: bytes, extra_query: str = "") -> str | None:
         """Fan out to the other replica holders in parallel over pooled
         keep-alive connections, with TTL-cached locations; returns an error
@@ -1102,22 +1136,12 @@ class VolumeServer:
             return list(cached[0])
         if not self.master_address:
             return []
-        address = self.master_address
-
-        def invoke():
-            try:
-                return rpc.master_stub(address).LookupVolume(
-                    m_pb.LookupVolumeRequest(volume_or_file_ids=[str(vid)]), timeout=10)
-            except grpc.RpcError as e:
-                if e.code() is grpc.StatusCode.UNAVAILABLE:
-                    rpc.evict_channel(address)  # the retry re-dials
-                raise
-
         try:
-            # a transient UNAVAILABLE is retried, as every JAX stub does: an
-            # empty answer here fails a replicated write ("replication short")
-            resp = resilience.call_unary(invoke, service="master", method="LookupVolume",
-                                         address=address)
+            # the stub retries a transient UNAVAILABLE (and evicts the dead
+            # channel): an empty answer here fails a replicated write
+            # ("replication short")
+            resp = rpc.master_stub(self.master_address).LookupVolume(
+                m_pb.LookupVolumeRequest(volume_or_file_ids=[str(vid)]), timeout=10)
         except grpc.RpcError:
             return []  # master unreachable: do not cache
         urls = [loc.url for vl in resp.volume_id_locations for loc in vl.locations]
@@ -1302,9 +1326,8 @@ class VolumeServer:
                 if wlog.V(1):
                     wlog.info("volume %s: heartbeat to %s broke: %s", self.url,
                               self.master_address, e.code())
-                if e.code() is grpc.StatusCode.UNAVAILABLE:
-                    rpc.evict_channel(self.master_address)
-                # this master is gone: try the next configured one
+                # this master is gone (the stub evicted its channel on
+                # UNAVAILABLE): try the next configured one
                 if len(self.master_addresses) > 1:
                     ring = (ring + 1) % len(self.master_addresses)
                     self.master_address = self.master_addresses[ring]

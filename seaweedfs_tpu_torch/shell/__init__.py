@@ -22,7 +22,10 @@ lock.  Commands self-register via @shell_command; the REPL and one-shot
 ``s3.bucket.create``, ``s3.bucket.delete``, ``s3.bucket.quota``,
 ``s3.bucket.quota.check``, ``s3.clean.uploads``, ``s3.circuitbreaker``,
 ``s3.qos``; ``s3.configure`` raises, not ported) against the shell's
-``-filer``.  The
+``-filer``, and the observability commands (``trace.dump``,
+``resilience.status``, ``fault.inject``, ``slo.status``,
+``cluster.status``, ``events.dump``), which read this process or the
+``/debug/`` pages of the members they are given.  The
 shell runs no kernel and takes no device: the EC work happens inside the
 volume servers it drives."""
 
@@ -116,7 +119,10 @@ def _import_all() -> None:
         command_ec,
         command_ec_balance,
         command_fs,
+        command_resilience,
         command_s3,
+        command_slo,
+        command_trace,
         command_volume,
         command_volume_balance,
         command_volume_check,

@@ -1,25 +1,24 @@
 """Metrics: the port's counterpart of seaweedfs_tpu/stats.
 
-Only the families the port emits so far, with the JAX package's names and
-help strings: the repair budget's (ops/repair_budget), the plane
-billing's (stats/plane), the EC service's (``EC_OPS``,
-``EC_DEGRADED_READS``), the HTTP data plane's (``VOLUME_REQUESTS``,
-``VOLUME_REQUEST_SECONDS``, ``MASTER_REQUESTS``), the filer's
-(``FILER_REQUESTS``, ``FILER_REQUEST_SECONDS``), the raft master's
-(``RAFT_STATE``), the scrubber's and vacuum's (``DISK_CORRUPTION``,
-``SCRUB_*``), the flight recorder's (``EVENTS_DROPPED``), the S3
-gateway's (``S3_*``), its tenant QoS's (``QOS_*``) and caches'
-(``ENTRY_CACHE``, ``CHUNK_CACHE*``, ``META_SUB``) and, in
-ops/sched_cache,
-the schedule cache's; and
-one of its own, ``CUDA_KERNEL_LAUNCHES``, which a server samples from the
-kernels' launch counters so a client can see them.
-``series()`` is how callers read a family; ``render_text()`` renders every
-family in the Prometheus text format of the JAX package's
-``Registry.render_text``, and ``start_metrics_server`` serves it at
-``/metrics``, with the gateway's ``/debug/cachez`` (the hot-chunk cache) and
-``/debug/qos`` (tenant QoS) pages beside it (of the other ``/debug/`` pages
-only the volume server's scrub, vacuum and repair ones are ported).
+The families the port emits, with the JAX package's names and help
+strings: the repair budget's (ops/repair_budget), the plane billing's
+(stats/plane), the EC service's (``EC_OPS``, ``EC_DEGRADED_READS``), the
+HTTP data plane's (``VOLUME_REQUESTS``, ``VOLUME_REQUEST_SECONDS``,
+``MASTER_REQUESTS``), the filer's (``FILER_REQUESTS``,
+``FILER_REQUEST_SECONDS``), the raft master's (``RAFT_STATE``), the
+scrubber's and vacuum's (``DISK_CORRUPTION``, ``SCRUB_*``), the flight
+recorder's (``EVENTS_DROPPED``), the S3 gateway's (``S3_*``), its tenant
+QoS's (``QOS_*``) and caches' (``ENTRY_CACHE``, ``CHUNK_CACHE*``,
+``META_SUB``), the RPC layer's (``RPC_*``: retries, breaker transitions
+and states, channel evictions), the fault injector's
+(``FAULTS_INJECTED``), the op-latency sketches (stats/sketch.py) and, in
+ops/sched_cache, the schedule cache's; and one of its own,
+``CUDA_KERNEL_LAUNCHES``, which a server samples from the kernels' launch
+counters so a client can see them.  ``series()`` is how callers read a
+family; ``render_text()`` renders every family in the Prometheus text
+format of the JAX package's ``Registry.render_text``, and
+``start_metrics_server`` serves it at ``/metrics`` with the ``/debug/``
+pages of util/debugz.py beside it.
 """
 
 from __future__ import annotations
@@ -81,15 +80,20 @@ class Counter:
 
 
 class Gauge:
-    """A family of label series sampled from callables at render time (the
-    ``set_function`` part of the JAX package's Gauge)."""
+    """A family of label series, each set to a value or sampled from a
+    callable at render time."""
 
     def __init__(self, name: str, help_text: str = ""):
         self.name = name
         self.help = help_text
         self._lock = threading.Lock()
+        self._values: dict[tuple, float] = {}
         self._fns: dict[tuple, object] = {}
         _register(self)
+
+    def set(self, value: float, **labels) -> None:
+        with self._lock:
+            self._values[tuple(sorted(labels.items()))] = value
 
     def set_function(self, fn, **labels) -> None:
         with self._lock:
@@ -97,17 +101,21 @@ class Gauge:
 
     def remove(self, **labels) -> None:
         """Drop one label series (a stopped master's samplers)."""
+        key = tuple(sorted(labels.items()))
         with self._lock:
-            self._fns.pop(tuple(sorted(labels.items())), None)
+            self._fns.pop(key, None)
+            self._values.pop(key, None)
 
     def render(self) -> str:
         lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} gauge"]
         with self._lock:
-            fns = sorted(self._fns.items())
-        if not fns:
+            merged = dict(self._values)
+            fns = list(self._fns.items())
+        merged.update((key, float(fn())) for key, fn in fns)
+        if not merged:
             lines.append(f"{self.name} 0")
-        for key, fn in fns:
-            lines.append(f"{self.name}{_fmt_labels(key)} {float(fn()):g}")
+        for key, v in sorted(merged.items()):
+            lines.append(f"{self.name}{_fmt_labels(key)} {v:g}")
         return "\n".join(lines)
 
 
@@ -158,14 +166,6 @@ def render_text() -> str:
     return "\n".join(f.render() for f in families) + "\n"
 
 
-# the JSON debug pages of the metrics listener: path -> the module whose
-# ``debug_snapshot()`` renders it
-_DEBUG_PAGES = {
-    "/debug/cachez": "seaweedfs_tpu_torch.util.chunk_cache",
-    "/debug/qos": "seaweedfs_tpu_torch.util.limiter",
-}
-
-
 def start_metrics_server(port: int, ip: str = "127.0.0.1"):
     """Standalone ``/metrics`` listener (the reference's -metricsPort).
     Returns the server (it has .server_address and .shutdown())."""
@@ -176,15 +176,12 @@ def start_metrics_server(port: int, ip: str = "127.0.0.1"):
             pass
 
         def do_GET(self):
+            from seaweedfs_tpu_torch.util import debugz
+
             if self.path == "/metrics":
                 code, body = 200, render_text().encode()
-            elif self.path in _DEBUG_PAGES:
-                import importlib
-                import json
-
-                snapshot = getattr(importlib.import_module(_DEBUG_PAGES[self.path]),
-                                   "debug_snapshot")
-                code, body = 200, json.dumps(snapshot(), indent=2).encode()
+            elif self.path.startswith("/debug/"):
+                code, body = debugz.handle(self.path)
             else:
                 code, body = 404, b"not found\n"
             self.send_response(code)
@@ -325,4 +322,24 @@ CHUNK_CACHE = Counter(
 CHUNK_CACHE_BYTES = Gauge(
     "weedtpu_chunk_cache_bytes",
     "Bytes held by the gateway hot-chunk cache, by tier (ram / segment)",
+)
+RPC_CLIENT_RETRIES = Counter(
+    "weedtpu_rpc_client_retries_total",
+    "Client RPC retries by service, method and status code",
+)
+RPC_BREAKER_TRANSITIONS = Counter(
+    "weedtpu_rpc_breaker_transitions_total",
+    "Circuit breaker state transitions by peer and new state",
+)
+RPC_BREAKER_STATE = Gauge(
+    "weedtpu_rpc_breaker_state",
+    "Circuit breaker state per peer (0 closed, 1 half-open, 2 open)",
+)
+RPC_CHANNEL_EVICTIONS = Counter(
+    "weedtpu_rpc_channel_evictions_total",
+    "Dead cached gRPC channels evicted, by peer",
+)
+FAULTS_INJECTED = Counter(
+    "weedtpu_faults_injected_total",
+    "Faults injected by the WEED_FAULTS harness, by site/service/kind",
 )

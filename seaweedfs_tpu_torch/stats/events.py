@@ -1,18 +1,21 @@
 """Flight recorder: a bounded per-process ring of structured events.
 
 The port's copy of seaweedfs_tpu/stats/events.py.  Metrics answer "how
-much"; this ring keeps the last WEED_EVENT_RING (default 2048) *notable*
-events (scrub findings and repairs, in the port so far), each stamped with
-a wall-clock timestamp and a per-process sequence number.  The kind
-vocabulary is the JAX package's closed set: one event per state
-transition, never one per request.  ``to_dicts`` reads it; the text
-rendering, the cluster merge, ``/debug/eventz`` and the ``events.dump``
-shell command are not ported.
+much"; traces answer "how was this request served"; neither answers "what
+happened at 14:32".  This ring keeps the last WEED_EVENT_RING (default
+2048) *notable* events (breaker flips, scrub findings and repairs,
+injected faults), each stamped with a wall-clock timestamp and a
+per-process sequence number, exposed at /debug/eventz, merged
+time-ordered across the cluster by stats/cluster_agg.py, and dumped by
+the ``events.dump`` shell command.  The kind vocabulary is the JAX
+package's closed set: one event per state transition, never one per
+request.
 """
 
 from __future__ import annotations
 
 import collections
+import json
 import os
 import threading
 import time
@@ -77,6 +80,20 @@ class EventRing:
             out = out[-limit:]
         return out
 
+    def render_text(self, kind: str | None = None, limit: int = 100) -> str:
+        rows = self.to_dicts(kind, limit)
+        lines = [f"# {len(rows)} events (ring capacity {self.capacity})"]
+        for ev in rows:
+            stamp = time.strftime("%H:%M:%S", time.localtime(ev["ts"]))
+            frac = f"{ev['ts'] % 1:.3f}"[1:]
+            attrs = " ".join(f"{k}={v}" for k, v in ev.items() if k not in ("seq", "ts", "kind"))
+            lines.append(f"{stamp}{frac} #{ev['seq']:<6d} {ev['kind']:<22s} {attrs}")
+        return "\n".join(lines) + "\n"
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
 
 default_ring = EventRing()
 
@@ -84,3 +101,28 @@ default_ring = EventRing()
 def record(kind: str, **attrs) -> None:
     """Record into the process-wide flight recorder."""
     default_ring.record(kind, **attrs)
+
+
+def merge_timelines(timelines: list[tuple[str, list[dict]]]) -> list[dict]:
+    """Fold several members' event lists into one wall-clock-ordered
+    timeline, each event tagged with its member address.  Sequence numbers
+    only order within a process; across members the shared axis is the
+    wall clock."""
+    merged = [{**ev, "member": member} for member, events in timelines for ev in events]
+    merged.sort(key=lambda e: (e.get("ts", 0.0), e.get("member", ""), e.get("seq", 0)))
+    return merged
+
+
+def debug_body(q: dict) -> tuple[int, bytes]:
+    """/debug/eventz: text timeline by default; ?json=1 for machines,
+    ?kind= filters, ?limit=N keeps the newest N."""
+    kind = q.get("kind", [""])[0] or None
+    if kind is not None and kind not in KINDS:
+        return 400, f"unknown event kind {kind!r}; kinds: {sorted(KINDS)}\n".encode()
+    try:
+        limit = int(q.get("limit", ["100"])[0])
+    except ValueError:
+        limit = 100
+    if q.get("json", [""])[0]:
+        return 200, json.dumps(default_ring.to_dicts(kind, limit), indent=2).encode()
+    return 200, default_ring.render_text(kind, limit).encode()

@@ -9,8 +9,12 @@ calling plane (stats/plane).  ``open_backend`` makes the plain local file
 (``memory``).  A sealed volume whose .dat moved to an object store reads
 through ``TieredFile`` over an ``ObjectStoreClient``; the client shipped is
 ``LocalObjectStoreClient``, a directory (as in the JAX package, which has
-no S3 client either).  Not ported: the ``disk:`` fault injector
-(util/faults.py) that the JAX DiskFile consults on every call.
+no S3 client either).  ``DiskFile`` and ``MmapDiskFile`` consult the
+``disk:`` fault injector (util/faults.py) on every call, as the JAX
+DiskFile does: ``torn`` writes a strict prefix and fails, ``short`` caps
+the first pwrite (the loop finishes the record), ``bitflip`` flips one
+seeded bit of a read, ``eio``/``enospc`` raise; the volume layer's
+crash recovery (storage/volume.py) repairs what a torn append leaves.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import time
 from abc import ABC, abstractmethod
 
 from seaweedfs_tpu_torch.stats import plane
+from seaweedfs_tpu_torch.util import faults
 
 
 class BackendStorageFile(ABC):
@@ -57,6 +62,13 @@ class BackendStorageFile(ABC):
         pass
 
 
+def _raise_injected(rule, path: str, op: str) -> None:
+    if rule.kind == "eio":
+        raise OSError(errno.EIO, f"injected eio ({op} {path})")
+    if rule.kind == "enospc":
+        raise OSError(errno.ENOSPC, f"injected enospc ({op} {path})")
+
+
 class DiskFile(BackendStorageFile):
     """Plain local file (reference backend/disk_file.go).  Holds an
     advisory exclusive flock for the life of the handle so two processes
@@ -64,7 +76,8 @@ class DiskFile(BackendStorageFile):
 
     All I/O is unbuffered pread/pwrite: an append that returned has
     reached the OS page cache in full, and the pwrite loop survives short
-    writes."""
+    writes; torn tails come only from real crashes or the ``disk:`` fault
+    injector emulating them."""
 
     name = "disk"
 
@@ -85,36 +98,73 @@ class DiskFile(BackendStorageFile):
             raise IOError(f"{path} is locked by another process (live volume server?)") from None
         self._io_lock = threading.Lock()
 
+    def _post_read(self, data: bytes) -> bytes:
+        rule = faults.disk_fault("read_at", self.path)
+        if rule is None or not data:
+            return data
+        if rule.kind == "bitflip":
+            at = faults.disk_randint(0, len(data) * 8 - 1)
+            flipped = bytearray(data)
+            flipped[at // 8] ^= 1 << (at % 8)
+            return bytes(flipped)
+        _raise_injected(rule, self.path, "read_at")
+        return data
+
     def read_at(self, offset: int, length: int) -> bytes:
         t0 = time.perf_counter()
         data = os.pread(self._f.fileno(), length, offset)
         plane.account(len(data), "read", time.perf_counter() - t0)
-        return data
+        return self._post_read(data)
 
-    def _pwrite_all(self, offset: int, data) -> None:
-        """Write every byte, surviving short pwrites."""
+    def _pwrite_all(self, offset: int, data, first_cap: int | None = None) -> None:
+        """Write every byte, surviving short pwrites (a real possibility on
+        quota or RLIMIT_FSIZE boundaries, and the ``disk:*:short`` fault)."""
         fd = self._f.fileno()
         view = memoryview(data)
         pos = 0
         while pos < len(view):
-            n = os.pwrite(fd, view[pos:], offset + pos)
+            chunk = view[pos:pos + first_cap] if first_cap else view[pos:]
+            first_cap = None
+            n = os.pwrite(fd, chunk, offset + pos)
             if n <= 0:
                 raise OSError(errno.EIO, f"pwrite returned {n} on {self.path}")
             pos += n
 
+    def _write_fault(self, op: str, data) -> int | None:
+        """Pre-write injection: raises for eio/enospc, returns a negative
+        prefix length for torn (the caller writes it, then fails) and a
+        first-syscall byte cap for short."""
+        rule = faults.disk_fault(op, self.path)
+        if rule is None:
+            return None
+        _raise_injected(rule, self.path, op)
+        if rule.kind == "short" and len(data) > 1:
+            return faults.disk_randint(1, max(1, len(data) // 2))
+        if rule.kind == "torn" and len(data) > 1:
+            return -faults.disk_randint(1, len(data) - 1)
+        return None
+
+    def _write_locked(self, op: str, offset: int, data, cap: int | None) -> None:
+        t0 = time.perf_counter()
+        if cap is not None and cap < 0:
+            # torn write: a strict prefix lands, then the "crash"
+            self._pwrite_all(offset, memoryview(data)[:-cap])
+            raise OSError(errno.EIO, f"injected torn {op} ({-cap}/{len(data)} bytes) "
+                                     f"to {self.path}")
+        self._pwrite_all(offset, data, first_cap=cap)
+        plane.account(len(data), "write", time.perf_counter() - t0)
+
     def append(self, data: bytes) -> int:
+        cap = self._write_fault("append", data)
         with self._io_lock:
-            t0 = time.perf_counter()
             offset = os.fstat(self._f.fileno()).st_size
-            self._pwrite_all(offset, data)
-            plane.account(len(data), "write", time.perf_counter() - t0)
+            self._write_locked("append", offset, data, cap)
             return offset
 
     def write_at(self, offset: int, data: bytes) -> None:
+        cap = self._write_fault("write_at", data)
         with self._io_lock:
-            t0 = time.perf_counter()
-            self._pwrite_all(offset, data)
-            plane.account(len(data), "write", time.perf_counter() - t0)
+            self._write_locked("write", offset, data, cap)
 
     def truncate(self, size: int) -> None:
         with self._io_lock:
@@ -127,6 +177,9 @@ class DiskFile(BackendStorageFile):
         self._f.flush()
 
     def sync(self) -> None:
+        rule = faults.disk_fault("sync", self.path)
+        if rule is not None:
+            _raise_injected(rule, self.path, "sync")
         self._f.flush()
         os.fsync(self._f.fileno())
 
@@ -178,7 +231,7 @@ class MmapDiskFile(DiskFile):
             return super().read_at(offset, length)  # racing growth: pread
         data = mm[offset : offset + length]
         plane.account(len(data), "read")
-        return data
+        return self._post_read(data)
 
     def truncate(self, size: int) -> None:
         with self._io_lock:

@@ -5,21 +5,39 @@ single-range RFC 7233 replies, bodies streamed piece by piece) and
 ``StreamingBody`` (a request body read off the socket on demand).
 
 ``PooledHTTPServer(reuse_port=True)`` binds with SO_REUSEPORT.
+``QuietHandler.server_span`` opens a request's server span from its
+``traceparent`` header (stats/trace.py), and every reply carries an
+``X-Request-ID`` (``response_request_id``: the caller's, echoed when it
+validates, else a fresh one).  ``security/tls.wrap_http_server`` turns a
+bound server into HTTPS.
 
-Not ported: graceful drain, request ids, the native splice's hooks
+Not ported: graceful drain and the native splice's hooks
 (``StreamingBody.take_buffered``/``pushback``, ``reply_ranged(splice=)``;
-ROADMAP Queue A item 9) and the tracing span (the port has no tracing
-layer yet).
+ROADMAP Queue A item 9).
 """
 
 from __future__ import annotations
 
+import random
+import re
 import socket
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Iterable
 
 from seaweedfs_tpu_torch.util import wlog
 from seaweedfs_tpu_torch.util.http_range import RangeNotSatisfiable, parse_range
+
+_RID_RE = re.compile(r"[A-Za-z0-9._-]{1,64}")
+
+
+def response_request_id(headers) -> str:
+    """The X-Request-ID a response should carry: the caller's id echoed
+    when it validates (one id follows a request across server hops; a raw
+    echo would inject response headers), else a fresh PRNG handle."""
+    rid = headers.get("X-Request-ID", "") if headers is not None else ""
+    if rid and _RID_RE.fullmatch(rid):
+        return rid
+    return f"{random.getrandbits(64):016x}"
 
 
 class StreamingBody:
@@ -100,6 +118,14 @@ class QuietHandler(BaseHTTPRequestHandler):
     def log_message(self, *args):
         pass
 
+    def server_span(self, name: str, service: str, **attrs):
+        """Server span for this request, seeded from its ``traceparent``
+        header (stats/trace.py): the HTTP half of cross-server context
+        propagation.  Use as ``with self.server_span("read", "volume"):``."""
+        from seaweedfs_tpu_torch.stats import trace
+
+        return trace.span(name, service=service, headers=self.headers, attrs=attrs or None)
+
     def _drain(self, length: int | None = None) -> None:
         """Consume an unread request body.  A handler that replies without
         reading the body leaves the bytes in the keep-alive stream, where
@@ -119,6 +145,7 @@ class QuietHandler(BaseHTTPRequestHandler):
         self.send_response(code)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body) if length is None else length))
+        self.send_header("X-Request-ID", response_request_id(self.headers))
         if self.close_connection:
             # an earlier framing decision ends the connection after this
             # response: advertise it so clients do not race a silently

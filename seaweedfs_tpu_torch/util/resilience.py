@@ -18,11 +18,15 @@ The port's copy of seaweedfs_tpu/util/resilience.py:
 * **failover_call**: rotate a peer list (master HA) with jittered backoff
   between full rotations, peers with an unavailable breaker last.
 
-The port's rpc.py is plain grpcio, so ``call_unary`` is called by the
-layers that want it (``MasterClient``'s failover stub, the shell's master
-list) and the EC holder chain feeds its breakers itself.  Not ported: the
-breaker metrics, flight-recorder events and trace spans, and the seeded
-jitter of the fault-injection plan.
+Every stub built by rpc.py runs its unary calls through ``call_unary``
+and gates its streams on the breakers; unary calls that pass no timeout
+get the default deadline, except the heavyweight admin RPCs of
+``NO_DEFAULT_DEADLINE``.  Breaker transitions surface in /metrics
+(``weedtpu_rpc_breaker_*``), /debug/breakers (``snapshot``), the flight
+recorder and, when a trace is active, as zero-length ``breaker.*`` spans;
+a retry counts into ``weedtpu_rpc_client_retries_total`` and records a
+``retry.<method>`` span.  With a fault plan active (util/faults.py) the
+jitter draws from its seeded stream, so a failing run replays.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ _CONNECTION_CODES = (
     grpc.StatusCode.UNAVAILABLE,
     grpc.StatusCode.DEADLINE_EXCEEDED,
 )
+
+_sleep = time.sleep  # monkeypatch seam for the tests
 
 
 # ---------------------------------------------------------------------------
@@ -100,11 +106,33 @@ def policy() -> Policy:
     return _policy
 
 
+def reload_policy() -> Policy:
+    """Re-read env overrides (tests tweak env, then call this)."""
+    global _policy
+    with _policy_lock:
+        _policy = Policy.from_env()
+    return _policy
+
+
 _IDEMPOTENT_PREFIXES = ("Lookup", "Get", "List", "Read", "Stat", "Ping", "Collection")
 _IDEMPOTENT_SUFFIXES = ("Status", "Info", "Read", "Query")
 
 # explicit marks for methods the naming heuristic misses
 IDEMPOTENT_METHODS: set[str] = {"Statistics", "VacuumVolumeCheck"}
+
+# heavyweight admin operations whose runtime scales with volume size:
+# they get NO default deadline (callers may still pass an explicit one)
+NO_DEFAULT_DEADLINE: set[str] = {
+    "EcShardsGenerate",
+    "EcShardsRebuild",
+    "EcShardsCopy",
+    "EcShardsToVolume",
+    "VolumeCopy",
+    "VolumeVacuum",
+    "VolumeTierMove",
+    "VolumeScrub",  # CRC-walks every live needle of a volume
+    "CopyFile",
+}
 
 
 def is_idempotent(method: str) -> bool:
@@ -113,11 +141,20 @@ def is_idempotent(method: str) -> bool:
             or method.endswith(_IDEMPOTENT_SUFFIXES))
 
 
+def _rng() -> random.Random:
+    """Jitter stream: the seeded fault-plan RNG when a plan is active (so a
+    failing run replays bit for bit), the global stream otherwise."""
+    from seaweedfs_tpu_torch.util import faults
+
+    plan = faults.active()
+    return plan.rng if plan is not None else random  # type: ignore[return-value]
+
+
 def backoff_s(attempt: int, pol: Policy | None = None) -> float:
     """Full-jitter exponential backoff for retry number ``attempt`` (1-based)."""
     pol = pol or policy()
     cap = min(pol.backoff_max_s, pol.backoff_base_s * (2 ** (attempt - 1)))
-    return random.uniform(0.0, cap)
+    return _rng().uniform(0.0, cap)
 
 
 def error_code(e: Exception):
@@ -152,6 +189,9 @@ class CircuitOpenError(grpc.RpcError):
         return f"circuit breaker open for {self.peer}"
 
 
+_STATE_VALUES = {"closed": 0.0, "half_open": 1.0, "open": 2.0}
+
+
 class CircuitBreaker:
     """Consecutive-failure breaker with a single half-open probe."""
 
@@ -179,8 +219,23 @@ class CircuitBreaker:
         if new_state == self.state:
             return
         old, self.state = self.state, new_state
+        from seaweedfs_tpu_torch import stats
+        from seaweedfs_tpu_torch.stats import events, trace
+
+        stats.RPC_BREAKER_TRANSITIONS.inc(peer=self.peer, to=new_state)
+        stats.RPC_BREAKER_STATE.set(_STATE_VALUES[new_state], peer=self.peer)
+        # flight recorder: one ring append, safe under the breaker lock
+        events.record({"open": events.BREAKER_OPEN, "closed": events.BREAKER_CLOSE,
+                       "half_open": events.BREAKER_HALF_OPEN}[new_state],
+                      peer=self.peer, from_state=old, failures=self.failures)
         wlog.warning("breaker %s: %s -> %s (failures=%d)", self.peer, old, new_state,
                      self.failures)
+        ctx = trace.current()
+        if ctx is not None:
+            trace.record_foreign_span(ctx.trace_id, ctx.span_id, f"breaker.{new_state}", "rpc",
+                                      time.time(), 0.0,
+                                      status="ok" if new_state == "closed" else "error",
+                                      attrs={"peer": self.peer, "from": old})
 
     def allow(self) -> bool:
         """May a call proceed now?  Consumes the half-open probe slot."""
@@ -233,6 +288,10 @@ class CircuitBreaker:
                 self._opened_at = time.monotonic()
                 self._transition_locked("open")
 
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"peer": self.peer, "state": self.state, "failures": self.failures}
+
 
 class BreakerRegistry:
     def __init__(self):
@@ -250,8 +309,22 @@ class BreakerRegistry:
                 br = self._breakers[peer] = CircuitBreaker(peer)
             return br
 
+    def snapshot(self) -> list[dict]:
+        with self._lock:
+            brs = list(self._breakers.values())
+        return [b.snapshot() for b in brs]
+
+    def reset(self) -> None:
+        with self._lock:
+            self._breakers.clear()
+
 
 breakers = BreakerRegistry()
+
+
+def snapshot() -> list[dict]:
+    """All breaker states, for /debug/breakers."""
+    return breakers.snapshot()
 
 
 def note_rpc_outcome(br: CircuitBreaker | None, code, *, on_deadline: str) -> None:
@@ -305,10 +378,20 @@ def call_unary(invoke, *, service: str, method: str, address: str = "",
                 code == grpc.StatusCode.DEADLINE_EXCEEDED and idempotent)
             if not retriable or attempt >= attempts_allowed:
                 raise
+            from seaweedfs_tpu_torch import stats
+            from seaweedfs_tpu_torch.stats import trace
+
+            stats.RPC_CLIENT_RETRIES.inc(service=service, method=method, code=code.name)
+            ctx = trace.current()
+            if ctx is not None:
+                trace.record_foreign_span(ctx.trace_id, ctx.span_id, f"retry.{method}", "rpc",
+                                          time.time(), 0.0, status="error",
+                                          attrs={"peer": address, "attempt": attempt,
+                                                 "code": code.name})
             if wlog.V(1):
                 wlog.info("rpc %s.%s @ %s: attempt %d/%d failed %s, retrying", service, method,
                           address, attempt, attempts_allowed, code.name)
-            time.sleep(backoff_s(attempt, pol))
+            _sleep(backoff_s(attempt, pol))
             continue
         except BaseException:
             # the call died before reaching the peer (client-side bug): no
@@ -336,7 +419,7 @@ def failover_call(addresses, call_at, *, on_success=None, rotations: int | None 
     last_err: Exception | None = None
     for rotation in range(rotations):
         if rotation:
-            time.sleep(backoff_s(rotation, pol))
+            _sleep(backoff_s(rotation, pol))
         for addr in rank_by_breaker(addresses):
             try:
                 resp = call_at(addr)

@@ -19,16 +19,16 @@ rotation (wdclient/masterclient.go:134).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import threading
 import time
 
-import grpc
-
 from seaweedfs_tpu_torch import rpc
 from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
 from seaweedfs_tpu_torch.security import sign_fid
+from seaweedfs_tpu_torch.stats import trace
 from seaweedfs_tpu_torch.util import resilience, wlog
 
 
@@ -42,8 +42,9 @@ class FailoverStub:
     masters with jittered backoff between full rotations, peers with open
     breakers go last, and application errors (PERMISSION_DENIED, ...) are
     the answer and raise at once.  With peers to rotate to, each master
-    gets one attempt (rotation is the retry); a lone master keeps the
-    policy's full retry budget.  ``holder`` is any object whose
+    gets one attempt (``wd_max_attempts=1``: rotation is the retry, and
+    the stub's own policy must not retry underneath it); a lone master
+    keeps the stub's full retry budget.  ``holder`` is any object whose
     ``master_address`` is tried first and follows the master that last
     answered (the port's ``MasterClient._FailoverStub`` and the shell's
     master list share it)."""
@@ -61,19 +62,9 @@ class FailoverStub:
             per_peer = 1 if len(addrs) > 1 else None
 
             def call_at(addr: str):
-                stub = rpc.master_stub(addr)
-
-                def invoke():
-                    try:
-                        return getattr(stub, rpc_name)(
-                            request, timeout=resilience.policy().deadline_s)
-                    except grpc.RpcError as e:
-                        if e.code() is grpc.StatusCode.UNAVAILABLE:
-                            rpc.evict_channel(addr)
-                        raise
-
-                return resilience.call_unary(invoke, service="master", method=rpc_name,
-                                             address=addr, max_attempts=per_peer)
+                # the stub runs the policy (deadline, breaker, eviction)
+                return getattr(rpc.master_stub(addr), rpc_name)(request,
+                                                                wd_max_attempts=per_peer)
 
             def on_success(addr: str) -> None:
                 holder.master_address = addr
@@ -112,10 +103,17 @@ class MasterClient:
     def assign(self, count: int = 1, collection: str = "", replication: str = "",
                ttl_seconds: int = 0, disk_type: str = "",
                writable_volume_count: int = 0) -> m_pb.AssignResponse:
-        resp = self._stub.Assign(m_pb.AssignRequest(
-            count=count, collection=collection, replication=replication,
-            ttl_seconds=ttl_seconds, disk_type=disk_type,
-            writable_volume_count=writable_volume_count))
+        # a client span only when the caller is already traced: assign is
+        # cluster-internal chatter otherwise (the context itself rides
+        # every stub call as gRPC metadata)
+        ctx = trace.current()
+        span = (trace.span("assign", service="master_client", parent=ctx)
+                if ctx is not None else contextlib.nullcontext())
+        with span:
+            resp = self._stub.Assign(m_pb.AssignRequest(
+                count=count, collection=collection, replication=replication,
+                ttl_seconds=ttl_seconds, disk_type=disk_type,
+                writable_volume_count=writable_volume_count))
         if resp.error:
             raise AssignError(resp.error)
         return resp

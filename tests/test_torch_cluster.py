@@ -27,7 +27,9 @@ import os
 import re
 import shutil
 import time
+from types import SimpleNamespace
 
+import grpc
 import numpy as np
 import pytest
 
@@ -40,6 +42,7 @@ from seaweedfs_tpu.storage.erasure_coding import ec_encoder as jax_ec_encoder
 from seaweedfs_tpu.storage.erasure_coding.lrc import make_scheme as jax_make_scheme
 from seaweedfs_tpu.storage.erasure_coding.scheme import DEFAULT_SCHEME as JAX_RS
 from seaweedfs_tpu.storage.needle import Needle as JaxNeedle
+from seaweedfs_tpu.util import resilience as jax_resilience
 from seaweedfs_tpu_torch import stats
 from seaweedfs_tpu_torch.server import store_ec
 from seaweedfs_tpu_torch.server.master_server import MasterServer
@@ -52,6 +55,7 @@ from seaweedfs_tpu_torch.storage.erasure_coding.shard_bits import ShardBits
 from seaweedfs_tpu_torch.storage.needle import FLAG_HAS_NAME, Needle
 from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.volume import NotFoundError
+from seaweedfs_tpu_torch.util import resilience
 
 from test_torch_ec_read import write_needle_volume
 
@@ -233,6 +237,55 @@ def test_hedged_read_matches_jax(scenario, monkeypatch):
         assert modes == {"hedge": 1, "failover": 0} and holders == ["a:1", "b:1"]
     else:
         assert modes == {"hedge": 0, "failover": 1} and holders == ["b:1"]
+
+
+class _Refused(grpc.RpcError):
+    """What the stub raises for an injected or real UNAVAILABLE."""
+
+    def code(self):
+        return grpc.StatusCode.UNAVAILABLE
+
+
+@pytest.mark.parametrize("breaker", ["closed", "open"])
+def test_transient_refusal_keeps_the_holder(breaker, monkeypatch):
+    """The only holder of a shard refuses one EcShardRead with UNAVAILABLE,
+    then answers.  The JAX locator forgets it on that one failure and
+    reconstructs this read and the next (ROADMAP Queue C item 6, repaired
+    in the port only); the port's asks it again while its breaker is
+    closed, keeps it located and reads both intervals from it.  With the
+    holder's breaker already open both forget it and reconstruct."""
+    data = bytes(range(256)) * 4
+    out = {}
+    for name, mod, res in (("port", store_ec, resilience), ("jax", jax_store_ec, jax_resilience)):
+        monkeypatch.setattr(res, "breakers", res.BreakerRegistry())
+        if breaker == "open":
+            br = res.breakers.get("a:1")
+            for _ in range(res.policy().breaker_threshold):
+                br.record_failure()
+        calls = []
+
+        class FakeStub:
+            def EcShardRead(self, req, timeout=None):  # noqa: N802 — the proto's name
+                calls.append(req.shard_id)
+                if len(calls) == 1:
+                    raise _Refused()
+                return iter([SimpleNamespace(is_deleted=False,
+                                             data=data[req.offset:req.offset + req.size])])
+
+        monkeypatch.setattr(mod.rpc, "volume_stub", lambda _address: FakeStub())
+        loc = mod.EcShardLocator("master:1")
+        loc._cache[4] = (time.monotonic(), 1e9, {2: ["a:1"]})
+        monkeypatch.setattr(loc, "recover_interval", lambda _ev, _sid, _off, n: b"R" * n)
+        fetch = loc.make_fetcher(None)
+        out[name] = ([fetch(4, 2, 100, 300), fetch(4, 2, 100, 300)], loc._cache[4][2][2],
+                     len(calls))
+        loc._pool.shutdown(wait=True)
+    reconstructed = ([b"R" * 300] * 2, [], 1)
+    assert out["jax"] == reconstructed
+    if breaker == "closed":
+        assert out["port"] == ([data[100:400]] * 2, ["a:1"], 3)
+    else:
+        assert out["port"] == reconstructed
 
 
 # -- the in-process cluster ---------------------------------------------------------

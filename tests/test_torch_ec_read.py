@@ -22,6 +22,7 @@ from seaweedfs_tpu.storage.erasure_coding import scheme as jax_scheme
 from seaweedfs_tpu.storage.erasure_coding import shard_bits as jax_bits
 from seaweedfs_tpu.storage.volume import NotFoundError as JaxNotFoundError
 from seaweedfs_tpu_torch import stats
+from seaweedfs_tpu_torch.server import store_ec
 from seaweedfs_tpu_torch.server.store_ec import EcShardLocator
 from seaweedfs_tpu_torch.storage import store
 from seaweedfs_tpu_torch.storage.erasure_coding import (
@@ -301,6 +302,30 @@ def test_too_few_shards_raise_not_found(volumes):
     finally:
         locator.close()
         ev.close()
+
+
+def test_too_few_shards_are_unreachable_not_absent(volumes, monkeypatch):
+    """Fewer than k shards answer: both packages raise a NotFoundError, the
+    port's a ShardsUnreachableError, which its volume server answers with
+    503 so that the client asks the next holder of the volume; the JAX
+    package's a plain one, a 404 that ends the read (ROADMAP Queue C item
+    6, repaired in the port only)."""
+    _vol, dirs = volumes
+    raised = []
+    for ev_mod, loc_mod, scheme in ((ec_volume, store_ec, SCHEMES["rs"][0]),
+                                    (jax_ev, jax_store_ec, SCHEMES["rs"][1])):
+        ev = _mounted(dirs["rs"], scheme, ev_mod, (0, 1, 2, 3, 4))
+        locator = loc_mod.EcShardLocator("")
+        monkeypatch.setattr(locator, "_holders", lambda vid, sid: [])
+        try:
+            with pytest.raises(KeyError, match="only 9 shards reachable, need 10") as e:
+                locator.recover_interval(ev, 0, 0, 100)
+            raised.append(type(e.value))
+        finally:
+            locator._pool.shutdown(wait=True)
+            ev.close()
+    assert raised == [store_ec.ShardsUnreachableError, JaxNotFoundError]
+    assert issubclass(store_ec.ShardsUnreachableError, NotFoundError)
 
 
 def test_scheme_from_vif_matches_jax(volumes):

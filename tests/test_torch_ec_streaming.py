@@ -259,6 +259,57 @@ def test_shell_streaming_encode_end_to_end(cluster):
     assert _http(holder.url, "GET", f"/{fid}")[0] == 404
 
 
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_ec_delete_reaches_every_holder(pkg, cluster):
+    """A DELETE of an EC needle on one holder, then a GET on every holder:
+    all answer 404 in the port, whose holder sends EcBlobDelete to the
+    others; the JAX package deletes only on the holder asked, so another
+    holder still serves the needle from its own .ecx (ROADMAP Queue C item
+    8, repaired in the port only)."""
+    if pkg == "port":
+        master, servers, _dirs = cluster
+        run, env = run_command, CommandEnv(master.grpc_address)
+    else:
+        from seaweedfs_tpu.server.master_server import MasterServer as JaxMasterServer
+        from seaweedfs_tpu.server.volume_server import VolumeServer as JaxVolumeServer
+
+        master = JaxMasterServer(port=0, grpc_port=0, volume_size_limit_mb=64)
+        master.start()
+        jax_dirs = [tempfile.mkdtemp(prefix=f"jax-ecdel{i}-") for i in range(N_SERVERS)]
+        servers = [JaxVolumeServer([d], master.grpc_address, port=0, grpc_port=0,
+                                   rack=f"rack{i % 2}", heartbeat_interval=0.2,
+                                   max_volume_counts=[16]) for i, d in enumerate(jax_dirs)]
+        for vs in servers:
+            vs.start()
+        run, env = jax_run_command, JaxCommandEnv(master.grpc_address, client_name="jax-shell")
+    try:
+        _wait(lambda: len(master.topology.nodes) == N_SERVERS, "every server's heartbeat")
+        vid, payloads = _fill_volume(master, f"ecdel-{pkg}", seed=5)
+        try:
+            _shell(env, "lock", run)
+            _shell(env, f"ec.encode -volumeId {vid} -collection ecdel-{pkg}", run)
+        finally:
+            env.release_lock()
+        _wait(lambda: sum(len(ns) for ns in master.topology.lookup_ec_shards(vid).values()) >= 14,
+              "14 shards at the master")
+        holders = [vs for vs in servers if vs.store.find_ec_volume(vid) is not None]
+        assert len(holders) == N_SERVERS
+        fid = next(iter(payloads))
+        assert _http(holders[0].url, "DELETE", f"/{fid}") == (202, b"{}")
+        got = [_http(vs.url, "GET", f"/{fid}")[0] for vs in holders]
+    finally:
+        if pkg == "jax":
+            for vs in servers:
+                vs.stop()
+            master.stop()
+            for d in jax_dirs:
+                shutil.rmtree(d, ignore_errors=True)
+    if pkg == "port":
+        assert got == [404] * N_SERVERS
+    else:
+        assert got[0] == 404 and 200 in got[1:]
+
+
 def test_jax_shell_streams_to_the_ports_servers(cluster):
     master, servers, dirs = cluster
     vid, payloads = _fill_volume(master, "ecs-jax", seed=3)

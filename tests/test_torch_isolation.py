@@ -102,7 +102,14 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/util/chunk_cache.py", "seaweedfs_tpu_torch/filer/entry_cache.py",
             "seaweedfs_tpu_torch/filer/meta_subscriber.py",
             "seaweedfs_tpu_torch/security/kms.py",
-            "seaweedfs_tpu_torch/shell/command_s3.py"} <= names
+            "seaweedfs_tpu_torch/shell/command_s3.py",
+            "seaweedfs_tpu_torch/stats/trace.py", "seaweedfs_tpu_torch/stats/sketch.py",
+            "seaweedfs_tpu_torch/stats/cluster_agg.py", "seaweedfs_tpu_torch/util/faults.py",
+            "seaweedfs_tpu_torch/util/slo.py", "seaweedfs_tpu_torch/util/debugz.py",
+            "seaweedfs_tpu_torch/security/tls.py", "seaweedfs_tpu_torch/commands/tls_cmd.py",
+            "seaweedfs_tpu_torch/shell/command_trace.py",
+            "seaweedfs_tpu_torch/shell/command_slo.py",
+            "seaweedfs_tpu_torch/shell/command_resilience.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())

@@ -581,10 +581,12 @@ def test_deferred_features_answer_not_ported(cluster):
                             {"Content-Type": "multipart/form-data; boundary=XX"})
     assert status == 501 and b"not ported" in data
     master = cluster["master"].grpc_address
-    for kwargs in (dict(credential_store=object()), dict(inval_bus=object()),
-                   dict(tls_cert="c.pem", tls_key="k.pem")):
+    for kwargs in (dict(credential_store=object()), dict(inval_bus=object())):
         with pytest.raises(NotImplementedError, match="not ported"):
             S3ApiServer(master, port=0, **kwargs)
+    # TLS is ported: a pair that does not load fails before anything binds
+    with pytest.raises(OSError):
+        S3ApiServer(master, port=0, tls_cert="c.pem", tls_key="k.pem")
 
 
 def test_jax_cached_get_drops_cors_headers(cluster):

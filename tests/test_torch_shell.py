@@ -99,12 +99,15 @@ def test_shell_rules():
     run_command(env, "help", out)
     assert sorted(SHELL_REGISTRY) == [
         "cluster.check", "cluster.ps", "cluster.raft.add", "cluster.raft.ps",
-        "cluster.raft.remove", "collection.delete", "collection.list", "ec.balance", "ec.decode",
-        "ec.encode", "ec.rebuild", "fs.cat", "fs.cd", "fs.configure", "fs.du", "fs.log",
+        "cluster.raft.remove", "cluster.status", "collection.delete", "collection.list",
+        "ec.balance", "ec.decode", "ec.encode", "ec.rebuild", "events.dump", "fault.inject",
+        "fs.cat", "fs.cd", "fs.configure", "fs.du", "fs.log",
         "fs.ls", "fs.meta.cat", "fs.meta.load", "fs.meta.save", "fs.mkdir", "fs.mv", "fs.pwd",
-        "fs.rm", "fs.tree", "fs.verify", "help", "lock", "s3.bucket.create", "s3.bucket.delete",
+        "fs.rm", "fs.tree", "fs.verify", "help", "lock", "resilience.status",
+        "s3.bucket.create", "s3.bucket.delete",
         "s3.bucket.list", "s3.bucket.quota", "s3.bucket.quota.check", "s3.circuitbreaker",
-        "s3.clean.uploads", "s3.configure", "s3.qos", "unlock", "volume.balance",
+        "s3.clean.uploads", "s3.configure", "s3.qos", "slo.status", "trace.dump", "unlock",
+        "volume.balance",
         "volume.check.disk", "volume.configure.replication", "volume.copy", "volume.delete",
         "volume.deleteEmpty", "volume.fix.replication", "volume.fsck", "volume.grow", "volume.list",
         "volume.mark", "volume.mount", "volume.move", "volume.repair.status", "volume.scrub",

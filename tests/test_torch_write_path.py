@@ -35,7 +35,6 @@ import threading
 import time
 import types
 
-import grpc
 import numpy as np
 import pytest
 
@@ -481,35 +480,26 @@ def test_replicated_write_is_on_both_holders_as_jax(clusters):
     assert got[1] == 2 and got[2] == got[3] == (200, b"replica me") and got[4]
 
 
-def test_a_transient_lookup_failure_does_not_fail_a_replicated_write(clusters, monkeypatch):
+def test_a_transient_lookup_failure_does_not_fail_a_replicated_write(clusters):
     """The primary's master lookup for the replica holders answers
-    UNAVAILABLE once (a channel re-dialling under load): the lookup is
-    retried, as the JAX package's stubs retry it, and the write is
-    acknowledged on both holders instead of failing "replication short"."""
+    UNAVAILABLE once (a channel re-dialling under load; injected by the
+    fault harness on the stub): the stub retries the lookup, as the JAX
+    package's stubs retry it, and the write is acknowledged on both holders
+    instead of failing "replication short"."""
+    from seaweedfs_tpu_torch.util import faults
+
     c = clusters["port"]
     a = c.assign("?replication=001&collection=flaky")
     vid = int(a["fid"].split(",")[0])
     primary = next(vs for vs in c.servers if vs.url == a["url"])
     primary._lookup_cache.pop(vid, None)
-    real, failed = rpc.master_stub, []
-
-    class Unavailable(grpc.RpcError):
-        def code(self):
-            return grpc.StatusCode.UNAVAILABLE
-
-    def flaky(address):
-        stub = real(address)
-        if not failed:
-            def lookup(*_args, **_kw):
-                failed.append(address)
-                raise Unavailable()
-
-            stub.LookupVolume = lookup
-        return stub
-
-    monkeypatch.setattr(rpc, "master_stub", flaky)
-    assert _http(a["url"], "POST", f"/{a['fid']}", b"retried")[0] == 201
-    assert failed == [c.master.grpc_address]
+    glob = c.master.grpc_address.replace(":", "#")
+    plan = faults.configure(f"client/master@{glob}:LookupVolume:unavailable:x1", seed=0)
+    try:
+        assert _http(a["url"], "POST", f"/{a['fid']}", b"retried")[0] == 201
+        assert plan.snapshot()[0]["fired"] == 1
+    finally:
+        faults.reset()
     assert [_http(vs.url, "GET", f"/{a['fid']}") for vs in c.holders(vid)] == [
         (200, b"retried")] * 2
 
