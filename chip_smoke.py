@@ -110,7 +110,7 @@ Phases, each printing what it found; any failure exits non-zero:
    leaves 14 shards at the master over both racks, at most 4 on a node,
    each sha256-identical to phase 7's generate, the original volume gone,
    and server 0's K1 launches (its /metrics) equal to the generate's
-   batches (18 a GiB); about 1,500 needles are read here through Store
+   batches (18 a GiB); about 750 needles are read here through Store
    (one server's shards), EcVolume.read_needle and EcShardLocator(master)
    with remote EcShardRead answers and no reconstruction, then again after
    the server (other than the reader and server 1) holding the most
@@ -226,7 +226,7 @@ Phases, each printing what it found; any failure exits non-zero:
    ``cli filer -db <dir> -maxMB 4`` (the LSM store; logs under
    ``filer/``).  ``fs.configure`` puts /data/ in collection filerdata; 16
    writers fill it through the filer's HTTP API, bodies streamed from
-   --seed: one 1 GiB file (256 chunks), 8 of 4-32 MiB and 1,024 of 1-64
+   --seed: one 1 GiB file (256 chunks), 8 of 4-32 MiB and 512 of 1-64
    KiB over 64 directories (64 of them at most 2 KiB, inline), files/s,
    MB/s and p50/p99 per class; every file reads back sha256-equal, with
    32 Range reads across chunk boundaries of the 1 GiB file, a 416, a
@@ -236,17 +236,17 @@ Phases, each printing what it found; any failure exits non-zero:
    broken, fs.ls and fs.tree run; 64 needles written by ``cli upload`` are
    exactly the orphans ``volume.fsck`` finds (their bytes too), purges
    with ``-reallyDeleteFromVolume -cutoffAgeSeconds 0`` and then finds 0
-   of; ``fs.rm -r`` of one directory of 32 files 404s its paths and its
+   of; ``fs.rm -r`` of one directory of 8 files 404s its paths and its
    chunks' fids.  An in-process filer splits one 4 MiB and one 16 KiB
    upload and one 16 KiB read into body read, assign (FidPool hit or
    miss), volume POST, store insert, find_entry, lookup and volume GET.
-   The filer restarts on its -db: listings byte-identical, 256 sampled
+   The filer restarts on its -db: listings byte-identical, 128 sampled
    reads equal.  ``ec.encode -collection filerdata`` launches K1 in the
    servers exactly once per batch (their /metrics) and every file reads
    back from the shards; the server holding the most data shards is
    SIGKILLed and, once the master prunes it, every file reads back through
    degraded reads (intervals reconstructed); ``ec.rebuild -collection
-   filerdata`` launches K1 and 512 files read back; ``cli server -filer
+   filerdata`` launches K1 and 256 files read back; ``cli server -filer
    -device cuda`` takes an upload and a read in one process and stops on
    SIGTERM with rc 0.  Its figures go on ``filer:`` lines.
 14. S3 on the card: a fresh ``cli master -volumeSizeLimitMB 256``, four
@@ -254,11 +254,11 @@ Phases, each printing what it found; any failure exits non-zero:
    racks, ``cli filer -db <dir>`` and in front ``cli s3 -filer <its gRPC>
    -accessKey K -secretKey S -cacheMB 64 -kmsKeyFile F`` (SigV4 required;
    logs under ``s3/``); every request is signed by ``client_sign``.  Fill:
-   16 clients put 1,024 objects of 1-64 KiB (a quarter as signed
+   16 clients put 512 objects of 1-64 KiB (a quarter as signed
    aws-chunked bodies), and 8 of 8-64 MiB and one of 1 GiB go up as
    multipart in 8 MiB parts, 10 at a time (aws-cli's defaults); objects/s,
    MB/s and p50/p99 per class.  Mixed: MinIO warp mixed's 45% GET, 30%
-   HEAD, 15% PUT, 10% DELETE over the small objects, 16 clients, 2,500
+   HEAD, 15% PUT, 10% DELETE over the small objects, 16 clients, 1,250
    ops, every answer held to a model of key -> sha256 (404 for a deleted
    key, the ETag on HEAD); a ListObjectsV2 walk (max-keys 1000) equals the
    model.  Features: CopyObject, 16 Range GETs across the 1 GiB object's
@@ -276,7 +276,7 @@ Phases, each printing what it found; any failure exits non-zero:
    K1 in the servers exactly once per batch; every object reads back
    through S3 from the shards (ETag and sha256); the server holding the
    most data shards is SIGKILLed and, once pruned, every object reads back
-   degraded; ``ec.rebuild`` launches K1 and 512 objects read back; the
+   degraded; ``ec.rebuild`` launches K1 and 256 objects read back; the
    gateway restarts before each of those passes, so that its chunk cache
    cannot answer for the shards.  ``cli server -filer -s3 -device cuda``
    takes a signed PUT and GET in one process and stops on SIGTERM with rc
@@ -290,7 +290,7 @@ Phases, each printing what it found; any failure exits non-zero:
    (UNAVAILABLE on 2% of the volume servers' EcShardRead calls and of the
    gateway's LookupDirectoryEntry calls, a 2 ms delay on 5% of the filer's
    gRPC) and a ``WEED_SLO``; plaintext gRPC, plain HTTP and a client that
-   does not trust the CA are refused.  Over HTTPS, 2,048 objects of 1-64
+   does not trust the CA are refused.  Over HTTPS, 1,024 objects of 1-64
    KiB at 16 clients and one 1 GiB object as multipart; one PUT sent with
    a traceparent is one trace in the gateway (PutObject, its put_chunk),
    the filer (CreateEntry, the PutObject's child) and the volume server
@@ -311,6 +311,36 @@ Phases, each printing what it found; any failure exits non-zero:
    restarted without it, its .dat is truncated back and every acknowledged
    write reads back.  Its figures go on ``tls:`` lines.  What TLS and
    tracing cost a request is ``chip_layer_costs.py``'s to measure.
+16. The sharded filer and the worker-group gateway: ``cli master
+   -volumeSizeLimitMB 256``, four ``cli volume -device cuda`` on two racks,
+   three ``cli filer -db`` shards on fixed ports and ``cli s3 -filer
+   f1,f2,f3 -workers 4 -port <fixed> -cacheMB 64 -metricsPort <base>``
+   (SigV4; logs under ``shard/``; every wait for a line has a deadline).
+   Routing: 1,024 objects of 1-64 KiB over 64 buckets and 8 of 8-64 MiB
+   as multipart (S3_PART parts, 10 at a time) by 16 clients; objects and
+   entries per shard from ``filer.shard.status`` and each shard's hash
+   share; every bucket and its entries sit on the shard ``ShardRing``
+   names and on no other.  The worker group's PUT and GET rates, p50/p99,
+   and each worker's request count from its own ``-metricsPort``.
+   Coherence: 32 overwrites, each read on fresh connections until 16
+   answers in a row carry the new ETag (the worst delay after the PUT's
+   200 printed and held under 250 ms, a datagram round trip and not the
+   2 s TTL or subscriber pass; every worker answered; each worker's
+   invalidation-bus datagrams, from its ``/metrics``, cover every
+   overwrite).  IAM: ``s3.configure -apply`` over
+   the shard list, ``cli iam`` (``filer_etc``) lists the user and mints a
+   second key, and an in-process gateway with
+   ``FilerEtcCredentialStore(ShardedFilerClient)`` takes a PUT signed with
+   it and refuses an unknown key (403).  A signed browser form POST (204)
+   and one that breaks a condition (403); SelectObjectContent over a CSV
+   and a JSON-lines object equals a plain Python filter.  One filer shard
+   SIGKILLed: ListObjectsV2 of its buckets answers 503 with Retry-After,
+   of every other bucket 200; restarted on its -db, its buckets serve
+   again.  ``shell -filer f1,f2,f3 -c "lock; ec.encode ..."`` of every
+   volume launches K1 exactly once per batch (the servers' /metrics); the
+   worker group restarts (SIGTERM forwarded, rc 0) and every object reads
+   back from the shards, ETag- and sha256-equal.  Its figures go on
+   ``shard:`` lines.
 
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
@@ -981,6 +1011,11 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         tls = phase_tls(args, tmp, ident, dev)
         lap("15")
+        for name in os.listdir(tmp):  # room for phase 16's volumes
+            path = os.path.join(tmp, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+        shard = phase_shard(args, tmp, ident, dev)
+        lap("16")
         print("phase walls (s, with the clean-up before each): " + ", ".join(
             f"{name} {t1 - t0:.3f}" for (_n, t0), (name, t1) in zip(laps, laps[1:])))
         degraded = {label: (r["p50_us"], r["p99_us"]) for label, r in ec_service["reads"].items()}
@@ -990,7 +1025,7 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
                     encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
                     lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster, write=write,
                     failover=failover, maintenance=maintenance, storage=storage,
-                    host_codec=host_codec, filer=filer, s3=s3, tls=tls)
+                    host_codec=host_codec, filer=filer, s3=s3, tls=tls, shard=shard)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1549,9 +1584,16 @@ class _Server:
         if wait:
             self.ready()
 
-    def ready(self) -> str:
-        """Wait for the first line; returns it (the ports it names are
-        parsed into grpc_port, http_port and metrics_port)."""
+    def ready(self, timeout: float = 300.0) -> str:
+        """Wait for the first line, at most ``timeout`` seconds; returns it
+        (the ports it names are parsed into grpc_port, http_port and
+        metrics_port)."""
+        import select
+
+        if not select.select([self.proc.stdout], [], [], timeout)[0]:
+            self.stop()
+            raise SmokeFailure(f"no first line from the server within {timeout}s; "
+                               f"log: {self.log_text()[-2000:]}")
         line = self.proc.stdout.readline().strip()
         self.start_s = time.perf_counter() - self._t
         # a volume server's or master's "gRPC on", a filer's "(gRPC ...)"
@@ -1932,7 +1974,7 @@ def phase_ec_service(args, directory: str, ident: str, dev) -> dict:
                 launches_server=server["launches"]["gf_apply"], launches_local=launches["gf_apply"])
 
 CLUSTER_SERVERS = 4
-CLUSTER_READ_SAMPLE = 500  # cut from 2,000 to leave phases 9-14 room in the time limit
+CLUSTER_READ_SAMPLE = 250  # cut from 2,000 (500 before phase 16) for the time limit
 LRC_CLUSTER_GIB = 0.25  # the LRC volume of phase 8, cut to stay inside the time limit
 PRUNE_WAIT_S = 60.0  # the master prunes after 15 s without a heartbeat, checked every 5 s
 
@@ -3895,7 +3937,7 @@ def phase_storage(args, directory: str, ident: str, dev) -> dict:
 
 
 FILER_DIRS = 64
-FILER_SMALL_N = 1024  # 1-64 KiB files over FILER_DIRS directories (cut from 8,192)
+FILER_SMALL_N = 512  # 1-64 KiB files over FILER_DIRS directories (cut from 8,192; 1,024 before phase 16)
 FILER_INLINE_N = 64  # of them at most 2 KiB: inlined in their entries
 FILER_LARGE_N = 8  # 4-32 MiB files (cut from 16 for phase 15)
 FILER_BIG_BYTES = 1 << 30  # one file of 256 chunks at -maxMB 4
@@ -3905,8 +3947,8 @@ FILER_WRITERS = 16
 FILER_RANGE_READS = 32
 FILER_ORPHANS = 64
 FILER_RM_DIR = 5  # /data/d05: one directory of FILER_SMALL_N / FILER_DIRS files
-FILER_RESTART_SAMPLE = 256
-FILER_REBUILD_SAMPLE = 512
+FILER_RESTART_SAMPLE = 128  # halved for phase 16
+FILER_REBUILD_SAMPLE = 256  # halved for phase 16
 # the filer's peak RSS while it moves the 1 GiB file: its windows hold 8 x 4
 # MiB up and 4 x 4 MiB down; the rest is the interpreter, the allocator's
 # retained arenas and the server threads (121 and 191 MiB measured on an H100
@@ -4216,7 +4258,7 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
     four ``cli volume -device cuda -scrubInterval 0 -scrubRateMB 0`` on two
     racks and one ``cli filer -db <dir> -maxMB 4`` (the LSM store).
     ``fs.configure`` puts /data/ in collection filerdata; 16 writers fill
-    it through the filer's HTTP API (1,024 files of 1-64 KiB over 64
+    it through the filer's HTTP API (512 files of 1-64 KiB over 64
     directories, 64 of them inline; 8 of 4-32 MiB; one of 1 GiB, 256
     chunks, streamed) and every file reads back sha256-equal, with Range
     reads, a 416, a HEAD and paged listings; the filer's RSS stays under
@@ -4604,7 +4646,7 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
 
 S3_AK, S3_SK = "AKIDSMOKE", "smoke-secret-key"
 S3_BUCKET = "bench"
-S3_SMALL_N = 1024  # 1-64 KiB objects (cut from 8,192 to leave phase 15 room)
+S3_SMALL_N = 512  # 1-64 KiB objects (cut from 8,192; 1,024 before phase 16)
 S3_CHUNKED_EVERY = 4  # a quarter of them as signed aws-chunked bodies
 S3_STREAM_CHUNK = 64 * 1024  # the aws-chunked chunk size of botocore's streaming signer
 S3_LARGE_N = 8  # 8-64 MiB objects, multipart (cut from 16 for phase 15)
@@ -4612,14 +4654,14 @@ S3_BIG_BYTES = 1 << 30  # one object of 128 parts
 S3_PART = 8 * MIB  # aws-cli's multipart_chunksize default
 S3_PART_CONCURRENCY = 10  # aws-cli's max_concurrent_requests default
 S3_CLIENTS = 16
-S3_MIXED_OPS = 2_500  # MinIO warp mixed, cut for the time limit (20,000 before phase 15)
+S3_MIXED_OPS = 1_250  # MinIO warp mixed, cut for the time limit (20,000, then 2,500)
 S3_MIX = (("GET", 45), ("HEAD", 30), ("PUT", 15), ("DELETE", 10))  # warp mixed's defaults
 S3_LIST_PAGE = 1000
 S3_RANGE_READS = 16
 S3_SSE_BYTES = 16 * MIB
 S3_HOT_SET = 128  # keys of the hot set whose second GET pass reads the chunk cache
 S3_CACHE_MB = 64
-S3_REBUILD_SAMPLE = 512
+S3_REBUILD_SAMPLE = 256  # halved for phase 16
 S3_PROFILE = dict(small=256, part=16, reads=256)  # the in-process split of one request
 
 
@@ -5042,7 +5084,7 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
     racks, one ``cli filer -db <dir>`` and, in front, one ``cli s3 -filer
     <the filer's gRPC> -accessKey K -secretKey S -cacheMB 64 -kmsKeyFile
     F`` (SigV4 required; every request is signed by ``client_sign``).
-    Fill (16 clients): 1,024 objects of 1-64 KiB (a quarter as signed
+    Fill (16 clients): 512 objects of 1-64 KiB (a quarter as signed
     aws-chunked bodies), 8 of 8-64 MiB and one of 1 GiB as multipart in
     8 MiB parts, 10 parts at a time.  Mixed: MinIO warp mixed's 45/30/15/10
     GET/HEAD/PUT/DELETE over the small objects, every answer held to a
@@ -5505,7 +5547,7 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
 
 # -- phase 15 -----------------------------------------------------------------
 
-TLS_SMALL_N = 2048  # 1-64 KiB objects over HTTPS at S3_CLIENTS clients
+TLS_SMALL_N = 1024  # 1-64 KiB objects over HTTPS at S3_CLIENTS clients (2,048 before phase 16)
 TLS_BIG_BYTES = 1 << 30  # one object as multipart in S3_PART parts, S3_PART_CONCURRENCY at a time
 # one spec for every process: each fires the rules of its own side and
 # service; shares the retry budgets and the EC read chain absorb.  The
@@ -5992,6 +6034,614 @@ def phase_tls(args, directory: str, ident: str, dev) -> dict:
     return rec
 
 
+# -- phase 16 -----------------------------------------------------------------
+
+SHARD_FILERS = 3
+SHARD_WORKERS = 4  # cli s3 -workers
+SHARD_BUCKETS = 64
+SHARD_SMALL_N = 1024  # 1-64 KiB objects over SHARD_BUCKETS buckets
+SHARD_LARGE_N = 8  # 8-64 MiB objects as multipart, S3_PART parts, S3_PART_CONCURRENCY at a time
+SHARD_OVERWRITES = 32
+SHARD_STREAK = 4 * SHARD_WORKERS  # fresh-connection answers in a row that must carry the new ETag
+SHARD_STALE_S = 0.25  # the most an overwrite may stay stale on a worker: a bus datagram, not the TTL
+SHARD_SELECT_ROWS = 2000
+SHARD_WAIT_S = 120.0  # every wait for a subprocess's line
+
+
+class _Lines:
+    """A subprocess's stdout read by a thread into a queue, so that every
+    wait for a line has a deadline."""
+
+    def __init__(self, proc):
+        import queue
+
+        self.q = queue.Queue()
+        self.seen: list = []
+
+        def pump() -> None:
+            for line in proc.stdout:
+                self.q.put(line.rstrip("\n"))
+            self.q.put(None)
+
+        threading.Thread(target=pump, daemon=True).start()
+
+    def wait_for(self, pattern: str, count: int = 1, timeout: float = SHARD_WAIT_S) -> list:
+        """The first ``count`` matches of ``pattern`` (re.findall) in the lines."""
+        import queue
+
+        got = []
+        deadline = time.perf_counter() + timeout
+        while len(got) < count:
+            left = deadline - time.perf_counter()
+            check(left > 0, f"{len(got)} of {count} lines matching {pattern!r} within "
+                  f"{timeout}s; stdout so far: {self.seen[-8:]}")
+            try:
+                line = self.q.get(timeout=left)
+            except queue.Empty:
+                continue
+            check(line is not None, f"the process exited; stdout: {self.seen[-8:]}")
+            self.seen.append(line)
+            got += re.findall(pattern, line)
+        return got[:count]
+
+
+def _free_run(n: int) -> int:
+    """A base port with ``n`` free ports from it (``-metricsPort`` + i of a
+    worker group)."""
+    import socket
+
+    for _ in range(100):
+        base = _free_ports(1)[0]
+        if base + n >= 65535:
+            continue
+        socks = []
+        try:
+            for i in range(n):
+                s_ = socket.socket()
+                socks.append(s_)
+                s_.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s_ in socks:
+                s_.close()
+    raise SmokeFailure("no run of free ports")
+
+
+def _fresh(addr: str, method: str, path: str, query: str = "", body: bytes = b"",
+           headers: dict | None = None, key: tuple = (S3_AK, S3_SK), sign: bool = True) -> tuple:
+    """One request on a new connection (the kernel picks a worker of an
+    SO_REUSEPORT group), SigV4-signed with ``key``: (status, body, headers)."""
+    from seaweedfs_tpu_torch.s3 import client_sign
+
+    hdrs = dict(headers or {})
+    quoted = urllib.parse.quote(path)
+    if sign:
+        hdrs.update(client_sign.sign_headers(method, quoted, query, addr, body, key[0], key[1],
+                                             extra_headers=headers))
+    conn = _filer_conn(addr)
+    try:
+        conn.request(method, quoted + (f"?{query}" if query else ""), body=body or None,
+                     headers=hdrs)
+        resp = conn.getresponse()
+        return resp.status, resp.read(), {k.lower(): v for k, v in resp.getheaders()}
+    finally:
+        conn.close()
+
+
+def _post_form(fields: dict, filename: str, data: bytes) -> tuple[str, bytes]:
+    boundary = "----smoke16form"
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+             for k, v in fields.items()]
+    parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="file"; '
+                 f'filename="{filename}"\r\nContent-Type: application/octet-stream\r\n\r\n'
+                 .encode() + data + b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    return f"multipart/form-data; boundary={boundary}", b"".join(parts)
+
+
+def _signed_form(bucket: str, key: str, conditions: list) -> dict:
+    """The fields of a browser form whose policy ``conditions`` are signed
+    with the gateway's key (AWS4-HMAC-SHA256 over the base64 policy)."""
+    from seaweedfs_tpu_torch.s3.auth import signing_key
+
+    date = time.strftime("%Y%m%d", time.gmtime())
+    policy = base64.b64encode(json.dumps({
+        "expiration": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(time.time() + 600)),
+        "conditions": conditions}).encode()).decode()
+    import hmac
+
+    return {"key": key, "x-amz-algorithm": "AWS4-HMAC-SHA256",
+            "x-amz-credential": f"{S3_AK}/{date}/us-east-1/s3/aws4_request",
+            "x-amz-date": f"{date}T000000Z", "policy": policy,
+            "x-amz-signature": hmac.new(signing_key(S3_SK, date, "us-east-1", "s3"),
+                                        policy.encode(), hashlib.sha256).hexdigest()}
+
+
+def phase_shard(args, directory: str, ident: str, dev) -> dict:
+    """Phase 16: the sharded filer and the worker-group gateway.  One ``cli
+    master -volumeSizeLimitMB 256``, four ``cli volume -device cuda`` on
+    two racks, three ``cli filer -db <own dir>`` on fixed ports (the shard
+    ring's members) and ``cli s3 -filer f1,f2,f3 -workers 4 -port <fixed>
+    -cacheMB 64 -metricsPort <base>`` (SigV4).  Steps, one line each:
+    routing (1,024 small objects over 64 buckets and 8 multipart ones;
+    objects and entries per shard from ``filer.shard.status``, every
+    bucket on the shard ``ShardRing`` names); the worker group's PUT and
+    GET rates and every worker's request count; coherence (32 overwrites,
+    each read on fresh connections until 16 answers in a row carry the new
+    ETag); IAM (``s3.configure -apply`` over the shard list, ``cli iam``
+    over ``filer_etc``, an in-process gateway whose credential store is
+    the sharded filer); a browser form POST and SelectObjectContent; one
+    filer shard SIGKILLed (its buckets 503 with Retry-After, the others
+    200) and restarted; ``ec.encode`` of every volume through K1 and every
+    object read back from the shards through a restarted worker group.
+    Figures on ``shard:`` lines."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.filer.shard_ring import ShardedFilerClient, ShardRing
+    from seaweedfs_tpu_torch.iam.credentials import FilerEtcCredentialStore
+    from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+    from seaweedfs_tpu_torch.s3 import S3ApiServer
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.wdclient import MasterClient
+
+    seed = args.seed
+    root = os.path.join(directory, "shard")
+    dirs = [os.path.join(root, f"v{i}") for i in range(4)]
+    for d in dirs:
+        os.makedirs(d)
+    log = os.path.join(root, "shell.log")
+    walls: dict = {}
+    rec: dict = {}
+    servers: list = []
+    filers: list = []
+    gw = iam = inproc = router = None
+    rcs: dict = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([seed, 16])
+    master = _Server("", "", os.path.join(root, "master.log"),
+                     argv=["master", "-port", "0", "-volumeSizeLimitMB", str(FILER_VOLUME_MB)])
+    try:
+        maddr = f"127.0.0.1:{master.grpc_port}"
+        mstub = rpc.master_stub(maddr)
+        t = time.perf_counter()
+        servers = [_Server(d, dev.type, os.path.join(root, f"v{i}.log"), wait=False, argv=[
+            "volume", "-dir", d, "-ip", "127.0.0.1", "-port", "0", "-grpcPort", "0",
+            "-metricsPort", "0", "-device", dev.type, "-mserver", maddr, "-rack", f"r{i % 2}",
+            "-scrubInterval", "0", "-scrubRateMB", "0"]) for i, d in enumerate(dirs)]
+        ports = _free_ports(2 * SHARD_FILERS)
+        filer_argv = [["filer", "-master", maddr, "-port", str(ports[2 * i]), "-grpcPort",
+                       str(ports[2 * i + 1]), "-db", os.path.join(root, f"db{i}")]
+                      for i in range(SHARD_FILERS)]
+        filers = [_Server("", "", os.path.join(root, f"filer{i}.log"), wait=False, argv=a)
+                  for i, a in enumerate(filer_argv)]
+        for s_ in servers + filers:
+            s_.ready()
+        for s_ in servers:
+            s_.url = f"127.0.0.1:{s_.http_port}"
+        urls = [s_.url for s_ in servers]
+        shard_addrs = [f"127.0.0.1:{p}" for p in ports[1::2]]
+        filer_list = ",".join(shard_addrs)
+        ring = ShardRing(shard_addrs)
+        gw_port = _free_ports(1)[0]
+        gw_metrics = _free_run(SHARD_WORKERS)
+        n_gw = [0]
+
+        def start_group():
+            n_gw[0] += 1
+            g = _Server("", "", os.path.join(root, f"s3.{n_gw[0]}.log"), wait=False, argv=[
+                "s3", "-master", maddr, "-filer", filer_list, "-workers", str(SHARD_WORKERS),
+                "-port", str(gw_port), "-accessKey", S3_AK, "-secretKey", S3_SK,
+                "-cacheMB", str(S3_CACHE_MB), "-metricsPort", str(gw_metrics)])
+            g.lines = _Lines(g.proc)
+            try:
+                banners = g.lines.wait_for(r"s3 gateway on 127\.0\.0\.1:\d+ \(auth=sigv4\) "
+                                           r"\[worker \d+/\d+\]", SHARD_WORKERS)
+            except SmokeFailure:
+                g.stop()
+                raise
+            g.addr = f"127.0.0.1:{gw_port}"
+            return g, banners
+
+        gw, banners = start_group()
+        walls["servers_up"] = time.perf_counter() - t
+
+        def nodes() -> set:
+            topo = mstub.VolumeList(m_pb.VolumeListRequest(), timeout=60).topology_info
+            return {dn.id for dc in topo.data_center_infos for r in dc.rack_infos
+                    for dn in r.data_node_infos}
+
+        walls["registered"] = _poll(lambda: nodes() == set(urls), "all four nodes", 60)
+
+        def worker_metric(prefix: str) -> list:
+            """Each worker's sum of the series starting with ``prefix`` (its
+            own -metricsPort)."""
+            out = []
+            for i in range(SHARD_WORKERS):
+                status, body, _h = _fresh(f"127.0.0.1:{gw_metrics + i}", "GET", "/metrics",
+                                          sign=False)
+                check(status == 200, f"worker {i}'s /metrics: {status}")
+                out.append(int(sum(float(line.rsplit(" ", 1)[1]) for line in
+                                   body.decode().splitlines() if line.startswith(prefix))))
+            return out
+
+        def served() -> list:
+            """Requests each worker counted."""
+            return worker_metric("weedtpu_s3_request_total{")
+
+        def bus() -> list:
+            """[(datagrams sent, datagrams received)] on each worker's bus."""
+            name = "weedtpu_s3_inval_bus_datagrams_total"
+            return list(zip(worker_metric(f'{name}{{direction="sent"}}'),
+                            worker_metric(f'{name}{{direction="received"}}')))
+
+        print(f"shard: master {maddr}, four volume servers on {ident}, {SHARD_FILERS} filer "
+              f"shards {shard_addrs}, cli s3 -workers {SHARD_WORKERS} on {gw.addr} "
+              f"(metrics {gw_metrics}..{gw_metrics + SHARD_WORKERS - 1}), up in "
+              f"{walls['servers_up']:.3f}s: {banners}")
+
+        # 1. routing: 64 buckets, 1,024 small objects, 8 multipart ones
+        buckets = [f"sb{i:02d}" for i in range(SHARD_BUCKETS)]
+        sizes = rng.integers(1024, 64 * 1024 + 1, SHARD_SMALL_N)
+        smalls = [(f"{buckets[i % SHARD_BUCKETS]}/small/o{i:05d}.bin", int(s), "small", 300 + i)
+                  for i, s in enumerate(sizes)]
+        larges = [(f"{buckets[(7 * i) % SHARD_BUCKETS]}/large/l{i:02d}.bin",
+                   int(rng.integers(8 * MIB, 64 * MIB + 1)), "large", 200 + i)
+                  for i in range(SHARD_LARGE_N)]
+        admin = _S3Client(gw.addr)
+        t = time.perf_counter()
+        for b in buckets:
+            status, data, _h, _dt = admin.request("PUT", f"/{b}")
+            check(status == 200, f"CreateBucket {b}: {status} {data[:200]!r}")
+        walls["buckets"] = time.perf_counter() - t
+
+        def put_small(client, o):
+            key, size, _kind, bkey = o
+            body = _s3_body(seed, bkey, size)
+            md5 = hashlib.md5(body).hexdigest()
+            status, data, hdrs, dt = client.request("PUT", f"/{key}", body=body)
+            check(status == 200 and hdrs.get("etag") == f'"{md5}"',
+                  f"PUT {key}: {status} {hdrs.get('etag')} != {md5}: {data[:200]!r}")
+            return hashlib.sha256(body).hexdigest(), md5, dt
+
+        model: dict = {}  # "bucket/key" -> (size, sha256, etag)
+        t = time.perf_counter()
+        got = _s3_pool(gw.addr, smalls, put_small)
+        fill = {"small": _class_figures("small", [o[1] for o in smalls], [g[2] for g in got],
+                                        time.perf_counter() - t)}
+        model.update({o[0]: (o[1], g[0], g[1]) for o, g in zip(smalls, got)})
+        t = time.perf_counter()
+        got = _s3_multipart(gw.addr, seed, larges, lambda k: f"/{k}")
+        fill["large"] = _class_figures("large", [o[1] for o in larges], [g[2] for g in got],
+                                       time.perf_counter() - t)
+        model.update({o[0]: (o[1], g[0], g[1]) for o, g in zip(larges, got)})
+        walls["status"], out = _shell(maddr, f"filer.shard.status -route /buckets/{buckets[0]}",
+                                      log, filer=filer_list)
+        rows = {m[1]: (int(m[2]), int(m[3])) for m in re.finditer(
+            r"(127\.0\.0\.1:\d+): alive\s+share=[\d.]+%\s+files=(\d+)\s+dirs=(\d+)", out)}
+        check(sorted(rows) == sorted(shard_addrs), f"filer.shard.status: {out!r}")
+        share = ring.ownership()
+        per_shard = {a: 0 for a in shard_addrs}
+        for k in model:
+            per_shard[ring.shard_for("/buckets/" + k)] += 1
+        check(all(rows[a][0] >= per_shard[a] for a in shard_addrs),
+              f"files per shard {rows} below the objects the ring puts there {per_shard}")
+        placed = ShardedFilerClient(shard_addrs, MasterClient(maddr))
+        try:
+            for b in buckets:
+                owner = ring.shard_for(f"/buckets/{b}")
+                for a, rf in placed._shards.items():
+                    found = rf.find_entry(f"/buckets/{b}") is not None
+                    check(found == (a == owner), f"bucket {b} on {a}: {found}, ring owner {owner}")
+                n_b = sum(1 for k in model if k.startswith(b + "/"))
+                listed = sum(len(placed._shards[owner].list_entries(f"/buckets/{b}/{sub}",
+                                                                      limit=10_000))
+                             for sub in ("small", "large"))
+                check(listed == n_b, f"bucket {b}: {listed} entries on its shard, {n_b} objects")
+        finally:
+            placed.close()
+        rec["routing"] = dict(objects=len(model), per_shard=per_shard, status=rows, share=share)
+        print(f"shard: routing on {ident}: {len(model)} objects over {SHARD_BUCKETS} buckets; "
+              f"objects per shard {per_shard}; filer.shard.status files/dirs {rows}; hash share "
+              f"{ {a: round(s, 4) for a, s in share.items()} }; every bucket and its entries on "
+              f"the shard ShardRing names and on no other")
+
+        # 2. the worker group's rates
+        def get_one(client, key):
+            size, sha, etag = model[key]
+            status, (got_sha, n), hdrs, dt = client.request("GET", f"/{key}", sink=True)
+            check(status == 200 and n == size and got_sha == sha and hdrs.get("etag") == f'"{etag}"',
+                  f"GET {key}: {status}, {n} of {size} B, ETag {hdrs.get('etag')} / {etag}")
+            return dt
+
+        t = time.perf_counter()
+        lat = _s3_pool(gw.addr, [o[0] for o in smalls], get_one)
+        reads = {"small": _class_figures("small", [o[1] for o in smalls], lat,
+                                         time.perf_counter() - t)}
+        t = time.perf_counter()
+        lat = _s3_pool(gw.addr, [o[0] for o in larges], get_one, clients=len(larges))
+        reads["large"] = _class_figures("large", [o[1] for o in larges], lat,
+                                        time.perf_counter() - t)
+        per_worker = served()
+        check(all(n > 0 for n in per_worker), f"a worker served no request: {per_worker}")
+        rec.update(fill=fill, reads=reads, per_worker=per_worker)
+        print(f"shard: worker group on {ident}: PUT " + "; ".join(
+            f"{c} {r['files']} {r['files_per_s']:.1f}/s {r['mb_per_s']:.1f} MB/s p50 "
+            f"{r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms" for c, r in fill.items())
+            + "; GET " + "; ".join(
+                f"{c} {r['files']} {r['files_per_s']:.1f}/s {r['mb_per_s']:.1f} MB/s p50 "
+                f"{r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms" for c, r in reads.items())
+            + f"; requests per worker {per_worker}")
+
+        # 3. coherence: overwrite, then fresh connections until every worker answers new
+        over = smalls[::SHARD_SMALL_N // SHARD_OVERWRITES][:SHARD_OVERWRITES]
+        for key, _size, _k, _b in over:
+            for _ in range(2 * SHARD_WORKERS):  # warm the workers' caches
+                status, _d, hdrs = _fresh(gw.addr, "GET", f"/{key}")
+                check(status == 200 and hdrs.get("etag") == f'"{model[key][2]}"',
+                      f"warm GET {key}: {status}")
+        before, bus_before = served(), bus()
+        worst, stale_answers = 0.0, 0
+        for i, (key, size, _k, _b) in enumerate(over):
+            body = _s3_body(seed, 60_000 + i, size)
+            md5 = hashlib.md5(body).hexdigest()
+            status, _d, hdrs = _fresh(gw.addr, "PUT", f"/{key}", body=body)
+            t_acked = time.perf_counter()
+            check(status == 200 and hdrs.get("etag") == f'"{md5}"', f"overwrite {key}: {status}")
+            streak, last_stale = 0, None
+            while streak < SHARD_STREAK:
+                status, data, hdrs = _fresh(gw.addr, "GET", f"/{key}")
+                check(status == 200, f"GET {key} after the overwrite: {status}")
+                if hdrs.get("etag") == f'"{md5}"':
+                    check(data == body, f"{key}: the new ETag with other bytes")
+                    streak += 1
+                    continue
+                check(hdrs.get("etag") == f'"{model[key][2]}"', f"{key}: a third ETag")
+                stale_answers += 1
+                streak, last_stale = 0, time.perf_counter() - t_acked
+                # a datagram round trip, well under the subscriber's 2 s
+                # pass and the entry cache's 2 s TTL
+                check(last_stale < SHARD_STALE_S,
+                      f"{key} still old {last_stale:.3f}s after its PUT")
+            worst = max(worst, last_stale or 0.0)
+            model[key] = (size, hashlib.sha256(body).hexdigest(), md5)
+        after, bus_after = served(), bus()
+        check(all(a > b for a, b in zip(after, before)),
+              f"a worker answered none of the coherence GETs: {before} -> {after}")
+        # every overwrite was sent by the worker that took its PUT to each
+        # sibling, or received from it: the bus carried all of them
+        sent = [a[0] - b[0] for a, b in zip(bus_after, bus_before)]
+        received = [a[1] - b[1] for a, b in zip(bus_after, bus_before)]
+        check(all(r + s // (SHARD_WORKERS - 1) >= len(over) for s, r in zip(sent, received)),
+              f"the bus missed overwrites: sent {sent}, received {received}")
+        rec["coherence"] = dict(keys=len(over), worst_ms=worst * 1e3, stale_answers=stale_answers,
+                                per_worker=[a - b for a, b in zip(after, before)],
+                                bus_sent=sent, bus_received=received)
+        print(f"shard: coherence on {ident}: {len(over)} overwrites, each read on fresh "
+              f"connections until {SHARD_STREAK} answers in a row carried the new ETag; worst "
+              f"delay {worst * 1e3:.3f} ms after the PUT's 200 (bound "
+              f"{SHARD_STALE_S * 1e3:.0f} ms; {stale_answers} stale answers); bus datagrams per "
+              f"worker sent {sent} received {received}; GETs per worker "
+              f"{rec['coherence']['per_worker']}")
+
+        # 4. IAM: s3.configure over the shard list, cli iam, a store-backed gateway
+        iam_ak, iam_sk = "AKIDSHARD16", hashlib.sha256(b"iam16").hexdigest()[:40]
+        walls["s3_configure"], out = _shell(
+            maddr, f"s3.configure -user smoke16 -actions Read,Write -access_key {iam_ak} "
+            f"-secret_key {iam_sk} -apply", log, filer=filer_list)
+        check(f"smoke16  actions=Read,Write  keys={iam_ak}" in out, f"s3.configure: {out!r}")
+        iam_port = _free_ports(1)[0]
+        t = time.perf_counter()
+        iam = _Server("", "", os.path.join(root, "iam.log"), wait=False, argv=[
+            "iam", "-filer", filer_list, "-master", maddr, "-port", str(iam_port)])
+        iam.lines = _Lines(iam.proc)
+        iam.lines.wait_for(r"iam api on 127\.0\.0\.1:\d+ \(credential store: filer_etc\)")
+        walls["iam_up"] = time.perf_counter() - t
+        iam_addr = f"127.0.0.1:{iam_port}"
+
+        def iam_post(form: str) -> tuple:
+            status, data, _h = _fresh(iam_addr, "POST", "/", body=form.encode(),
+                                      headers={"Content-Type":
+                                               "application/x-www-form-urlencoded"},
+                                      key=(iam_ak, iam_sk))
+            return status, data
+
+        status, data = iam_post("Action=ListUsers")
+        check(status == 200 and b"<UserName>smoke16</UserName>" in data, f"ListUsers: {status}")
+        status, data = iam_post("Action=CreateAccessKey&UserName=smoke16")
+        check(status == 200, f"CreateAccessKey: {status} {data[:300]!r}")
+        ak2 = re.search(rb"<AccessKeyId>([^<]+)<", data)[1].decode()
+        sk2 = re.search(rb"<SecretAccessKey>([^<]+)<", data)[1].decode()
+        rcs["iam"] = iam.stop()
+        iam = None
+        router = ShardedFilerClient(shard_addrs, MasterClient(maddr))
+        inproc = S3ApiServer(maddr, port=0, filer=router,
+                             credential_store=FilerEtcCredentialStore(router),
+                             lifecycle_sweep_interval=0, credential_refresh=0, chunk_cache_mb=0)
+        inproc.start()
+        iam_body = _s3_body(seed, 61_000, 40_000)
+        st_b, _d, _h = _fresh(inproc.url, "PUT", "/iam16", key=(ak2, sk2))
+        st_p, _d, _h = _fresh(inproc.url, "PUT", "/iam16/o.bin", body=iam_body, key=(ak2, sk2))
+        st_g, got_body, _h = _fresh(inproc.url, "GET", "/iam16/o.bin", key=(iam_ak, iam_sk))
+        st_x, denied, _h = _fresh(inproc.url, "PUT", "/iam16/x.bin", body=b"x",
+                                  key=("AKIDUNKNOWN16", "nope"))
+        check((st_b, st_p, st_g, st_x) == (200, 200, 200, 403) and got_body == iam_body
+              and b"AccessDenied" in denied,
+              f"store-backed gateway: bucket {st_b}, PUT {st_p}, GET {st_g}, unknown key {st_x}")
+        inproc.stop()
+        inproc = None
+        router.close()
+        router = None
+        print(f"shard: IAM on {ident}: s3.configure -apply over {SHARD_FILERS} shards "
+              f"{walls['s3_configure']:.3f}s; cli iam (filer_etc) up in {walls['iam_up']:.3f}s, "
+              f"ListUsers names smoke16, CreateAccessKey gave a second key; an in-process "
+              f"gateway on FilerEtcCredentialStore(ShardedFilerClient) took a PUT signed with it "
+              f"(200) and refused an unknown key (403)")
+
+        # 5. a browser form POST and SelectObjectContent
+        post_data = _s3_body(seed, 62_000, 20_000)
+        ok = [{"bucket": buckets[0]}, ["starts-with", "$key", "post/"],
+              ["content-length-range", 1, MIB]]
+        ctype, form = _post_form(_signed_form(buckets[0], "post/${filename}", ok), "p.bin",
+                                 post_data)
+        st_ok, d_ok, _h = _fresh(gw.addr, "POST", f"/{buckets[0]}", body=form,
+                                 headers={"Content-Type": ctype}, sign=False)
+        st_get, got_post, _h = _fresh(gw.addr, "GET", f"/{buckets[0]}/post/p.bin")
+        bad = [{"bucket": buckets[1]}] + ok[1:]
+        ctype, form = _post_form(_signed_form(buckets[0], "post/q.bin", bad), "q.bin", post_data)
+        st_bad, d_bad, _h = _fresh(gw.addr, "POST", f"/{buckets[0]}", body=form,
+                                   headers={"Content-Type": ctype}, sign=False)
+        check(st_ok == 204 and st_get == 200 and got_post == post_data and st_bad == 403
+              and b"AccessDenied" in d_bad,
+              f"form POST {st_ok} {d_ok[:200]!r}, GET {st_get}, broken condition {st_bad}")
+        srows = [{"id": i, "name": f"n{int(rng.integers(0, 10_000)):04d}",
+                  "age": int(rng.integers(18, 90)), "city": ["Oslo", "Lima", "Pune"][i % 3]}
+                 for i in range(SHARD_SELECT_ROWS)]
+        csv_body = ("id,name,age,city\n" + "".join(
+            f"{r['id']},{r['name']},{r['age']},{r['city']}\n" for r in srows)).encode()
+        json_body = "".join(json.dumps(r) + "\n" for r in srows).encode()
+        sel_bucket = buckets[1]
+        for key, body in (("sel/rows.csv", csv_body), ("sel/rows.json", json_body)):
+            status, _d, _h = _fresh(gw.addr, "PUT", f"/{sel_bucket}/{key}", body=body)
+            check(status == 200, f"PUT {key}: {status}")
+        selects = {}
+        for key, inp in (("sel/rows.csv", "<CSV><FileHeaderInfo>USE</FileHeaderInfo></CSV>"),
+                         ("sel/rows.json", "<JSON><Type>LINES</Type></JSON>")):
+            req = (f"<SelectObjectContentRequest><Expression>SELECT s.id, s.name FROM S3Object s "
+                   f"WHERE s.age &gt; 60</Expression><ExpressionType>SQL</ExpressionType>"
+                   f"<InputSerialization>{inp}</InputSerialization><OutputSerialization><JSON/>"
+                   f"</OutputSerialization></SelectObjectContentRequest>").encode()
+            t = time.perf_counter()
+            status, data, _h = _fresh(gw.addr, "POST", f"/{sel_bucket}/{key}",
+                                      "select=&select-type=2", req)
+            selects[key] = time.perf_counter() - t
+            want = [{"id": r["id"], "name": r["name"]} for r in srows if r["age"] > 60]
+            check(status == 200 and [json.loads(x) for x in data.decode().splitlines()] == want,
+                  f"Select over {key}: {status}, {len(data.splitlines())} rows, want {len(want)}")
+        rec["post_select"] = dict(select_s=selects, rows=sum(r["age"] > 60 for r in srows))
+        print(f"shard: browser POST and Select on {ident}: a signed form POST 204 and read back "
+              f"equal, a broken condition 403; Select over {SHARD_SELECT_ROWS} CSV and JSON-lines "
+              f"rows returned the {rec['post_select']['rows']} a plain Python filter keeps "
+              f"({ {k: round(v, 4) for k, v in selects.items()} } s)")
+
+        # 6. one dead shard
+        victim_i = 1
+        victim_addr = shard_addrs[victim_i]
+        dead_buckets = [b for b in buckets if ring.shard_for(f"/buckets/{b}") == victim_addr]
+        check(dead_buckets and len(dead_buckets) < len(buckets),
+              f"the ring gives shard {victim_addr} {len(dead_buckets)} buckets")
+        filers[victim_i].proc.send_signal(signal.SIGKILL)
+        filers[victim_i].proc.wait(timeout=60)
+        rcs["filer_killed"] = filers[victim_i].stop()
+        t = time.perf_counter()
+        verdicts: dict = {}
+        other_errors = []
+        for b in buckets:
+            status, data, hdrs = _fresh(gw.addr, "GET", f"/{b}", "list-type=2&max-keys=5")
+            verdicts.setdefault(status, 0)
+            verdicts[status] += 1
+            if b in dead_buckets:
+                if not (status == 503 and float(hdrs.get("retry-after", "0")) > 0
+                        and b"SlowDown" in data):
+                    other_errors.append((b, status, hdrs.get("retry-after")))
+            elif status != 200:
+                other_errors.append((b, status, data[:120]))
+        walls["dead_pass"] = time.perf_counter() - t
+        check(not other_errors, f"with shard {victim_addr} dead: {other_errors[:5]}")
+        t = time.perf_counter()
+        filers[victim_i] = _Server("", "", os.path.join(root, f"filer{victim_i}.restart.log"),
+                                   wait=False, argv=filer_argv[victim_i])
+        filers[victim_i].ready()
+        walls["shard_restart"] = time.perf_counter() - t
+
+        answers: dict = {}
+
+        def dead_buckets_serve() -> bool:
+            for b in dead_buckets:
+                status, data, _h = _fresh(gw.addr, "GET", f"/{b}", "list-type=2&max-keys=5")
+                answers[b] = (status, data[:160])
+            return all(a[0] == 200 for a in answers.values())
+
+        try:
+            walls["shard_serves_again"] = _poll(dead_buckets_serve,
+                                                "the restarted shard's buckets", 60)
+        except SmokeFailure as e:
+            raise SmokeFailure(f"{e}: {sorted(answers.items())[:3]}") from None
+        back = [k for k in model if k.split("/", 1)[0] in dead_buckets][:64]
+        _s3_pool(gw.addr, back, get_one)
+        rec["dead_shard"] = dict(victim=victim_addr, buckets=len(dead_buckets), verdicts=verdicts)
+        print(f"shard: dead shard on {ident}: SIGKILL {victim_addr} (owner of "
+              f"{len(dead_buckets)} of {SHARD_BUCKETS} buckets): ListObjectsV2 of every bucket "
+              f"{verdicts} in {walls['dead_pass']:.3f}s (503 with Retry-After exactly for its "
+              f"buckets, 0 other errors); restarted on its -db in {walls['shard_restart']:.3f}s, "
+              f"its buckets serve again after {walls['shard_serves_again']:.3f}s and "
+              f"{len(back)} of their objects read back equal")
+        admin.close()
+
+        # 7. ec.encode of every volume through K1, then every object from the shards
+        vols: dict = {}
+        for d in dirs:
+            for n_ in os.listdir(d):
+                mm = re.fullmatch(r"(\d+)\.dat", n_)
+                if mm and os.path.getsize(os.path.join(d, n_)) > 8:
+                    vols[int(mm[1])] = max(vols.get(int(mm[1]), 0),
+                                           os.path.getsize(os.path.join(d, n_)))
+        tasks = sum(len(ec_encoder._plan_tasks(DEFAULT_SCHEME, s, ec_encoder.DEFAULT_CHUNK))
+                    for s in vols.values())
+        k1_before = {s_.url: metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply")
+                     for s_ in servers}
+        check(not any(k1_before.values()), f"K1 launched before the encode: {k1_before}")
+        walls["ec_encode"], _out = _shell(maddr, "lock; " + "; ".join(
+            f"ec.encode -volumeId {vid}" for vid in sorted(vols)) + "; unlock", log,
+            filer=filer_list)
+        by_grpc = {f"127.0.0.1:{s_.grpc_port}": d for s_, d in zip(servers, dirs)}
+        for vid in vols:
+            _poll(lambda: _ec_census(mstub, vid)["holders"] == _disk_shards(by_grpc, str(vid)),
+                  f"the master's EC census of {vid} to match the disks", 60)
+        k1 = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply"))
+              for s_ in servers}
+        check(sum(k1.values()) == tasks and tasks > 0,
+              f"K1 launches by server {k1}; the generates of {len(vols)} volumes have {tasks} batches")
+        check(not any(re.fullmatch(r"\d+\.dat", n_) for d in dirs for n_ in os.listdir(d)
+                      if int(n_.split(".")[0]) in vols), "an encoded volume's .dat survived")
+        rcs["s3_group_1"] = gw.stop()  # SIGTERM forwarded to every worker
+        t = time.perf_counter()
+        gw, _banners = start_group()  # empty chunk caches: every read comes from the shards
+        walls["group_restart"] = time.perf_counter() - t
+        t = time.perf_counter()
+        lat = _s3_pool(gw.addr, sorted(model), get_one)
+        rec["read_ec"] = _class_figures("all", [model[k][0] for k in sorted(model)], lat,
+                                        time.perf_counter() - t)
+        r = rec["read_ec"]
+        print(f"shard: ec.encode -volumeId of {len(vols)} volumes ({sum(vols.values())} B) "
+              f"{walls['ec_encode']:.3f}s on {ident} (shell -filer {SHARD_FILERS} shards); K1 "
+              f"launches by server {k1} (= {tasks} batches); the worker group restarted in "
+              f"{walls['group_restart']:.3f}s read every object from the shards: {r['files']} "
+              f"{r['files_per_s']:.1f}/s {r['mb_per_s']:.1f} MB/s p50 {r['p50_ms']:.2f} ms p99 "
+              f"{r['p99_ms']:.2f} ms, ETag- and sha256-equal")
+    finally:
+        if inproc is not None:
+            inproc.stop()
+        if router is not None:
+            router.close()
+        if iam is not None:
+            rcs["iam"] = iam.stop()
+        if gw is not None:
+            rcs["s3_group"] = gw.stop()
+        rcs.update({f"filer{i}": f_.stop() for i, f_ in enumerate(filers)})
+        rcs.update({getattr(s_, "url", s_.proc.pid): s_.stop() for s_ in servers})
+        rcs["master"] = master.stop()
+    check(rcs.pop("filer_killed") == -signal.SIGKILL and all(rc == 0 for rc in rcs.values()),
+          f"shard phase processes exited {rcs}")
+    walls["phase"] = time.perf_counter() - t_phase
+    rec.update(walls=walls, launches=tasks, volumes=len(vols), rcs={str(k): v for k, v in rcs.items()})
+    print("shard: " + json.dumps(rec, sort_keys=True, default=str))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6231,6 +6881,16 @@ def main() -> int:
         tls_fill={cls: {k: r[k] for k in ("files", "files_per_s", "mb_per_s", "p50_ms", "p99_ms")}
                   for cls, r in tls["fill"].items()},
         tls_faults_fired=tls["faults_fired"],
+    )
+    shard = main_path["shard"]
+    record["kernels"][0]["launches"] += shard["launches"]
+    record["kernels"][0].update(
+        launches_shard=shard["launches"],
+        shard_walls_s=shard["walls"],
+        shard_fill={cls: {k: r[k] for k in ("files", "files_per_s", "mb_per_s", "p50_ms", "p99_ms")}
+                    for cls, r in shard["fill"].items()},
+        shard_coherence_worst_ms=shard["coherence"]["worst_ms"],
+        shard_requests_per_worker=shard["per_worker"],
     )
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)

@@ -51,6 +51,7 @@ def _import_all() -> None:
         benchmark_cmd,
         client_cmd,
         ec_local,
+        gateway_cmd,
         servers,
         shell_cmd,
         tier_cmd,

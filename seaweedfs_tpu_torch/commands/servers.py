@@ -36,8 +36,12 @@ embedded filer, or with ``-filer`` (one filer's gRPC address) over
 (SigV4 and V2 required), ``-kmsKeyFile`` or ``-kms`` (SSE-S3),
 ``-cacheMB`` (the hot-chunk cache), ``-circuitBreakerFile``, ``-qosFile``,
 ``-accessLog``, ``-lifecycleSweepSec``, ``-metricsPort``, ``-reusePort`` and
-``-tlsCert``/``-tlsKey`` (HTTPS); it runs no kernel and takes no device,
-and ``-workers`` above 1 and a comma list in ``-filer`` raise (not ported).
+``-tlsCert``/``-tlsKey`` (HTTPS); it runs no kernel and takes no device.
+A comma list in ``-filer`` shards the namespace over those filers
+(``ShardedFilerClient``); ``-workers N`` forks N gateway processes on one
+fixed ``-port`` (SO_REUSEPORT), each with ``-metricsPort`` + i, their
+caches kept coherent by the invalidation bus, and refuses ``-port 0`` or
+a missing ``-filer`` with exit code 2.
 ``server`` runs a master, one volume server (its ``-device`` as
 ``volume``'s) and, with ``-filer``, a filer, and with ``-s3`` a gateway over
 that filer, in one process (``-tlsCert``/``-tlsKey`` put the filer's and
@@ -54,6 +58,7 @@ injection), ``WEED_SLO`` (the /debug/sloz spec) and ``SEAWEEDFS_TPU_TRACE``
 from __future__ import annotations
 
 import signal
+import sys
 import threading
 
 from seaweedfs_tpu_torch.commands import command
@@ -254,12 +259,100 @@ run_filer.configure = _filer_flags
 
 @command("s3", "run an S3-compatible gateway over the filer")
 def run_s3(args) -> int:
+    if args.workers > 1:
+        return _run_s3_workers(args)
+    return _run_s3_single(args)
+
+
+def _run_s3_workers(args) -> int:
+    """Fork -workers gateway processes sharing the listen address via
+    SO_REUSEPORT (the kernel spreads accepted connections across them),
+    each with its own FidPool + entry cache, coherent through the
+    filer/inval_bus.py worker-group invalidation channel.  The parent
+    imports nothing that touches CUDA before it forks (the gateway runs
+    no kernel)."""
+    import os
+
+    from seaweedfs_tpu_torch.filer.inval_bus import InvalBus
+
+    if args.port == 0:
+        print(
+            "s3: -workers needs a fixed -port "
+            "(SO_REUSEPORT workers share one listen address)",
+            file=sys.stderr,
+        )
+        return 2
+    if not args.filer:
+        print(
+            "s3: -workers needs -filer — each worker is a separate "
+            "process, and an embedded filer would give every worker its "
+            "own private namespace",
+            file=sys.stderr,
+        )
+        return 2
+    # bind every worker's bus endpoint BEFORE forking so each child
+    # knows the full peer list with no discovery protocol
+    socks = InvalBus.group(args.workers)
+    ports = [s.getsockname()[1] for s in socks]
+    sys.stdout.flush()
+    sys.stderr.flush()
+    pids: list[int] = []
+    for i in range(args.workers):
+        pid = os.fork()
+        if pid == 0:  # worker
+            rc = 1
+            try:
+                for j, s in enumerate(socks):
+                    if j != i:
+                        s.close()
+                if args.metricsPort:
+                    args.metricsPort += i  # one /metrics per process
+                rc = _run_s3_single(
+                    args,
+                    reuse_port=True,
+                    inval_bus=InvalBus(socks[i], ports),
+                    banner=f"worker {i + 1}/{args.workers}",
+                )
+            finally:
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(rc or 0)
+        pids.append(pid)
+    for s in socks:
+        s.close()
+
+    forwarded: list[int] = []
+
+    def _forward(sig, _frame):
+        forwarded.append(sig)
+        for p in pids:
+            try:
+                os.kill(p, sig)
+            except OSError:
+                pass
+
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, _forward)
+    rc = 0
+    for p in pids:
+        try:
+            _, status = os.waitpid(p, 0)
+            code = os.waitstatus_to_exitcode(status) or 0
+            if code < 0:
+                # signal-killed: a signal we ourselves forwarded is a
+                # clean shutdown (exit 0, not 256+code); anything else
+                # maps to the conventional 128+N
+                code = 0 if -code in forwarded else 128 - code
+            rc = rc or code
+        except (OSError, InterruptedError):
+            pass
+    return rc
+
+
+def _run_s3_single(args, *, reuse_port: bool = False, inval_bus=None,
+                   banner: str = "") -> int:
     from seaweedfs_tpu_torch.s3 import S3ApiServer
     from seaweedfs_tpu_torch.s3.auth import Identity
-    from seaweedfs_tpu_torch.s3.s3_server import NOT_PORTED
-
-    if args.workers > 1:
-        raise NotImplementedError(f"s3 -workers {args.workers}: {NOT_PORTED}")
 
     identities = None
     if args.accessKey:
@@ -286,15 +379,12 @@ def run_s3(args) -> int:
             qos_config = json.load(f)
     shared_filer = None
     if args.filer:
-        from seaweedfs_tpu_torch.filer.remote import RemoteFiler
+        # a comma list is the sharded metadata plane: the router
+        # consistent-hashes the namespace over the shards
+        from seaweedfs_tpu_torch.filer.shard_ring import filer_client
         from seaweedfs_tpu_torch.wdclient import MasterClient
 
-        addrs = [a.strip() for a in args.filer.split(",") if a.strip()]
-        if len(addrs) > 1:
-            raise NotImplementedError(
-                f"s3 -filer with {len(addrs)} addresses (the shard ring): "
-                "not ported to seaweedfs_tpu_torch (ROADMAP Queue A item 1)")
-        shared_filer = RemoteFiler(addrs[0], MasterClient(args.master))
+        shared_filer = filer_client(args.filer, MasterClient(args.master))
     gw = S3ApiServer(
         args.master,
         ip=args.ip,
@@ -306,7 +396,8 @@ def run_s3(args) -> int:
         circuit_breaker_config=cb_config,
         qos_config=qos_config,
         access_log=args.accessLog,
-        reuse_port=args.reusePort,
+        reuse_port=reuse_port or args.reusePort,
+        inval_bus=inval_bus,
         chunk_cache_mb=(args.cacheMB if args.cacheMB >= 0 else None),
         tls_cert=args.tlsCert,
         tls_key=args.tlsKey,
@@ -318,7 +409,10 @@ def run_s3(args) -> int:
 
             stats.start_metrics_server(args.metricsPort, args.ip)
         mode = "sigv4" if identities else "open"
-        print(f"s3 gateway on {gw.url} (auth={mode})", flush=True)
+        tag = f" [{banner}]" if banner else ""
+        # one write of the whole line: the workers of a group share stdout
+        sys.stdout.write(f"s3 gateway on {gw.url} (auth={mode}){tag}\n")
+        sys.stdout.flush()
         _wait_forever()
     finally:
         gw.stop()
@@ -344,7 +438,8 @@ def _s3_flags(p) -> None:
                    "/etc/s3/circuit_breaker.json via s3.circuitbreaker)")
     p.add_argument("-filer", default="",
                    help="ride a shared filer server (host:grpc_port) instead of an "
-                   "embedded in-process filer (a comma list is not ported: raises)")
+                   "embedded in-process filer; a comma list shards the namespace "
+                   "over several filers (filer/shard_ring.py)")
     p.add_argument("-qosFile", default="",
                    help="static tenant/bucket QoS JSON (else polled from the "
                    "filer's /etc/s3/qos.json via the s3.qos shell command)")
@@ -352,7 +447,8 @@ def _s3_flags(p) -> None:
     p.add_argument("-lifecycleSweepSec", type=float, default=3600.0,
                    help="seconds between lifecycle expiration sweeps (0 disables)")
     p.add_argument("-workers", type=int, default=1,
-                   help="gateway processes sharing the port (above 1 not ported: raises)")
+                   help="gateway processes sharing -port via SO_REUSEPORT, their "
+                   "caches kept coherent by filer/inval_bus.py (needs -filer)")
     p.add_argument("-reusePort", action="store_true",
                    help="bind the listen port with SO_REUSEPORT")
     p.add_argument("-cacheMB", type=float, default=-1,

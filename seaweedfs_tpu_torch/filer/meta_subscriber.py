@@ -37,12 +37,11 @@ import time
 import grpc
 
 from seaweedfs_tpu_torch import rpc
+# the line prefix that marks a retired chunk fid among invalidated paths:
+# one definition, the worker-group bus's wire convention (re-exported)
+from seaweedfs_tpu_torch.filer.inval_bus import FID_PREFIX
 from seaweedfs_tpu_torch.pb import filer_pb2 as f_pb
 from seaweedfs_tpu_torch.util import wlog
-
-# the line prefix that marks a retired chunk fid among invalidated paths
-# (the JAX package's filer/inval_bus wire convention)
-FID_PREFIX = "fid:"
 
 
 def event_fids(old_entry, new_entry) -> list[str]:

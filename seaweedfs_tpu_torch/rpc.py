@@ -203,6 +203,13 @@ def _resilient_call(stub, path, kind, req_ser, resp_des, service, method):
                 br.release_probe()  # died client-side: no verdict
             raise
         if kind in ("unary_stream", "stream_stream"):
+            if br is not None:
+                # an open stream holds no half-open probe slot: an idle
+                # polling stream (SubscribeMetadata) that took the slot
+                # every pass would shed every unary call to a recovered
+                # peer as "circuit open"; its outcome still reaches the
+                # breaker as it yields or ends
+                br.release_probe()
             return _ObservedStream(result, br, address)
         if br is not None:
             br.record_success()

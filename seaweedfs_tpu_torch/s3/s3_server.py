@@ -13,9 +13,12 @@ move on the Python path (the JAX package's path when its native splice is
 unavailable).  Every request runs in an edge trace span (a new trace
 unless the client sent a ``traceparent``) and records into its op
 class's latency sketch (stats/sketch.py); ``tls_cert``/``tls_key`` serve
-HTTPS.  Not ported (ROADMAP Queue A item 2), each refused where it is
-asked for: SelectObjectContent (501 NotImplemented), the browser form POST
-(501), the IAM credential store and the worker-group invalidation bus.
+HTTPS.  ``filer`` may be a ``ShardedFilerClient`` (filer/shard_ring.py): a
+dead shard answers 503 SlowDown with Retry-After.  ``credential_store``
+(iam/) supplies the identities, refreshed in the background;
+``inval_bus`` (filer/inval_bus.py) keeps the caches of a ``-workers``
+group coherent.  The browser form POST (s3/post_policy.py) and
+SelectObjectContent (query/select.py) answer as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ from seaweedfs_tpu_torch import stats
 from seaweedfs_tpu_torch.filer import Filer, reader as chunk_reader, upload as chunk_upload
 from seaweedfs_tpu_torch.filer.entry import Attr, Entry, FileChunk
 from seaweedfs_tpu_torch.filer.filer import FilerError
-from seaweedfs_tpu_torch.filer.meta_subscriber import FID_PREFIX
+from seaweedfs_tpu_torch.filer.inval_bus import FID_PREFIX
+from seaweedfs_tpu_torch.filer.shard_ring import ShardUnavailable
 from seaweedfs_tpu_torch.s3.auth import (
     STREAMING_PAYLOAD,
     AccessDenied,
@@ -54,18 +58,6 @@ BUCKETS_ROOT = "/buckets"
 UPLOADS_DIR = ".uploads"  # per-bucket multipart staging area
 VERSIONS_DIR = ".versions"  # per-bucket archived object versions
 XMLNS = "http://s3.amazonaws.com/doc/2006-03-01/"
-NOT_PORTED = "not ported to seaweedfs_tpu_torch (ROADMAP Queue A item 2)"
-
-
-class ShardUnavailable(Exception):
-    """A filer shard that cannot answer in time: the JAX package's
-    filer/shard_ring exception, which the gateway maps to 503 SlowDown
-    with Retry-After.  The port has no shard ring yet, so its filers
-    never raise it; the mapping stays for the ring to come."""
-
-    def __init__(self, message: str, retry_after: float = 1.0):
-        super().__init__(message)
-        self.retry_after = retry_after
 
 
 class S3Error(Exception):
@@ -208,7 +200,7 @@ class S3ApiServer:
         identities: dict[str, Identity] | None = None,
         chunk_size: int = chunk_upload.DEFAULT_CHUNK_SIZE,
         kms=None,  # security.kms.KmsProvider for SSE-S3
-        credential_store=None,  # iam.CredentialStore: not ported (raises)
+        credential_store=None,  # iam.CredentialStore: dynamic identities
         credential_refresh: float = 5.0,
         lifecycle_sweep_interval: float = 3600.0,  # 0 disables
         circuit_breaker_config: dict | None = None,
@@ -217,7 +209,7 @@ class S3ApiServer:
         access_log: str = "",  # "" disables; "-" = stderr; else file path
         entry_cache_ttl: float = 2.0,  # 0 disables the gateway entry cache
         reuse_port: bool = False,  # SO_REUSEPORT: share the listen address
-        inval_bus=None,  # filer/inval_bus.InvalBus: not ported (raises)
+        inval_bus=None,  # filer/inval_bus.InvalBus: worker-group coherence
         meta_subscribe: bool = True,  # remote filers: event-log invalidation
         qos_config: dict | None = None,  # static tenant QoS (else polled)
         chunk_cache_mb: float | None = None,  # None = WEED_CHUNK_CACHE_MB
@@ -231,10 +223,6 @@ class S3ApiServer:
             # must never leave a plaintext listener behind
             server_ssl_context(tls_cert, tls_key)
         self.tls_cert, self.tls_key = tls_cert, tls_key
-        if credential_store is not None:
-            raise NotImplementedError(f"s3 credential_store (iam): {NOT_PORTED}")
-        if inval_bus is not None:
-            raise NotImplementedError(f"s3 inval_bus (-workers): {NOT_PORTED}")
         self.access_log = S3AccessLog(access_log) if access_log else None
         self.master = MasterClient(master_address)
         # the embedded single-process gateway IS a deployment shape
@@ -246,18 +234,19 @@ class S3ApiServer:
         # (filer/entry_cache.py) so repeated GETs skip the filer store.
         # Only enabled when invalidation can actually reach this process:
         # the in-process listener seam covers an embedded filer; a shared
-        # (remote) filer additionally needs the metadata-event
-        # subscription (filer/meta_subscriber.py), or a PUT through
-        # another process could serve the old object for a whole TTL,
-        # which S3 clients (and our tests) rightly reject.
+        # (Remote/Sharded) filer additionally needs the metadata-event
+        # subscription (filer/meta_subscriber.py) or the worker-group bus,
+        # or a PUT through another process could serve the old object for
+        # a whole TTL, which S3 clients (and our tests) rightly reject.
         from seaweedfs_tpu_torch.filer.entry_cache import EntryCache
 
         self.entry_cache = None
         self.reuse_port = reuse_port
+        self.inval_bus = inval_bus
         self.meta_subscriber = None
         is_remote = getattr(self.filer, "remote", False)
         cacheable = entry_cache_ttl > 0 and hasattr(self.filer, "listeners")
-        if cacheable and is_remote and not meta_subscribe:
+        if cacheable and is_remote and inval_bus is None and not meta_subscribe:
             # no coherence channel at all for other processes' mutations:
             # keep the pre-cache behavior (meta_subscribe=False is the
             # explicit opt-out for filers whose event log is unreachable)
@@ -274,8 +263,8 @@ class S3ApiServer:
         # hot-chunk cache tier (util/chunk_cache): S3-FIFO over mmap'd
         # segment files + an in-RAM small-object tier.  Fids are
         # immutable, so a cached body is byte-correct regardless of
-        # invalidation delivery; the planes below (listeners / metadata
-        # stream) only RECLAIM
+        # invalidation delivery; the planes below (listeners / inval bus /
+        # metadata stream) only RECLAIM
         # deleted chunks' bytes, with the optional entry TTL as backstop.
         from seaweedfs_tpu_torch.util import chunk_cache as chunk_cache_mod
 
@@ -294,7 +283,7 @@ class S3ApiServer:
         if is_remote and meta_subscribe and (
             self.entry_cache is not None or self.chunk_cache is not None
         ):
-            # cross-process invalidation plane: tail the filer's
+            # cross-process invalidation plane: tail every filer shard's
             # metadata event log (the same stream filer.sync rides) and
             # drop mutated paths; a broken stream clears the cache once
             # (gap) and the TTL bounds the outage window
@@ -316,11 +305,20 @@ class S3ApiServer:
                     if self.entry_cache is not None else None
                 ),
             )
+        if inval_bus is not None:
+            # publish this worker's mutations to the sibling workers even
+            # with our own cache disabled — they may be caching
+            self.filer.listeners.append(self._publish_invalidation)
+            if self.entry_cache is not None or self.chunk_cache is not None:
+                inval_bus.start(self._on_peer_invalidation)
         # cross-request assign batching: a stream of object PUTs costs
         # ~1/batch of a master round trip each (filer/upload.FidPool)
         self.fid_pool = chunk_upload.FidPool(self.master, native_stash=True)
-        self.verifier = SigV4Verifier(identities)
+        self.verifier = SigV4Verifier(
+            identities, require_auth=credential_store is not None
+        )
         self.kms = kms
+        self.credential_store = credential_store
         self.credential_refresh = credential_refresh
         self.lifecycle_sweep_interval = lifecycle_sweep_interval
         self.chunk_size = chunk_size
@@ -353,12 +351,31 @@ class S3ApiServer:
             str, tuple[float, tuple[int, int]]
         ] = OrderedDict()
         self.filer.mkdirs(BUCKETS_ROOT)
+        if credential_store is not None:
+            self.refresh_identities()
         self.refresh_circuit_breaker()
         self.refresh_qos()
 
-    # ---- cross-process cache coherence (filer/meta_subscriber.py) -------
+    # ---- worker-group cache coherence (filer/inval_bus.py) --------------
+    def _publish_invalidation(self, ev) -> None:
+        """Filer.listeners hook: fan this worker's mutation out to the
+        sibling SO_REUSEPORT workers' caches — entry paths plus any
+        retired chunk fids (``fid:`` lines, the hot-chunk tier)."""
+        from seaweedfs_tpu_torch.filer.meta_subscriber import event_fids
+
+        paths = [
+            e.full_path for e in (ev.old_entry, ev.new_entry) if e is not None
+        ]
+        if ev.new_parent_path and ev.new_entry is not None:
+            name = ev.new_entry.full_path.rsplit("/", 1)[-1]
+            paths.append(ev.new_parent_path.rstrip("/") + "/" + name)
+        paths += [
+            FID_PREFIX + fid for fid in event_fids(ev.old_entry, ev.new_entry)
+        ]
+        self.inval_bus.publish(paths)
+
     def _on_peer_invalidation(self, paths: list[str]) -> None:
-        """Stream receiver: another mutator touched these — entry
+        """Bus/stream receiver: another mutator touched these — entry
         paths drop from the entry cache, ``fid:`` lines reclaim the
         hot-chunk tier's retired ranges."""
         for p in paths:
@@ -375,6 +392,12 @@ class S3ApiServer:
 
         for fid in event_fids(ev.old_entry, ev.new_entry):
             self.chunk_cache.invalidate_fid(fid)
+
+    def refresh_identities(self) -> None:
+        """Pull the ak->Identity map from the credential store (IAM
+        mutations propagate here — reference credential store watch)."""
+        if self.credential_store is not None:
+            self.verifier.identities = self.credential_store.identity_map()
 
     def refresh_circuit_breaker(self) -> None:
         """Adopt breaker ceilings from the filer config entry written by
@@ -460,12 +483,17 @@ class S3ApiServer:
         if self.meta_subscriber is not None:
             self.meta_subscriber.start()
         if self.credential_refresh > 0 and (
-            not self._static_breaker
+            self.credential_store is not None
+            or not self._static_breaker
             or not self._static_qos  # s3.qos edits must still be adopted
         ):
 
             def refresh_loop():
                 while not self._stop_refresh.wait(self.credential_refresh):
+                    try:
+                        self.refresh_identities()
+                    except Exception as e:  # noqa: BLE001 — store blip: keep last map
+                        wlog.warning("s3: identity refresh failed, keeping last map: %s", e)
                     try:
                         self.refresh_circuit_breaker()
                     except Exception as e:  # noqa: BLE001 — keep last limits
@@ -494,9 +522,12 @@ class S3ApiServer:
             self._httpd.server_close()
         if self.meta_subscriber is not None:
             self.meta_subscriber.stop()
+        if self.inval_bus is not None:
+            self.inval_bus.close()
         if self.chunk_cache is not None:
             self.chunk_cache.close()
-        # the filer client (RemoteFiler) is caller-owned
+        # the filer client (router/RemoteFiler) is caller-owned: a
+        # router shared across gateways must survive one gateway's stop
         if self.access_log is not None:
             self.access_log.close()
 
@@ -2996,14 +3027,124 @@ class _S3HttpHandler(QuietHandler):
         )
 
     def _post_policy_upload(self, bucket: str, body: bytes):
-        """Browser form upload (the JAX package's s3/post_policy.py):
-        not ported, answered 501."""
-        raise S3Error(501, "NotImplemented", f"browser form POST: {NOT_PORTED}")
+        """Browser form upload (reference
+        s3api_object_handlers_postpolicy.go): credentials ride the form
+        as a signed policy document, not the request headers."""
+        from seaweedfs_tpu_torch.s3 import policy as policy_mod
+        from seaweedfs_tpu_torch.s3 import post_policy
+
+        try:
+            fields, filename, file_bytes = post_policy.parse_form(
+                self.headers.get("Content-Type", ""), body
+            )
+            key = post_policy.resolve_key(fields, filename)
+            principal = "*"
+            if self.s3.verifier.identities:
+                ident = post_policy.verify_signature(
+                    fields, self.s3.verifier.identities
+                )
+                principal = ident.access_key
+                post_policy.check_policy(
+                    fields, bucket, key, len(file_bytes)
+                )
+        except post_policy.PolicyError as e:
+            raise S3Error(400, "InvalidPolicyDocument", str(e))
+        # the dispatch-time checks ran with the bucket ARN and no key —
+        # re-apply the object-scoped guards now that the key is known
+        bentry = self.s3.filer.find_entry(self.s3.bucket_path(bucket))
+        if bentry is not None:
+            if bentry.extended.get("quota_readonly"):
+                raise S3Error(
+                    403, "QuotaExceeded",
+                    f"bucket {bucket} is over its configured quota",
+                )
+            doc = _parse_policy_blob(bentry.extended.get("policy"))
+            decision = policy_mod.evaluate(
+                doc,
+                "s3:PutObject",
+                f"arn:aws:s3:::{bucket}/{key}",
+                principal,
+                self._policy_context(principal) if doc else None,
+            )
+            if decision == policy_mod.DENY:
+                raise AccessDenied("explicit deny by bucket policy")
+        lf = {k.lower(): v for k, v in fields.items()}
+        content_type = lf.get("content-type", "")
+        # metadata fields (x-amz-meta-*) ride the form like headers would
+        meta = {
+            k: v.encode()
+            for k, v in lf.items()
+            if k.startswith("x-amz-meta-")
+        }
+        etag, _vid = self.s3.put_object(
+            bucket, key, file_bytes, content_type, meta
+        )
+        status_field = lf.get("success_action_status", "204")
+        status = int(status_field) if status_field in ("200", "201", "204") else 204
+        if status == 201:
+            root = ET.Element("PostResponse")
+            _el(root, "Bucket", bucket)
+            _el(root, "Key", key)
+            _el(root, "ETag", f'"{etag}"')
+            self._reply(
+                201, _xml(root), "application/xml", headers={"ETag": f'"{etag}"'}
+            )
+        else:
+            self._reply(status, headers={"ETag": f'"{etag}"'})
 
     def _select_content(self, bucket: str, key: str, body: bytes):
-        """SelectObjectContent (the JAX package's query/select.py): not
-        ported, answered 501."""
-        raise S3Error(501, "NotImplemented", f"SelectObjectContent: {NOT_PORTED}")
+        """SelectObjectContent subset (reference weed/query/): JSON-lines
+        input, SELECT/WHERE/LIMIT; the result streams back as plain JSON
+        lines rather than the AWS event-stream framing."""
+        from seaweedfs_tpu_torch.query import SelectError, execute_select
+
+        req = ET.fromstring(body.decode()) if body.strip() else None
+        expression = ""
+        in_fmt, out_fmt = "json", None
+        delimiter, header_info = ",", "NONE"  # S3's FileHeaderInfo default
+        if req is not None:
+            ns = {"s3": XMLNS} if req.tag.startswith("{") else {}
+
+            def find(path):
+                return (
+                    req.find("/".join(f"s3:{p}" for p in path.split("/")), ns)
+                    if ns
+                    else req.find(path)
+                )
+
+            def findtext(path):
+                el = find(path)
+                return el.text if el is not None and el.text else ""
+
+            expression = findtext("Expression")
+            csv_in = find("InputSerialization/CSV")
+            if csv_in is not None:
+                in_fmt = "csv"
+                delimiter = findtext("InputSerialization/CSV/FieldDelimiter") or ","
+                header_info = (
+                    findtext("InputSerialization/CSV/FileHeaderInfo") or "NONE"
+                )
+            if find("OutputSerialization/CSV") is not None:
+                out_fmt = "csv"
+            elif find("OutputSerialization/JSON") is not None:
+                out_fmt = "json"
+        if not expression:
+            raise S3Error(400, "MissingRequiredParameter", "Expression")
+        entry = self.s3.get_object_entry(bucket, key)
+        data = chunk_reader.read_entry(self.s3.master, entry)
+        try:
+            result = execute_select(
+                expression,
+                data,
+                input_format=in_fmt,
+                output_format=out_fmt,
+                field_delimiter=delimiter,
+                file_header_info=header_info,
+            )
+        except SelectError as e:
+            raise S3Error(400, "InvalidTextRepresentation", str(e))
+        ctype = "text/csv" if (out_fmt or in_fmt) == "csv" else "application/json"
+        self._reply(200, result, ctype)
 
     def _multi_delete(self, bucket: str, body: bytes):
         req = ET.fromstring(body.decode())

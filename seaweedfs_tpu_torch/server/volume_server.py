@@ -955,7 +955,10 @@ class _VolumeHttpHandler(QuietHandler):
                 self._reply(404, b"volume not found", "text/plain")
                 return
             ev.delete_needle(nid)
-            self.vs.delete_ec_needle_at_holders(vid, nid)
+            err = self.vs.delete_ec_needle_at_holders(vid, nid)
+            if err:
+                self._reply(500, err.encode(), "text/plain")
+                return
             self._reply(202, b"{}", "application/json")
             return
         try:
@@ -1063,29 +1066,47 @@ class VolumeServer:
 
     # -- replication fan-out (reference topology/store_replicate.go) -------
 
-    def delete_ec_needle_at_holders(self, vid: int, nid: int) -> None:
+    def delete_ec_needle_at_holders(self, vid: int, nid: int) -> str | None:
         """An EC needle deleted here is deleted at every other holder of
         the volume's shards too (EcBlobDelete), so that a read on any of
         them answers 404.  Upstream's DeleteEcShardNeedle deletes at the
         holders of the needle's shard and of the parity shards; the JAX
         package deletes only here, so a read on another holder still finds
-        the needle in that holder's .ecx.  A holder that cannot be reached
-        keeps it, with a warning, as upstream's does."""
+        the needle in that holder's .ecx.
+
+        The master's shard map lags a balance by up to a heartbeat, so a
+        server that has just mounted shards of ``vid`` may be missing from
+        it: every volume server the master knows is asked too, and one
+        that holds no shard of ``vid`` answers NOT_FOUND.  Returns an error
+        string when the holders cannot be listed or a holder in the map
+        fails, so the DELETE is not acknowledged; a failure at a server
+        outside the map is only logged."""
         if self.locator is None or not self.locator.master_address:
-            return
+            return None
         try:
             locs = self.locator.shard_locations(vid, fresh=True)
+            topo = rpc.master_stub(self.locator.master_address).VolumeList(
+                m_pb.VolumeListRequest(), timeout=resilience.policy().deadline_s).topology_info
         except grpc.RpcError as e:
-            wlog.warning("ec: delete of %d,%x: no shard locations from the master: %s", vid, nid,
-                         e.code())
-            return
-        for addr in sorted({a for addrs in locs.values() for a in addrs}
-                           - {self.locator.local_grpc_address}):
-            try:
+            return f"ec delete of {vid},{nid:x}: no holders from the master: {e.code()}"
+        holders = {a for addrs in locs.values() for a in addrs}
+        nodes = {f"{dn.url.split(':')[0]}:{dn.grpc_port}" for dc in topo.data_center_infos
+                 for rack in dc.rack_infos for dn in rack.data_node_infos}
+        failed = []
+        for addr in sorted((holders | nodes) - {self.locator.local_grpc_address}):
+            try:  # a server outside the map gets one attempt
                 rpc.volume_stub(addr).EcBlobDelete(
-                    vs_pb.EcBlobDeleteRequest(volume_id=vid, file_key=nid))
+                    vs_pb.EcBlobDeleteRequest(volume_id=vid, file_key=nid),
+                    **({} if addr in holders else {"wd_max_attempts": 1}))
             except grpc.RpcError as e:
+                if resilience.error_code(e) is grpc.StatusCode.NOT_FOUND:
+                    continue
                 wlog.warning("ec: delete of %d,%x at %s failed: %s", vid, nid, addr, e.code())
+                if addr in holders:
+                    failed.append(f"{addr}: {e.code()}")
+        if failed:
+            return f"ec delete of {vid},{nid:x} failed at holders: {', '.join(failed)}"
+        return None
 
     def replicate(self, fid: str, method: str, data: bytes, extra_query: str = "") -> str | None:
         """Fan out to the other replica holders in parallel over pooled

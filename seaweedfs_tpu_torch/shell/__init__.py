@@ -21,8 +21,8 @@ lock.  Commands self-register via @shell_command; the REPL and one-shot
 ``fs.verify``, ``fs.configure``) and the s3.* commands (``s3.bucket.list``,
 ``s3.bucket.create``, ``s3.bucket.delete``, ``s3.bucket.quota``,
 ``s3.bucket.quota.check``, ``s3.clean.uploads``, ``s3.circuitbreaker``,
-``s3.qos``; ``s3.configure`` raises, not ported) against the shell's
-``-filer``, and the observability commands (``trace.dump``,
+``s3.qos``, ``s3.configure``) and ``filer.shard.status`` against the
+shell's ``-filer`` (a comma list of filers rides the shard router), and the observability commands (``trace.dump``,
 ``resilience.status``, ``fault.inject``, ``slo.status``,
 ``cluster.status``, ``events.dump``), which read this process or the
 ``/debug/`` pages of the members they are given.  The
@@ -118,6 +118,7 @@ def _import_all() -> None:
         command_cluster,
         command_ec,
         command_ec_balance,
+        command_filer_shard,
         command_fs,
         command_resilience,
         command_s3,

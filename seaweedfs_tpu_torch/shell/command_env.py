@@ -11,8 +11,9 @@ string to one stub; followers forward every RPC to the leader, so any
 live master of the list serves the shell.  ``filer()`` and
 ``remote_filer()`` reach the filer of ``-filer`` for the fs.* commands and
 ``volume.fsck``; ``current_dir`` is fs.cd's working directory.  A
-comma-separated filer list (the JAX shard router, filer/shard_ring.py)
-is not ported: it raises.
+comma-separated filer list is the sharded metadata plane:
+``remote_filer()`` is then the shard router (filer/shard_ring.py) and
+``filer()`` the first shard's raw stub, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -68,22 +69,22 @@ class CommandEnv:
                 "no filer configured: start the shell with -filer "
                 "host:grpc_port (or fs.cd host:port/path)"
             )
-        if "," in self.filer_address:
-            raise NotImplementedError(
-                "a sharded filer list is not ported to seaweedfs_tpu_torch yet "
-                "(ROADMAP Queue A item 1: shard_ring and filer.shard.*)")
-        return rpc.filer_stub(self.filer_address.strip())
+        # sharded plane (comma list): the raw stub speaks to the first
+        # shard; path-routed commands go through remote_filer()
+        return rpc.filer_stub(self.filer_address.split(",")[0].strip())
 
     def remote_filer(self):
         """Filer-API view of the configured filer (filer/remote.py, the
-        client code the gateways share), cached per address."""
-        from seaweedfs_tpu_torch.filer.remote import RemoteFiler
+        client code the gateways share; a comma-separated address list
+        rides the shard router, filer/shard_ring.py), cached per address
+        spec."""
+        from seaweedfs_tpu_torch.filer.shard_ring import filer_client
         from seaweedfs_tpu_torch.wdclient import MasterClient
 
-        self.filer()  # raises when no (or a sharded) filer is configured
+        self.filer()  # raises when no filer is configured
         if self._remote_filer is None or self._remote_filer_key != self.filer_address:
-            self._remote_filer = RemoteFiler(self.filer_address.strip(),
-                                             MasterClient(",".join(self.master_addresses)))
+            self._remote_filer = filer_client(
+                self.filer_address, MasterClient(",".join(self.master_addresses)))
             self._remote_filer_key = self.filer_address
         return self._remote_filer
 

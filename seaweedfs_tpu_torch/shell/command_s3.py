@@ -6,7 +6,8 @@ directories under /buckets in the filer; quota state and the breaker
 config live in filer entries the S3 gateways poll.
 
 The port's copy of seaweedfs_tpu/shell/command_s3.py.  ``s3.configure``
-(the IAM identity document) is not ported and raises.
+edits the IAM identity document (iam/credentials.py) through
+``env.remote_filer()``, the shard router when the shell has a filer list.
 """
 
 from __future__ import annotations
@@ -297,14 +298,40 @@ cmd_s3_qos.configure = _qos_flags
 
 
 @shell_command(
-    "s3.configure", "manage S3 identities (not ported: raises)"
+    "s3.configure", "manage S3 identities: users, keys, allowed actions"
 )
 def cmd_s3_configure(env, args, out):
-    """The JAX package's identity-document editor over its iam/ credential
-    store, which the port has not ported yet."""
-    raise RuntimeError(
-        "s3.configure: not ported to seaweedfs_tpu_torch (ROADMAP Queue A item 2)"
-    )
+    """Edit the shared identity document (/etc/iam/identities.json) the
+    S3 gateways read — the reference's command_s3_configure.go over its
+    identities config.  Without -apply the change is shown, not saved."""
+    from seaweedfs_tpu_torch.iam.credentials import FilerEtcCredentialStore
+
+    store = FilerEtcCredentialStore(env.remote_filer())
+    if args.user and args.apply:
+        actions = [a for a in args.actions.split(",") if a]
+        if args.isDelete:
+            if args.accessKey:
+                store.delete_access_key(args.user, args.accessKey)
+            else:
+                store.delete_user(args.user)
+        else:
+            try:
+                store.create_user(args.user, actions or None)
+            except ValueError:  # exists: update actions if given
+                if actions:
+                    store.set_actions(args.user, actions)
+            if args.accessKey:
+                if not args.secretKey:
+                    raise RuntimeError("-secret_key required with -access_key")
+                store.put_access_key(args.user, args.accessKey, args.secretKey)
+    elif args.user and not args.apply:
+        print("(dry run; pass -apply to persist)", file=out)
+    for user in sorted(store.load().values(), key=lambda u: u.name):
+        keys = ", ".join(ak for ak, _ in user.keys) or "-"
+        print(
+            f"{user.name}  actions={','.join(user.actions)}  keys={keys}",
+            file=out,
+        )
 
 
 def _s3_configure_flags(p):

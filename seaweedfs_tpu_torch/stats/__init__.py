@@ -256,6 +256,25 @@ REPAIR_WAIT_SECONDS = Counter(
     "weedtpu_repair_wait_seconds_total",
     "Seconds repair work waited on the WEED_REPAIR_RATE_MB bandwidth budget",
 )
+FILER_SHARD_REQUESTS = Counter(
+    "weedtpu_filer_shard_requests_total",
+    "Shard-router filer RPCs by op and shard address",
+)
+FILER_SHARD_FANOUT = Counter(
+    "weedtpu_filer_shard_fanout_total",
+    "Cross-shard fan-outs (merged listings, two-phase moves, tree deletes) "
+    "by op",
+)
+FILER_SHARD_UNAVAILABLE = Counter(
+    "weedtpu_filer_shard_unavailable_total",
+    "Filer shard calls shed as unavailable (breaker open / UNAVAILABLE / "
+    "deadline), by shard address",
+)
+INVAL_BUS_DATAGRAMS = Counter(
+    "weedtpu_s3_inval_bus_datagrams_total",
+    "Worker-group invalidation-bus datagrams by direction: sent (one per "
+    "peer) and received",
+)
 PLANE_BYTES = Counter(
     "weedtpu_plane_bytes_total",
     "Bytes crossing the storage-backend and http-pool seams, attributed "

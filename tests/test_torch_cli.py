@@ -254,18 +254,25 @@ def test_cli_server_needs_a_gpu_without_device_cpu(tmp_path):
     (["server", "-s3", "-webdav"], False), (["server", "-webdav"], False),
     (["filer", "-notify", "log:/x", "-port", "0"], False),
     (["filer", "-tlsCert", "c", "-tlsKey", "k", "-port", "0"], True),
-    (["s3", "-workers", "2", "-port", "8334"], False),
+    (["s3", "-workers", "2", "-port", "8334"], 2),
     (["s3", "-tlsCert", "c", "-tlsKey", "k", "-port", "0"], True),
-    (["s3", "-filer", "127.0.0.1:1,127.0.0.1:2", "-port", "0"], False)],
+    (["s3", "-filer", "127.0.0.1:1,127.0.0.1:2", "-workers", "2", "-port", "0"], 2)],
     ids=["server-s3", "server-webdav", "filer-notify", "filer-tls", "s3-workers", "s3-tls",
          "s3-filer-list"])
 def test_cli_flags_that_wait_for_later_work_raise(argv, ported, capsys):
     """Flags of later work raise "not ported".  ``-tlsCert``/``-tlsKey`` are
     ported: a certificate that cannot be loaded fails the start loudly
-    (rc 1, the error on stderr) instead of serving plaintext."""
+    (rc 1, the error on stderr) instead of serving plaintext.  ``-workers``
+    and a comma list in ``-filer`` are ported: a worker group without a
+    fixed ``-port`` or without ``-filer`` is refused with the JAX
+    package's message and rc 2, before anything forks."""
     if not ported:
         with pytest.raises(NotImplementedError, match="not ported"):
             cli.main(argv)
+        return
+    if ported == 2:
+        assert cli.main(argv) == 2
+        assert "s3: -workers needs" in capsys.readouterr().err
         return
     assert cli.main(argv) == 1
     assert "error:" in capsys.readouterr().err

@@ -350,6 +350,18 @@ def _master_counts(master, vid: int) -> dict[str, int]:
             for n in master.topology.nodes.values()}
 
 
+def _master_view_is_disk(master, servers, vid: int) -> bool:
+    """The master's shard map of ``vid`` names, for every server, exactly
+    the shards mounted there.  A count alone can read 14 while the
+    master still holds the generating server's pre-balance view (its
+    heartbeat deltas for the moved shards not yet in)."""
+    disk = {vs.url: sorted(ev.shard_ids()) for vs in servers
+            if (ev := vs.store.find_ec_volume(vid)) is not None}
+    view = {n.id: ShardBits(n.ec_shards.get(vid, 0)).ids()
+            for n in list(master.topology.nodes.values())}
+    return {k: sorted(v) for k, v in view.items() if v} == disk
+
+
 def _shell(env, line: str, runner=run_command) -> str:
     out = io.StringIO()
     runner(env, line, out)
@@ -396,6 +408,10 @@ def test_lrc_single_loss_stages_only_its_local_group(cluster):
         text = _shell(env, "ec.encode -volumeId 2 -collection lrc -code lrc")
         assert "ec.encode volume 2 -> LRC(10,2,2)" in text
         _wait(lambda: sum(_master_counts(master, 2).values()) == 14, "14 LRC shards")
+        # the rebuild plans from the master's map: wait until it is the
+        # servers' own, not the generating server's pre-balance view
+        _wait(lambda: _master_view_is_disk(master, cluster["servers"], 2),
+              "the master's shard map to match the mounted shards")
         assert master.topology.ec_schemes[2] == (10, 4, 2)
         want = _ref_shards(cluster, 2, jax_make_scheme(10, 4, 2))
         got = _shards(cluster, 2)
@@ -407,6 +423,8 @@ def test_lrc_single_loss_stages_only_its_local_group(cluster):
         rpc.volume_stub(f"{holder.ip}:{holder.grpc_port}").EcShardsDelete(
             vs_pb.EcShardsDeleteRequest(volume_id=2, collection="lrc", shard_ids=[3]), timeout=30)
         _wait(lambda: sum(_master_counts(master, 2).values()) == 13, "the deletion of shard 3")
+        _wait(lambda: _master_view_is_disk(master, cluster["servers"], 2),
+              "the master's shard map after the deletion")
         key = (("code", "lrc"), ("dir", "moved"), ("mode", "move"))
         before = stats.REPAIR_BYTES.series().get(key, 0.0)
         text = _shell(env, "ec.rebuild -volumeId 2")

@@ -13,6 +13,9 @@ tests/test_ec_streaming.py and held against the JAX package.
 - ``pick_streaming_targets`` equals the JAX one on the same ``VolumeList``.
 - The JAX package's shell drives ``ec.encode -streaming`` on the port's
   servers.
+- A DELETE of an EC needle reaches every holder, also right after a
+  balance and on a stale shard map, and is not acknowledged when a holder
+  fails.
 
 Every wait polls a condition with a deadline of at least 30 s."""
 
@@ -60,6 +63,18 @@ def _wait(predicate, what: str, timeout: float = WAIT_S) -> None:
             return
         time.sleep(0.05)
     raise AssertionError(f"timed out after {timeout}s waiting for {what}")
+
+
+def _master_view_is_disk(master, servers, vid: int) -> bool:
+    """The master's shard map of ``vid`` names, for every server, exactly
+    the shards mounted there.  A count alone can read 14 while the
+    master still holds the generating server's pre-balance view (its
+    heartbeat deltas for the moved shards not yet in)."""
+    disk = {vs.url: sorted(ev.shard_ids()) for vs in servers
+            if (ev := vs.store.find_ec_volume(vid)) is not None}
+    view = {n.id: sorted(int(s) for s in range(32) if int(n.ec_shards.get(vid, 0)) >> s & 1)
+            for n in list(master.topology.nodes.values())}
+    return {k: v for k, v in view.items() if v} == disk
 
 
 def _sha(path) -> str:
@@ -259,13 +274,12 @@ def test_shell_streaming_encode_end_to_end(cluster):
     assert _http(holder.url, "GET", f"/{fid}")[0] == 404
 
 
-@pytest.mark.parametrize("pkg", ["port", "jax"])
-def test_ec_delete_reaches_every_holder(pkg, cluster):
-    """A DELETE of an EC needle on one holder, then a GET on every holder:
-    all answer 404 in the port, whose holder sends EcBlobDelete to the
-    others; the JAX package deletes only on the holder asked, so another
-    holder still serves the needle from its own .ecx (ROADMAP Queue C item
-    8, repaired in the port only)."""
+def _ec_delete_on_one_holder(pkg, cluster, *, settle: bool) -> list[int]:
+    """EC-encode a fresh volume (its shards balanced over every server),
+    DELETE one needle on one holder, then GET it on every holder: the
+    statuses.  ``settle`` first waits until the master's shard map names
+    the mounted shards; without it the DELETE follows the balance at once,
+    within the heartbeat that carries the moved shards to the master."""
     if pkg == "port":
         master, servers, _dirs = cluster
         run, env = run_command, CommandEnv(master.grpc_address)
@@ -282,21 +296,25 @@ def test_ec_delete_reaches_every_holder(pkg, cluster):
         for vs in servers:
             vs.start()
         run, env = jax_run_command, JaxCommandEnv(master.grpc_address, client_name="jax-shell")
+    collection = f"ecdel-{pkg}-{'settled' if settle else 'at-once'}"
     try:
         _wait(lambda: len(master.topology.nodes) == N_SERVERS, "every server's heartbeat")
-        vid, payloads = _fill_volume(master, f"ecdel-{pkg}", seed=5)
+        vid, payloads = _fill_volume(master, collection, seed=5)
         try:
             _shell(env, "lock", run)
-            _shell(env, f"ec.encode -volumeId {vid} -collection ecdel-{pkg}", run)
+            _shell(env, f"ec.encode -volumeId {vid} -collection {collection}", run)
         finally:
             env.release_lock()
-        _wait(lambda: sum(len(ns) for ns in master.topology.lookup_ec_shards(vid).values()) >= 14,
-              "14 shards at the master")
+        if settle:
+            _wait(lambda: sum(len(ns) for ns in master.topology.lookup_ec_shards(vid).values()) >= 14,
+                  "14 shards at the master")
+            _wait(lambda: _master_view_is_disk(master, servers, vid),
+                  "the master's shard map to match the mounted shards")
         holders = [vs for vs in servers if vs.store.find_ec_volume(vid) is not None]
         assert len(holders) == N_SERVERS
         fid = next(iter(payloads))
         assert _http(holders[0].url, "DELETE", f"/{fid}") == (202, b"{}")
-        got = [_http(vs.url, "GET", f"/{fid}")[0] for vs in holders]
+        return [_http(vs.url, "GET", f"/{fid}")[0] for vs in holders]
     finally:
         if pkg == "jax":
             for vs in servers:
@@ -304,10 +322,91 @@ def test_ec_delete_reaches_every_holder(pkg, cluster):
             master.stop()
             for d in jax_dirs:
                 shutil.rmtree(d, ignore_errors=True)
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_ec_delete_reaches_every_holder(pkg, cluster):
+    """A DELETE of an EC needle on one holder, then a GET on every holder:
+    all answer 404 in the port, whose holder sends EcBlobDelete to the
+    others; the JAX package deletes only on the holder asked, so another
+    holder still serves the needle from its own .ecx (ROADMAP Queue C item
+    8, repaired in the port only)."""
+    got = _ec_delete_on_one_holder(pkg, cluster, settle=True)
     if pkg == "port":
         assert got == [404] * N_SERVERS
     else:
         assert got[0] == 404 and 200 in got[1:]
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_ec_delete_right_after_balance(pkg, cluster):
+    """The same DELETE with no wait after ``ec.encode``'s balance, when the
+    master's shard map may still lack a server's new shards (ROADMAP Queue
+    C item 10): the port also asks every server the master knows, so all
+    holders answer 404; the JAX package's other holders still serve it."""
+    got = _ec_delete_on_one_holder(pkg, cluster, settle=False)
+    if pkg == "port":
+        assert got == [404] * N_SERVERS
+    else:
+        assert got[0] == 404 and 200 in got[1:]
+
+
+def _encoded_holders(cluster, collection: str, seed: int):
+    """A fresh volume EC-encoded and balanced: (vid, payloads, holders)."""
+    master, servers, _dirs = cluster
+    vid, payloads = _fill_volume(master, collection, seed=seed)
+    env = CommandEnv(master.grpc_address)
+    try:
+        _shell(env, "lock")
+        _shell(env, f"ec.encode -volumeId {vid} -collection {collection}")
+    finally:
+        env.release_lock()
+    holders = [vs for vs in servers if vs.store.find_ec_volume(vid) is not None]
+    assert len(holders) == N_SERVERS
+    return vid, payloads, holders
+
+
+def test_ec_delete_on_a_stale_shard_map_misses_no_holder(cluster, monkeypatch):
+    """The deleting holder's fresh lookup returns the generating server's
+    pre-balance map (every shard on the deleter itself): every holder
+    still answers 404, reached as a server the master knows."""
+    vid, payloads, holders = _encoded_holders(cluster, "ecdel-stale", seed=6)
+    deleter = holders[0]
+    stale = {sid: [_grpc(deleter)] for sid in range(DEFAULT_SCHEME.total_shards)}
+    monkeypatch.setattr(deleter.locator, "shard_locations", lambda v, fresh=False: stale)
+    fid = next(iter(payloads))
+    assert _http(deleter.url, "DELETE", f"/{fid}") == (202, b"{}")
+    assert [_http(vs.url, "GET", f"/{fid}")[0] for vs in holders] == [404] * N_SERVERS
+
+
+class _Unavailable(grpc.RpcError):
+    def code(self):
+        return grpc.StatusCode.UNAVAILABLE
+
+
+def test_ec_delete_unacknowledged_when_a_holder_fails(cluster, monkeypatch):
+    """An EcBlobDelete that fails at a holder in the master's map makes the
+    DELETE answer 500, not 202; the retry, once the holder answers, is
+    acknowledged and every holder answers 404."""
+    vid, payloads, holders = _encoded_holders(cluster, "ecdel-fail", seed=8)
+    master = cluster[0]
+    _wait(lambda: _master_view_is_disk(master, cluster[1], vid),
+          "the master's shard map to match the mounted shards")
+    victim, real = _grpc(holders[1]), rpc.volume_stub
+
+    class _Refusing:
+        def EcBlobDelete(self, request, **kwargs):
+            raise _Unavailable()
+
+    monkeypatch.setattr(rpc, "volume_stub",
+                        lambda addr: _Refusing() if addr == victim else real(addr))
+    fid = next(iter(payloads))
+    status, body = _http(holders[0].url, "DELETE", f"/{fid}")
+    assert status == 500 and victim.encode() in body
+    assert _http(holders[1].url, "GET", f"/{fid}")[0] == 200
+    monkeypatch.setattr(rpc, "volume_stub", real)
+    assert _http(holders[0].url, "DELETE", f"/{fid}") == (202, b"{}")
+    assert [_http(vs.url, "GET", f"/{fid}")[0] for vs in holders] == [404] * N_SERVERS
 
 
 def test_jax_shell_streams_to_the_ports_servers(cluster):

@@ -297,5 +297,9 @@ def test_shell_without_a_filer_says_so(clusters):
     c = clusters["port"]
     run = _shell("port", c, filer_addr="")[1]
     assert "no filer configured" in run("fs.ls /")
-    run = _shell("port", c, filer_addr="127.0.0.1:1,127.0.0.1:2")[1]
-    assert "not ported" in run("fs.ls /")
+    # a comma list is the shard router, as in the JAX shell: a path whose
+    # shard is down says so, in the same words from both packages
+    got = {pkg: _shell(pkg, c, filer_addr="127.0.0.1:1,127.0.0.1:2")[1]("fs.ls /buckets/b")
+           for pkg in ("port", "jax")}
+    assert "error ShardUnavailable: filer shard 127.0.0.1:" in got["port"], got
+    assert got["port"] == got["jax"]

@@ -37,7 +37,7 @@ def _imported(tree: ast.AST) -> list[str]:
 
 def test_scan_finds_the_port():
     names = {p.relative_to(REPO).as_posix() for p in port_sources()}
-    assert {"chip_smoke.py", "chip_table_variants.py", "seaweedfs_tpu_torch/ops/rs_cuda.py",
+    assert {"chip_smoke.py", "chip_table_variants.py", "chip_phase.py", "seaweedfs_tpu_torch/ops/rs_cuda.py",
             "seaweedfs_tpu_torch/storage/erasure_coding/ec_encoder.py",
             "seaweedfs_tpu_torch/ops/lrc_matrix.py", "seaweedfs_tpu_torch/ops/lrc_codec.py",
             "seaweedfs_tpu_torch/storage/erasure_coding/lrc.py",
@@ -109,7 +109,13 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/security/tls.py", "seaweedfs_tpu_torch/commands/tls_cmd.py",
             "seaweedfs_tpu_torch/shell/command_trace.py",
             "seaweedfs_tpu_torch/shell/command_slo.py",
-            "seaweedfs_tpu_torch/shell/command_resilience.py"} <= names
+            "seaweedfs_tpu_torch/shell/command_resilience.py",
+            "seaweedfs_tpu_torch/filer/shard_ring.py", "seaweedfs_tpu_torch/filer/inval_bus.py",
+            "seaweedfs_tpu_torch/shell/command_filer_shard.py",
+            "seaweedfs_tpu_torch/iam/__init__.py", "seaweedfs_tpu_torch/iam/credentials.py",
+            "seaweedfs_tpu_torch/iam/iam_api.py", "seaweedfs_tpu_torch/commands/gateway_cmd.py",
+            "seaweedfs_tpu_torch/s3/post_policy.py", "seaweedfs_tpu_torch/query/__init__.py",
+            "seaweedfs_tpu_torch/query/select.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())

@@ -15,9 +15,9 @@ and each package's gateway rides its own filer over ``RemoteFiler`` (the
 - Store interop: the filer stores are swapped (the port's filer server on
   the JAX store and the other way round) and each gateway serves every
   object, version and pending multipart upload the other wrote.
-- The deferred features answer "not ported": SelectObjectContent and the
-  browser form POST with 501, ``credential_store``, ``inval_bus`` and TLS
-  by raising.
+- SelectObjectContent and the browser form POST answer alike;
+  ``credential_store`` and ``inval_bus`` are taken; a TLS pair that does
+  not load fails the start.
 
 The JAX side runs with ``SEAWEEDFS_TPU_NATIVE_PX=0`` (its Python path).
 Every server binds port 0, every wait polls under a deadline and every
@@ -568,22 +568,37 @@ def _ids_of(addr: str) -> dict:
 
 
 def test_deferred_features_answer_not_ported(cluster):
-    addr = cluster["sides"]["port"].gw.url
-    _send(addr, "PUT", "/dfr", "", b"", {}, "v4")
-    _send(addr, "PUT", "/dfr/rows.json", "", b'{"a": 1}\n', {}, "v4")
+    """SelectObjectContent and the browser form POST are ported: each
+    gateway answers the same request alike (tests/test_torch_s3_select_post.py
+    holds them further); ``credential_store`` and ``inval_bus`` are taken."""
     select = (b"<SelectObjectContentRequest><Expression>SELECT * FROM S3Object</Expression>"
               b"<ExpressionType>SQL</ExpressionType></SelectObjectContentRequest>")
-    status, data, _ = _send(addr, "POST", "/dfr/rows.json", "select=&select-type=2", select,
-                            {}, "v4")
-    assert status == 501 and b"NotImplemented" in data and b"not ported" in data
     form = (b"--XX\r\nContent-Disposition: form-data; name=\"key\"\r\n\r\nk\r\n--XX--\r\n")
-    status, data, _ = _http(addr, "POST", "/dfr", form,
-                            {"Content-Type": "multipart/form-data; boundary=XX"})
-    assert status == 501 and b"not ported" in data
+    got = {}
+    for pkg, side in cluster["sides"].items():
+        addr = side.gw.url
+        _send(addr, "PUT", "/dfr", "", b"", {}, "v4")
+        _send(addr, "PUT", "/dfr/rows.json", "", b'{"a": 1}\n', {}, "v4")
+        sel = _send(addr, "POST", "/dfr/rows.json", "select=&select-type=2", select, {}, "v4")
+        post = _http(addr, "POST", "/dfr", form,
+                     {"Content-Type": "multipart/form-data; boundary=XX"})
+        got[pkg] = (sel[0], sel[1], post[0], re.sub(rb"<RequestId>[^<]*</RequestId>", b"",
+                                                   post[1]))
+    assert got["port"] == got["jax"]
+    assert got["port"][:2] == (200, b'{"a":1}\n')
+    assert got["port"][2] == 400 and b"InvalidPolicyDocument" in got["port"][3]
     master = cluster["master"].grpc_address
-    for kwargs in (dict(credential_store=object()), dict(inval_bus=object())):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            S3ApiServer(master, port=0, **kwargs)
+    from seaweedfs_tpu_torch.filer.inval_bus import InvalBus
+    from seaweedfs_tpu_torch.iam import MemoryCredentialStore
+
+    sock = InvalBus.bind()
+    gw = S3ApiServer(master, port=0, credential_store=MemoryCredentialStore(),
+                     inval_bus=InvalBus(sock, [sock.getsockname()[1]]),
+                     lifecycle_sweep_interval=0, credential_refresh=0)
+    try:
+        assert gw.verifier.require_auth and gw.verifier.identities == {}
+    finally:
+        gw.stop()
     # TLS is ported: a pair that does not load fails before anything binds
     with pytest.raises(OSError):
         S3ApiServer(master, port=0, tls_cert="c.pem", tls_key="k.pem")

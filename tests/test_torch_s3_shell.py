@@ -8,7 +8,8 @@ circuitbreaker, qos, their refusals) against one, the port's shell the
 same script against the other: the transcripts are equal.  Then both
 shells read one namespace (the one the JAX shell changed) and print the
 same; each package's gateway adopts the breaker and QoS documents a shell
-wrote alike; and the port's ``s3.configure`` answers "not ported".
+wrote alike; and the port's ``s3.configure`` writes the identity document
+the JAX shell's does.
 
 Every server binds port 0."""
 
@@ -164,7 +165,23 @@ def test_gateways_adopt_the_shell_documents(cluster):
 
 
 def test_port_s3_configure_is_not_ported(cluster):
+    """``s3.configure`` is ported: the same script gives the JAX shell's
+    transcript, and the JAX shell reads the identity document the port's
+    wrote."""
     master, filers = cluster
-    out = _runner("port", master.grpc_address, filers[1].grpc_address)(
-        "s3.configure -user alice -actions Read -apply")
-    assert "error RuntimeError: s3.configure: not ported" in out
+    script = ["s3.configure -user alice -actions Read -apply",
+              "s3.configure -user alice -access_key AKALICE -secret_key s1 -apply",
+              "s3.configure -user bob -actions Read,Write -access_key AKBOB -secret_key s2 -apply",
+              "s3.configure -user bob -access_key AKALICE -secret_key s3 -apply",
+              "s3.configure -user carol",
+              "s3.configure -user alice -access_key AKALICE -isDelete -apply",
+              "s3.configure"]
+    got = {pkg: [_runner(pkg, master.grpc_address, filers[i].grpc_address)(line)
+                 for line in script]
+           for i, pkg in enumerate(("jax", "port"))}
+    assert got["port"] == got["jax"]
+    assert "already belongs to user alice" in got["port"][3]
+    assert got["port"][-1].endswith("alice  actions=Read  keys=-\n"
+                                    "bob  actions=Read,Write  keys=AKBOB\n")
+    cross = _runner("jax", master.grpc_address, filers[1].grpc_address)("s3.configure")
+    assert cross == got["port"][-1]

@@ -87,7 +87,7 @@ def test_shell_rules():
     with pytest.raises(NotLockedError):
         run_command(env, "ec.encode -volumeId 9", io.StringIO())
     with pytest.raises(ShellError, match="unknown command"):
-        run_command(env, "filer.shard.ps", io.StringIO())  # the shard ring: not ported
+        run_command(env, "filer.shard.ps", io.StringIO())  # the ring has filer.shard.status only
     with pytest.raises(NotLockedError):
         run_command(env, "volume.fsck", io.StringIO())
     with pytest.raises(ShellError, match="bad arguments"):
@@ -101,7 +101,7 @@ def test_shell_rules():
         "cluster.check", "cluster.ps", "cluster.raft.add", "cluster.raft.ps",
         "cluster.raft.remove", "cluster.status", "collection.delete", "collection.list",
         "ec.balance", "ec.decode", "ec.encode", "ec.rebuild", "events.dump", "fault.inject",
-        "fs.cat", "fs.cd", "fs.configure", "fs.du", "fs.log",
+        "filer.shard.status", "fs.cat", "fs.cd", "fs.configure", "fs.du", "fs.log",
         "fs.ls", "fs.meta.cat", "fs.meta.load", "fs.meta.save", "fs.mkdir", "fs.mv", "fs.pwd",
         "fs.rm", "fs.tree", "fs.verify", "help", "lock", "resilience.status",
         "s3.bucket.create", "s3.bucket.delete",
