@@ -93,7 +93,7 @@ Phases, each printing what it found; any failure exits non-zero:
    new process).  The same .dat is
    encoded as LRC(10,2,2) by ``ec.encode.local -code lrc`` and with 64 MiB
    large blocks by write_ec_files (one 10 x 64 MiB large row: parity
-   sampled in both areas, needles read back).  Then about 4,000 needles
+   sampled in both areas, needles read back).  Then about 2,500 needles
    (every one that crosses a 1 MiB block, and the big ones) are read here
    through Store, EcVolume.read_needle and EcShardLocator's local
    reconstruction, in five states (RS healthy, RS without {0, 3, 10, 13},
@@ -104,13 +104,13 @@ Phases, each printing what it found; any failure exits non-zero:
 8. The cluster EC path: ``cli master`` and four ``cli volume -device cuda
    -mserver ...`` subprocesses (racks alternating, each one's start time
    printed) over phase 7's needle volume (hard links of its .dat/.idx, on
-   server 0) and a 256 MiB LRC volume (vid 2, collection lrc, on server
+   server 0) and a 128 MiB LRC volume (vid 2, collection lrc, on server
    1; cut from 1 GiB for time), driven by ``cli shell -c``: the master
    sees volume 1 on server 0; ``lock; ec.encode -volumeId 1; unlock``
    leaves 14 shards at the master over both racks, at most 4 on a node,
    each sha256-identical to phase 7's generate, the original volume gone,
    and server 0's K1 launches (its /metrics) equal to the generate's
-   batches (18 a GiB); about 750 needles are read here through Store
+   batches (18 a GiB); about 1,150 needles are read here through Store
    (one server's shards), EcVolume.read_needle and EcShardLocator(master)
    with remote EcShardRead answers and no reconstruction, then again after
    the server (other than the reader and server 1) holding the most
@@ -128,18 +128,18 @@ Phases, each printing what it found; any failure exits non-zero:
 9. The write path: a fresh ``cli master`` and four ``cli volume -device
    cuda -max 8 -mserver ...`` subprocesses (racks alternating), each with
    its HTTP port bound and registered at the master as ``ip:httpport``.
-   9a: ``cli benchmark -n 8192 -size 1024 -c 16`` (upstream `weed
-   benchmark`'s shape, -n cut 128x for time), 0 errors in its write and
-   read reports; 9b: 2,500 writes at replication 001, then every needle
+   9a: ``cli benchmark -n 4096 -size 1024 -c 16`` (upstream `weed
+   benchmark`'s shape, -n cut 256x for time), 0 errors in its write and
+   read reports; 9b: 1,250 writes at replication 001, then every needle
    read from both holders ``/dir/lookup`` names; 9c: ``cli benchmark -n
-   16384 -size 65536`` fills one 1 GiB volume, and 1,024 needles of
+   16384 -size 65536`` fills one 1 GiB volume, and 512 needles of
    seeded payloads go in through MasterClient and the pool; 9d: ``cli
    shell -c "lock; ec.encode -volumeId V -collection ec64k -streaming;
    unlock"``: K1 launches on the source server equal its generate's
    batches (18), every shard lands once on its holder (14 at the master,
    at most 4 a node, both racks), no .dat, .idx or .tmp remains, and the
    targets' received bytes, the generate's stage split and the balance's
-   moves are printed; 9e: the 1,024 seeded needles and 1,024 benchmark
+   moves are printed; 9e: the 512 seeded needles and 512 benchmark
    needles read over HTTP, each resolved through ``/dir/lookup``, equal to
    their payloads (p50, p99, and the intervals the serving holder had to
    read from others, counted from the .ecx and the census); 9f: 64
@@ -150,8 +150,8 @@ Phases, each printing what it found; any failure exits non-zero:
    subprocesses (racks alternating), up once one leader is elected and the
    four nodes are at it.  16 writer threads assign through
    ``MasterClient("m0,m1,m2")`` and POST 1 KiB (derived from the fid) at
-   replication 001 for 10 s; then whichever master leads is SIGKILLed (its
-   place in the list printed) and the writes go on until 10 s after a new
+   replication 001 for 7 s; then whichever master leads is SIGKILLed (its
+   place in the list printed) and the writes go on until 7 s after a new
    leader answers.  Printed: the seconds from the kill to the new leader,
    to the four servers at it and to the first acknowledged write assigned
    after the kill; write req/s, p50 and p99 before and after; every write
@@ -161,9 +161,9 @@ Phases, each printing what it found; any failure exits non-zero:
    every acknowledged fid and file key unique, every acknowledged needle
    byte-identical from both holders, every volume id's .dat on its copies
    only and no needle id in two volumes (no id issued twice across the
-   failover and the restart); ``cli benchmark -master m0,m1,m2 -n 4096
-   -size 1024 -c 16`` with 0 errors; ``cli benchmark`` of 2,048 x 64 KiB
-   fills one 128 MiB volume, and ``cli shell -master m0,m1,m2 -c "lock;
+   failover and the restart); ``cli benchmark -master m0,m1,m2 -n 2048
+   -size 1024 -c 16`` with 0 errors; ``cli benchmark`` of 1,024 x 64 KiB
+   fills one 64 MiB volume, and ``cli shell -master m0,m1,m2 -c "lock;
    ec.encode -volumeId V -collection haec; unlock"`` encodes it with K1 on
    its server's card (launches from its /metrics equal to the generate's
    batches), every shard sha256-identical to the CPU plain version's
@@ -171,9 +171,9 @@ Phases, each printing what it found; any failure exits non-zero:
 11. Volume maintenance: a fresh ``cli master`` and four ``cli volume
    -device cuda -max 8 -scrubInterval 0 -scrubRateMB 0`` subprocesses
    (racks alternating; no background scrub pass races the phase's
-   counts).  16 writers fill one volume with 2,048 x 64 KiB at
-   replication 001 (128 MiB a holder; upstream volumes are 30 GB) and
-   40% of it (819 needles) is deleted; ``volume.vacuum
+   counts).  16 writers fill one volume with 1,024 x 64 KiB at
+   replication 001 (64 MiB a holder; upstream volumes are 30 GB) and
+   40% of it (410 needles) is deleted; ``volume.vacuum
    -garbageThreshold 0.3`` through ``cli shell`` must reclaim on both
    holders exactly the bytes of the records the .idx no longer names and
    raise the superblock's compaction revision to 1, while one writer to
@@ -194,16 +194,17 @@ Phases, each printing what it found; any failure exits non-zero:
    per batch (its /metrics) and give 14 shards sha256-identical to the CPU
    plain version's encoding of the same .dat; a byte flipped in one shard
    interval is rebuilt by ``volume.scrub`` (the holder reports 1 corrupt,
-   1 repaired; the shard's sha256 is restored; K1 does not launch: the
-   repair decodes on the host), and 500 needles read over HTTP
+   1 repaired, every other holder 0 corrupt and none FAILED; the shard's
+   sha256 is restored; K1 does not launch: the
+   repair decodes on the host), and 250 needles read over HTTP
    (``/dir/lookup``, then GET) equal their payloads.  Its figures go on a
    ``maintenance:`` JSON line.
 12. Storage options and the tier: a fresh ``cli master`` and four ``cli
    volume -device cuda -scrubInterval 0 -scrubRateMB 0``: A and B
    ``-index leveldb -backend mmap`` (rack r0), C ``-disk ssd -index compact
    -offsetWidth 5`` and D ``-disk mem -backend memory -index compact`` (rack
-   r1; the disk tags pin the fills of C and D).  V, 2,048 x 64 KiB at 001
-   on A and B (128 MiB a holder; upstream volumes are 30 GB), reads back
+   r1; the disk tags pin the fills of C and D).  V, 1,024 x 64 KiB at 001
+   on A and B (64 MiB a holder; upstream volumes are 30 GB), reads back
    equal from both; A restarts on its ports with a new ``-publicUrl`` (its
    LSM map's mark equals the .idx, so nothing is replayed; the time to the
    first heartbeat is printed); ``cli backup`` lands its holder's .dat and
@@ -226,8 +227,8 @@ Phases, each printing what it found; any failure exits non-zero:
    ``cli filer -db <dir> -maxMB 4`` (the LSM store; logs under
    ``filer/``).  ``fs.configure`` puts /data/ in collection filerdata; 16
    writers fill it through the filer's HTTP API, bodies streamed from
-   --seed: one 1 GiB file (256 chunks), 8 of 4-32 MiB and 512 of 1-64
-   KiB over 64 directories (64 of them at most 2 KiB, inline), files/s,
+   --seed: one 1 GiB file (256 chunks), 4 of 4-32 MiB and 256 of 1-64
+   KiB over 64 directories (32 of them at most 2 KiB, inline), files/s,
    MB/s and p50/p99 per class; every file reads back sha256-equal, with
    32 Range reads across chunk boundaries of the 1 GiB file, a 416, a
    HEAD and paged JSON listings equal to the names written, and the
@@ -236,17 +237,17 @@ Phases, each printing what it found; any failure exits non-zero:
    broken, fs.ls and fs.tree run; 64 needles written by ``cli upload`` are
    exactly the orphans ``volume.fsck`` finds (their bytes too), purges
    with ``-reallyDeleteFromVolume -cutoffAgeSeconds 0`` and then finds 0
-   of; ``fs.rm -r`` of one directory of 8 files 404s its paths and its
+   of; ``fs.rm -r`` of one directory of 4 files 404s its paths and its
    chunks' fids.  An in-process filer splits one 4 MiB and one 16 KiB
    upload and one 16 KiB read into body read, assign (FidPool hit or
    miss), volume POST, store insert, find_entry, lookup and volume GET.
-   The filer restarts on its -db: listings byte-identical, 128 sampled
+   The filer restarts on its -db: listings byte-identical, 64 sampled
    reads equal.  ``ec.encode -collection filerdata`` launches K1 in the
    servers exactly once per batch (their /metrics) and every file reads
    back from the shards; the server holding the most data shards is
    SIGKILLed and, once the master prunes it, every file reads back through
    degraded reads (intervals reconstructed); ``ec.rebuild -collection
-   filerdata`` launches K1 and 256 files read back; ``cli server -filer
+   filerdata`` launches K1 and 128 files read back; ``cli server -filer
    -device cuda`` takes an upload and a read in one process and stops on
    SIGTERM with rc 0.  Its figures go on ``filer:`` lines.
 14. S3 on the card: a fresh ``cli master -volumeSizeLimitMB 256``, four
@@ -254,11 +255,11 @@ Phases, each printing what it found; any failure exits non-zero:
    racks, ``cli filer -db <dir>`` and in front ``cli s3 -filer <its gRPC>
    -accessKey K -secretKey S -cacheMB 64 -kmsKeyFile F`` (SigV4 required;
    logs under ``s3/``); every request is signed by ``client_sign``.  Fill:
-   16 clients put 512 objects of 1-64 KiB (a quarter as signed
-   aws-chunked bodies), and 8 of 8-64 MiB and one of 1 GiB go up as
+   16 clients put 256 objects of 1-64 KiB (a quarter as signed
+   aws-chunked bodies), and 4 of 8-64 MiB and one of 1 GiB go up as
    multipart in 8 MiB parts, 10 at a time (aws-cli's defaults); objects/s,
    MB/s and p50/p99 per class.  Mixed: MinIO warp mixed's 45% GET, 30%
-   HEAD, 15% PUT, 10% DELETE over the small objects, 16 clients, 1,250
+   HEAD, 15% PUT, 10% DELETE over the small objects, 16 clients, 625
    ops, every answer held to a model of key -> sha256 (404 for a deleted
    key, the ETag on HEAD); a ListObjectsV2 walk (max-keys 1000) equals the
    model.  Features: CopyObject, 16 Range GETs across the 1 GiB object's
@@ -276,7 +277,7 @@ Phases, each printing what it found; any failure exits non-zero:
    K1 in the servers exactly once per batch; every object reads back
    through S3 from the shards (ETag and sha256); the server holding the
    most data shards is SIGKILLed and, once pruned, every object reads back
-   degraded; ``ec.rebuild`` launches K1 and 256 objects read back; the
+   degraded; ``ec.rebuild`` launches K1 and 128 objects read back; the
    gateway restarts before each of those passes, so that its chunk cache
    cannot answer for the shards.  ``cli server -filer -s3 -device cuda``
    takes a signed PUT and GET in one process and stops on SIGTERM with rc
@@ -290,7 +291,7 @@ Phases, each printing what it found; any failure exits non-zero:
    (UNAVAILABLE on 2% of the volume servers' EcShardRead calls and of the
    gateway's LookupDirectoryEntry calls, a 2 ms delay on 5% of the filer's
    gRPC) and a ``WEED_SLO``; plaintext gRPC, plain HTTP and a client that
-   does not trust the CA are refused.  Over HTTPS, 1,024 objects of 1-64
+   does not trust the CA are refused.  Over HTTPS, 512 objects of 1-64
    KiB at 16 clients and one 1 GiB object as multipart; one PUT sent with
    a traceparent is one trace in the gateway (PutObject, its put_chunk),
    the filer (CreateEntry, the PutObject's child) and the volume server
@@ -316,7 +317,7 @@ Phases, each printing what it found; any failure exits non-zero:
    three ``cli filer -db`` shards on fixed ports and ``cli s3 -filer
    f1,f2,f3 -workers 4 -port <fixed> -cacheMB 64 -metricsPort <base>``
    (SigV4; logs under ``shard/``; every wait for a line has a deadline).
-   Routing: 1,024 objects of 1-64 KiB over 64 buckets and 8 of 8-64 MiB
+   Routing: 512 objects of 1-64 KiB over 64 buckets and 4 of 8-64 MiB
    as multipart (S3_PART parts, 10 at a time) by 16 clients; objects and
    entries per shard from ``filer.shard.status`` and each shard's hash
    share; every bucket and its entries sit on the shard ``ShardRing``
@@ -341,6 +342,29 @@ Phases, each printing what it found; any failure exits non-zero:
    worker group restarts (SIGTERM forwarded, rc 0) and every object reads
    back from the shards, ETag- and sha256-equal.  Its figures go on
    ``shard:`` lines.
+17. The maintenance plane, with no shell command: ``cli master
+   -volumeSizeLimitMB 256``, four ``cli volume -device cuda`` on two racks,
+   ``cli admin -adminPassword -configFile`` (upstream's -ecFullPercent 95
+   and -garbageThreshold 0.3; -scanInterval 1 and -ecQuietSeconds 3, cut
+   from 30 and 3600 for the run's time) and two ``cli worker
+   -adminPassword`` (logs under ``admin/``); at the start and after every
+   task, the volume servers have libcuda mapped and the admin and the
+   workers never do, nor does nvidia-smi list them.  Two volumes grown by
+   ``VolumeGrow`` (000) are filled past 95% with 64 KiB needles from 16
+   clients (their .dat linked aside first) and a 001 volume of 64 MB loses
+   40% of its needles.  The scanner's EC_ENCODE tasks, run by the workers,
+   launch K1 in the generating servers once per stripe batch and spread
+   the shards; every shard's sha256 equals the plain torch version's
+   (``ReedSolomonTorch`` on the card) encoding of the linked .dat, and a
+   sample reads back from the shards.  Its VACUUM runs on both holders of
+   the 001 volume (bytes reclaimed; live needles 200, deleted 404).  One
+   shard holder is SIGKILLed: the master drops it, two scans see the
+   volumes degraded, EC_REBUILD restores 14 shards each (K1 in the
+   rebuilder), sha256-equal, and the sample reads back.  The admin API
+   answers 401 without credentials and 200 after a login; ``/status``
+   counts every task completed and none failed; the dashboard renders; a
+   policy edit survives an admin restart.  Its figures go on ``admin:``
+   lines.
 
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
@@ -1016,6 +1040,11 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         shard = phase_shard(args, tmp, ident, dev)
         lap("16")
+        for name in os.listdir(tmp):  # room for phase 17's volumes
+            path = os.path.join(tmp, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+        admin = phase_admin(args, tmp, ident, dev)
+        lap("17")
         print("phase walls (s, with the clean-up before each): " + ", ".join(
             f"{name} {t1 - t0:.3f}" for (_n, t0), (name, t1) in zip(laps, laps[1:])))
         degraded = {label: (r["p50_us"], r["p99_us"]) for label, r in ec_service["reads"].items()}
@@ -1025,7 +1054,7 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
                     encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
                     lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster, write=write,
                     failover=failover, maintenance=maintenance, storage=storage,
-                    host_codec=host_codec, filer=filer, s3=s3, tls=tls, shard=shard)
+                    host_codec=host_codec, filer=filer, s3=s3, tls=tls, shard=shard, admin=admin)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1442,7 +1471,7 @@ def phase_mesh(args, directory: str, hashes: dict, ident: str, dev, rates) -> di
 NEEDLE_PAYLOAD = 1024  # `weed benchmark`'s default -size
 BIG_NEEDLES = 8  # 256 KiB - 1 MiB payloads: reads of several intervals
 DEAD_NEEDLES = 64
-READ_SAMPLE = 3_000  # cut from 20,000 to leave phases 9-14 room in the time limit
+READ_SAMPLE = 1_500  # cut from 20,000 to leave phases 9-17 room in the time limit (3,000 before phase 17)
 LARGE_ROW_BLOCK = 64 * MIB  # the large-row pipeline's large blocks
 READ_STATES = [  # label, volume, shards removed
     ("RS healthy", "rs", ()),
@@ -1974,8 +2003,8 @@ def phase_ec_service(args, directory: str, ident: str, dev) -> dict:
                 launches_server=server["launches"]["gf_apply"], launches_local=launches["gf_apply"])
 
 CLUSTER_SERVERS = 4
-CLUSTER_READ_SAMPLE = 250  # cut from 2,000 (500 before phase 16) for the time limit
-LRC_CLUSTER_GIB = 0.25  # the LRC volume of phase 8, cut to stay inside the time limit
+CLUSTER_READ_SAMPLE = 125  # cut from 2,000 (500 before phase 16, 250 before 17) for the time limit
+LRC_CLUSTER_GIB = 0.125  # the LRC volume of phase 8, cut to stay inside the time limit (0.25 before phase 17)
 PRUNE_WAIT_S = 60.0  # the master prunes after 15 s without a heartbeat, checked every 5 s
 
 
@@ -2082,7 +2111,7 @@ def _cluster_reads(ev, locator, sample, label: str) -> dict:
 def phase_cluster(args, directory: str, svc: dict, ident: str, dev) -> dict:
     """Phase 8: the cluster EC path.  One ``cli master`` and four ``cli
     volume -device cuda`` subprocesses (racks alternating) over phase 7's
-    needle volume (on server 0) and a 256 MiB LRC volume (on server 1),
+    needle volume (on server 0) and a 128 MiB LRC volume (on server 1),
     driven by ``cli shell``: ec.encode, remote needle reads, the loss of a
     node, ec.rebuild, ec.decode, and an LRC single loss (module
     docstring)."""
@@ -2340,13 +2369,13 @@ def phase_cluster(args, directory: str, svc: dict, ident: str, dev) -> dict:
 
 # -- phase 9 ------------------------------------------------------------------
 
-BENCH_N = 8192  # `weed benchmark` -n 1048576, cut 128x for the time limit
+BENCH_N = 4096  # `weed benchmark` -n 1048576, cut 256x for the time limit (8,192 before phase 17)
 BENCH_SIZE = 1024  # `weed benchmark` -size
 BENCH_C = 16  # `weed benchmark` -c
-REP_N = 2500  # DATA_PLANE.md's replicated-write row (5,000), halved for the time limit
+REP_N = 1250  # DATA_PLANE.md's replicated-write row (5,000), quartered for the time limit (2,500 before phase 17)
 FILL_N, FILL_SIZE = 16384, 64 * 1024  # 1 GiB of DATA_PLANE.md's 64 KB payloads
-SEEDED_NEEDLES = 1024
-EC_READ_SAMPLE = 1024  # cut from 4,096 for the time limit
+SEEDED_NEEDLES = 512  # 1,024 before phase 17
+EC_READ_SAMPLE = 512  # cut from 4,096 for the time limit (1,024 before phase 17)
 EC_DELETES = 64
 
 
@@ -2409,7 +2438,7 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
     -device cuda -max 8`` subprocesses (racks alternating), each with its
     HTTP port bound; ``cli benchmark`` writes and reads (9a), replicated
     writes read back from both holders (9b), one 1 GiB volume filled by the
-    benchmark and 1,024 seeded needles (9c), ``ec.encode -streaming`` of it
+    benchmark and 512 seeded needles (9c), ``ec.encode -streaming`` of it
     through K1 on its server (9d), reads of the EC volume over HTTP (9e) and
     deletes (9f) (module docstring)."""
     import numpy as np
@@ -2506,7 +2535,7 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
         print(f"write path: {rep_fids} replicated needles in {len(rep_vids)} volume(s) read back "
               f"from both holders each, byte-identical, in {walls['rep_readback']:.3f}s")
 
-        # 9c: one real volume: the benchmark's 1 GiB and 1,024 seeded needles
+        # 9c: one real volume: the benchmark's 1 GiB and SEEDED_NEEDLES seeded ones
         fill = _benchmark(maddr, FILL_N, FILL_SIZE, "ec64k", "000", bench_log)
         (vid,) = collection_vids("ec64k")
         mc = MasterClient(maddr)
@@ -2657,9 +2686,9 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
 
 HA_MASTERS = 3
 HA_WRITERS = 16  # `weed benchmark`'s -c
-HA_WINDOW_S = 10.0  # writes before the kill, and after a new leader answers
-HA_BENCH_N = 4096  # cut from 16,384 for the time limit
-HA_EC_N, HA_EC_SIZE = 2048, 64 * 1024  # one 128 MiB volume of 64 KiB needles
+HA_WINDOW_S = 7.0  # writes before the kill, and after a new leader answers (10 before phase 17)
+HA_BENCH_N = 2048  # cut from 16,384 for the time limit (4,096 before phase 17)
+HA_EC_N, HA_EC_SIZE = 1024, 64 * 1024  # one 64 MiB volume of 64 KiB needles (2,048 before phase 17)
 
 
 def _free_ports(n: int) -> list[int]:
@@ -3007,14 +3036,14 @@ def phase_failover(args, directory: str, ident: str, dev) -> dict:
 
 # -- phase 11 -----------------------------------------------------------------
 
-MAINT_N, MAINT_SIZE = 2048, 64 * 1024  # one volume at 001: 128 MiB of payload a holder
-MAINT_DELETES = 819  # 40% of the needles: a garbage ratio above upstream's 0.3
+MAINT_N, MAINT_SIZE = 1024, 64 * 1024  # one volume at 001: 64 MiB of payload a holder (2,048 before phase 17)
+MAINT_DELETES = 410  # 40% of the needles: a garbage ratio above upstream's 0.3
 MAINT_WRITERS = 16  # `weed benchmark`'s -c
-AUTO_N = 1024  # the second volume, compacted by -vacuumInterval with no shell command
+AUTO_N = 512  # the second volume, compacted by -vacuumInterval with no shell command (1,024 before phase 17)
 MAINT_CORRUPT = 8
 MAINT_DIVERGE = 5
-MAINT_SAMPLE = 256  # needles read back after each move
-MAINT_EC_READS = 500  # cut from 1,000 for the time limit
+MAINT_SAMPLE = 128  # needles read back after each move (256 before phase 17)
+MAINT_EC_READS = 250  # cut from 1,000 for the time limit (500 before phase 17)
 STALL_SIZE = 1024  # the writer during the vacuum: small, so it barely dilutes the garbage
 
 
@@ -3113,13 +3142,13 @@ def _read_all(pool, url_of, fids, payload, want404: bool = False):
 def phase_maintenance(args, directory: str, ident: str, dev) -> dict:
     """Phase 11: volume maintenance.  One ``cli master`` and four ``cli
     volume -device cuda -max 8 -scrubInterval 0 -scrubRateMB 0``
-    subprocesses (racks alternating); one volume of 2,048 x 64 KiB at 001,
+    subprocesses (racks alternating); one volume of 1,024 x 64 KiB at 001,
     40% deleted and ``volume.vacuum``-ed under a writer; a second volume
     compacted by a restart with ``-vacuumInterval 2``; ``volume.delete`` +
     ``volume.fix.replication``; 8 corrupt records repaired by
     ``volume.scrub``; ``volume.check.disk``; ``volume.move``,
     ``volume.balance`` and ``volume.server.evacuate``; ``ec.encode`` through
-    K1; a corrupt shard interval repaired by ``volume.scrub``; 500 EC
+    K1; a corrupt shard interval repaired by ``volume.scrub``; 250 EC
     reads over HTTP (module docstring)."""
     import numpy as np
 
@@ -3498,11 +3527,12 @@ def phase_maintenance(args, directory: str, ident: str, dev) -> dict:
         for m in re.finditer(r"(\S+): ec volume \d+: \d+ scanned, (\d+) corrupt, (\d+) repaired"
                              r"(?:, (\d+) FAILED)?", out):
             # another holder that read the interval remotely before the
-            # holder rewrote it saw it corrupt and cannot repair media it
-            # does not hold
-            if m[1] != grpc_of(holder):
-                check(int(m[2]) <= 1 and int(m[3]) == 0 and int(m[4] or 0) == int(m[2]),
-                      f"volume.scrub line {m[0]!r}")
+            # holder rewrote it re-reads it at the end of its pass, with
+            # fresh locations, and counts nothing
+            check(int(m[4] or 0) == 0 and (m[1] == grpc_of(holder) or int(m[2]) == 0),
+                  f"volume.scrub line {m[0]!r}")
+        check(re.search(r"\d+ needles verified, 1 corrupt, 1 repaired, 0 failed", out) is not None,
+              f"volume.scrub totals: {out!r}")
         check(sha256(shard_path) == good, f"shard {sid} on {holder} after the scrub differs")
         k1_after = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches",
                                        kernel="gf_apply")) for s_ in servers}
@@ -3551,7 +3581,7 @@ def phase_maintenance(args, directory: str, ident: str, dev) -> dict:
 
 # -- phase 12 -------------------------------------------------------------------
 
-TIER_N = 2048  # needles of the tiered volume V: 128 MiB a holder at 001
+TIER_N = 1024  # needles of the tiered volume V: 64 MiB a holder at 001 (2,048 before phase 17)
 TIER_SIZE = 64 * 1024
 TIER_READS = 512  # reads through TieredFile while V is tiered
 FILL_CD = 512  # 64 KiB needles on each of C (5-byte offsets) and D (memory backend)
@@ -3618,7 +3648,7 @@ def phase_storage(args, directory: str, ident: str, dev) -> dict:
     mmap`` (rack r0, where placement 001 keeps both copies), C ``-disk ssd
     -index compact -offsetWidth 5`` and D ``-disk mem -backend memory
     -index compact`` (rack r1; their disk tags pin the fills of step 8).
-    V, 2,048 x 64 KiB at 001 on A and B, is read back from both; A restarts
+    V, 1,024 x 64 KiB at 001 on A and B, is read back from both; A restarts
     and its LSM map replays nothing; ``cli backup`` copies V; V is sealed
     and ``volume.tier.upload``-ed off A (reads go on through TieredFile,
     writes are refused); A restarts onto the .vif alone and serves V;
@@ -3710,7 +3740,9 @@ def phase_storage(args, directory: str, ident: str, dev) -> dict:
             servers[i].url = urls[i]
             pool.close()  # its kept-alive connections went with the stopped process
             pool = HttpConnectionPool(timeout=60.0, max_per_host=64)
-            _poll(lambda: nodes()[urls[i]][0] == public,
+            # a start slower than the master's 15 s prune drops the node
+            # until its first heartbeat: absent counts as not yet back
+            _poll(lambda: nodes().get(urls[i], ("",))[0] == public,
                   f"the first heartbeat of the restarted {names[i]}", 60)
             return time.perf_counter() - t0
 
@@ -3937,9 +3969,9 @@ def phase_storage(args, directory: str, ident: str, dev) -> dict:
 
 
 FILER_DIRS = 64
-FILER_SMALL_N = 512  # 1-64 KiB files over FILER_DIRS directories (cut from 8,192; 1,024 before phase 16)
-FILER_INLINE_N = 64  # of them at most 2 KiB: inlined in their entries
-FILER_LARGE_N = 8  # 4-32 MiB files (cut from 16 for phase 15)
+FILER_SMALL_N = 256  # 1-64 KiB files over FILER_DIRS directories (cut from 8,192; 1,024 before phase 16, 512 before 17)
+FILER_INLINE_N = 32  # of them at most 2 KiB: inlined in their entries (64 before phase 17)
+FILER_LARGE_N = 4  # 4-32 MiB files (cut from 16 for phase 15, 8 for phase 17)
 FILER_BIG_BYTES = 1 << 30  # one file of 256 chunks at -maxMB 4
 FILER_CHUNK_MB = 4  # -maxMB: the default of upstream's `weed filer` and of the JAX CLI
 FILER_VOLUME_MB = 256  # -volumeSizeLimitMB: upstream's 30 GB cut 120x
@@ -3947,8 +3979,8 @@ FILER_WRITERS = 16
 FILER_RANGE_READS = 32
 FILER_ORPHANS = 64
 FILER_RM_DIR = 5  # /data/d05: one directory of FILER_SMALL_N / FILER_DIRS files
-FILER_RESTART_SAMPLE = 128  # halved for phase 16
-FILER_REBUILD_SAMPLE = 256  # halved for phase 16
+FILER_RESTART_SAMPLE = 64  # halved for phase 16 and again for phase 17
+FILER_REBUILD_SAMPLE = 128  # halved for phase 16 and again for phase 17
 # the filer's peak RSS while it moves the 1 GiB file: its windows hold 8 x 4
 # MiB up and 4 x 4 MiB down; the rest is the interpreter, the allocator's
 # retained arenas and the server threads (121 and 191 MiB measured on an H100
@@ -4258,8 +4290,8 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
     four ``cli volume -device cuda -scrubInterval 0 -scrubRateMB 0`` on two
     racks and one ``cli filer -db <dir> -maxMB 4`` (the LSM store).
     ``fs.configure`` puts /data/ in collection filerdata; 16 writers fill
-    it through the filer's HTTP API (512 files of 1-64 KiB over 64
-    directories, 64 of them inline; 8 of 4-32 MiB; one of 1 GiB, 256
+    it through the filer's HTTP API (256 files of 1-64 KiB over 64
+    directories, 32 of them inline; 4 of 4-32 MiB; one of 1 GiB, 256
     chunks, streamed) and every file reads back sha256-equal, with Range
     reads, a 416, a HEAD and paged listings; the filer's RSS stays under
     FILER_RSS_LIMIT while it moves the 1 GiB file.  ``cli shell -filer``:
@@ -4646,22 +4678,22 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
 
 S3_AK, S3_SK = "AKIDSMOKE", "smoke-secret-key"
 S3_BUCKET = "bench"
-S3_SMALL_N = 512  # 1-64 KiB objects (cut from 8,192; 1,024 before phase 16)
+S3_SMALL_N = 256  # 1-64 KiB objects (cut from 8,192; 1,024 before phase 16, 512 before 17)
 S3_CHUNKED_EVERY = 4  # a quarter of them as signed aws-chunked bodies
 S3_STREAM_CHUNK = 64 * 1024  # the aws-chunked chunk size of botocore's streaming signer
-S3_LARGE_N = 8  # 8-64 MiB objects, multipart (cut from 16 for phase 15)
+S3_LARGE_N = 4  # 8-64 MiB objects, multipart (cut from 16 for phase 15, 8 for phase 17)
 S3_BIG_BYTES = 1 << 30  # one object of 128 parts
 S3_PART = 8 * MIB  # aws-cli's multipart_chunksize default
 S3_PART_CONCURRENCY = 10  # aws-cli's max_concurrent_requests default
 S3_CLIENTS = 16
-S3_MIXED_OPS = 1_250  # MinIO warp mixed, cut for the time limit (20,000, then 2,500)
+S3_MIXED_OPS = 625  # MinIO warp mixed, cut for the time limit (20,000, then 2,500, then 1,250)
 S3_MIX = (("GET", 45), ("HEAD", 30), ("PUT", 15), ("DELETE", 10))  # warp mixed's defaults
 S3_LIST_PAGE = 1000
 S3_RANGE_READS = 16
 S3_SSE_BYTES = 16 * MIB
 S3_HOT_SET = 128  # keys of the hot set whose second GET pass reads the chunk cache
 S3_CACHE_MB = 64
-S3_REBUILD_SAMPLE = 256  # halved for phase 16
+S3_REBUILD_SAMPLE = 128  # halved for phase 16 and again for phase 17
 S3_PROFILE = dict(small=256, part=16, reads=256)  # the in-process split of one request
 
 
@@ -5084,8 +5116,8 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
     racks, one ``cli filer -db <dir>`` and, in front, one ``cli s3 -filer
     <the filer's gRPC> -accessKey K -secretKey S -cacheMB 64 -kmsKeyFile
     F`` (SigV4 required; every request is signed by ``client_sign``).
-    Fill (16 clients): 512 objects of 1-64 KiB (a quarter as signed
-    aws-chunked bodies), 8 of 8-64 MiB and one of 1 GiB as multipart in
+    Fill (16 clients): 256 objects of 1-64 KiB (a quarter as signed
+    aws-chunked bodies), 4 of 8-64 MiB and one of 1 GiB as multipart in
     8 MiB parts, 10 parts at a time.  Mixed: MinIO warp mixed's 45/30/15/10
     GET/HEAD/PUT/DELETE over the small objects, every answer held to a
     model of key -> sha256, then a ListObjectsV2 walk equal to the model.
@@ -5547,7 +5579,7 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
 
 # -- phase 15 -----------------------------------------------------------------
 
-TLS_SMALL_N = 1024  # 1-64 KiB objects over HTTPS at S3_CLIENTS clients (2,048 before phase 16)
+TLS_SMALL_N = 512  # 1-64 KiB objects over HTTPS at S3_CLIENTS clients (2,048 before phase 16, 1,024 before 17)
 TLS_BIG_BYTES = 1 << 30  # one object as multipart in S3_PART parts, S3_PART_CONCURRENCY at a time
 # one spec for every process: each fires the rules of its own side and
 # service; shares the retry budgets and the EC read chain absorb.  The
@@ -6039,8 +6071,8 @@ def phase_tls(args, directory: str, ident: str, dev) -> dict:
 SHARD_FILERS = 3
 SHARD_WORKERS = 4  # cli s3 -workers
 SHARD_BUCKETS = 64
-SHARD_SMALL_N = 1024  # 1-64 KiB objects over SHARD_BUCKETS buckets
-SHARD_LARGE_N = 8  # 8-64 MiB objects as multipart, S3_PART parts, S3_PART_CONCURRENCY at a time
+SHARD_SMALL_N = 512  # 1-64 KiB objects over SHARD_BUCKETS buckets (1,024 before phase 17)
+SHARD_LARGE_N = 4  # 8-64 MiB objects as multipart, S3_PART parts, S3_PART_CONCURRENCY at a time (8 before phase 17)
 SHARD_OVERWRITES = 32
 SHARD_STREAK = 4 * SHARD_WORKERS  # fresh-connection answers in a row that must carry the new ETag
 SHARD_STALE_S = 0.25  # the most an overwrite may stay stale on a worker: a bus datagram, not the TTL
@@ -6165,7 +6197,7 @@ def phase_shard(args, directory: str, ident: str, dev) -> dict:
     two racks, three ``cli filer -db <own dir>`` on fixed ports (the shard
     ring's members) and ``cli s3 -filer f1,f2,f3 -workers 4 -port <fixed>
     -cacheMB 64 -metricsPort <base>`` (SigV4).  Steps, one line each:
-    routing (1,024 small objects over 64 buckets and 8 multipart ones;
+    routing (512 small objects over 64 buckets and 4 multipart ones;
     objects and entries per shard from ``filer.shard.status``, every
     bucket on the shard ``ShardRing`` names); the worker group's PUT and
     GET rates and every worker's request count; coherence (32 overwrites,
@@ -6283,7 +6315,7 @@ def phase_shard(args, directory: str, ident: str, dev) -> dict:
               f"(metrics {gw_metrics}..{gw_metrics + SHARD_WORKERS - 1}), up in "
               f"{walls['servers_up']:.3f}s: {banners}")
 
-        # 1. routing: 64 buckets, 1,024 small objects, 8 multipart ones
+        # 1. routing: 64 buckets, SHARD_SMALL_N small objects, SHARD_LARGE_N multipart ones
         buckets = [f"sb{i:02d}" for i in range(SHARD_BUCKETS)]
         sizes = rng.integers(1024, 64 * 1024 + 1, SHARD_SMALL_N)
         smalls = [(f"{buckets[i % SHARD_BUCKETS]}/small/o{i:05d}.bin", int(s), "small", 300 + i)
@@ -6642,6 +6674,475 @@ def phase_shard(args, directory: str, ident: str, dev) -> dict:
     return rec
 
 
+# -- phase 17 -------------------------------------------------------------------
+
+
+ADMIN_NEEDLE = 64 * 1024  # the needles of every phase-17 volume
+ADMIN_WRITERS = 16  # `weed benchmark`'s -c
+ADMIN_FULL = 0.955  # each EC volume filled past -ecFullPercent 95 of -volumeSizeLimitMB
+ADMIN_VAC_BYTES = 64 * MIB  # the 001 volume the scanner vacuums
+ADMIN_VAC_DELETED = 0.4  # of its needles deleted: a garbage ratio above -garbageThreshold 0.3
+ADMIN_SCAN_S = 1.0  # -scanInterval, cut from upstream's 30 s for the run's time
+ADMIN_QUIET_S = 3.0  # -ecQuietSeconds, cut from upstream's 3600 s for the run's time
+ADMIN_SAMPLE = 64  # needles of each volume read back after each step
+ADMIN_WAIT_S = 120.0  # every wait for the maintenance plane
+ADMIN_PASSWORD = "smoke-admin-pw"
+ADMIN_COOKIE = 0x5EED17AD
+
+
+def _admin_payload(vid: int, key: int) -> bytes:
+    return hashlib.shake_256(f"admin{vid},{key}".encode()).digest(ADMIN_NEEDLE)
+
+
+def _admin_fid(vid: int, key: int) -> str:
+    return f"{vid},{key:x}{ADMIN_COOKIE:08x}"
+
+
+def phase_admin(args, directory: str, ident: str, dev) -> dict:
+    """Phase 17: the maintenance plane, with no shell command.  One ``cli
+    master -volumeSizeLimitMB 256``, four ``cli volume -device cuda`` on
+    two racks, ``cli admin -adminPassword -configFile -scanInterval 1
+    -ecQuietSeconds 3`` (upstream's -ecFullPercent 95 and
+    -garbageThreshold 0.3) and two ``cli worker -adminPassword``, none of
+    which maps libcuda.  Two
+    volumes grown by ``VolumeGrow`` (replication 000) are filled past 95%
+    with 64 KiB needles from 16 clients and their .dat linked aside; a 001
+    volume of 64 MB loses 40% of its needles.  The scanner submits
+    EC_ENCODE for both and VACUUM for the third; the workers run them: K1
+    launches in the generating servers equal the stripe batches, the
+    shards' sha256 equal the plain torch version's (rs_torch on the card)
+    encoding of the linked .dat, a sample reads back from the shards, the
+    vacuum runs on both holders (bytes reclaimed; live needles 200, deleted
+    404).  One shard holder is SIGKILLed: the master drops it, the scanner
+    sees the volumes degraded on two scans and EC_REBUILD restores 14
+    shards each, sha256-equal.  Then the admin API: 401 without
+    credentials, a login, ``/status`` with every task completed and none
+    failed, the dashboard, and a policy edit kept across an admin restart.
+    Figures on ``admin:`` lines."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
+    from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vs_pb
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.util.http_pool import HttpConnectionPool
+
+    root = os.path.join(directory, "admin")
+    dirs = [os.path.join(root, f"v{i}") for i in range(CLUSTER_SERVERS)]
+    for d in dirs:
+        os.makedirs(d)
+    walls: dict = {}
+    rec: dict = {}
+    servers: list = []
+    workers: list = []
+    admin = None
+    rcs: dict = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([args.seed, 17])
+    pool = HttpConnectionPool(timeout=60.0, max_per_host=64)
+    basic = {"Authorization": "Basic " + base64.b64encode(
+        f"admin:{ADMIN_PASSWORD}".encode()).decode()}
+    master = _Server("", "", os.path.join(root, "master.log"),
+                     argv=["master", "-port", "0", "-volumeSizeLimitMB", str(FILER_VOLUME_MB)])
+    try:
+        maddr = f"127.0.0.1:{master.grpc_port}"
+        mhttp = f"127.0.0.1:{master.http_port}"
+        mstub = rpc.master_stub(maddr)
+        aport = _free_ports(1)[0]
+        aaddr = f"127.0.0.1:{aport}"
+        admin_argv = ["admin", "-port", str(aport), "-master", maddr,
+                      "-scanInterval", str(ADMIN_SCAN_S), "-ecQuietSeconds", str(ADMIN_QUIET_S),
+                      "-ecFullPercent", "95", "-garbageThreshold", "0.3",
+                      "-adminPassword", ADMIN_PASSWORD, "-configFile",
+                      os.path.join(root, "admin.json")]
+        n_admin = [0]
+
+        def start_admin():
+            n_admin[0] += 1
+            a = _Server("", "", os.path.join(root, f"admin.{n_admin[0]}.log"), wait=False,
+                        argv=admin_argv)
+            a.lines = _Lines(a.proc)
+            a.lines.wait_for(re.escape(f"admin server on http://{aaddr} (master {maddr}, auth)"))
+            return a
+
+        t = time.perf_counter()
+        servers = [_Server(d, dev.type, os.path.join(root, f"v{i}.log"), wait=False, argv=[
+            "volume", "-dir", d, "-ip", "127.0.0.1", "-port", "0", "-grpcPort", "0",
+            "-metricsPort", "0", "-device", dev.type, "-mserver", maddr, "-rack", f"r{i % 2}",
+            "-scrubInterval", "0", "-scrubRateMB", "0"]) for i, d in enumerate(dirs)]
+        admin = start_admin()
+        for i in range(2):
+            w = _Server("", "", os.path.join(root, f"worker{i}.log"), wait=False, argv=[
+                "worker", "-admin", aaddr, "-master", maddr, "-pollInterval", "0.5",
+                "-adminPassword", ADMIN_PASSWORD])
+            w.lines = _Lines(w.proc)
+            workers.append(w)
+        worker_ids = [w.lines.wait_for(r"worker (worker-[0-9a-f]+) polling admin")[0]
+                      for w in workers]
+        for s_ in servers:
+            s_.ready()
+            s_.url = f"127.0.0.1:{s_.http_port}"
+        walls["servers_up"] = time.perf_counter() - t
+        urls = [s_.url for s_ in servers]
+        grpc_of = {s_.url: f"127.0.0.1:{s_.grpc_port}" for s_ in servers}
+
+        def topo():
+            return mstub.VolumeList(m_pb.VolumeListRequest(), timeout=60).topology_info
+
+        def nodes() -> set:
+            return {dn.id for dc in topo().data_center_infos for r in dc.rack_infos
+                    for dn in r.data_node_infos}
+
+        walls["registered"] = _poll(lambda: nodes() == set(urls), "all four nodes", 60)
+
+        def cuda_contexts() -> dict:
+            """Which processes hold a CUDA context: nvidia-smi's compute apps
+            (empty where a container hides the pids) and every process that
+            mapped libcuda, which the CUDA runtime loads only when it
+            initialises."""
+            run = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                                  "--format=csv,noheader"], capture_output=True, text=True,
+                                 timeout=60)
+
+            def libcuda(pid: int) -> bool:
+                with open(f"/proc/{pid}/maps") as f:
+                    return "libcuda.so" in f.read()
+
+            plane = [admin.proc.pid, *(w.proc.pid for w in workers)]
+            out = dict(smi=sorted(int(p) for p in run.stdout.split() if p.isdigit()),
+                       servers={s_.proc.pid: libcuda(s_.proc.pid) for s_ in servers
+                                if s_.proc.poll() is None},
+                       plane={pid: libcuda(pid) for pid in plane})
+            check(not set(out["smi"]) & set(plane) and not any(out["plane"].values())
+                  and all(out["servers"].values()) == (dev.type == "cuda"),
+                  f"CUDA contexts: {out} (the volume servers hold one, the admin and the "
+                  f"workers never)")
+            return out
+
+        rec["cuda_contexts"] = [cuda_contexts()]
+        k1_start = {s_.url: metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply")
+                    for s_ in servers}
+        check(not any(k1_start.values()), f"K1 launched before the phase: {k1_start}")
+        print(f"admin: master {maddr}, four volume servers on {ident}, cli admin on {aaddr} "
+              f"(scan {ADMIN_SCAN_S}s, quiet {ADMIN_QUIET_S}s), workers {worker_ids}, up in "
+              f"{walls['servers_up']:.3f}s; CUDA contexts (libcuda mapped) {rec['cuda_contexts'][0]}")
+
+        # 1. two EC volumes past 95%, one 001 volume with 40% garbage
+        ec_vids = list(mstub.VolumeGrow(m_pb.VolumeGrowRequest(
+            collection="ecauto", replication="000", count=2), timeout=60).volume_ids)
+        (vac_vid,) = mstub.VolumeGrow(m_pb.VolumeGrowRequest(
+            collection="vacauto", replication="001", count=1), timeout=60).volume_ids
+        holder_of: dict = {}
+
+        def placed() -> bool:
+            for dc in topo().data_center_infos:
+                for r in dc.rack_infos:
+                    for dn in r.data_node_infos:
+                        for disk in dn.disk_infos.values():
+                            for v in disk.volume_infos:
+                                holder_of.setdefault(v.id, set()).add(dn.id)
+            return all(v in holder_of for v in ec_vids) and len(holder_of.get(vac_vid, ())) == 2
+
+        _poll(placed, "the grown volumes at the master", 60)
+        primary = {v: sorted(holder_of[v])[0] for v in [*ec_vids, vac_vid]}
+        probe = _admin_fid(ec_vids[0], 1)
+        status, body = pool.request(primary[ec_vids[0]], "POST", f"/{probe}",
+                                    body=_admin_payload(ec_vids[0], 1))
+        check(status == 201, f"POST {probe}: {status} {body[:200]!r}")
+        st = rpc.volume_stub(grpc_of[primary[ec_vids[0]]]).VolumeStatus(
+            vs_pb.VolumeStatusRequest(volume_id=ec_vids[0]), timeout=60)
+        record = st.volume_size - 8  # the superblock's 8 bytes
+        limit = FILER_VOLUME_MB * MIB
+        n_ec = -(-int(limit * ADMIN_FULL - 8) // record)
+        n_vac = ADMIN_VAC_BYTES // record
+        # the EC volumes' writes last: their quiet time starts at the fill's end
+        writes = [(vac_vid, k) for k in range(1, n_vac + 1)]
+        writes += [(v, k) for k in range(2, n_ec + 1) for v in ec_vids]
+        lat: list = []
+
+        def post(vk) -> None:
+            v, k = vk
+            t0 = time.perf_counter()
+            status, body = pool.request(primary[v], "POST", f"/{_admin_fid(v, k)}",
+                                        body=_admin_payload(v, k))
+            check(status == 201, f"POST {_admin_fid(v, k)}: {status} {body[:200]!r}")
+            lat.append(time.perf_counter() - t0)
+
+        t = time.perf_counter()
+        with ThreadPoolExecutor(ADMIN_WRITERS) as ex:
+            list(ex.map(post, writes))
+        walls["fill"] = time.perf_counter() - t
+        t_quiet = time.perf_counter()
+        # the .dat as the scanner finds it, linked aside before it acts
+        refs = {}
+        for v in ec_vids:
+            src = os.path.join(dirs[urls.index(primary[v])], f"ecauto_{v}")
+            refs[v] = os.path.join(root, f"ref{v}", f"ecauto_{v}")
+            os.makedirs(os.path.dirname(refs[v]))
+            os.link(src + ".dat", refs[v] + ".dat")
+        linked_s = time.perf_counter() - t_quiet
+        check(linked_s < ADMIN_QUIET_S, f"linking the .dat took {linked_s:.3f}s")
+        dat_sizes = {v: os.path.getsize(refs[v] + ".dat") for v in ec_vids}
+        check(all(limit * 0.95 <= s < limit for s in dat_sizes.values()),
+              f"the EC volumes' sizes {dat_sizes} against 95% of {limit}")
+        deleted = sorted(int(k) for k in rng.choice(np.arange(1, n_vac + 1),
+                                                    int(n_vac * ADMIN_VAC_DELETED), replace=False))
+        t = time.perf_counter()
+        with ThreadPoolExecutor(ADMIN_WRITERS) as ex:
+            got = list(ex.map(lambda k: pool.request(primary[vac_vid], "DELETE",
+                                                     f"/{_admin_fid(vac_vid, k)}")[0], deleted))
+        check(set(got) == {202}, f"deletes answered {sorted(set(got))}")
+        walls["deletes"] = time.perf_counter() - t
+        vac_dirs = [dirs[urls.index(u)] for u in sorted(holder_of[vac_vid])]
+        vac_before = {d: os.path.getsize(os.path.join(d, f"vacauto_{vac_vid}.dat"))
+                      for d in vac_dirs}
+        lat_ms = np.array(lat) * 1e3
+        rec["fill"] = dict(writes=len(writes), per_s=len(writes) / walls["fill"],
+                           mb_per_s=len(writes) * ADMIN_NEEDLE / walls["fill"] / 1e6,
+                           p50_ms=float(np.percentile(lat_ms, 50)),
+                           p99_ms=float(np.percentile(lat_ms, 99)))
+        print(f"admin: volumes {ec_vids} (ecauto, 000) filled to {dat_sizes} B "
+              f"({n_ec} x {ADMIN_NEEDLE} B each) and {vac_vid} (vacauto, 001) to "
+              f"{n_vac} needles, {len(deleted)} deleted: {len(writes)} writes from "
+              f"{ADMIN_WRITERS} clients in {walls['fill']:.3f}s ({rec['fill']['per_s']:.1f}/s, "
+              f"{rec['fill']['mb_per_s']:.1f} MB/s, p50 {rec['fill']['p50_ms']:.2f} ms, p99 "
+              f"{rec['fill']['p99_ms']:.2f} ms) on {ident}; .dat linked aside in {linked_s:.3f}s")
+
+        # 2. the scanner's EC_ENCODE and VACUUM, run by the workers
+        seen: dict = {}  # (kind, vid) -> {state: first perf_counter seen}
+
+        def tasks() -> list:
+            status, body = pool.request(aaddr, "GET", "/tasks", headers=basic)
+            check(status == 200, f"admin /tasks: {status} {body[:200]!r}")
+            now = time.perf_counter()
+            out = json.loads(body)["tasks"]
+            for t_ in out:
+                seen.setdefault((t_["kind"], t_["volume_id"]), {}).setdefault(t_["state"], now)
+                check(t_["state"] != "failed", f"task failed: {t_}")
+            return out
+
+        def done(kind: str, vids) -> bool:
+            tasks()
+            return all("completed" in seen.get((kind, v), {}) for v in vids)
+
+        def submitted(kind: str, vid: int) -> float:
+            """When the task was first seen, in whatever state."""
+            return min(seen[(kind, vid)].values())
+
+        walls["encoded"] = _poll(lambda: done("ec_encode", ec_vids), "both EC_ENCODE tasks",
+                                 ADMIN_WAIT_S)
+        enc = {v: seen[("ec_encode", v)] for v in ec_vids}
+        by_grpc = {grpc_of[u]: d for u, d in zip(urls, dirs)}
+        for v in ec_vids:
+            _poll(lambda: _ec_census(mstub, v)["holders"] == _disk_shards(by_grpc, f"ecauto_{v}"),
+                  f"the master's EC census of {v} to match the disks", 60)
+        census = {v: _ec_census(mstub, v)["holders"] for v in ec_vids}
+        check(all(len(h) >= 3 for h in census.values()),
+              f"the encoded shards were not spread: {census}")
+        check(not any(os.path.exists(os.path.join(d, f"ecauto_{v}.dat")) for d in dirs
+                      for v in ec_vids), "an encoded volume's .dat survived")
+        batches = {v: len(ec_encoder._plan_tasks(DEFAULT_SCHEME, s, ec_encoder.DEFAULT_CHUNK))
+                   for v, s in dat_sizes.items()}
+        k1 = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply"))
+              for s_ in servers}
+        check(sum(k1.values()) == sum(batches.values()) > 0,
+              f"K1 launches by server {k1}; the generates have {batches} batches")
+        gens = [g for s_ in servers for g in server_stages(s_.log_text(), "generate")]
+        check(len(gens) == 2, f"{len(gens)} generate stage lines, not 2")
+        sample = {v: sorted(int(k) for k in rng.choice(np.arange(1, n_ec + 1), ADMIN_SAMPLE,
+                                                       replace=False)) for v in ec_vids}
+
+        def read_sample(label: str) -> float:
+            def one(vk) -> None:
+                v, k = vk
+                status, body = pool.request(mhttp, "GET", f"/dir/lookup?volumeId={v}")
+                check(status == 200, f"/dir/lookup?volumeId={v}: {status}")
+                locs = [loc["url"] for loc in json.loads(body)["locations"]]
+                status, body = pool.request(locs[k % len(locs)], "GET", f"/{_admin_fid(v, k)}")
+                check(status == 200 and body == _admin_payload(v, k),
+                      f"{label}: {_admin_fid(v, k)} answered {status}, {len(body)} B")
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(ADMIN_WRITERS) as ex:
+                list(ex.map(one, [(v, k) for v in ec_vids for k in sample[v]]))
+            return time.perf_counter() - t0
+
+        walls["sample_encoded"] = read_sample("from the shards")
+        rec["encode"] = {str(v): dict(
+            dat_bytes=dat_sizes[v], batches=batches[v],
+            quiet_to_submitted_s=submitted("ec_encode", v) - t_quiet,
+            submitted_to_completed_s=enc[v]["completed"] - submitted("ec_encode", v))
+            for v in ec_vids}
+        rec["generate"] = [dict(wall_s=g["wall_s"], gbs=g["data_bytes"] / g["wall_s"] / 1e9)
+                           for g in gens]
+        print(f"admin: EC_ENCODE of {ec_vids} on {ident}: quiet -> submitted "
+              f"{[round(rec['encode'][str(v)]['quiet_to_submitted_s'], 3) for v in ec_vids]} s, "
+              f"-> completed {[round(rec['encode'][str(v)]['submitted_to_completed_s'], 3) for v in ec_vids]} s "
+              f"(the worker's generate, spread and the master's census); generate walls "
+              f"{[round(g['wall_s'], 3) for g in rec['generate']]} s, "
+              f"{[round(g['gbs'], 3) for g in rec['generate']]} GB/s of .dat; K1 launches by server "
+              f"{k1} (= {sum(batches.values())} batches); shards spread {census}; {ADMIN_SAMPLE} "
+              f"needles of each read back from the shards in {walls['sample_encoded']:.3f}s")
+
+        # 3. the scanner's VACUUM on both holders of the 001 volume (before
+        # the kill, which spares its holders)
+        _poll(lambda: done("vacuum", [vac_vid]), "the VACUUM task", ADMIN_WAIT_S)
+        vac = seen[("vacuum", vac_vid)]
+        vac_after = {d: os.path.getsize(os.path.join(d, f"vacauto_{vac_vid}.dat"))
+                     for d in vac_dirs}
+        reclaimed = {d: vac_before[d] - vac_after[d] for d in vac_dirs}
+        check(all(r > 0 for r in reclaimed.values()), f"the vacuum reclaimed {reclaimed}")
+        live = [k for k in range(1, n_vac + 1) if k not in set(deleted)]
+        check_live = sorted(int(k) for k in rng.choice(live, min(ADMIN_SAMPLE, len(live)),
+                                                       replace=False))
+        check_dead = sorted(int(k) for k in rng.choice(deleted, min(ADMIN_SAMPLE, len(deleted)),
+                                                       replace=False))
+        for u in sorted(holder_of[vac_vid]):
+            for k in check_live:
+                status, body = pool.request(u, "GET", f"/{_admin_fid(vac_vid, k)}")
+                check(status == 200 and body == _admin_payload(vac_vid, k),
+                      f"live {_admin_fid(vac_vid, k)} on {u}: {status}")
+            for k in check_dead:
+                status, _body = pool.request(u, "GET", f"/{_admin_fid(vac_vid, k)}")
+                check(status == 404, f"deleted {_admin_fid(vac_vid, k)} on {u}: {status}")
+        rec["vacuum"] = dict(reclaimed=sum(reclaimed.values()),
+                             quiet_to_submitted_s=submitted("vacuum", vac_vid) - t_quiet,
+                             submitted_to_completed_s=vac["completed"] - submitted("vacuum", vac_vid))
+        print(f"admin: VACUUM of volume {vac_vid} on both holders on {ident}: "
+              f"{sorted(reclaimed.values())} B reclaimed ({vac_before} -> {vac_after}); submitted "
+              f"{rec['vacuum']['quiet_to_submitted_s']:.3f}s after the fill's end, completed "
+              f"{rec['vacuum']['submitted_to_completed_s']:.3f}s later; {len(check_live)} live "
+              f"needles 200 and {len(check_dead)} deleted ones 404 on each holder")
+
+        # 4. SIGKILL a shard holder; the scanner's EC_REBUILD restores 14 shards
+        shard_sha: dict = {}
+
+        def plain_reference() -> None:
+            """Every shard of both volumes (the victim's files stay on its
+            disk) against the plain torch version's encoding of the linked
+            .dat on the card; run while the master waits out the victim."""
+            t0 = time.perf_counter()
+            plain = ReedSolomonTorch(10, 4, device=dev)
+            for v in ec_vids:
+                ec_encoder.write_ec_files(refs[v], codec=plain)
+                files = {sid: os.path.join(d, f"ecauto_{v}.ec{sid:02d}") for d in dirs
+                         for sid in range(14)
+                         if os.path.exists(os.path.join(d, f"ecauto_{v}.ec{sid:02d}"))}
+                check(sorted(files) == list(range(14)),
+                      f"volume {v}'s shards on disk: {sorted(files)}")
+                shard_sha[v] = {sid: sha256(p) for sid, p in files.items()}
+                for sid, h in shard_sha[v].items():
+                    check(h == sha256(refs[v] + f".ec{sid:02d}"),
+                          f"volume {v} shard {sid} differs from the plain torch version's parity")
+            walls["plain_reference"] = time.perf_counter() - t0
+
+        victim = max((s_ for s_ in servers if s_.url not in holder_of[vac_vid]),
+                     key=lambda s_: sum(len(census[v].get(grpc_of[s_.url], [])) for v in ec_vids))
+        lost = {v: census[v].get(grpc_of[victim.url], []) for v in ec_vids}
+        degraded = [v for v in ec_vids if lost[v]]
+        k1_before = {s_.url: k1[s_.url] for s_ in servers if s_ is not victim}
+        victim.proc.kill()
+        t_kill = time.perf_counter()
+        with ThreadPoolExecutor(1) as ex:
+            reference = ex.submit(plain_reference)
+            walls["pruned"] = _poll(lambda: victim.url not in nodes(),
+                                    "the master to drop the victim", ADMIN_WAIT_S)
+            walls["kill_to_rebuilt"] = _poll(lambda: done("ec_rebuild", degraded),
+                                             "the EC_REBUILD tasks", ADMIN_WAIT_S) + walls["pruned"]
+            reference.result()
+        survivors = [s_ for s_ in servers if s_ is not victim]
+        by_grpc = {grpc_of[s_.url]: dirs[servers.index(s_)] for s_ in survivors}
+        for v in degraded:
+            _poll(lambda: _ec_census(mstub, v)["holders"] == _disk_shards(by_grpc, f"ecauto_{v}"),
+                  f"the master's EC census of {v} after the rebuild", 60)
+            files = {sid: os.path.join(by_grpc[a], f"ecauto_{v}.ec{sid:02d}")
+                     for a, sids in _disk_shards(by_grpc, f"ecauto_{v}").items() for sid in sids}
+            check(sorted(files) == list(range(14)), f"volume {v} after the rebuild: {sorted(files)}")
+            for sid, p in files.items():
+                check(sha256(p) == shard_sha[v][sid], f"volume {v} shard {sid} rebuilt differently")
+        k1_after = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches",
+                                       kernel="gf_apply")) for s_ in survivors}
+        k1_rebuild = sum(k1_after.values()) - sum(k1_before.values())
+        check(k1_rebuild > 0, f"the rebuilds launched no K1: {k1_before} -> {k1_after}")
+        walls["sample_rebuilt"] = read_sample("after the rebuild")
+        reb = {v: seen[("ec_rebuild", v)] for v in degraded}
+        rec["rebuild"] = dict(victim=victim.url, lost={str(v): lost[v] for v in ec_vids},
+                              launches=k1_rebuild, pruned_s=walls["pruned"],
+                              submitted_s={str(v): submitted("ec_rebuild", v) - t_kill
+                                           for v in degraded},
+                              completed_s={str(v): reb[v]["completed"] - t_kill for v in degraded})
+        print(f"admin: every shard of {ec_vids} sha256-equal to ReedSolomonTorch's (the plain "
+              f"torch version on {ident}) encoding of the linked .dat, "
+              f"{walls['plain_reference']:.3f}s for both, while the master waited out the victim")
+        print(f"admin: SIGKILL {victim.url} (shards {lost}) on {ident}: dropped by the master "
+              f"after {walls['pruned']:.3f}s; EC_REBUILD submitted after "
+              f"{[round(x, 3) for x in rec['rebuild']['submitted_s'].values()]} s and completed "
+              f"after {[round(x, 3) for x in rec['rebuild']['completed_s'].values()]} s (from the "
+              f"kill); 14 shards of each present, the rebuilt ones sha256-equal to step 2's; K1 "
+              f"launches in the rebuilds {k1_rebuild}; the sample reads back in "
+              f"{walls['sample_rebuilt']:.3f}s")
+
+        # 5. the admin API
+        status, _body = pool.request(aaddr, "GET", "/status")
+        check(status == 401, f"/status without credentials: {status}")
+        status, hdrs, body = pool.request_meta(aaddr, "POST", "/login", body=json.dumps(
+            {"username": "admin", "password": ADMIN_PASSWORD}).encode())
+        check(status == 200, f"login: {status} {body[:200]!r}")
+        cookie = {"Cookie": {k.lower(): v for k, v in hdrs.items()}["set-cookie"].split(";")[0]}
+        status, body = pool.request(aaddr, "GET", "/status", headers=cookie)
+        check(status == 200, f"/status with the session: {status}")
+        counts = json.loads(body)["tasks"]
+        per_kind: dict = {}
+        for t_ in tasks():
+            per_kind.setdefault(t_["kind"], {}).setdefault(t_["state"], 0)
+            per_kind[t_["kind"]][t_["state"]] += 1
+        check(set(counts) == {"completed"} and counts["completed"] == sum(
+            n for s in per_kind.values() for n in s.values()), f"/status tasks {counts}")
+        check(per_kind.get("ec_encode") == {"completed": 2}
+              and per_kind.get("ec_rebuild") == {"completed": len(degraded)}
+              and set(per_kind.get("vacuum", {})) == {"completed"}
+              and set(per_kind) == {"ec_encode", "ec_rebuild", "vacuum"},
+              f"tasks per kind {per_kind}")
+        status, body = pool.request(aaddr, "GET", "/", headers=cookie)
+        check(status == 200 and b"Maintenance tasks" in body, f"the dashboard: {status}")
+        status, body = pool.request(aaddr, "POST", "/config", headers=cookie,
+                                    body=json.dumps({"vacuum_garbage_ratio": 0.35}).encode())
+        check(status == 200, f"policy edit: {status} {body[:200]!r}")
+        rcs["admin_1"] = admin.stop()
+        t = time.perf_counter()
+        admin = start_admin()
+        walls["admin_restart"] = time.perf_counter() - t
+        status, body = pool.request(aaddr, "GET", "/config", headers=basic)
+        check(status == 200 and json.loads(body)["policy"]["vacuum_garbage_ratio"] == 0.35,
+              f"the policy after the restart: {status} {body[:300]!r}")
+        rec["tasks"] = per_kind
+        rec["cuda_contexts"].append(cuda_contexts())
+        print(f"admin: API on {ident}: /status 401 without credentials, 200 after a login; "
+              f"tasks {per_kind}, 0 failed; dashboard 200; vacuum_garbage_ratio 0.35 kept across "
+              f"a restart of cli admin ({walls['admin_restart']:.3f}s); after every task, no "
+              f"CUDA context in the admin or the workers: {rec['cuda_contexts'][1]['plane']}; TTL "
+              f"expiry is held on the CPU only (tests/test_torch_admin.py)")
+    finally:
+        pool.close()
+        for i, w in enumerate(workers):
+            rcs[f"worker{i}"] = w.stop()
+        if admin is not None:
+            rcs["admin"] = admin.stop()
+        rcs.update({getattr(s_, "url", s_.proc.pid): s_.stop() for s_ in servers})
+        rcs["master"] = master.stop()
+    killed = [u for u, rc in rcs.items() if rc == -signal.SIGKILL]
+    check(len(killed) == 1 and all(rc == 0 for u, rc in rcs.items() if u not in killed),
+          f"admin phase processes exited {rcs}")
+    walls["phase"] = time.perf_counter() - t_phase
+    rec.update(walls=walls, launches=sum(k1.values()) + k1_rebuild,
+               launches_encode=sum(k1.values()), launches_rebuild=k1_rebuild,
+               rcs={str(k): v for k, v in rcs.items()})
+    print("admin: " + json.dumps(rec, sort_keys=True, default=str))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6891,6 +7392,16 @@ def main() -> int:
                     for cls, r in shard["fill"].items()},
         shard_coherence_worst_ms=shard["coherence"]["worst_ms"],
         shard_requests_per_worker=shard["per_worker"],
+    )
+    admin = main_path["admin"]
+    record["kernels"][0]["launches"] += admin["launches"]
+    record["kernels"][0].update(
+        launches_admin=admin["launches"],
+        launches_admin_encode=admin["launches_encode"],
+        launches_admin_rebuild=admin["launches_rebuild"],
+        admin_walls_s=admin["walls"],
+        admin_encode=admin["encode"],
+        admin_vacuum_reclaimed=admin["vacuum"]["reclaimed"],
     )
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)

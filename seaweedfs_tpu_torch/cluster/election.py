@@ -28,6 +28,7 @@ class LeaderElection:
         interval: float = 1.0,
         probe_timeout: float = 1.0,
         on_peer_state=None,
+        on_leader=None,
     ):
         self.self_http = self_http
         self.self_grpc = self_grpc
@@ -37,6 +38,9 @@ class LeaderElection:
         self.probe_timeout = probe_timeout
         # observer for full ping payloads (e.g. sequence-watermark adoption)
         self.on_peer_state = on_peer_state
+        # called when a probe makes this master the leader, before any
+        # caller sees it lead (the master's sequence jump on takeover)
+        self.on_leader = on_leader
         # http addr -> grpc addr for live peers (self always present)
         self._alive: dict[str, str] = {self_http: self_grpc}
         self._fail_counts: dict[str, int] = {}
@@ -115,6 +119,10 @@ class LeaderElection:
                         and self._fail_counts[p] < self.DEMOTE_AFTER
                     ):
                         alive[p] = self._alive[p]
+            takeover = min(alive) == self.self_http != min(self._alive)
+        if takeover and self.on_leader:
+            self.on_leader()
+        with self._lock:
             self._alive = alive
         if self.on_peer_state:
             for info in results.values():

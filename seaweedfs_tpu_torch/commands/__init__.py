@@ -47,6 +47,7 @@ def _import_all() -> None:
     # command modules register on import; they defer torch and storage
     # imports into run() so `-h` stays fast
     from seaweedfs_tpu_torch.commands import (  # noqa: F401
+        admin_cmd,
         backup_cmd,
         benchmark_cmd,
         client_cmd,

@@ -673,7 +673,8 @@ class MasterServer:
         else:
             self.election = LeaderElection(self.advertise, self.grpc_address, self._peers,
                                            interval=self._election_interval,
-                                           on_peer_state=self._adopt_peer_watermarks)
+                                           on_peer_state=self._adopt_peer_watermarks,
+                                           on_leader=self._on_lease_leader)
             self.election.start()
 
     def _start_raft(self) -> None:
@@ -804,6 +805,21 @@ class MasterServer:
                 # jumps from a stale ceiling; retry, latest-wins
                 self._seq_event.set()
                 time.sleep(0.2)
+
+    def _on_lease_leader(self) -> None:
+        """Sequence safety on a lease takeover: a standby adopts the
+        leader's watermarks only once a probe interval, so the deposed
+        leader may have issued ids above the last ceiling adopted here (its
+        first key of all, or the keys past a ceiling it raised since the
+        last probe).  The new leader jumps past them before it leads, by
+        the margins of the raft takeover (the JAX lease master does not
+        jump, and can reissue such a key)."""
+        mv, fk = self.topology.sequence_watermarks()
+        self.topology.restore_sequence(mv + 64, fk + 2 * self.topology.FILE_KEY_MARGIN)
+        self.topology._persist()
+        if wlog.V(1):
+            wlog.info("master %s: lease leader, sequence jumped to %s", self.advertise,
+                      self.topology.sequence_watermarks())
 
     def _adopt_peer_watermarks(self, info: dict) -> None:
         """Every election ping carries the peer's sequence watermarks; a

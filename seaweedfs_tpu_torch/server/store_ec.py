@@ -63,8 +63,11 @@ class ShardsUnreachableError(NotFoundError):
 class EcShardLocator:
     """Master-lookup cache + remote read + reconstruct fan-out."""
 
-    def __init__(self, master_address: str = "", local_grpc_address: str = ""):
+    def __init__(self, master_address: str = "", local_grpc_address: str = "", masters=None):
         self.master_address = master_address
+        # the masters to ask, in order: a volume server passes the one its
+        # heartbeat reaches now, then the rest of its -mserver list
+        self.masters = masters or (lambda: [self.master_address])
         self.local_grpc_address = local_grpc_address
         # after this long with no answer from the primary holder, hedge
         # the same read to the next holder and take whichever lands first
@@ -86,8 +89,9 @@ class EcShardLocator:
             hit = self._cache.get(vid)
             if hit and not fresh and now - hit[0] < hit[1]:
                 return hit[2]
-        resp = rpc.master_stub(self.master_address).LookupEcVolume(
-            m_pb.LookupEcVolumeRequest(volume_id=vid), timeout=resilience.policy().deadline_s)
+        req = m_pb.LookupEcVolumeRequest(volume_id=vid)
+        resp = resilience.failover_call(self.masters(), lambda addr: rpc.master_stub(
+            addr).LookupEcVolume(req, timeout=resilience.policy().deadline_s))
         locs = {sl.shard_id: [f"{l.url.split(':')[0]}:{l.grpc_port}" for l in sl.locations]
                 for sl in resp.shard_id_locations}
         ttl = _TTL_ENOUGH if len(locs) >= 10 else _TTL_FEW

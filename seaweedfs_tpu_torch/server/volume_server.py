@@ -300,7 +300,12 @@ class VolumeServerGrpcServicer:
         vol = self._volume(request.volume_id, context)
         if vol.garbage_ratio() < request.garbage_threshold:
             return vs_pb.VolumeVacuumResponse(reclaimed_bytes=0)
-        return vs_pb.VolumeVacuumResponse(reclaimed_bytes=vol.vacuum())
+        reclaimed = vol.vacuum()
+        # the next heartbeat carries the compacted size, as after an
+        # auto-vacuum pass: a master left with the old garbage ratio until
+        # the next full beat has the scanner vacuum it again and again
+        self.vs._volume_done(vol)
+        return vs_pb.VolumeVacuumResponse(reclaimed_bytes=reclaimed)
 
     def volume_copy(self, request, context):
         """Pull a peer's whole volume (.dat + .idx) and mount it: the
@@ -1085,8 +1090,8 @@ class VolumeServer:
             return None
         try:
             locs = self.locator.shard_locations(vid, fresh=True)
-            topo = rpc.master_stub(self.locator.master_address).VolumeList(
-                m_pb.VolumeListRequest(), timeout=resilience.policy().deadline_s).topology_info
+            topo = self.master_call("VolumeList", m_pb.VolumeListRequest(),
+                                    timeout=resilience.policy().deadline_s).topology_info
         except grpc.RpcError as e:
             return f"ec delete of {vid},{nid:x}: no holders from the master: {e.code()}"
         holders = {a for addrs in locs.values() for a in addrs}
@@ -1144,6 +1149,19 @@ class VolumeServer:
             errors = [e for e in self._fanout_pool.map(send, targets) if e]
         return "; ".join(errors) if errors else None
 
+    def masters_now(self) -> list[str]:
+        """The master the heartbeat loop reaches now, then the rest of the
+        ``-mserver`` list: the order every lookup tries them in."""
+        cur = self.master_address
+        return [cur] + [a for a in self.master_addresses if a != cur] if cur else []
+
+    def master_call(self, method: str, request, timeout: float):
+        """One unary master RPC, failing over along ``masters_now()`` on
+        a connection-class error (an application error is the answer)."""
+        return resilience.failover_call(
+            self.masters_now(),
+            lambda addr: getattr(rpc.master_stub(addr), method)(request, timeout=timeout))
+
     _LOOKUP_TTL = 10.0  # seconds; the reference caches vid locations client-side
 
     def lookup_volume_urls(self, vid: int) -> list[str]:
@@ -1161,8 +1179,8 @@ class VolumeServer:
             # the stub retries a transient UNAVAILABLE (and evicts the dead
             # channel): an empty answer here fails a replicated write
             # ("replication short")
-            resp = rpc.master_stub(self.master_address).LookupVolume(
-                m_pb.LookupVolumeRequest(volume_or_file_ids=[str(vid)]), timeout=10)
+            resp = self.master_call(
+                "LookupVolume", m_pb.LookupVolumeRequest(volume_or_file_ids=[str(vid)]), timeout=10)
         except grpc.RpcError:
             return []  # master unreachable: do not cache
         urls = [loc.url for vl in resp.volume_id_locations for loc in vl.locations]
@@ -1176,9 +1194,11 @@ class VolumeServer:
 
     def _peer_grpc_addresses(self, vid: int) -> list[str]:
         """gRPC addresses of the OTHER holders of vid per the master."""
+        if not self.master_address:
+            return []
         try:
-            resp = rpc.master_stub(self.master_address).LookupVolume(
-                m_pb.LookupVolumeRequest(volume_or_file_ids=[str(vid)]), timeout=10.0)
+            resp = self.master_call(
+                "LookupVolume", m_pb.LookupVolumeRequest(volume_or_file_ids=[str(vid)]), timeout=10.0)
         except grpc.RpcError:
             return []
         return [f"{loc.url.split(':')[0]}:{loc.grpc_port}"
@@ -1373,9 +1393,11 @@ class VolumeServer:
         handler = type("Handler", (_VolumeHttpHandler,), {"vs": self})
         self._http_server = PooledHTTPServer((self.ip, self.port), handler)
         self.port = self._http_server.server_address[1]  # ip:port names the node
-        # as in the JAX package, the EC locator asks the first configured
-        # master (followers forward its LookupEcVolume to the leader)
-        self.locator = EcShardLocator(self.master_address, f"{self.ip}:{self.grpc_port}")
+        # the EC locator asks the master the heartbeat reaches now, then the
+        # rest of the list (the JAX locator asks only the first configured
+        # one, so a dead first -mserver leaves it no remote shard)
+        self.locator = EcShardLocator(self.master_address, f"{self.ip}:{self.grpc_port}",
+                                      masters=self.masters_now)
         # the self-healing scrubber and auto-vacuum; both feed the
         # heartbeat so the master's view follows their findings
         self.scrubber = scrub_mod.VolumeScrubber(

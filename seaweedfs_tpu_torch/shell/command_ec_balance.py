@@ -365,6 +365,16 @@ def balance_ec_shards(
     return mover
 
 
+def balance_ec_volume(env: CommandEnv, vid: int) -> EcMover:
+    """Spread one EC volume's shards across racks and nodes, as
+    ``ec.balance`` would, and move no other volume's: what the
+    maintenance worker runs after its encode."""
+    nodes, collections, schemes = collect_ec_nodes(env.collect_topology().topology_info)
+    mover = RpcEcMover(env)
+    _balance_one_volume(mover, nodes, vid, collections.get(vid, ""), scheme=schemes.get(vid))
+    return mover
+
+
 @shell_command("ec.balance", "spread EC shards across racks and nodes")
 def cmd_ec_balance(env, args, out):
     env.confirm_is_locked()

@@ -6,6 +6,7 @@ strings: the repair budget's (ops/repair_budget), the plane billing's
 HTTP data plane's (``VOLUME_REQUESTS``, ``VOLUME_REQUEST_SECONDS``,
 ``MASTER_REQUESTS``), the filer's (``FILER_REQUESTS``,
 ``FILER_REQUEST_SECONDS``), the raft master's (``RAFT_STATE``), the
+maintenance task queue's (``ADMIN_TASKS``), the
 scrubber's and vacuum's (``DISK_CORRUPTION``, ``SCRUB_*``), the flight
 recorder's (``EVENTS_DROPPED``), the S3 gateway's (``S3_*``), its tenant
 QoS's (``QOS_*``) and caches' (``ENTRY_CACHE``, ``CHUNK_CACHE*``,
@@ -285,6 +286,10 @@ PLANE_OP_SECONDS = Counter(
     "weedtpu_plane_op_seconds_total",
     "Seconds spent inside storage-backend and http-pool operations, by "
     "plane",
+)
+ADMIN_TASKS = Counter(
+    "weedtpu_admin_tasks_total",
+    "Maintenance tasks by kind and outcome",
 )
 RAFT_STATE = Gauge(
     "weedtpu_master_raft",

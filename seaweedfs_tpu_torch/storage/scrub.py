@@ -383,7 +383,7 @@ class VolumeScrubber:
         fetcher = (self.ec_locator.make_fetcher(ev) if self.ec_locator is not None
                    else self._local_fetcher(ev))
         scanned = corrupt = repaired = 0
-        failed_keys = []
+        failed_keys, recheck = [], []
         total = ev.ecx_size // ev.entry_size
         for i in range(total):
             if self._stop.is_set():
@@ -405,13 +405,37 @@ class VolumeScrubber:
             if ok:
                 stats.SCRUB_NEEDLES.inc(result="ok")
                 continue
-            stats.SCRUB_NEEDLES.inc(result="corrupt")
-            stats.DISK_CORRUPTION.inc(path="scrub")
-            events.record(events.SCRUB_CORRUPTION, volume=ev.vid, needle=format(key, "x"), ec=True)
-            corrupt += 1
             if repair and self._repair_ec_needle(ev, key, fetcher):
+                self._count_ec_corrupt(ev, key)
+                corrupt += 1
                 repaired += 1
             else:
+                recheck.append(key)
+        if recheck:
+            # A needle still corrupt here may be corrupt on another holder's
+            # shard, which that holder's own scrubber (running at the same
+            # time under volume.scrub) rewrites moments later.  Re-read each
+            # once, at the end of the pass, with fresh shard locations, and
+            # count it only if it is still corrupt.
+            if self.ec_locator is not None:
+                try:
+                    self.ec_locator.shard_locations(ev.vid, fresh=True)
+                except Exception as e:  # noqa: BLE001 — the cached locations stand
+                    wlog.warning("scrub: ec volume %d: no fresh locations: %s", ev.vid, e)
+            for key in recheck:
+                try:
+                    ok = ev.read_needle(key, fetcher).id == key
+                except NeedleError:
+                    ok = False
+                except (IOError, KeyError) as e:
+                    # deleted or unreachable meanwhile: as in the pass
+                    wlog.warning("scrub: ec volume %d needle %x unreadable: %s", ev.vid, key, e)
+                    continue
+                if ok:
+                    stats.SCRUB_NEEDLES.inc(result="ok")
+                    continue
+                self._count_ec_corrupt(ev, key)
+                corrupt += 1
                 failed_keys.append(key)
         with self._lock:
             self._known_corrupt = ({p for p in self._known_corrupt if p[0] != ev.vid}
@@ -424,6 +448,12 @@ class VolumeScrubber:
         if corrupt:
             wlog.warning("scrub: ec volume %d: %d corrupt, %d repaired", ev.vid, corrupt, repaired)
         return result
+
+    @staticmethod
+    def _count_ec_corrupt(ev, key: int) -> None:
+        stats.SCRUB_NEEDLES.inc(result="corrupt")
+        stats.DISK_CORRUPTION.inc(path="scrub")
+        events.record(events.SCRUB_CORRUPTION, volume=ev.vid, needle=format(key, "x"), ec=True)
 
     def _repair_ec_needle(self, ev, key: int, fetcher) -> bool:
         """Rebuild the corrupt local shard interval(s) of one EC needle

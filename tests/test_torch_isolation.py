@@ -1,6 +1,7 @@
 """The port stands alone: no module of seaweedfs_tpu_torch, and none of
 its chip scripts (chip_smoke.py, chip_table_variants.py), imports jax or
-anything of the JAX package."""
+anything of the JAX package; and its maintenance plane (``cli admin``,
+``cli worker``) never initialises CUDA."""
 
 from __future__ import annotations
 
@@ -115,7 +116,11 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/iam/__init__.py", "seaweedfs_tpu_torch/iam/credentials.py",
             "seaweedfs_tpu_torch/iam/iam_api.py", "seaweedfs_tpu_torch/commands/gateway_cmd.py",
             "seaweedfs_tpu_torch/s3/post_policy.py", "seaweedfs_tpu_torch/query/__init__.py",
-            "seaweedfs_tpu_torch/query/select.py"} <= names
+            "seaweedfs_tpu_torch/query/select.py", "seaweedfs_tpu_torch/admin/__init__.py",
+            "seaweedfs_tpu_torch/admin/tasks.py", "seaweedfs_tpu_torch/admin/scanner.py",
+            "seaweedfs_tpu_torch/admin/worker.py", "seaweedfs_tpu_torch/admin/resources.py",
+            "seaweedfs_tpu_torch/admin/dashboard.py", "seaweedfs_tpu_torch/admin/admin_server.py",
+            "seaweedfs_tpu_torch/commands/admin_cmd.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())
@@ -162,3 +167,41 @@ def test_importing_the_port_and_encoding_loads_no_jax(tmp_path):
     assert "LOADED []" in proc.stdout
     assert sorted(os.listdir(tmp_path)) == sorted(
         ["1.dat", "1.idx", "1.ecx", "1.vif"] + [f"1.ec{i:02d}" for i in range(14)])
+
+
+def test_admin_and_worker_initialise_no_cuda(tmp_path):
+    """The maintenance plane never touches CUDA: a fresh interpreter imports
+    seaweedfs_tpu_torch.admin, runs ``cli worker -h`` and ``cli admin -h``,
+    starts an AdminServer and a Worker (against a master nobody serves),
+    lets the worker poll and stops both; torch.cuda's lazy initialisation
+    is never called."""
+    script = textwrap.dedent("""
+        import sys, time
+        import torch
+        calls = []
+        real = torch.cuda._lazy_init
+        torch.cuda._lazy_init = lambda: calls.append(1) or real()
+        import seaweedfs_tpu_torch.admin as admin
+        from seaweedfs_tpu_torch import cli
+        for argv in (["worker", "-h"], ["admin", "-h"]):
+            try:
+                cli.main(argv)
+            except SystemExit as e:
+                assert e.code == 0, e.code
+        srv = admin.AdminServer("127.0.0.1:1", port=0, password="pw")
+        srv.start()
+        w = admin.Worker("127.0.0.1:1", admin_address=srv.url, poll_interval=0.1,
+                         http_auth=("admin", "pw"))
+        w.start()
+        time.sleep(1.0)
+        w.stop()
+        srv.stop()
+        assert list(srv.status()["workers_seen_ago"]) == [w.worker_id]
+        print("CUDA", calls, torch.cuda.is_initialized())
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "CUDA [] False" in proc.stdout

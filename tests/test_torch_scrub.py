@@ -286,6 +286,75 @@ def test_ec_interval_repair_matches_jax(tmp_path, local_groups, route):
         assert _read(dirs["port"] / name) == _read(dirs["ref"] / name), name
 
 
+class _OwnerLocator:
+    """A holder's view of one shard it does not hold: its intervals are read
+    from the owner's file, and the owner rewrites the corrupt byte right
+    after this holder's ``rewrite_after``-th read of it."""
+
+    def __init__(self, path: str, offset: int, good: bytes, rewrite_after: int):
+        self.path, self.offset, self.good = path, offset, good
+        self.rewrite_after = rewrite_after
+        self.reads = 0
+        self.fresh_lookups = 0
+
+    def make_fetcher(self, ev):
+        def fetch(vid: int, shard_id: int, offset: int, length: int) -> bytes:
+            with open(self.path, "rb") as f:
+                f.seek(offset)
+                data = f.read(length)
+            if offset <= self.offset < offset + length:
+                self.reads += 1
+                if self.reads == self.rewrite_after:
+                    with open(self.path, "r+b") as f:  # the owner's scrubber
+                        f.seek(self.offset)
+                        f.write(self.good)
+            return data
+
+        return fetch
+
+    def shard_locations(self, vid: int, fresh: bool = False) -> dict:
+        self.fresh_lookups += fresh
+        return {}
+
+
+@pytest.mark.parametrize("pkg", ["port", "ref"])
+def test_ec_scrub_recounts_an_interval_its_owner_rewrites(tmp_path, pkg):
+    """One holder scrubs an EC volume whose needle 5 is corrupt on a shard
+    another holder owns.  The owner rewrites the interval after this
+    holder's first read and its repair's re-read, before the count (ROADMAP
+    Queue C item 2).  The JAX scrubber counts the needle FAILED although
+    the shard is whole; the port re-reads it once at the end of the pass,
+    with fresh locations, and counts nothing."""
+    dirs = _ec_dirs(tmp_path, 0)
+    mods = PKG[pkg]
+    scheme = mods["lrc"].make_scheme(10, 4, 0, large_block_size=10000, small_block_size=100)
+    ev = mods["ev"].EcVolume(dirs[pkg], 1, scheme=scheme)
+    _off, _size, intervals = ev.locate(5)
+    sid, shard_off = intervals[0].to_shard_and_offset(ev.scheme)
+    for i in range(14):
+        if i != sid:
+            ev.add_shard(i)
+    owner = str(dirs[pkg] / f"1.ec{sid:02d}")
+    with open(owner, "rb") as f:
+        f.seek(shard_off + 20)
+        good = f.read(1)
+    _flip_byte(owner, shard_off + 20)
+    locator = _OwnerLocator(owner, shard_off + 20, good, rewrite_after=2)
+    st = mods["store"].Store([str(tmp_path / "unused")])
+    try:
+        result = mods["scrub"].VolumeScrubber(st, interval_s=0, ec_locator=locator).scrub_ec_volume(ev)
+        assert ev.read_needle(5, locator.make_fetcher(ev)).data == _payload(5)
+    finally:
+        ev.close()
+        st.close()
+    counts = {k: result[k] for k in ("scanned", "corrupt", "repaired", "failed")}
+    if pkg == "port":
+        assert counts == dict(scanned=39, corrupt=0, repaired=0, failed=0)
+        assert locator.fresh_lookups == 1
+    else:
+        assert counts == dict(scanned=39, corrupt=1, repaired=0, failed=1)
+
+
 def test_local_reconstruction_substitutes_a_short_survivor(tmp_path):
     """A plan input that reads short is excluded and the plan recomputed
     over the spare survivors, as in the JAX package."""
