@@ -7,8 +7,9 @@ Phases, each printing what it found; any failure exits non-zero:
 
 1. Device and build: the card's name and power limit, and an nvcc build of
    every kernel in seaweedfs_tpu_torch/csrc (and a g++ build of its host
-   CRC32C and GF(2^8) codec; one process per source, all started
-   together), with ptxas's
+   CRC32C, GF(2^8) codec and native data plane, dp.cpp linked with
+   crc32c.cpp; one process per source, all started together), with
+   ptxas's
    registers and spills for every kernel instantiation; a spill in K1 or K2
    fails the run.
 2. Kernels against their plain versions on the card, byte-exact:
@@ -87,7 +88,12 @@ Phases, each printing what it found; any failure exits non-zero:
    ranges (== the shard files), twice EcShardsUnmount and EcShardsDelete
    of {0, 3, 10, 13} and EcShardsRebuild (hash-identical; the first and
    second rebuild of one process side by side), EcBlobDelete (then
-   EcShardRead with its file_key says is_deleted), EcShardsToVolume (the
+   EcShardRead with its file_key says is_deleted), the normal volume
+   unmounted and 1,031 needles (1,024 seeded 1 KiB ones and the 7 big
+   ones not deleted) GOT over HTTP from the 14 local shards, each equal to
+   its payload and the deleted ones 404, every one served by the native
+   plane (csrc/dp.cpp's EC GET: ``seaweedfs_volume_native_dp`` native_reads
+   up by 1,031, nothing forwarded), EcShardsToVolume (the
    .dat's sha256 comes back), and the server's /metrics (EC operations,
    the cuda schedule cache and its K1 launches, which start at 0 in the
    new process).  The same .dat is
@@ -127,17 +133,24 @@ Phases, each printing what it found; any failure exits non-zero:
    figures go on a ``cluster:`` JSON line.
 9. The write path: a fresh ``cli master`` and four ``cli volume -device
    cuda -max 8 -mserver ...`` subprocesses (racks alternating), each with
-   its HTTP port bound and registered at the master as ``ip:httpport``.
+   its HTTP port bound and registered at the master as ``ip:httpport``;
+   the native data plane fronts each (its counters read from each
+   server's /metrics ``seaweedfs_volume_native_dp``).
    9a: ``cli benchmark -n 4096 -size 1024 -c 16`` (upstream `weed
    benchmark`'s shape, -n cut 256x for time), 0 errors in its write and
-   read reports; 9b: 1,250 writes at replication 001, then every needle
-   read from both holders ``/dir/lookup`` names; 9c: ``cli benchmark -n
-   16384 -size 65536`` fills one 1 GiB volume, and 512 needles of
-   seeded payloads go in through MasterClient and the pool; 9d: ``cli
-   shell -c "lock; ec.encode -volumeId V -collection ec64k -streaming;
-   unlock"``: K1 launches on the source server equal its generate's
-   batches (18), every shard lands once on its holder (14 at the master,
-   at most 4 a node, both racks), no .dat, .idx or .tmp remains, and the
+   read reports, native POSTs and GETs > 0; 9b: 1,250 writes at
+   replication 001, then every needle read from both holders
+   ``/dir/lookup`` names, sha256-equal, with native fan-outs by the
+   primaries > 0; 9c: ``cli benchmark -n 16384 -size 65536`` fills one
+   1 GiB volume, and 512 needles of seeded payloads go in through
+   MasterClient and the pool, every one a native POST; 9d: ``cli shell
+   -c "lock; ec.encode -volumeId V -collection ec64k -streaming;
+   unlock"`` of that natively written volume: K1 launches on the source
+   server equal its generate's batches (18), the first, a middle and the
+   last row of its shards equal the CPU plain version's (ReedSolomonTorch
+   over the .dat read before), every shard lands once on its holder (14
+   at the master, at most 4 a node, both racks), no .dat, .idx or .tmp
+   remains, and the
    targets' received bytes, the generate's stage split and the balance's
    moves are printed; 9e: the 512 seeded needles and 512 benchmark
    needles read over HTTP, each resolved through ``/dir/lookup``, equal to
@@ -227,12 +240,12 @@ Phases, each printing what it found; any failure exits non-zero:
    ``cli filer -db <dir> -maxMB 4`` (the LSM store; logs under
    ``filer/``).  ``fs.configure`` puts /data/ in collection filerdata; 16
    writers fill it through the filer's HTTP API, bodies streamed from
-   --seed: one 1 GiB file (256 chunks), 4 of 4-32 MiB and 256 of 1-64
+   --seed: one 256 MiB file (64 chunks), 4 of 4-32 MiB and 256 of 1-64
    KiB over 64 directories (32 of them at most 2 KiB, inline), files/s,
    MB/s and p50/p99 per class; every file reads back sha256-equal, with
-   32 Range reads across chunk boundaries of the 1 GiB file, a 416, a
+   32 Range reads across chunk boundaries of the 256 MiB file, a 416, a
    HEAD and paged JSON listings equal to the names written, and the
-   filer's RSS under FILER_RSS_LIMIT while it moves the 1 GiB file.  ``cli
+   filer's RSS under FILER_RSS_LIMIT while it moves the 256 MiB file.  ``cli
    shell -filer``: fs.du equals the bytes written, fs.verify finds 0
    broken, fs.ls and fs.tree run; 64 needles written by ``cli upload`` are
    exactly the orphans ``volume.fsck`` finds (their bytes too), purges
@@ -256,13 +269,13 @@ Phases, each printing what it found; any failure exits non-zero:
    -accessKey K -secretKey S -cacheMB 64 -kmsKeyFile F`` (SigV4 required;
    logs under ``s3/``); every request is signed by ``client_sign``.  Fill:
    16 clients put 256 objects of 1-64 KiB (a quarter as signed
-   aws-chunked bodies), and 4 of 8-64 MiB and one of 1 GiB go up as
+   aws-chunked bodies), and 4 of 8-64 MiB and one of 256 MiB go up as
    multipart in 8 MiB parts, 10 at a time (aws-cli's defaults); objects/s,
    MB/s and p50/p99 per class.  Mixed: MinIO warp mixed's 45% GET, 30%
    HEAD, 15% PUT, 10% DELETE over the small objects, 16 clients, 625
    ops, every answer held to a model of key -> sha256 (404 for a deleted
    key, the ETag on HEAD); a ListObjectsV2 walk (max-keys 1000) equals the
-   model.  Features: CopyObject, 16 Range GETs across the 1 GiB object's
+   model.  Features: CopyObject, 16 Range GETs across the 256 MiB object's
    part boundaries, a presigned GET, three versions read by versionId,
    tagging, an anonymous 403 that a bucket policy turns into 200, SSE-S3
    and SSE-C of a 16 MiB object (501 where the card's machine lacks the
@@ -270,6 +283,12 @@ Phases, each printing what it found; any failure exits non-zero:
    Coherence: an overwrite through the filer's HTTP API is seen through the
    gateway (its metadata subscriber; the time printed), and a hot set's
    second GET pass prints the chunk cache's hit ratio from /debug/cachez.
+   Splice: the gateway's px counters from its /debug/threadz (spliced GET
+   views > 0, the ladder's fallbacks and the px loop mode printed); an
+   open-access ``cli s3`` over the same filer takes streaming PUTs of 1,
+   8, 8 and 24 MiB objects, each 4 MiB chunk fanned out by the native plane
+   (``fanout_ok`` = the chunk count) with ``x-weed-spliced`` and the md5
+   ETag, and GETs them back spliced, sha256-equal.
    An in-process gateway splits a 16 KiB aws-chunked PUT, an 8 MiB part
    PUT and a 16 KiB GET into SigV4 verify, body read, aws-chunked decode,
    FidPool, volume POST/GET, filer insert/find and entry-cache hits.
@@ -292,10 +311,12 @@ Phases, each printing what it found; any failure exits non-zero:
    gateway's LookupDirectoryEntry calls, a 2 ms delay on 5% of the filer's
    gRPC) and a ``WEED_SLO``; plaintext gRPC, plain HTTP and a client that
    does not trust the CA are refused.  Over HTTPS, 512 objects of 1-64
-   KiB at 16 clients and one 1 GiB object as multipart; one PUT sent with
+   KiB at 16 clients and one 256 MiB object as multipart; one PUT sent with
    a traceparent is one trace in the gateway (PutObject, its put_chunk),
    the filer (CreateEntry, the PutObject's child) and the volume server
-   holding the chunk (write), printed by ``trace.dump``; ``cluster.status``
+   holding the chunk (the native plane's ``native_dp`` post span, replayed
+   from its span records; a ``volume`` write span when the POST forwards),
+   printed by ``trace.dump``; ``cluster.status``
    over the seven metrics listeners merges an s3.put count equal to the
    members' /debug/sketchz sum and to the PUTs sent; ``slo.status`` passes.
    ``ec.encode`` of every volume over mutual TLS (the shell traced by
@@ -308,7 +329,8 @@ Phases, each printing what it found; any failure exits non-zero:
    ``fault.inject`` of UNAVAILABLE x6 on a live peer's VolumeStatus walks
    its breaker open -> half-open -> open -> half-open -> closed
    (``cluster.check``, ``resilience.status``, ``events.dump``).  A server
-   restarted with ``disk@*.dat:append:torn:x1`` answers 500 to a write;
+   restarted with ``disk@*.dat:append:torn:x1`` (its volumes stay off the
+   native plane while the rule is armed) answers 500 to a write;
    restarted without it, its .dat is truncated back and every acknowledged
    write reads back.  Its figures go on ``tls:`` lines.  What TLS and
    tracing cost a request is ``chip_layer_costs.py``'s to measure.
@@ -387,6 +409,7 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import faulthandler
 import hashlib
 import http.client
 import io
@@ -424,6 +447,85 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+# the run's limit is 1200 s, builds included: past SMOKE_DEADLINE_S the smoke
+# fails by itself, with its stacks and the servers' logs on stderr; a phase
+# past PHASE_STALL_S (about twice the longest phase) dumps the stacks once
+SMOKE_DEADLINE_S = 1170.0
+PHASE_STALL_S = 300.0
+RUN_T0 = time.perf_counter()
+
+
+def progress(msg: str) -> None:
+    """One line on stderr, with the wall-clock time and the run's seconds,
+    so that the end of stderr says how far a run got."""
+    print(f"chip_smoke {time.strftime('%H:%M:%S')} +{time.perf_counter() - RUN_T0:.1f}s: {msg}",
+          file=sys.stderr, flush=True)
+
+
+def use_bytecode_cache() -> None:
+    """Keep compiled bytecode under build/pycache for this process and every
+    one it starts.  Where the environment sets PYTHONDONTWRITEBYTECODE and
+    the installed packages carry no __pycache__, as on the card's machine,
+    every process compiles torch's sources anew at import (7 s alone, 9 s
+    four at a time there); with the cache only the first one does."""
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix = cache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.dont_write_bytecode = False
+
+
+def _descendants(pid: int) -> list[int]:
+    """Every live descendant of ``pid``, from the parent links in /proc."""
+    children: dict = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        children.setdefault(ppid, []).append(int(name))
+    out, todo = [], [pid]
+    while todo:
+        for child in children.get(todo.pop(), []):
+            out.append(child)
+            todo.append(child)
+    return out
+
+
+def arm_deadline() -> None:
+    """Fail the run at SMOKE_DEADLINE_S: every descendant gets SIGABRT (the
+    Python ones dump their threads into their logs, PYTHONFAULTHANDLER),
+    then the tails of the live servers' logs and this process's stacks go
+    to stderr, every descendant is killed and the smoke exits 1."""
+    os.environ["PYTHONFAULTHANDLER"] = "1"  # inherited by every subprocess
+
+    def expire() -> None:
+        print(f"FAIL: the smoke ran past its own deadline of {SMOKE_DEADLINE_S:.0f}s", flush=True)
+        kids = _descendants(os.getpid())
+        for pid in kids:
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGABRT)
+        time.sleep(2.0)
+        for server in list(_Server.live):
+            with contextlib.suppress(OSError, ValueError):
+                print(f"--- {server.log} (pid {server.proc.pid}), its end:\n"
+                      f"{server.log_text()[-1500:]}", file=sys.stderr)
+        progress("deadline: this process's threads follow")
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        for pid in kids + _descendants(os.getpid()):
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGKILL)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+
+    timer = threading.Timer(SMOKE_DEADLINE_S - (time.perf_counter() - RUN_T0), expire)
+    timer.daemon = True
+    timer.start()
 
 
 def nvidia_smi(query: str, *fmt: str) -> str:
@@ -904,6 +1006,46 @@ def check_parity(base: str, dat_size: int, codec) -> int:
     return n_rows
 
 
+def sample_rows(dat: str, dat_size: int) -> dict:
+    """{row: (10, 1 MiB) data} of the first, a middle and the tail small
+    row of an RS(10,4) volume's .dat, read before the .dat goes away."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME as sc
+
+    k, blk = sc.data_shards, sc.small_block_size
+    check(dat_size <= sc.large_block_size * k, "volume has large rows; sampler assumes small rows")
+    n_rows = -(-dat_size // (blk * k))
+    out = {}
+    with open(dat, "rb") as f:
+        for row in sorted({0, n_rows // 2, n_rows - 1}):
+            data = np.zeros((k, blk), dtype=np.uint8)
+            for i in range(k):
+                os.preadv(f.fileno(), [memoryview(data[i])], (row * k + i) * blk)
+            out[row] = data
+    return out
+
+
+def check_sampled_parity(rows: dict, shard_path: dict) -> None:
+    """The shard files at ``shard_path`` against ``rows`` (sample_rows) and
+    their parity from the CPU plain version, ReedSolomonTorch."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
+
+    codec = ReedSolomonTorch(10, 4, device="cpu")
+    blk = next(iter(rows.values())).shape[1]
+    for row, data in rows.items():
+        want = codec.encode(data)
+        for sid in range(14):
+            with open(shard_path[sid], "rb") as f:
+                shard = np.frombuffer(os.pread(f.fileno(), blk, row * blk), dtype=np.uint8)
+            expect = data[sid] if sid < 10 else want[sid - 10]
+            check(np.array_equal(shard, expect), f"shard {sid} wrong in row {row}")
+    print(f"  rows {sorted(rows)}: 10 data + 4 parity blocks of 1 MiB each match the CPU plain "
+          f"version (ReedSolomonTorch)")
+
+
 def stage_line(st: dict) -> str:
     return (f"stages setup {st['setup_s']:.4f}s read {st['read_s']:.4f}s "
             f"dispatch {st['dispatch_s']:.4f}s fetch {st['fetch_s']:.4f}s "
@@ -941,6 +1083,10 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
 
     def lap(name: str) -> None:
         laps.append((name, time.perf_counter()))
+        progress(f"phase {name} passed in {laps[-1][1] - laps[-2][1]:.3f}s")
+        faulthandler.dump_traceback_later(PHASE_STALL_S, file=sys.stderr)
+
+    faulthandler.dump_traceback_later(PHASE_STALL_S, file=sys.stderr)
 
     try:
         t = time.perf_counter()
@@ -1056,6 +1202,7 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
                     failover=failover, maintenance=maintenance, storage=storage,
                     host_codec=host_codec, filer=filer, s3=s3, tls=tls, shard=shard, admin=admin)
     finally:
+        faulthandler.cancel_dump_traceback_later()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -1594,6 +1741,8 @@ class _Server:
     from its first line (``ready()``), stopped with SIGTERM (killed if it
     does not exit)."""
 
+    live: set = set()  # started and not yet stopped: the deadline's log tails
+
     def __init__(self, directory: str, device: str, log: str, extra: tuple = (),
                  argv: list | None = None, wait: bool = True, env: dict | None = None):
         root = os.path.dirname(os.path.abspath(__file__))
@@ -1602,6 +1751,7 @@ class _Server:
         self.log = log
         self._log_file = open(log, "w")
         self._t = time.perf_counter()
+        _Server.live.add(self)
         # port 0: the server binds free ports itself and names them on its
         # first line
         argv = argv or ["volume", "-dir", directory, "-ip", "127.0.0.1", "-port", "0",
@@ -1653,6 +1803,7 @@ class _Server:
             return r.read().decode()
 
     def stop(self) -> int:
+        _Server.live.discard(self)
         if self.proc.poll() is None:
             self.proc.send_signal(signal.SIGTERM)
             try:
@@ -1673,6 +1824,38 @@ def metric(text: str, name: str, **labels) -> float:
         if line.startswith(series + " "):
             return float(line.rsplit(" ", 1)[1])
     return 0.0
+
+
+def native_dp(url: str) -> dict:
+    """A volume server's native data-plane counters, from the
+    ``seaweedfs_volume_native_dp{kind=...}`` lines of its HTTP /metrics."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{url}/metrics", timeout=60) as r:
+        text = r.read().decode()
+    return {m[1]: int(m[2]) for m in
+            re.finditer(r'seaweedfs_volume_native_dp\{kind="(\w+)"\} (\d+)', text)}
+
+
+def native_dp_delta(after: dict, before: dict) -> dict:
+    """Summed per-kind differences of native_dp() maps keyed by server."""
+    out: dict = {}
+    for url, a in after.items():
+        for k, v in a.items():
+            out[k] = out.get(k, 0) + v - before.get(url, {}).get(k, 0)
+    return out
+
+
+def px_stats_of(metrics_addr: str) -> tuple[str, dict]:
+    """A gateway's splice counters and px loop mode, from the native px
+    loop section of its /debug/threadz (util/debugz.py)."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{metrics_addr}/debug/threadz", timeout=60) as r:
+        text = r.read().decode()
+    mode = re.search(r"--- native px loop \(C thread, mode=([^)]*)\) ---", text)
+    check(mode is not None, f"no native px loop section in {metrics_addr}'s /debug/threadz")
+    return mode[1], {m[1]: int(m[2]) for m in re.finditer(r"sw_px_stats\.(\w+) = (\d+)", text)}
 
 
 def server_stages(log: str, op: str) -> list[dict]:
@@ -1771,6 +1954,11 @@ def phase_server(vol: dict, directory: str, dev, ident: str, seed: int) -> dict:
             check(e.code() == grpc.StatusCode.FAILED_PRECONDITION,
                   f"VolumeTierMove: {e.code()} {e.details()}")
 
+        # the native plane's EC GET: with the normal volume unmounted, HTTP
+        # GETs of the EC volume's needles go out of its local shards in C++
+        call("unmount volume", "VolumeUnmount", pb.VolumeMountRequest(volume_id=1))
+        ec_http = native_ec_gets(vol, base, f"127.0.0.1:{server.http_port}", seed, victim)
+
         for ext in (".dat", ".idx"):
             os.remove(base + ext)
         call("to volume", "EcShardsToVolume", pb.EcShardsToVolumeRequest(volume_id=1))
@@ -1802,8 +1990,70 @@ def phase_server(vol: dict, directory: str, dev, ident: str, seed: int) -> dict:
           f"{stage_line(rebuilds[0])} | {stage_line(rebuilds[1])}")
     print("server RPC client walls (s): " + ", ".join(
         f"{k} {' / '.join(f'{w:.4f}' for w in v)}" for k, v in walls.items()))
+    print(f"server native EC GETs on {ident}: {ec_http['gets']} needles over HTTP, each equal to "
+          f"its payload, served by the C++ plane from the local shards (native_reads "
+          f"+{ec_http['native_reads']}, forwarded +{ec_http['forwarded']}, not_found "
+          f"+{ec_http['not_found']}); {ec_http['gets_per_s']:.1f} GETs/s, p50 "
+          f"{ec_http['p50_ms']:.3f} ms, p99 {ec_http['p99_ms']:.3f} ms on the host")
     return dict(walls=walls, generate=gen[0], rebuilds=rebuilds, launches=launches,
-                sched_cache=cache, start_s=server.start_s, reads_dir=reads_dir)
+                sched_cache=cache, start_s=server.start_s, reads_dir=reads_dir, ec_http=ec_http)
+
+
+EC_HTTP_GETS = 1024  # live 1 KiB needles read over HTTP from the EC volume in phase 7
+
+
+def native_ec_gets(vol: dict, base: str, url: str, seed: int, deleted: int) -> dict:
+    """GETs of EC_HTTP_GETS seeded live 1 KiB needles, the big ones (but
+    the EcBlobDelete'd one), the deleted one and a tombstoned one through a volume server whose
+    only copy of volume 1 is its 14 local shards: every live one 200 with
+    its payload, the two others 404, all of them answered by the native
+    plane (its counters: native_reads up by the 200s, nothing forwarded)."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch.util.http_pool import HttpConnectionPool
+
+    rng = np.random.default_rng([seed, 707])
+    live = np.setdiff1d(np.arange(vol["n"]), np.fromiter(vol["dead"], np.int64))
+    picks = [int(i) for i in rng.choice(live, min(EC_HTTP_GETS, len(live)), replace=False)]
+
+    def cookie_at(i: int) -> int:
+        return int.from_bytes(vol["recs"][i][:4].tobytes(), "big")
+
+    reads = [(int(vol["ids"][i]), cookie_at(i), vol["payload"][i].tobytes()) for i in picks]
+    with open(base + ".dat", "rb") as f:
+        for b in vol["big"]:
+            if b["id"] == deleted:
+                continue
+            reads.append((b["id"], int.from_bytes(os.pread(f.fileno(), 4, b["offset"]), "big"),
+                          b["data"]))
+        head = os.pread(f.fileno(), 4, 8)  # the first record's cookie: any will do for a 404
+    gone = [(deleted, 0), (int(vol["ids"][min(vol["dead"])]), int.from_bytes(head, "big"))]
+    pool = HttpConnectionPool(timeout=60.0)
+    lat = np.empty(len(reads))
+    before = native_dp(url)
+    t0 = time.perf_counter()
+    try:
+        for j, (nid, cookie, payload) in enumerate(reads):
+            t = time.perf_counter()
+            status, body = pool.request(url, "GET", f"/1,{nid:x}{cookie:08x}")
+            lat[j] = time.perf_counter() - t
+            check(status == 200 and body == payload,
+                  f"native EC GET of {nid:x}: {status}, {len(body)} bytes")
+        wall = time.perf_counter() - t0
+        for nid, cookie in gone:
+            status, _body = pool.request(url, "GET", f"/1,{nid:x}{cookie:08x}")
+            check(status == 404, f"EC GET of the deleted needle {nid:x}: {status}")
+    finally:
+        pool.close()
+    d = native_dp_delta({url: native_dp(url)}, {url: before})
+    d["forwarded"] -= 1  # the /metrics scrape that read these counters
+    check(d["native_reads"] == len(reads) and d["forwarded"] == 0,
+          f"the native plane served {d['native_reads']} of {len(reads)} EC GETs, forwarded "
+          f"{d['forwarded']}")
+    return dict(gets=len(reads), native_reads=d["native_reads"], forwarded=d["forwarded"],
+                not_found=d["not_found"], gets_per_s=len(reads) / wall,
+                p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3))
 
 
 def phase_reads(vol: dict, dirs: dict, ident: str, seed: int) -> dict:
@@ -2504,7 +2754,15 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
             return os.path.join(dirs[servers.index(by_url[url])], f"{collection}_{vid}")
 
         # 9a: writes and reads, the upstream `weed benchmark` shape
+        dp0 = {s_.url: native_dp(s_.url) for s_ in servers}
         bench = _benchmark(maddr, BENCH_N, BENCH_SIZE, "benchmark", "000", bench_log)
+        dp_a = {s_.url: native_dp(s_.url) for s_ in servers}
+        native = {"bench": native_dp_delta(dp_a, dp0)}
+        check(native["bench"]["native_writes"] > 0 and native["bench"]["native_reads"] > 0,
+              f"the benchmark's POSTs and GETs never reached the native plane: {native['bench']}")
+        print(f"write path: the benchmark on the native plane: POSTs {native['bench']['native_writes']}, "
+              f"GETs {native['bench']['native_reads']}, forwarded {native['bench']['forwarded']} "
+              f"(seaweedfs_volume_native_dp of the four servers)")
 
         # 9b: replicated writes, each acknowledged one on both holders
         rep = _benchmark(maddr, REP_N, BENCH_SIZE, "rep", "001", bench_log)
@@ -2532,6 +2790,16 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
         walls["rep_readback"] = time.perf_counter() - t
         check(rep_fids == REP_N and len(rep_payloads) == 1,
               f"{rep_fids} replicated needles ({len(rep_payloads)} payloads) for {REP_N} writes")
+        dp_b = {s_.url: native_dp(s_.url) for s_ in servers}
+        native["rep"] = native_dp_delta(dp_b, dp_a)
+        # every replica-side write (?type=replicate) is native; a primary
+        # that fanned out natively adds its own: the excess over REP_N
+        native["rep_fanned_out"] = native["rep"]["native_writes"] - REP_N
+        check(native["rep_fanned_out"] > 0,
+              f"no replicated write fanned out on the native plane: {native['rep']}")
+        print(f"write path: {REP_N} writes at 001: {native['rep_fanned_out']} fanned out by the "
+              f"primary's native plane, {native['rep']['forwarded']} forwarded to Python; native "
+              f"POSTs {native['rep']['native_writes']}, GETs {native['rep']['native_reads']}")
         print(f"write path: {rep_fids} replicated needles in {len(rep_vids)} volume(s) read back "
               f"from both holders each, byte-identical, in {walls['rep_readback']:.3f}s")
 
@@ -2553,6 +2821,11 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
         source = by_url[source_url]
         src_base = base_on(source_url, "ec64k", vid)
         dat_size = os.path.getsize(src_base + ".dat")
+        native["fill"] = native_dp_delta({source_url: native_dp(source_url)},
+                                         {source_url: dp_b[source_url]})
+        check(native["fill"]["native_writes"] >= FILL_N,
+              f"volume {vid}'s needles were not written natively: {native['fill']}")
+        rows = sample_rows(src_base + ".dat", dat_size)
         bench_fids = sorted(set(_volume_fids(src_base, vid)) - set(seeded))
         check(len(bench_fids) == FILL_N and dat_size >= FILL_N * FILL_SIZE,
               f"volume {vid}: {len(bench_fids)} benchmark needles, {dat_size} bytes")
@@ -2595,6 +2868,9 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
               f"shard files after the encode (no copy may remain twice): {files}")
         check(not any(n.endswith((".dat", ".idx", ".tmp")) for names in files.values()
                       for n in names), f"a .dat, .idx or .tmp remained: {files}")
+        shard_path = {int(n[-2:]): os.path.join(dirs[int(v[1:])], n) for v, names in files.items()
+                      for n in names if re.search(r"\.ec\d\d$", n)}
+        check_sampled_parity(rows, shard_path)
         tasks = len(ec_encoder._plan_tasks(DEFAULT_SCHEME, dat_size, ec_encoder.DEFAULT_CHUNK))
         k1_source = int(metric(source.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply"))
         check(k1_source == tasks, f"the source server launched K1 {k1_source} times, its generate "
@@ -2677,6 +2953,7 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
     launches = sum(k1_by_server.values())
     check(launches == k1_source, f"K1 launched outside the source's generate: {k1_by_server}")
     rec = dict(walls=walls, benchmark=bench, replicated=rep, fill=fill, ec_reads=ec_reads,
+               native=native,
                k1_source=k1_source, batches=tasks, launches=launches, received=received,
                balance_moved=int(moved[1]), shard_copies=len(copies), dat_size=dat_size,
                generate=gen[0], rcs={str(k): v for k, v in rcs.items()})
@@ -3972,7 +4249,7 @@ FILER_DIRS = 64
 FILER_SMALL_N = 256  # 1-64 KiB files over FILER_DIRS directories (cut from 8,192; 1,024 before phase 16, 512 before 17)
 FILER_INLINE_N = 32  # of them at most 2 KiB: inlined in their entries (64 before phase 17)
 FILER_LARGE_N = 4  # 4-32 MiB files (cut from 16 for phase 15, 8 for phase 17)
-FILER_BIG_BYTES = 1 << 30  # one file of 256 chunks at -maxMB 4
+FILER_BIG_BYTES = 256 * MIB  # one file of 64 chunks at -maxMB 4 (cut from 1 GiB for the time limit)
 FILER_CHUNK_MB = 4  # -maxMB: the default of upstream's `weed filer` and of the JAX CLI
 FILER_VOLUME_MB = 256  # -volumeSizeLimitMB: upstream's 30 GB cut 120x
 FILER_WRITERS = 16
@@ -3981,16 +4258,18 @@ FILER_ORPHANS = 64
 FILER_RM_DIR = 5  # /data/d05: one directory of FILER_SMALL_N / FILER_DIRS files
 FILER_RESTART_SAMPLE = 64  # halved for phase 16 and again for phase 17
 FILER_REBUILD_SAMPLE = 128  # halved for phase 16 and again for phase 17
-# the filer's peak RSS while it moves the 1 GiB file: its windows hold 8 x 4
+# the filer's peak RSS while it moves the 256 MiB file: its windows hold 8 x 4
 # MiB up and 4 x 4 MiB down; the rest is the interpreter, the allocator's
 # retained arenas and the server threads (121 and 191 MiB measured on an H100
-# machine's host)
-FILER_RSS_LIMIT = 384 * MIB
+# machine's host with a 1 GiB file).  Below the file's size plus the
+# interpreter, so a filer that held the whole body would fail (384 MiB with
+# the 1 GiB file)
+FILER_RSS_LIMIT = 288 * MIB
 FILER_PROFILE = dict(big=16, small=256, reads=256)  # the in-process split of one request
 
 
 def _filer_files(seed: int) -> list:
-    """[(path, size, key)] of the phase's files: the 1 GiB file, the large
+    """[(path, size, key)] of the phase's files: the 256 MiB file, the large
     ones and the small ones (FILER_INLINE_N of them inline), sizes from
     ``seed``; ``key`` seeds the body."""
     import numpy as np
@@ -4291,10 +4570,10 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
     racks and one ``cli filer -db <dir> -maxMB 4`` (the LSM store).
     ``fs.configure`` puts /data/ in collection filerdata; 16 writers fill
     it through the filer's HTTP API (256 files of 1-64 KiB over 64
-    directories, 32 of them inline; 4 of 4-32 MiB; one of 1 GiB, 256
+    directories, 32 of them inline; 4 of 4-32 MiB; one of 256 MiB, 64
     chunks, streamed) and every file reads back sha256-equal, with Range
     reads, a 416, a HEAD and paged listings; the filer's RSS stays under
-    FILER_RSS_LIMIT while it moves the 1 GiB file.  ``cli shell -filer``:
+    FILER_RSS_LIMIT while it moves the 256 MiB file.  ``cli shell -filer``:
     fs.du equals the bytes written, fs.verify finds 0 broken, fs.ls and
     fs.tree run; 64 needles from ``cli upload`` are the orphans
     ``volume.fsck`` finds, purges, and then finds 0 of; ``fs.rm -r`` of a
@@ -4376,7 +4655,7 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
         check("applied" in out and '"collection": "filerdata"' in out, f"fs.configure: {out!r}")
         time.sleep(1.1)  # the filer's conf cache lives one second
 
-        # 2. the fill: the 1 GiB file alone (its RSS sampled), then the
+        # 2. the fill: the 256 MiB file alone (its RSS sampled), then the
         # large files and the small ones, 16 writers each
         want: dict = {}
         big = files[0]
@@ -4399,13 +4678,13 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
             f"{cls} {r['files']} files {r['files_per_s']:.1f}/s {r['mb_per_s']:.1f} MB/s p50 "
             f"{r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms" for cls, r in fill.items())
             + f"; {len(files)} files, {total_bytes} bytes; the filer's peak RSS while it took the "
-            f"1 GiB file {rss_up.peak / MIB:.1f} MiB")
+            f"256 MiB file {rss_up.peak / MIB:.1f} MiB")
         fstub = rpc.filer_stub(filer.gaddr)
         big_entry = fstub.LookupDirectoryEntry(f_pb.LookupDirectoryEntryRequest(
             directory="/data/big", name="one.bin")).entry
         check(len(big_entry.chunks) == FILER_BIG_BYTES // (FILER_CHUNK_MB * MIB)
               and big_entry.attributes.collection == "filerdata",
-              f"the 1 GiB file's entry: {len(big_entry.chunks)} chunks, collection "
+              f"the 256 MiB file's entry: {len(big_entry.chunks)} chunks, collection "
               f"{big_entry.attributes.collection!r}")
         inline = [f for f in files if f[1] <= 2048]
         sample = fstub.LookupDirectoryEntry(f_pb.LookupDirectoryEntryRequest(
@@ -4415,10 +4694,10 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
 
         # 3. read everything back; ranges, 416, HEAD, paged listings
         with _RssPeak(filer.proc.pid) as rss_down:
-            rec["read"] = _filer_read_all(filer.faddr, files[:1], want, "the 1 GiB file")
+            rec["read"] = _filer_read_all(filer.faddr, files[:1], want, "the 256 MiB file")
         rec["read"].update(_filer_read_all(filer.faddr, files[1:], want, "the rest"))
         check(rss_up.peak < FILER_RSS_LIMIT and rss_down.peak < FILER_RSS_LIMIT,
-              f"the filer's peak RSS moving the 1 GiB file: {rss_up.peak} B up, "
+              f"the filer's peak RSS moving the 256 MiB file: {rss_up.peak} B up, "
               f"{rss_down.peak} B down (limit {FILER_RSS_LIMIT})")
         rng = np.random.default_rng([seed, 1313])
         conn = _filer_conn(filer.faddr)
@@ -4431,7 +4710,7 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
             expect = hashlib.sha256(b"".join(_filer_blocks(seed, 0, big[1], lo, hi + 1))).hexdigest()
             check(status == 206 and n == hi - lo + 1 and sha == expect
                   and hdrs.get("Content-Range") == f"bytes {lo}-{hi}/{big[1]}",
-                  f"Range {lo}-{hi} of the 1 GiB file: {status}, {n} bytes, {hdrs}")
+                  f"Range {lo}-{hi} of the 256 MiB file: {status}, {n} bytes, {hdrs}")
         status, _sha, n, hdrs, _dt = _filer_get(conn, big[0], {"Range": f"bytes={big[1]}-"})
         check(status == 416 and n == 0 and hdrs.get("Content-Range") == f"bytes */{big[1]}",
               f"an unsatisfiable Range answered {status} {hdrs}")
@@ -4439,7 +4718,7 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
         resp = conn.getresponse()
         resp.read()
         check(resp.status == 200 and resp.getheader("Content-Length") == str(big[1]),
-              f"HEAD of the 1 GiB file: {resp.status} {resp.getheader('Content-Length')}")
+              f"HEAD of the 256 MiB file: {resp.status} {resp.getheader('Content-Length')}")
         listed: dict = {}
         pages = 0
         for d in range(FILER_DIRS):
@@ -4459,11 +4738,11 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
         check(listed == written, f"the paged listings hold {len(listed)} names, "
                                  f"{len(written)} were written")
         conn.close()
-        print(f"filer: {FILER_RANGE_READS} Range reads across chunk boundaries of the 1 GiB file "
+        print(f"filer: {FILER_RANGE_READS} Range reads across chunk boundaries of the 256 MiB file "
               f"equal, a 416 and a HEAD answered; {pages} listing pages of {FILER_DIRS} "
               f"directories name exactly the {len(written)} files written; the filer's peak RSS "
-              f"reading the 1 GiB file {rss_down.peak / MIB:.1f} MiB")
-        rec["rss_mib"] = dict(upload_1gib=rss_up.peak / MIB, read_1gib=rss_down.peak / MIB)
+              f"reading the 256 MiB file {rss_down.peak / MIB:.1f} MiB")
+        rec["rss_mib"] = dict(upload_big=rss_up.peak / MIB, read_big=rss_down.peak / MIB)
 
         # 4. shell checks
         walls["fs_du"], out = shell("fs.du /data")
@@ -4682,7 +4961,7 @@ S3_SMALL_N = 256  # 1-64 KiB objects (cut from 8,192; 1,024 before phase 16, 512
 S3_CHUNKED_EVERY = 4  # a quarter of them as signed aws-chunked bodies
 S3_STREAM_CHUNK = 64 * 1024  # the aws-chunked chunk size of botocore's streaming signer
 S3_LARGE_N = 4  # 8-64 MiB objects, multipart (cut from 16 for phase 15, 8 for phase 17)
-S3_BIG_BYTES = 1 << 30  # one object of 128 parts
+S3_BIG_BYTES = 256 * MIB  # one object of 32 parts (cut from 1 GiB for the time limit)
 S3_PART = 8 * MIB  # aws-cli's multipart_chunksize default
 S3_PART_CONCURRENCY = 10  # aws-cli's max_concurrent_requests default
 S3_CLIENTS = 16
@@ -4699,7 +4978,7 @@ S3_PROFILE = dict(small=256, part=16, reads=256)  # the in-process split of one 
 
 def _s3_objects(seed: int) -> list:
     """[(key, size, kind, body key)] of the fill: the small objects (a
-    quarter ``chunked``), the large ones and the 1 GiB one, sizes from
+    quarter ``chunked``), the large ones and the 256 MiB one, sizes from
     ``seed``."""
     import numpy as np
 
@@ -4857,6 +5136,91 @@ def _s3_multipart(addr: str, seed: int, objs: list, path_of) -> list:
         out.append((sha.hexdigest(), etag, t_done - t_first))
     admin.close()
     return out
+
+
+S3_SPLICE_OBJECTS = (1 * MIB, 8 * MIB, 8 * MIB + 12345, 24 * MIB)  # open-gateway PUTs
+S3_SPLICE_BUCKET = "splice"
+
+
+def _s3_splice(maddr: str, filer_grpc: str, gw_metrics: str, root: str, seed: int,
+               ident: str) -> dict:
+    """The gateways' native splice (filer/splice.py over csrc/dp.cpp): the
+    SigV4 gateway's px counters after the fill, mixed and feature passes
+    (spliced GET views > 0, the ladder's fallbacks, the px loop mode); then
+    an open-access ``cli s3`` over the same filer takes streaming PUTs of
+    S3_SPLICE_OBJECTS, each chunk fanned out by the native plane with the
+    ETag computed in-stream, and GETs them back spliced: every object's
+    ETag equals its md5 and its body's sha256 its own."""
+    import numpy as np
+
+    mode, main = px_stats_of(gw_metrics)
+    check(main["get_spliced"] > 0, f"the SigV4 gateway spliced no GET view: {main}")
+    ladder = {k: v for k, v in main.items() if k.startswith("ladder_")}
+    print(f"s3: native splice on {ident}: px loop mode {mode}; the SigV4 gateway spliced "
+          f"{main['get_spliced']} GET views ({main['get_bytes']} B), {main['get_midstream']} "
+          f"resumed mid-stream, cache sends {main['cache_send_ok']}; the ladder's Python-side "
+          f"steps {ladder}")
+    port = _free_ports(1)[0]
+    g = _Server("", "", os.path.join(root, "s3.open.log"), wait=False, argv=[
+        "s3", "-master", maddr, "-filer", filer_grpc, "-port", "0", "-metricsPort", str(port)])
+    try:
+        line = _readline_within(g.proc, 120)
+        m = re.search(r"s3 gateway on (127\.0\.0\.1:\d+) \(auth=open\)", line)
+        check(m is not None, f"the open cli s3 did not start: {line!r}: {g.log_text()[-2000:]}")
+        addr = m[1]
+        rng = np.random.default_rng([seed, 1414])
+        status, _h, _b = _plain_http(addr, "PUT", f"/{S3_SPLICE_BUCKET}")
+        check(status == 200, f"open gateway: PUT bucket {status}")
+        objs = {f"o{i}": rng.bytes(n) for i, n in enumerate(S3_SPLICE_OBJECTS)}
+        t = time.perf_counter()
+        for key, body in objs.items():
+            status, h, _b = _plain_http(addr, "PUT", f"/{S3_SPLICE_BUCKET}/{key}", body)
+            check(status == 200 and h.get("etag") == f'"{hashlib.md5(body).hexdigest()}"'
+                  and h.get("x-weed-spliced") == "1",
+                  f"open gateway PUT {key}: {status} {h}")
+        put_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for key, body in objs.items():
+            status, h, got = _plain_http(addr, "GET", f"/{S3_SPLICE_BUCKET}/{key}")
+            check(status == 200 and hashlib.sha256(got).digest() == hashlib.sha256(body).digest()
+                  and h.get("x-weed-spliced") == "1", f"open gateway GET {key}: {status} {h}")
+        get_s = time.perf_counter() - t
+        open_mode, st = px_stats_of(f"127.0.0.1:{port}")
+    finally:
+        rc = g.stop()
+    check(rc == 0, f"the open gateway exited {rc}")
+    chunks = sum(-(-n // (4 * MIB)) for n in S3_SPLICE_OBJECTS)
+    check(st["fanout_ok"] == chunks and st["get_spliced"] >= len(objs),
+          f"the open gateway fanned out {st['fanout_ok']} of {chunks} chunks natively, spliced "
+          f"{st['get_spliced']} GET views")
+    mb = sum(S3_SPLICE_OBJECTS) / 1e6
+    print(f"s3: native splice on {ident}: an open gateway PUT {len(objs)} objects ({mb:.3f} MB, "
+          f"{st['fanout_ok']} chunks fanned out natively, {st['fanout_bytes']} B, replica acks "
+          f"{st['fanout_replica_acks']}) in {put_s:.3f}s and GOT them back spliced "
+          f"({st['get_spliced']} views) in {get_s:.3f}s, every ETag its md5 and every body "
+          f"sha256-equal; px loop mode {open_mode}; ladder "
+          f"{ {k: v for k, v in st.items() if k.startswith('ladder_')} }")
+    return dict(mode=mode, main=main, open=st, open_mode=open_mode, put_s=put_s, get_s=get_s)
+
+
+def _plain_http(addr: str, method: str, path: str, body: bytes = b""):
+    """One unsigned request on a fresh connection: (status, headers, body)."""
+    host, port = addr.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=120)
+    try:
+        conn.request(method, path, body=body or None)
+        resp = conn.getresponse()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
+    finally:
+        conn.close()
+
+
+def _readline_within(proc, timeout: float) -> str:
+    """The next stdout line of ``proc``, or "" after ``timeout`` seconds."""
+    import select
+
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    return proc.stdout.readline().strip() if ready else ""
 
 
 def _s3_read_all(addr: str, bucket: str, model: dict, label: str) -> dict:
@@ -5117,7 +5481,7 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
     <the filer's gRPC> -accessKey K -secretKey S -cacheMB 64 -kmsKeyFile
     F`` (SigV4 required; every request is signed by ``client_sign``).
     Fill (16 clients): 256 objects of 1-64 KiB (a quarter as signed
-    aws-chunked bodies), 4 of 8-64 MiB and one of 1 GiB as multipart in
+    aws-chunked bodies), 4 of 8-64 MiB and one of 256 MiB as multipart in
     8 MiB parts, 10 parts at a time.  Mixed: MinIO warp mixed's 45/30/15/10
     GET/HEAD/PUT/DELETE over the small objects, every answer held to a
     model of key -> sha256, then a ListObjectsV2 walk equal to the model.
@@ -5289,7 +5653,7 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
                 "GET", f"/{S3_BUCKET}/{big_key[0]}", headers={"Range": f"bytes={lo}-{hi}"})
             check(status == 206 and data == _s3_body(seed, big_key[3], big_key[1], lo, hi + 1)
                   and hdrs.get("content-range") == f"bytes {lo}-{hi}/{big_key[1]}",
-                  f"Range {lo}-{hi} of the 1 GiB object: {status}, {len(data)} B, {hdrs}")
+                  f"Range {lo}-{hi} of the 256 MiB object: {status}, {len(data)} B, {hdrs}")
         small_key = next(k for k in sorted(model) if k.startswith("small/"))
         status, (sha, n), _h, _dt = admin.request("GET", f"/{S3_BUCKET}/{small_key}",
                                                   mode="presign", sink=True)
@@ -5382,7 +5746,7 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
         status, _d, _h, _dt = admin.request("GET", "/quota/q0.bin")
         check(status == 200, f"a GET of the frozen bucket: {status}")
         print(f"s3: features on {ident}: CopyObject of a {large[1]} B object, {S3_RANGE_READS} "
-              f"Range GETs across the 1 GiB object's part boundaries, a presigned GET, 3 versions "
+              f"Range GETs across the 256 MiB object's part boundaries, a presigned GET, 3 versions "
               f"read by versionId, tagging, an anonymous 403 turned 200 by a bucket policy, "
               f"SSE {sse} (s, PUT + GET of {S3_SSE_BYTES} B), quota freeze by "
               f"s3.bucket.quota.check visible in {walls['quota_visible']:.3f}s")
@@ -5441,6 +5805,11 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
               f"({hits} hits, {misses} misses; p50 {rec['cache']['p50_ms']:.3f} ms), "
               f"/debug/cachez: {c1['entries']} entries, {c1['ram_bytes']} RAM bytes, "
               f"{c1['segment_files']} segment files")
+
+        # 4b. the native splice: the signed gateway's spliced GET views,
+        # then an open-access gateway whose streaming PUTs fan out natively
+        rec["splice"] = _s3_splice(maddr, filer.gaddr, f"127.0.0.1:{gw_metrics}", root, seed,
+                                   ident)
 
         # 5. the split of one request (in process, its bucket deleted at the end)
         rec["split"] = _s3_profile(maddr, filer.gaddr, seed, ident)
@@ -5580,7 +5949,7 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
 # -- phase 15 -----------------------------------------------------------------
 
 TLS_SMALL_N = 512  # 1-64 KiB objects over HTTPS at S3_CLIENTS clients (2,048 before phase 16, 1,024 before 17)
-TLS_BIG_BYTES = 1 << 30  # one object as multipart in S3_PART parts, S3_PART_CONCURRENCY at a time
+TLS_BIG_BYTES = 256 * MIB  # one object as multipart in S3_PART parts, S3_PART_CONCURRENCY at a time (cut from 1 GiB)
 # one spec for every process: each fires the rules of its own side and
 # service; shares the retry budgets and the EC read chain absorb.  The
 # stub never replays a stream, but the EC locator asks a live holder
@@ -5634,7 +6003,7 @@ def phase_tls(args, directory: str, ident: str, dev) -> dict:
     and seed (UNAVAILABLE on a share of the volume servers' EcShardRead
     and the gateway's LookupDirectoryEntry calls, a delay on a share of
     the filer's gRPC) and a ``WEED_SLO`` spec.  Over HTTPS: TLS_SMALL_N
-    objects of 1-64 KiB at 16 clients and one 1 GiB object as multipart;
+    objects of 1-64 KiB at 16 clients and one 256 MiB object as multipart;
     a traced PUT is one trace across the gateway, the filer and the
     volume server; ``cluster.status`` merges the members' sketches (the
     s3.put count equals the members' sum and the PUTs sent);
@@ -5827,8 +6196,14 @@ def phase_tls(args, directory: str, ident: str, dev) -> dict:
                         for name, p in (("s3", gw), ("filer", filer),
                                         *((s_.url, s_) for s_ in servers))}
 
-            _poll(lambda: any(r["name"] == "write" for url in urls
-                              for r in trace_rows()[url]), "the traced PUT's volume span", 10)
+            # the volume's span of the chunk POST: the native plane's
+            # ("native_dp", "post", replayed from its span records), or the
+            # Python handler's ("volume", "write") when the POST forwarded
+            def volume_span(r: dict) -> bool:
+                return (r["service"], r["name"]) in (("native_dp", "post"), ("volume", "write"))
+
+            _poll(lambda: any(volume_span(r) for url in urls for r in trace_rows()[url]),
+                  "the traced PUT's volume span", 10)
             rows = trace_rows()
             put_span = [r for r in rows["s3"] if r["name"] == "PutObject"]
             check(len(put_span) == 1 and put_span[0]["parent_id"] == client_span,
@@ -5840,7 +6215,7 @@ def phase_tls(args, directory: str, ident: str, dev) -> dict:
             created = [r for r in rows["filer"] if r["name"] == "CreateEntry"]
             check(len(created) == 1 and created[0]["parent_id"] == put_id
                   and created[0]["service"] == "filer", f"the filer's spans: {rows['filer']}")
-            writes = {url: [r for r in rows[url] if r["name"] == "write"] for url in urls}
+            writes = {url: [r for r in rows[url] if volume_span(r)] for url in urls}
             holder = chunk[0]["attrs"]["url"]
             check(len(writes.get(holder, [])) == 1
                   and writes[holder][0]["parent_id"] == chunk[0]["span_id"]
@@ -5850,7 +6225,8 @@ def phase_tls(args, directory: str, ident: str, dev) -> dict:
                 f"trace.dump -server 127.0.0.1:{p.metrics_port} -traceId {trace_id}"
                 for p in (gw, filer, servers[urls.index(holder)])), log, env=env)
             check(out.count(f"trace {trace_id}") == 3 and "s3:PutObject" in out
-                  and "filer:CreateEntry" in out and "volume:write" in out,
+                  and "filer:CreateEntry" in out
+                  and f"{writes[holder][0]['service']}:{writes[holder][0]['name']}" in out,
                   f"trace.dump of the traced PUT: {out!r}")
 
             # cluster.status: the merged s3.put count against the members' own
@@ -7149,6 +7525,7 @@ def main() -> int:
     ap.add_argument("--gib", type=float, default=1.0, help="volume size in GiB")
     args = ap.parse_args()
 
+    use_bytecode_cache()
     import torch
 
     if not torch.cuda.is_available():
@@ -7159,6 +7536,8 @@ def main() -> int:
     from seaweedfs_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
+    arm_deadline()
+    progress("started; building the kernels and the host libraries")
     dev = torch.device("cuda", 0)
     ident = gpu_identity()
     print(f"device: {torch.cuda.get_device_name(0)} ({ident}), torch {torch.__version__}, "
@@ -7178,6 +7557,7 @@ def main() -> int:
               f"{table_kernels}")
         return 1
 
+    progress(f"built {len(built)} libraries")
     rates = card_rates()
     print(f"rates: {rates['sms']} SMs at clocks.max.sm {rates['clock_hz'] / 1e6:.0f} MHz: "
           f"{rates['logic_ops_per_s']:.6g} logic ops/s, {HBM_BYTES_PER_S:.6g} B/s of device memory")
@@ -7186,8 +7566,10 @@ def main() -> int:
         kern = phase_kernel(rng, dev, rates)
         planes = phase_planes(rng, dev, rates, ident,
                               sorted({n for _off, n in shard_chunks(int(args.gib * (1 << 30)))}))
+        progress("phases 1-2 passed: every kernel held against its plain version")
         main_path = phase_main_path(args, ident, dev, rates)
     except SmokeFailure as e:
+        progress(f"FAIL: {e}"[:2000])
         print(f"FAIL: {e}")
         return 1
     t6, t64 = kern["timings"][6 * MIB], kern["timings"][64 * MIB]

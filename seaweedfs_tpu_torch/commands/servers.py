@@ -51,12 +51,16 @@ SIGINT or SIGTERM stops any of them.
 Every process honours the environment as the JAX package's do:
 ``WEEDTPU_TLS_CA``/``_CERT``/``_KEY`` (mutual TLS on every gRPC hop;
 ``tls.gen`` mints them), ``WEED_FAULTS``/``WEED_FAULTS_SEED`` (fault
-injection), ``WEED_SLO`` (the /debug/sloz spec) and ``SEAWEEDFS_TPU_TRACE``
-(0 stops recording spans).
+injection), ``WEED_SLO`` (the /debug/sloz spec), ``SEAWEEDFS_TPU_TRACE``
+(0 stops recording spans), ``SEAWEEDFS_TPU_NATIVE_DP``/``_PX`` (0 runs the
+volume server's front door or the gateways' splice in Python) and
+``WEED_DRAIN_S`` (how long a SIGTERMed volume server lets the requests in
+flight finish, default 5).
 """
 
 from __future__ import annotations
 
+import os
 import signal
 import sys
 import threading
@@ -77,6 +81,18 @@ def _wait_forever() -> int:
         signal.signal(sig, handler)
     stop.wait()
     return fired[0]
+
+
+def _drain_s(sig: int) -> float:
+    """Drain budget of a daemon's teardown: SIGTERM is the orchestrated
+    restart (finish the requests in flight, ``$WEED_DRAIN_S`` seconds,
+    default 5); SIGINT stays an immediate exit, as in the JAX package."""
+    if sig != signal.SIGTERM:
+        return 0.0
+    try:
+        return float(os.environ.get("WEED_DRAIN_S", "5") or 0)
+    except ValueError:
+        return 5.0
 
 
 @command("master", "run a master (topology, heartbeats, assigns, EC lookups, admin lock, HA)")
@@ -157,10 +173,11 @@ def run_volume(args) -> int:
     metrics = f", metrics on {vs.ip}:{vs.metrics_port}" if vs.metrics_port is not None else ""
     print(f"volume server HTTP on {vs.url}, gRPC on {vs.ip}:{vs.grpc_port} (device {vs.device})"
           f"{metrics}", flush=True)
+    sig = 0
     try:
-        _wait_forever()
+        sig = _wait_forever()
     finally:
-        vs.stop()
+        vs.stop(drain_s=_drain_s(sig))
     return 0
 
 

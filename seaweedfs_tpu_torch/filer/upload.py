@@ -1,10 +1,9 @@
 """Chunked upload: split a stream into chunks, assign fids, POST to volume
 servers in parallel (reference filer_server_handlers_write_upload.go:56
 uploadReaderToChunks + assignNewFileInfo:37).  The port's copy of
-seaweedfs_tpu/filer/upload.py, its Python path: ``FidPool(native_stash=True)``
-behaves as the JAX one does without its native library (the Python pools
-serve), since the native data plane is not ported (ROADMAP Queue A item 9).
-Each chunk POST runs in a ``put_chunk`` client span whose traceparent the
+seaweedfs_tpu/filer/upload.py: ``FidPool(native_stash=True)`` parks its
+reservations in the native data plane's fid stash (csrc/dp.cpp
+``sw_px_stash_*``) unless ``SEAWEEDFS_TPU_NATIVE_PX=0``.  Each chunk POST runs in a ``put_chunk`` client span whose traceparent the
 volume server's ``write`` span joins (stats/trace.py).
 
 One Assign RPC covers a batch of chunks via the ``fid_N`` convention
@@ -53,9 +52,13 @@ class FidPool:
     master has since stopped writing to.  Expired or raced-away fids are
     simply unused sequence numbers — the volume never saw them.
 
-    ``native_stash=True`` selects, in the JAX package, the native stash
-    (dp.cpp sw_px_stash_*); the port has no native plane, so the Python
-    pools serve, as in the JAX package when its library is absent."""
+    With ``native_stash=True`` (and the splice not disabled) the
+    reservations are parked in the native plane instead (dp.cpp
+    ``sw_px_stash_*``): each entry carries the fid, the full holder set
+    (primary + replicas) and the assign auth, so the PUT fan-out draws a
+    ready fid + replica set with one native call.  The native stash
+    round-robins stripes like the Python pools (each batch lands on one
+    volume; FIFO would serialize writers behind one appender)."""
 
     def __init__(
         self,
@@ -75,7 +78,32 @@ class FidPool:
         # fid_tuple = (fid, url, auth, (replica_url, ...))
         self._pools: dict[tuple, list] = {}
         self._rr = 0
+        self._stripe_seq = 0
+        self._stash_keys: dict[tuple, int] = {}
         self._lock = threading.Lock()
+
+    def _stash_key(self, key: tuple) -> int:
+        # salted with the master addresses: the native stash is
+        # process-global, and two gateways against different clusters in
+        # one process must never take each other's reservations
+        cached = self._stash_keys.get(key)
+        if cached is not None:
+            return cached
+        salt = (tuple(self.master.master_addresses), key)
+        kh = int.from_bytes(hashlib.blake2b(repr(salt).encode(), digest_size=8).digest(),
+                            "little")
+        if len(self._stash_keys) < 256:  # placement tuples are few
+            self._stash_keys[key] = kh
+        return kh
+
+    def _stash(self):
+        """The native stash module, or None when not asked for or the
+        splice is disabled."""
+        if not self.native_stash:
+            return None
+        from seaweedfs_tpu_torch.native import dataplane
+
+        return dataplane if dataplane.px_lib() is not None else None
 
     def take(
         self,
@@ -111,6 +139,22 @@ class FidPool:
         key = (collection, replication, ttl_seconds, disk_type, writable_volume_count)
         out: list[tuple[str, str, str, tuple[str, ...]]] = []
         now = time.monotonic()
+        stash = self._stash()
+        stash_low = False
+        if stash is not None:
+            kh = self._stash_key(key)
+            remaining = 0
+            while len(out) < count:
+                ent = stash.px_stash_take(kh)
+                if ent is None:
+                    break
+                fid, addrs, auth, remaining = ent
+                out.append((fid, addrs[0], auth, tuple(addrs[1:])))
+            # the low-water signal rides the take itself (approximate
+            # leftover depth): no second scan per draw
+            stash_low = remaining < self.batch
+            if len(out) == count and not stash_low:
+                return out
         with self._lock:
             batches = [
                 b for b in self._pools.get(key, []) if b[0] > now and b[1]
@@ -122,7 +166,7 @@ class FidPool:
                 if not batches[self._rr][1]:
                     batches.pop(self._rr)
             refill = len(batches) < self.stripes
-        if len(out) == count and not refill:
+        if len(out) == count and not refill and not stash_low:
             return out
         # refill outside the lock — the assign RPC must not serialize
         # every uploading thread behind one holder
@@ -133,6 +177,16 @@ class FidPool:
         )
         while len(out) < count:
             out.append(fresh.pop(0))
+        if fresh and stash is not None:
+            kh = self._stash_key(key)
+            with self._lock:
+                self._stripe_seq += 1
+                stripe = self._stripe_seq
+            ttl_ms = int(self.ttl * 1000)
+            # stash-full leftovers stay Python-side
+            fresh = [ent for ent in fresh
+                     if not stash.px_stash_push(kh, stripe, ent[0], [ent[1], *ent[3]], ent[2],
+                                                ttl_ms)]
         if fresh:
             with self._lock:
                 batches = self._pools.setdefault(key, [])

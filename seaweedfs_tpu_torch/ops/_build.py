@@ -2,7 +2,11 @@
 
 Each ``csrc/<name>.cu`` becomes a shared library with a plain C interface,
 compiled by nvcc for Hopper (``sm_90a``); each host source
-``csrc/<name>.cpp`` (the CRC32C of util/crc32c.py) one compiled by g++.
+``csrc/<name>.cpp`` (the CRC32C of util/crc32c.py, the GF(2^8) host apply,
+the data plane) one compiled by g++.  A host library may link further
+sources and take further flags (``HOST_LINKS``, ``HOST_FLAGS``): ``dp``,
+the native data plane, is dp.cpp with crc32c.cpp's ``sw_crc32c``, built
+with ``-pthread``.
 Both go into ``build/kernels/`` at the repo root
 (listed in .gitignore) under a name keyed by a hash of the sources and
 flags, so an edited source rebuilds and concurrent builders never share a
@@ -30,6 +34,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+# host libraries built from more than one source, and their own flags
+HOST_LINKS = {"dp": ("crc32c.cpp",)}
+HOST_FLAGS = {"dp": ("-pthread",)}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -76,12 +83,20 @@ def library_path(name: str) -> Path:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         deps = sorted(CSRC_DIR.glob("*.cu*"))  # .cu and shared .cuh headers
     else:
-        h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-        deps = [src]
+        h = hashlib.sha256(" ".join(_gxx_flags(name)).encode())
+        deps = [src, *_links(name)]
     for dep in deps:
         h.update(dep.name.encode())
         h.update(dep.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _gxx_flags(name: str) -> tuple[str, ...]:
+    return (*GXX_FLAGS, *HOST_FLAGS.get(name, ()))
+
+
+def _links(name: str) -> list[Path]:
+    return [CSRC_DIR / f for f in HOST_LINKS.get(name, ())]
 
 
 def _log_path(library: Path) -> Path:
@@ -97,8 +112,10 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     src = _source(name)
-    compiler = [nvcc(), *NVCC_FLAGS] if src.suffix == ".cu" else [gxx(), *GXX_FLAGS]
-    cmd = [*compiler, "-o", str(tmp), str(src)]
+    if src.suffix == ".cu":
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    else:
+        cmd = [gxx(), *_gxx_flags(name), "-o", str(tmp), str(src), *map(str, _links(name))]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )

@@ -8,9 +8,13 @@ CompleteMultipartUpload with zero data movement — the same trick the
 reference plays with its chunk manifests.
 
 The port's copy of seaweedfs_tpu/s3/s3_server.py.  The gateway launches no
-kernel: its objects live in volumes whose servers run the codec.  Bodies
-move on the Python path (the JAX package's path when its native splice is
-unavailable).  Every request runs in an edge trace span (a new trace
+kernel: its objects live in volumes whose servers run the codec.  Object
+bodies move through the native splice (filer/splice.py over csrc/dp.cpp's
+px verbs, as the JAX package's): a GET relays chunk views volume->client
+(hot-chunk cache first), an open-access streaming PUT fans each chunk out
+to its holders with the ETag computed in-stream; never under SSE or TLS,
+and not with ``SEAWEEDFS_TPU_NATIVE_PX=0``.  A splice library that cannot
+be built or loaded fails ``start``.  Every request runs in an edge trace span (a new trace
 unless the client sent a ``traceparent``) and records into its op
 class's latency sketch (stats/sketch.py); ``tls_cert``/``tls_key`` serve
 HTTPS.  ``filer`` may be a ``ShardedFilerClient`` (filer/shard_ring.py): a
@@ -471,6 +475,9 @@ class S3ApiServer:
         return self._httpd.server_address[1] if self._httpd else self._port
 
     def start(self) -> None:
+        from seaweedfs_tpu_torch.native import dataplane
+
+        dataplane.require_px()  # an enabled splice that cannot load fails here
         handler = type("Handler", (_S3HttpHandler,), {"s3": self})
         self._httpd = PooledHTTPServer(
             (self.ip, self._port), handler, reuse_port=self.reuse_port
@@ -671,10 +678,23 @@ class S3ApiServer:
             self.filer.mkdirs(self.object_path(bucket, key.rstrip("/")))
             return hashlib.md5(b"").hexdigest(), ""
         reader = io.BytesIO(body) if isinstance(body, (bytes, bytearray)) else body
-        chunks, content, etag = chunk_upload.upload_stream(
-            self.master, reader, chunk_size=self.chunk_size,
-            fid_pool=self.fid_pool,
+        from seaweedfs_tpu_torch.filer import splice as native_splice
+
+        # native PUT splice: a streaming body relays client->volume(s) with
+        # the MD5 ETag computed in-stream (None: not applicable, or no
+        # holder reachable with the socket untouched; the Python path
+        # below replays it either way)
+        spliced = native_splice.try_put_splice(
+            self.master, reader, fid_pool=self.fid_pool,
+            chunk_size=self.chunk_size, mime=mime,
         )
+        if spliced is not None:
+            chunks, content, etag = spliced
+        else:
+            chunks, content, etag = chunk_upload.upload_stream(
+                self.master, reader, chunk_size=self.chunk_size,
+                fid_pool=self.fid_pool,
+            )
         state = self.versioning_state(bucket)
         extended = {"etag": etag.encode(), **meta}
         if state == "Enabled":
@@ -2448,6 +2468,9 @@ class _S3HttpHandler(QuietHandler):
                     orig_reply(code, body, ctype, {**cors_extra, **(headers or {})}, length)
 
                 self._reply = reply_cors
+                # the native splice writes its own response head: it
+                # takes the granted CORS headers from here
+                self._splice_headers = cors_extra
 
             # authentication, then bucket-policy authorization: an explicit
             # Deny beats any identity; a policy Allow admits anonymous
@@ -2569,6 +2592,7 @@ class _S3HttpHandler(QuietHandler):
         finally:
             release()
             self._reply = orig_reply
+            self._splice_headers = None
 
     def do_GET(self):
         self._dispatch()
@@ -2612,7 +2636,13 @@ class _S3HttpHandler(QuietHandler):
         length = int(self.headers.get("Content-Length", "0") or 0)
         if length <= 0:
             return None
-        return StreamingBody(self.rfile, length)
+        import ssl
+
+        # the raw client socket goes along so the native PUT splice can
+        # relay body bytes client->volume; never under TLS (the native
+        # loop reads raw fds, not the SSL record layer)
+        conn = None if isinstance(self.connection, ssl.SSLSocket) else self.connection
+        return StreamingBody(self.rfile, length, connection=conn)
 
     def do_POST(self):
         self._dispatch(self._read_body())
@@ -2789,9 +2819,23 @@ class _S3HttpHandler(QuietHandler):
                 extra_headers={**extra, **sse_hdrs},
             )
             return
+        from seaweedfs_tpu_torch.filer import splice as native_splice
+
+        mime = entry.attr.mime or "binary/octet-stream"
+
+        def _splice(status, lo, hi, headers):
+            # native zero-copy relay volume->client (filer/splice.py),
+            # hot-chunk cache tier first (x-weed-cache attribution);
+            # splice_entry records status and delivered bytes on the
+            # handler itself for the metrics and access log
+            return native_splice.splice_entry(
+                self, self.s3.master, entry, status, lo, hi, mime, headers,
+                cache=self.s3.chunk_cache,
+            )
+
         self.reply_ranged(
             entry.size,
-            entry.attr.mime or "binary/octet-stream",
+            mime,
             lambda lo, hi: chunk_reader.read_entry(
                 self.s3.master, entry, lo, hi - lo + 1
             ),
@@ -2803,6 +2847,7 @@ class _S3HttpHandler(QuietHandler):
                 self.s3.master, entry, lo, hi - lo + 1,
                 chunk_cache=self.s3.chunk_cache,
             ),
+            splice=_splice,
         )
 
     def _do_head(self, q, bucket, key, body):
@@ -2985,6 +3030,11 @@ class _S3HttpHandler(QuietHandler):
         hdrs = {"ETag": f'"{etag}"', **sse_hdrs}
         if vid:
             hdrs["x-amz-version-id"] = vid
+        # PUT-side plane attribution: which plane moved the body, and how
+        # long the batched replica acks took after the last body byte
+        if getattr(body, "px_spliced", 0):
+            hdrs["x-weed-spliced"] = "1"
+            hdrs["x-weed-put-ack-us"] = str(getattr(body, "px_ack_ns", 0) // 1000)
         self._reply(200, headers=hdrs)
 
     def _do_post(self, q, bucket, key, body):

@@ -15,9 +15,12 @@ device.  Its HTTP handlers run in server spans joined to the caller's
 ``traceparent``, each metadata gRPC verb records into its ``meta.*``
 latency sketch (stats/sketch.py), and ``tls_cert``/``tls_key`` put the
 HTTP listener behind TLS (its gRPC is mutual TLS when ``WEEDTPU_TLS_*``
-are set, as every server's; rpc.py).  Left for later work, each refused
-when asked for rather than ignored: the native splice of chunk bodies
-(ROADMAP Queue A item 9) and the ``notify`` bus (item 6).
+are set, as every server's; rpc.py).  A GET of a chunked file tries the
+native splice first (filer/splice.py: chunk views relayed volume->client by
+csrc/dp.cpp's px verbs; never over TLS, and not with
+``SEAWEEDFS_TPU_NATIVE_PX=0``); a splice library that cannot be built or
+loaded fails ``start``.  Left for later work, refused when asked for rather
+than ignored: the ``notify`` bus (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -197,6 +200,8 @@ class _FilerHttpHandler(QuietHandler):
         if entry.is_directory:
             self._list_dir(path, q)
             return
+        from seaweedfs_tpu_torch.filer import splice as native_splice
+
         mime = entry.attr.mime or "application/octet-stream"
         try:
             self.reply_ranged(
@@ -209,6 +214,11 @@ class _FilerHttpHandler(QuietHandler):
                 # file never materializes in filer memory
                 stream=lambda lo, hi: chunk_reader.stream_entry(
                     self.fs.master, entry, lo, hi - lo + 1
+                ),
+                # native zero-copy relay first (filer/splice.py): chunk
+                # bodies go volume->client without surfacing in CPython
+                splice=lambda status, lo, hi, headers: native_splice.splice_entry(
+                    self, self.fs.master, entry, status, lo, hi, mime, headers
                 ),
             )
         except (IOError, OSError, KeyError, grpc.RpcError) as e:
@@ -474,6 +484,9 @@ class FilerServer:
         return f"{self.ip}:{self._grpc_port}"
 
     def start(self) -> None:
+        from seaweedfs_tpu_torch.native import dataplane
+
+        dataplane.require_px()  # an enabled splice that cannot load fails here
         handler = type("Handler", (_FilerHttpHandler,), {"fs": self})
         self._httpd = PooledHTTPServer((self.ip, self._port), handler)
         if self.tls_cert:

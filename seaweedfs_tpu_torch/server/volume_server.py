@@ -2,8 +2,7 @@
 service on the port's pipeline, the admin of normal volumes, shard copies
 between servers and the heartbeat stream to the master.
 
-The port of seaweedfs_tpu/server/volume_server.py with its native data
-plane off (reference weed/server/volume_server_handlers_read.go:132,
+The port of seaweedfs_tpu/server/volume_server.py (reference weed/server/volume_server_handlers_read.go:132,
 volume_server_handlers_write.go:18, volume_grpc_erasure_coding.go:39-507,
 volume_grpc_admin.go, volume_grpc_copy.go,
 volume_grpc_client_to_master.go:51-113):
@@ -51,7 +50,18 @@ The Store's options (``needle_map_kind``, ``backend_kind``,
 ``offset_width``) pass through; ``public_url`` (default ``ip:port``) is
 what the heartbeat advertises for reads.
 
-Not ported: the native C++ data plane (ROADMAP Queue A item 9).
+The native front door (native/dataplane.py, csrc/dp.cpp), on unless
+``SEAWEEDFS_TPU_NATIVE_DP=0``: the C++ loop binds the public port and
+serves the needle GET, POST and DELETE of the plain disk volumes it holds
+(with the 001 fan-out to replica holders the drainer resolves through the
+master, 2 s deadline) and the EC GET of fully local intervals; everything
+else is forwarded byte for byte to this module's handler, which moves to
+``127.0.0.1:0``.  Writes are forwarded too when a JWT key is set or the
+fsync policy is ``always``/``interval``.  A library that cannot be built or
+loaded fails ``start``.  ``/metrics`` adds
+``seaweedfs_volume_native_dp{kind=...}`` and the per-verb
+``weedtpu_volume_server_native_request`` families, ``/status``
+``NativeDataPlane``.
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ import queue
 import re
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from urllib.parse import parse_qs, urlparse
 
@@ -92,7 +103,7 @@ from seaweedfs_tpu_torch.storage.needle import (
 from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.super_block import SUPER_BLOCK_SIZE, SuperBlock, ttl_to_seconds
 from seaweedfs_tpu_torch.storage.types import get_actual_size, size_is_deleted, size_is_valid
-from seaweedfs_tpu_torch.storage.volume import NotFoundError, volume_file_name
+from seaweedfs_tpu_torch.storage.volume import NotFoundError, parse_fsync_policy, volume_file_name
 from seaweedfs_tpu_torch.storage.volume_info import (
     VolumeInfo,
     maybe_load_volume_info,
@@ -274,6 +285,8 @@ class VolumeServerGrpcServicer:
 
     def volume_status(self, request, context):
         vol = self._volume(request.volume_id, context)
+        if self.vs._dp is not None:  # fold pending native-write events in
+            self.vs._dp.flush_events()
         return vs_pb.VolumeStatusResponse(volume_size=vol.dat_size(), file_count=vol.file_count(),
                                           read_only=vol.read_only,
                                           last_modified_ns=vol.last_append_at_ns)
@@ -298,6 +311,8 @@ class VolumeServerGrpcServicer:
 
     def volume_vacuum(self, request, context):
         vol = self._volume(request.volume_id, context)
+        if self.vs._dp is not None:
+            self.vs._dp.flush_events()
         if vol.garbage_ratio() < request.garbage_threshold:
             return vs_pb.VolumeVacuumResponse(reclaimed_bytes=0)
         reclaimed = vol.vacuum()
@@ -386,6 +401,8 @@ class VolumeServerGrpcServicer:
         """Live needle keys, sizes and offsets of one volume (the
         volume.fsck census, reference volume_grpc_query.go)."""
         vol = self._volume(request.volume_id, context)
+        if self.vs._dp is not None:
+            self.vs._dp.flush_events()
         with vol._write_lock:  # MemDb iterates the live dict: snapshot
             needles = list(vol.nm.db.values())
         return vs_pb.VolumeNeedleIdsResponse(keys=[nv.key for nv in needles],
@@ -756,7 +773,14 @@ class _VolumeHttpHandler(QuietHandler):
     def do_GET(self):
         url, q, fid = self._parse()
         if url.path == "/metrics":
-            self._reply(200, stats.render_text().encode(), "text/plain; version=0.0.4")
+            # stats.NATIVE_DP_REQUESTS (per-verb counters and latency
+            # histograms polled from the C++ loop) renders inside
+            # render_text(); the aggregate family follows
+            text = stats.render_text()
+            if self.vs._dp is not None:
+                text += "".join(f'seaweedfs_volume_native_dp{{kind="{k}"}} {v}\n'
+                                for k, v in self.vs._dp.stats().items())
+            self._reply(200, text.encode(), "text/plain; version=0.0.4")
             return
         if url.path.startswith("/debug/"):
             from seaweedfs_tpu_torch.util import debugz
@@ -769,6 +793,8 @@ class _VolumeHttpHandler(QuietHandler):
             info = {"Version": "weed-tpu",
                     "Volumes": sum(l.volume_count() for l in store.locations),
                     "EcShards": sum(l.ec_shard_count() for l in store.locations)}
+            if self.vs._dp is not None:
+                info["NativeDataPlane"] = self.vs._dp.stats()
             self._reply(200, json.dumps(info).encode(), "application/json")
             return
         t0 = time.perf_counter()
@@ -976,6 +1002,10 @@ class _VolumeHttpHandler(QuietHandler):
         self._reply(202, b"{}", "application/json")
 
 
+class _LookupDeadline(Exception):
+    """A bounded master lookup ran out of time before the next master."""
+
+
 class VolumeServer:
     """One volume server: the Store over its disks (its volumes loaded),
     the EC shard locator, the HTTP and gRPC servers, the optional
@@ -1060,6 +1090,7 @@ class VolumeServer:
         self.upload_limiter = InFlightLimiter(_IN_FLIGHT_LIMIT)
         self.download_limiter = InFlightLimiter(_IN_FLIGHT_LIMIT)
         self.jwt_key = jwt_key or os.environ.get("WEED_JWT_KEY", "")
+        self._dp = None  # the native data plane, set in start()
 
     @property
     def public_url(self) -> str:
@@ -1122,8 +1153,8 @@ class VolumeServer:
         vol = self.store.find_volume(vid)
         if vol is None or vol.super_block.replica_placement.copy_count <= 1:
             return None
-        targets = [u for u in self.lookup_volume_urls(vid) if u != self.url]
         need = vol.super_block.replica_placement.copy_count - 1
+        targets = self.replica_holders(vid, need)
         if len(targets) < need:
             # failing loudly beats a 201 with missing copies (write-all)
             return f"replication short: {len(targets)} replica holders known, {need} required"
@@ -1149,6 +1180,25 @@ class VolumeServer:
             errors = [e for e in self._fanout_pool.map(send, targets) if e]
         return "; ".join(errors) if errors else None
 
+    def replica_holders(self, vid: int, need: int, timeout: float | None = None) -> list[str]:
+        """The other holders of vid.  A cached answer that names fewer than
+        ``need`` (the master may have heard of only some holders of a
+        volume just grown) is dropped and the master asked again, so one
+        early lookup does not refuse the volume's replicated writes for the
+        cache's whole TTL."""
+        urls = [u for u in self.lookup_volume_urls(vid, timeout) if u != self.url]
+        if len(urls) < need:
+            self._lookup_cache.pop(vid, None)
+            urls = [u for u in self.lookup_volume_urls(vid, timeout) if u != self.url]
+        return urls
+
+    def _native_replicas(self, vid: int) -> list[str]:
+        """The native plane's replica resolver (its event drainer calls it;
+        2 s bound, so a blackholed master cannot stall the drainer)."""
+        vol = self.store.find_volume(vid)
+        need = vol.super_block.replica_placement.copy_count - 1 if vol is not None else 0
+        return self.replica_holders(vid, need, timeout=2.0)
+
     def masters_now(self) -> list[str]:
         """The master the heartbeat loop reaches now, then the rest of the
         ``-mserver`` list: the order every lookup tries them in."""
@@ -1164,24 +1214,39 @@ class VolumeServer:
 
     _LOOKUP_TTL = 10.0  # seconds; the reference caches vid locations client-side
 
-    def lookup_volume_urls(self, vid: int) -> list[str]:
+    def lookup_volume_urls(self, vid: int, timeout: float | None = None) -> list[str]:
         """All holder URLs for vid per the master (self included if a
         holder).  TTL-cached, including negative results, so a burst of
         misses does not turn 1:1 into master RPCs (reference wdclient
-        vidMap)."""
+        vidMap).  ``timeout`` bounds the whole lookup, every master tried
+        included, with one attempt per master: the native plane's event
+        drainer resolves replica holders with it and must not hang on a
+        blackholed master."""
         now = time.monotonic()
         cached = self._lookup_cache.get(vid)
         if cached is not None and now - cached[1] < self._LOOKUP_TTL:
             return list(cached[0])
         if not self.master_address:
             return []
+        req = m_pb.LookupVolumeRequest(volume_or_file_ids=[str(vid)])
         try:
-            # the stub retries a transient UNAVAILABLE (and evicts the dead
-            # channel): an empty answer here fails a replicated write
-            # ("replication short")
-            resp = self.master_call(
-                "LookupVolume", m_pb.LookupVolumeRequest(volume_or_file_ids=[str(vid)]), timeout=10)
-        except grpc.RpcError:
+            if timeout is None:
+                # the stub retries a transient UNAVAILABLE (and evicts the
+                # dead channel): an empty answer here fails a replicated
+                # write ("replication short")
+                resp = self.master_call("LookupVolume", req, timeout=10)
+            else:
+                deadline = now + timeout
+
+                def call_at(addr):
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        raise _LookupDeadline()
+                    return rpc.master_stub(addr).LookupVolume(req, timeout=left,
+                                                              wd_max_attempts=1)
+
+                resp = resilience.failover_call(self.masters_now(), call_at, rotations=1)
+        except (grpc.RpcError, _LookupDeadline):
             return []  # master unreachable: do not cache
         urls = [loc.url for vl in resp.volume_id_locations for loc in vl.locations]
         if urls:
@@ -1378,10 +1443,13 @@ class VolumeServer:
             self._stop.wait(1.0 + resilience.backoff_s(min(failures, 5)))
 
     def start(self) -> None:
+        from seaweedfs_tpu_torch.native import dataplane
         from seaweedfs_tpu_torch.ops import rs_cuda, sched_cache  # noqa: F401 — sched_cache's family
         from seaweedfs_tpu_torch.ops.rs_torch import resolve_device
 
         self.device = resolve_device(self._device_spec)
+        if dataplane.enabled():
+            dataplane.load()  # a plane that cannot build fails before anything starts
         for kernel, counter in (("gf_apply", "launches"), ("gf_planes_apply", "plane_launches"),
                                 ("gf_pack", "pack_launches"), ("gf_unpack", "unpack_launches")):
             stats.CUDA_KERNEL_LAUNCHES.set_function(
@@ -1391,8 +1459,12 @@ class VolumeServer:
         self.grpc_port = rpc.add_port(self._grpc_server, f"{self.ip}:{self.grpc_port}")
         self._grpc_server.start()
         handler = type("Handler", (_VolumeHttpHandler,), {"vs": self})
-        self._http_server = PooledHTTPServer((self.ip, self.port), handler)
-        self.port = self._http_server.server_address[1]  # ip:port names the node
+        self._dp = None
+        if dataplane.enabled():
+            self._start_native(dataplane, handler)
+        else:
+            self._http_server = PooledHTTPServer((self.ip, self.port), handler)
+            self.port = self._http_server.server_address[1]  # ip:port names the node
         # the EC locator asks the master the heartbeat reaches now, then the
         # rest of the list (the JAX locator asks only the first configured
         # one, so a dead first -mserver leaves it no remote shard)
@@ -1417,7 +1489,44 @@ class VolumeServer:
             self._heartbeat_thread = threading.Thread(target=self._heartbeat_loop, daemon=True)
             self._heartbeat_thread.start()
 
-    def stop(self) -> None:
+    def _start_native(self, dataplane, handler) -> None:
+        """The native front door: the C++ loop binds the public port and
+        owns the needle hot path; this module's handler moves to an
+        internal loopback port and serves what the loop forwards.  Raises
+        when the library cannot be built or loaded, or the port bound."""
+        # the native appender never fsyncs and knows no JWT: with a key or
+        # a per-write fsync policy every write forwards to Python (reads
+        # stay native), where the token check and the barrier apply
+        forward_writes = bool(self.jwt_key) or parse_fsync_policy(
+            self.store.fsync)[0] in ("always", "interval")
+        dp = dataplane.NativeDataPlane.create(self.ip, self.port, self.store,
+                                              jwt_required=forward_writes)
+        self._dp = dp
+        # the C++ loop's per-verb counters and latency histograms in
+        # /metrics, through the polled-snapshot seam; weakref'd so a
+        # stopped server's plane is not pinned (the last one started wins)
+        dp_ref = weakref.ref(dp)
+        stats.NATIVE_DP_REQUESTS.set_provider(
+            lambda: (lambda d: d.metrics_snapshot() if d else None)(dp_ref()))
+        # the forward target is always dialled over loopback: binding
+        # self.ip would fail every forward when -ip names a NIC address
+        self._http_server = PooledHTTPServer(("127.0.0.1", 0), handler)
+        self.port = dp.port
+        self.store.dp = dp
+        # replicated primaries fan out inside the plane (reference
+        # topology/store_replicate.go:27); Python only resolves the holder
+        # addresses, which the event drainer refreshes.  The 2 s deadline
+        # keeps a blackholed master from stalling the drainer (native
+        # writes would go invisible to Python reads meanwhile)
+        dp.replica_resolver = self._native_replicas
+        for loc in self.store.locations:
+            for vol in list(loc.volumes.values()):
+                dp.register_volume(vol)
+            for ev in list(loc.ec_volumes.values()):
+                dp.register_ec_volume(ev)
+        dp.start(self._http_server.server_address[1])
+
+    def stop(self, drain_s: float = 0.0) -> None:
         self._stop.set()
         if self.scrubber is not None:
             self.scrubber.stop()
@@ -1425,9 +1534,20 @@ class VolumeServer:
             self.auto_vacuum.stop()
         if self._heartbeat_thread is not None:
             self._heartbeat_thread.join(timeout=5)
+        if self._dp is not None:
+            # the native loop owns the client-facing listener and the
+            # Python server is only its forward target: the loop stops
+            # accepting before the Python server drains
+            self.store.dp = None
+            self._dp.stop()
         if self._http_server is not None:
             self._http_server.shutdown()
             self._http_server.server_close()
+            if drain_s > 0:
+                left = self._http_server.drain(drain_s)
+                if left:
+                    wlog.warning("volume %s: drain timed out with %d request(s) in flight",
+                                 self.url, left)
         if self._grpc_server is not None:
             # wait for termination: a mid-grace return leaves the port
             # half-dead (client RPCs get CANCELLED, not UNAVAILABLE)

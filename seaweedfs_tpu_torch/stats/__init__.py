@@ -6,7 +6,8 @@ strings: the repair budget's (ops/repair_budget), the plane billing's
 HTTP data plane's (``VOLUME_REQUESTS``, ``VOLUME_REQUEST_SECONDS``,
 ``MASTER_REQUESTS``), the filer's (``FILER_REQUESTS``,
 ``FILER_REQUEST_SECONDS``), the raft master's (``RAFT_STATE``), the
-maintenance task queue's (``ADMIN_TASKS``), the
+maintenance task queue's (``ADMIN_TASKS``), the native data plane's
+(``NATIVE_DP_REQUESTS``, a ``SnapshotFamily`` polled from the C++ loop), the
 scrubber's and vacuum's (``DISK_CORRUPTION``, ``SCRUB_*``), the flight
 recorder's (``EVENTS_DROPPED``), the S3 gateway's (``S3_*``), its tenant
 QoS's (``QOS_*``) and caches' (``ENTRY_CACHE``, ``CHUNK_CACHE*``,
@@ -161,6 +162,62 @@ class Histogram:
         return "\n".join(lines)
 
 
+class SnapshotFamily:
+    """Counter and histogram families rendered from a polled snapshot: the
+    seam that shows the native C++ data plane's per-verb telemetry
+    (native/dataplane.py ``metrics_snapshot``) in the same /metrics output
+    as the Python families.  ``set_provider`` installs a zero-arg callable
+    returning ``{label: {"count", "sum_seconds", "buckets"}}``, buckets
+    being cumulative ``(le_seconds, count)`` pairs; the last caller wins,
+    and a provider weakrefs its owner so a stopped server renders
+    nothing."""
+
+    def __init__(self, name: str, help_text: str = "", label: str = "verb"):
+        self.name = name
+        self.help = help_text
+        self.label = label
+        self._lock = threading.Lock()
+        self._provider = None
+        _register(self)
+
+    def set_provider(self, fn) -> None:
+        with self._lock:
+            self._provider = fn
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            provider = self._provider
+        if provider is None:
+            return {}
+        try:
+            return provider() or {}
+        except Exception:  # noqa: BLE001 — sampling must not break a scrape
+            return {}
+
+    def render(self) -> str:
+        snap = self.snapshot()
+        lines = [f"# HELP {self.name}_total {self.help}", f"# TYPE {self.name}_total counter"]
+        if not snap:
+            lines.append(f"{self.name}_total 0")
+        for key, row in sorted(snap.items()):
+            # counts print as exact ints: %g's 6 significant digits would
+            # put +Inf below a finite bucket past ~1e6 requests
+            lines.append(f"{self.name}_total{_fmt_labels(((self.label, key),))} "
+                         f"{int(row['count'])}")
+        lines += [f"# HELP {self.name}_seconds {self.help} latency",
+                  f"# TYPE {self.name}_seconds histogram"]
+        for key, row in sorted(snap.items()):
+            labels = ((self.label, key),)
+            for le, cum in row.get("buckets", ()):
+                lines.append(f"{self.name}_seconds_bucket{_fmt_labels(labels + (('le', le),))} "
+                             f"{cum}")
+            lines.append(f"{self.name}_seconds_bucket{_fmt_labels(labels + (('le', '+Inf'),))} "
+                         f"{int(row['count'])}")
+            lines.append(f"{self.name}_seconds_sum{_fmt_labels(labels)} {row['sum_seconds']:g}")
+            lines.append(f"{self.name}_seconds_count{_fmt_labels(labels)} {int(row['count'])}")
+        return "\n".join(lines)
+
+
 def render_text() -> str:
     with _FAMILIES_LOCK:
         families = list(_FAMILIES)
@@ -290,6 +347,10 @@ PLANE_OP_SECONDS = Counter(
 ADMIN_TASKS = Counter(
     "weedtpu_admin_tasks_total",
     "Maintenance tasks by kind and outcome",
+)
+NATIVE_DP_REQUESTS = SnapshotFamily(
+    "weedtpu_volume_server_native_request",
+    "Native data-plane requests by verb",
 )
 RAFT_STATE = Gauge(
     "weedtpu_master_raft",

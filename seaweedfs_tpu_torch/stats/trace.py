@@ -13,6 +13,13 @@ Finished spans land in a bounded per-process ring buffer exposed at
 command.  In-process clusters (tests, ``cli server``) share one buffer;
 multi-process clusters read each process's own /debug/tracez.
 
+Requests the native data plane serves in C++ (a needle GET, POST or DELETE
+that carried a ``traceparent``) leave packed span records in the plane;
+native/dataplane.py drains them (``sw_dp_trace_drain``) on its event
+cadence and replays each through :func:`record_foreign_span` as a
+``native_dp`` span (``get``, ``post``, ``delete``) under the caller's span,
+so they show in /debug/tracez beside the Python handlers' spans.
+
 Always on by design: a span is one dataclass and a deque append, and the
 ring bounds memory.  SEAWEEDFS_TPU_TRACE=0 disables recording (context
 propagation still works, so downstream processes can keep tracing).

@@ -300,7 +300,14 @@ class AppendIndex:
     ``kind`` picks the in-process map: "memory" (MemDb), "compact"
     (CompactMap) or "leveldb" (LSM-persisted beside the .idx; a restart
     replays only the un-indexed .idx tail, and a .idx shorter than the
-    map's mark, rewritten since, rebuilds the map)."""
+    map's mark, rewritten since, rebuilds the map).
+
+    ``before_read`` (set while the native data plane holds the volume) is
+    called before the map is read through ``db`` and on a ``get`` miss: it
+    folds the plane's pending write events in, so a reader sees every
+    write that was acknowledged before it looked."""
+
+    before_read = None
 
     def __init__(self, idx_path: str | os.PathLike, kind: str = "memory",
                  offset_width: int = OFFSET_SIZE):
@@ -311,20 +318,27 @@ class AppendIndex:
         self._f = open(self.path, "ab")
         idx_size = os.path.getsize(self.path)
         if kind == "leveldb":
-            self.db = LevelDbNeedleMap(self.path + ".ldb")
-            start = self.db.indexed_idx_bytes
+            self._db = LevelDbNeedleMap(self.path + ".ldb")
+            start = self._db.indexed_idx_bytes
             if start > idx_size:  # the .idx was truncated or replaced: rebuild
-                self.db.close()
+                self._db.close()
                 reset_persistent_map(self.path)
-                self.db = LevelDbNeedleMap(self.path + ".ldb")
+                self._db = LevelDbNeedleMap(self.path + ".ldb")
                 start = 0
             if start < idx_size:
                 self._replay(start)
-                self.db.mark_indexed(idx_size)
+                self._db.mark_indexed(idx_size)
         else:
-            self.db = MemDb() if kind == "memory" else CompactMap()
+            self._db = MemDb() if kind == "memory" else CompactMap()
             if idx_size:
                 self._replay(0)
+
+    @property
+    def db(self):
+        """The live map, with pending native write events folded in."""
+        if self.before_read is not None:
+            self.before_read()
+        return self._db
 
     def _truncate_torn_tail(self) -> None:
         """Drop a mid-record torn .idx tail (crash between the bytes of
@@ -345,7 +359,7 @@ class AppendIndex:
             os.truncate(self.path, size - rem)
 
     def _replay(self, start: int) -> None:
-        db = self.db
+        db = self._db
 
         def visit(key: int, offset: int, size: int) -> None:
             if offset > 0 and not size_is_deleted(size):
@@ -359,20 +373,32 @@ class AppendIndex:
     def put(self, key: int, offset: int, size: int) -> None:
         self._f.write(pack_index_entry(key, offset, size, self.offset_width))
         self._f.flush()  # .idx must be on disk for EC generate / crash rebuild
-        self.db.set(key, offset, size)
+        self._db.set(key, offset, size)
+
+    # entries whose .idx bytes were already written elsewhere (the native
+    # data plane appends the .idx itself): only the live map changes
+    def apply_put(self, key: int, offset: int, size: int) -> None:
+        self._db.set(key, offset, size)
+
+    def apply_delete(self, key: int) -> None:
+        self._db.delete(key)
 
     def delete(self, key: int) -> None:
         self._f.write(pack_index_entry(key, 0, TOMBSTONE_FILE_SIZE, self.offset_width))
         self._f.flush()
-        self.db.delete(key)
+        self._db.delete(key)
 
     def get(self, key: int) -> NeedleValue | None:
-        return self.db.get(key)
+        nv = self._db.get(key)
+        if nv is None and self.before_read is not None:
+            self.before_read()  # a native write may not have folded in yet
+            nv = self._db.get(key)
+        return nv
 
     def flush(self) -> None:
         self._f.flush()
         if self.kind == "leveldb":
-            self.db.mark_indexed(os.path.getsize(self.path))
+            self._db.mark_indexed(os.path.getsize(self.path))
 
     def sync(self) -> None:
         """fsync the .idx (the volume fsync policy's index half)."""
@@ -389,5 +415,5 @@ class AppendIndex:
         if self.kind == "leveldb":
             # the tail replay is idempotent, so the high-water mark needs
             # to be durable only at a clean close
-            self.db.mark_indexed(os.path.getsize(self.path))
-            self.db.close()
+            self._db.mark_indexed(os.path.getsize(self.path))
+            self._db.close()

@@ -13,8 +13,10 @@ JAX Store's: ``needle_map_kind`` (memory, compact, leveldb),
 ``offset_width`` (4 or 5).  The loader opens every ``.dat`` and every
 ``.vif`` without one whose ``remote`` names a tiered object.  Each disk
 directory has a type (``disk_types``, default hdd), the placement
-dimension of growth, ``VolumeCopy`` and ``volume.tier.move``.  Not
-ported: the native data plane and the store-level needle I/O.
+dimension of growth, ``VolumeCopy`` and ``volume.tier.move``.  With the
+native data plane on (``dp``, set by the volume server), every volume the
+store adds or mounts and every EC volume's local shard set is handed to it.
+Not ported: the store-level needle I/O.
 """
 
 from __future__ import annotations
@@ -137,6 +139,10 @@ class Store:
         self.ec_shard_deltas: (
             "queue.Queue[tuple[str, int, str, ShardBits, list[int], EcScheme, str]]"
         ) = queue.Queue()
+        # the native HTTP data plane (native/dataplane.py), set by the
+        # volume server while its native front door is up: volumes added or
+        # mounted from then on register with it
+        self.dp = None
 
     def load_existing_volumes(self) -> None:
         for loc in self.locations:
@@ -181,6 +187,8 @@ class Store:
                      offset_width=self.offset_width, fsync=self.fsync)
         with loc.lock:
             loc.volumes[vid] = vol
+        if self.dp is not None:
+            self.dp.register_volume(vol)
         self.volume_deltas.put(("new", vol, loc.disk_type))
         return vol
 
@@ -198,6 +206,8 @@ class Store:
                          fsync=self.fsync)
             with loc.lock:
                 loc.volumes[vid] = vol
+            if self.dp is not None:
+                self.dp.register_volume(vol)
             self.volume_deltas.put(("new", vol, loc.disk_type))
             return vol
         raise NotFoundError(f"no .dat for volume {vid} on any disk location")
@@ -258,6 +268,12 @@ class Store:
             with loc.lock:
                 loc.ec_volumes[vid] = ev
         added = [sid for sid in shard_ids if ev.add_shard(sid)]
+        # the native plane serves this EC volume's local-shard reads
+        if self.dp is not None:
+            if getattr(ev, "_dp", None) is None:
+                self.dp.register_ec_volume(ev)
+            else:
+                self.dp.sync_ec_shards(ev)
         if added:
             bits = ShardBits(0)
             for sid in added:
@@ -271,6 +287,8 @@ class Store:
         if ev is None:
             return
         removed = [sid for sid in shard_ids if ev.delete_shard(sid) is not None]
+        if removed and self.dp is not None and getattr(ev, "_dp", None):
+            self.dp.sync_ec_shards(ev)
         if removed:
             bits = ShardBits(0)
             for sid in removed:
@@ -278,6 +296,8 @@ class Store:
             self.ec_shard_deltas.put(("deleted", vid, ev.collection, bits, [], ev.scheme,
                                       self.ec_disk_type_of(vid)))
         if not ev.shards:
+            if self.dp is not None and getattr(ev, "_dp", None):
+                self.dp.unregister_ec_volume(ev)
             for loc in self.locations:
                 with loc.lock:
                     if loc.ec_volumes.get(vid) is ev:

@@ -26,7 +26,14 @@ volume's .dat moves to an object store (``tier_upload``) and back
 with such a .vif and no .dat opens read-only on a ``TieredFile``.  A tiered
 volume refuses writes and vacuum, and ``destroy`` drops its object.
 
-Not ported: the native data plane.
+The native data plane (native/dataplane.py): while it holds a volume
+(``_dp``), every .dat/.idx append goes through its per-volume native
+appender, whichever plane the write came in on, and the map and garbage
+accounting fold from its event stream; a map read folds pending events
+first (``AppendIndex.before_read``), so a needle the native loop just
+wrote is visible here.
+Vacuum, an index rebuild, a tier upload and close take the volume off the
+plane first (and the first two hand it back after the swap).
 """
 
 from __future__ import annotations
@@ -132,9 +139,16 @@ class Volume:
         # VolumeStat so the master's health view follows scrub findings
         self.last_scrub_at_ns = 0
         self.scrub_corrupt = 0
+        # RLock: a writer holding the lock may fold native-plane events in
+        # (a map read -> flush_events), which re-enters per volume
         self._write_lock = threading.RLock()
-        # guards _deleted_bytes / last_append_at_ns increments
+        # guards _deleted_bytes / last_append_at_ns increments against the
+        # native event drainer, which must NOT take _write_lock (a writer
+        # holding it may be blocked on the drainer's event lock)
         self._acct_lock = threading.Lock()
+        # the native data plane holding this volume (native/dataplane.py),
+        # or None: while set, every append goes through its appender
+        self._dp = None
         # odd while a vacuum, an index rebuild or a tier move swaps the
         # .dat/.idx in: a read that overlapped a swap is re-read
         # (read_needle)
@@ -198,6 +212,8 @@ class Volume:
     def set_read_only(self, flag: bool, persist: bool = True) -> None:
         """Seal/unseal, durably (.vif readOnly) unless persist=False."""
         self.read_only = flag
+        if self._dp is not None:
+            self._dp.set_flags(self.id, flag, self.super_block.replica_placement.copy_count)
         if not persist:
             return
         info = maybe_load_volume_info(self.base + ".vif") or VolumeInfo(version=int(self.version))
@@ -217,6 +233,8 @@ class Volume:
             self._dat.write_at(1, bytes([rp.to_byte()]))
             self._dat.flush()
             self.super_block.replica_placement = rp
+        if self._dp is not None:
+            self._dp.set_flags(self.id, self.read_only, rp.copy_count)
 
     # -- crash recovery (reference volume_checking.go CheckVolumeDataIntegrity
     # behavioral equivalent, extended with tail replay) ---------------------
@@ -377,6 +395,8 @@ class Volume:
         return len(self.nm.db)
 
     def close(self) -> None:
+        if self._dp is not None:
+            self._dp.unregister_volume(self)
         with self._write_lock:
             self.nm.close()
             self._dat.flush()
@@ -393,6 +413,8 @@ class Volume:
             raise NeedleError(f"volume {self.id}: tier requires readonly")
         if self.tiered:
             raise NeedleError(f"volume {self.id} already tiered")
+        if self._dp is not None:  # the local .dat is about to disappear
+            self._dp.unregister_volume(self)
         key = key or f"vol/{self.collection or 'default'}/{self.id}.dat"
         with self._write_lock:
             self._dat.flush()
@@ -458,14 +480,34 @@ class Volume:
             raise NeedleError(f"volume {self.id} is read-only")
         with self._write_lock:
             end = self.dat_size()
-            if end % NEEDLE_PADDING_SIZE:
+            if end % NEEDLE_PADDING_SIZE and self._dp is None:
+                # with the native appender attached, fstat may see the
+                # partial bytes of a failed native write that its own end
+                # tracking overwrites: its end is the append position
                 raise NeedleError(f"volume {self.id} misaligned end {end}")
             if end >= max_volume_size(self.offset_width) and n.data:
                 raise VolumeFullError(f"volume {self.id} exceeded max size")
-            with self._acct_lock:
+            with self._acct_lock:  # the event drainer advances this clock too
                 n.append_at_ns = max(time.time_ns(), self.last_append_at_ns + 1)
                 self.last_append_at_ns = n.append_at_ns
             record = n.to_bytes(self.version)
+            dp = self._dp
+            if dp is not None:
+                off = dp.append(self.id, n.id, n.size, record)
+                if off <= -2:
+                    # native IO failure: partial bytes may sit past the end,
+                    # and an append through our own fd would land misaligned
+                    raise NeedleError(f"volume {self.id}: native append IO failure")
+                if off >= 0:
+                    # the native appender wrote .dat + .idx and queued the
+                    # map event; all map and accounting state folds from
+                    # that one ordered stream.  Fold now: read-your-write.
+                    dp.flush_events()
+                    # the native appender never syncs: the fsync policy
+                    # applies here (fsync is per file, so our fds serve)
+                    self._maybe_sync_locked()
+                    return off, n.size
+                # taken off the plane mid-flight (vacuum): append here
             old = self.nm.get(n.id)
             end = self._dat.append(record)
             self.nm.put(n.id, end, n.size)
@@ -487,11 +529,21 @@ class Volume:
             # a tombstone record (empty data) for crash safety, then the
             # index tombstone
             record = Needle(id=needle_id, cookie=0).to_bytes(self.version)
-            self._dat.append(record)
-            self.nm.delete(needle_id)
-            self._maybe_sync_locked()
-            with self._acct_lock:
-                self._deleted_bytes += get_actual_size(nv.size, self.version) + len(record)
+            dp = self._dp
+            dp_off = dp.append(self.id, needle_id, -1, record) if dp else -1
+            if dp_off == -2:
+                raise NeedleError(f"volume {self.id}: native append IO failure")
+            if dp_off >= 0 or dp_off == -3:
+                # map removal and accounting ride the event stream (-3: a
+                # concurrent delete tombstoned it first, the same outcome)
+                dp.flush_events()
+                self._maybe_sync_locked()
+            else:
+                self._dat.append(record)
+                self.nm.delete(needle_id)
+                self._maybe_sync_locked()
+                with self._acct_lock:
+                    self._deleted_bytes += get_actual_size(nv.size, self.version) + len(record)
             return get_actual_size(nv.size, self.version)
 
     # -- read path ---------------------------------------------------------
@@ -532,13 +584,21 @@ class Volume:
 
     # -- maintenance -------------------------------------------------------
 
+    def _fold(self) -> None:
+        """Fold the native plane's pending write events in (its deletes
+        and overwrites move the garbage accounting)."""
+        if self._dp is not None:
+            self._dp.flush_events()
+
     def deleted_bytes(self) -> int:
         """.dat bytes not referenced by live needles (tombstoned or
         overwritten): the numerator of the garbage ratio."""
+        self._fold()
         return self._deleted_bytes
 
     def garbage_ratio(self) -> float:
         """Fraction of .dat bytes not referenced by live needles."""
+        self._fold()
         size = self.dat_size() - SUPER_BLOCK_SIZE
         if size <= 0:
             return 0.0
@@ -571,6 +631,12 @@ class Volume:
             raise NeedleError(f"volume {self.id} is tiered (sealed)")
         if self.backend_kind == "memory":
             return self._vacuum_in_memory()
+        # off the native plane BEFORE copying: its writers fall back to the
+        # Python path, which waits on _write_lock until the swap is done
+        # (then the volume goes back to the plane over the fresh files)
+        dp = self._dp
+        if dp is not None:
+            dp.unregister_volume(self)
         with self._write_lock:
             old_size = self.dat_size()
             cpd, cpx = self.base + ".cpd", self.base + ".cpx"
@@ -614,6 +680,8 @@ class Volume:
                                   offset_width=self.offset_width)
             self._deleted_bytes = 0  # compaction kept only live needles
             self._swap_seq += 1
+            if dp is not None:
+                dp.register_volume(self)
             return old_size - self.dat_size()
 
     def _vacuum_in_memory(self) -> int:
@@ -672,6 +740,9 @@ class Volume:
     def rebuild_index(self) -> None:
         """Recreate .idx by scanning .dat (the reference's `weed fix`).
         Records that fail their CRC are skipped with a logged offset."""
+        dp = self._dp
+        if dp is not None:  # the .idx is rewritten in place: re-home native fds
+            dp.unregister_volume(self)
         with self._write_lock:
             db = MemDb()
             for off, n in self.scan(verify_crc=True):
@@ -686,3 +757,5 @@ class Volume:
             self.nm = AppendIndex(self.base + ".idx", kind=self.needle_map_kind,
                                   offset_width=self.offset_width)
             self._swap_seq += 1
+            if dp is not None:
+                dp.register_volume(self)

@@ -34,9 +34,10 @@ flat frame histogram, most-sampled first.  sys._current_frames cannot
 see past a C call, so a blocking native entry point may register itself
 in ``native_call`` around its ctypes call and the sampler prepends a
 synthetic ``<native>:0:<symbol>`` innermost frame for that thread.  The
-port has no native data plane (ROADMAP Queue A item 9): the px-loop
-section of /debug/threadz is absent, as in the JAX package when its
-plane is not loaded.
+native data plane's px loop (native/dataplane.py, a C thread) gets a
+section of its own at the end of /debug/threadz once the splice library is
+loaded in the process: its engine mode and the ``sw_px_stats`` slots, with
+the splice ladder's Python-side steps (``ladder_*``).
 """
 
 from __future__ import annotations

@@ -54,6 +54,11 @@ call order.  Injections count into ``weedtpu_faults_injected_total``
 The plan is process-global: :func:`configure` installs one
 programmatically (tests), otherwise the env spec is compiled lazily on
 first use.  With no spec, the fast path is one None-check per call.
+
+The native data plane (native/dataplane.py) appends and reads volume files
+without the backend, so it asks :func:`disk_armed` before it takes a volume
+and listens (:func:`add_listener`) for plans installed later: while a
+``disk`` rule is armed every volume stays on the backend these rules cover.
 """
 
 from __future__ import annotations
@@ -268,6 +273,40 @@ class FaultPlan:
 _plan_lock = threading.Lock()
 _plan: FaultPlan | None = None
 _plan_loaded = False
+# callables told of every plan configure() or reset() installs
+_listeners: list = []
+
+
+def add_listener(fn) -> None:
+    """Call ``fn(plan)`` (plan may be None) after each configure()/reset()."""
+    _listeners.append(fn)
+
+
+def remove_listener(fn) -> None:
+    try:
+        _listeners.remove(fn)
+    except ValueError:
+        pass
+
+
+def _notify(plan) -> None:
+    for fn in list(_listeners):
+        try:
+            fn(plan)
+        except Exception as e:  # noqa: BLE001 — a listener must not break configure
+            from seaweedfs_tpu_torch.util import wlog
+
+            wlog.warning("faults: plan listener failed: %s", e)
+
+
+_UNSET = object()
+
+
+def disk_armed(plan=_UNSET) -> bool:
+    """True when the active plan (or ``plan``) holds a ``disk`` rule."""
+    if plan is _UNSET:
+        plan = active()
+    return plan is not None and any(r.side == "disk" for r in plan.rules)
 
 
 def configure(spec: str | None, seed: int | None = None) -> FaultPlan | None:
@@ -281,7 +320,9 @@ def configure(spec: str | None, seed: int | None = None) -> FaultPlan | None:
                 seed = int(os.environ.get("WEED_FAULTS_SEED", "0") or 0)
             _plan = FaultPlan(parse_spec(spec), seed=seed)
         _plan_loaded = True
-        return _plan
+        plan = _plan
+    _notify(plan)
+    return plan
 
 
 def reset() -> None:
@@ -290,6 +331,7 @@ def reset() -> None:
     with _plan_lock:
         _plan = None
         _plan_loaded = False
+    _notify(active())
 
 
 def active() -> FaultPlan | None:

@@ -4,16 +4,19 @@ filer: the port's copy of seaweedfs_tpu/util/httpd.py's ``PooledHTTPServer``,
 single-range RFC 7233 replies, bodies streamed piece by piece) and
 ``StreamingBody`` (a request body read off the socket on demand).
 
-``PooledHTTPServer(reuse_port=True)`` binds with SO_REUSEPORT.
+``PooledHTTPServer(reuse_port=True)`` binds with SO_REUSEPORT, and
+``PooledHTTPServer.drain`` waits out the requests in flight after a
+shutdown (graceful drain).
 ``QuietHandler.server_span`` opens a request's server span from its
 ``traceparent`` header (stats/trace.py), and every reply carries an
 ``X-Request-ID`` (``response_request_id``: the caller's, echoed when it
 validates, else a fresh one).  ``security/tls.wrap_http_server`` turns a
 bound server into HTTPS.
 
-Not ported: graceful drain and the native splice's hooks
-(``StreamingBody.take_buffered``/``pushback``, ``reply_ranged(splice=)``;
-ROADMAP Queue A item 9).
+The native splice's hooks (filer/splice.py): ``StreamingBody.connection``,
+``take_buffered`` and ``pushback`` let a PUT body leave through the raw
+socket and come back untouched when the splice falls back, and
+``reply_ranged(splice=)`` tries the native relay first on a GET.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from __future__ import annotations
 import random
 import re
 import socket
+import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Iterable
 
@@ -47,23 +52,59 @@ class StreamingBody:
 
     ``len()`` reports the declared length; ``remaining`` tracks unread
     bytes so the handler can keep the keep-alive stream parseable when an
-    upload aborts early."""
+    upload aborts early.
 
-    def __init__(self, rfile, length: int):
+    ``connection`` (optional) is the raw client socket for the native PUT
+    splice, set only when the native loop may write the fd directly (never
+    under TLS).  ``take_buffered``/``pushback`` let the splice drain
+    Python's read-ahead buffer first and return it untouched when it falls
+    back to the Python path."""
+
+    def __init__(self, rfile, length: int, connection: socket.socket | None = None):
         self._rfile = rfile
         self.length = length
         self.remaining = length
+        self.connection = connection
+        self._pushed = b""
 
     def read(self, n: int = -1) -> bytes:
         if self.remaining <= 0:
             return b""
         want = self.remaining if n is None or n < 0 else min(n, self.remaining)
+        if self._pushed:
+            data, self._pushed = self._pushed[:want], self._pushed[want:]
+            self.remaining -= len(data)
+            if len(data) < want:  # top up from the stream proper
+                data += self.read(want - len(data))
+            return data
         data = self._rfile.read(want)
         if not data:  # peer cut the stream short of Content-Length
             self.remaining = 0
             return b""
         self.remaining -= len(data)
         return data
+
+    def take_buffered(self) -> bytes:
+        """Body bytes Python's buffered reader already holds (at most one
+        raw read happens if its buffer is empty): the native splice must
+        relay these before it touches the raw socket."""
+        if self.remaining <= 0:
+            return b""
+        if self._pushed:
+            return self.read(len(self._pushed))
+        try:
+            held = self._rfile.peek()
+        except (OSError, ValueError, AttributeError):
+            return b""
+        take = min(len(held), self.remaining)
+        return self.read(take) if take else b""
+
+    def pushback(self, data: bytes) -> None:
+        """Return already-consumed bytes to the front of the stream (the
+        native splice's no-harm fallback): read() serves them first."""
+        if data:
+            self._pushed = data + self._pushed
+            self.remaining += len(data)
 
     def __len__(self) -> int:
         return self.length
@@ -96,6 +137,11 @@ class PooledHTTPServer(ThreadingHTTPServer):
 
     def __init__(self, server_address, handler_class, *, reuse_port: bool = False):
         self.reuse_port = reuse_port
+        # graceful-drain state: requests (not connections) in flight, so an
+        # idle keep-alive connection cannot stall a drain forever
+        self._inflight = 0
+        self._inflight_cv = threading.Condition()
+        self._draining = False
         super().__init__(server_address, handler_class)
 
     def server_bind(self):
@@ -104,6 +150,46 @@ class PooledHTTPServer(ThreadingHTTPServer):
                 raise OSError("SO_REUSEPORT is not available on this platform")
             self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
         super().server_bind()
+
+    # graceful drain: the teardown order is shutdown() -> server_close() ->
+    # drain(); the closed listen socket stops new connections at the
+    # kernel, then drain() waits for handlers that already parsed a request
+    # to finish replying
+
+    def request_begin(self) -> bool:
+        """Count one parsed request in flight.  True while the server is
+        draining: the handler finishes this response and then closes the
+        connection instead of waiting for another."""
+        with self._inflight_cv:
+            self._inflight += 1
+            return self._draining
+
+    def request_end(self) -> None:
+        with self._inflight_cv:
+            self._inflight -= 1
+            if self._inflight <= 0:
+                self._inflight_cv.notify_all()
+
+    @property
+    def inflight(self) -> int:
+        with self._inflight_cv:
+            return self._inflight
+
+    def drain(self, timeout: float = 5.0) -> int:
+        """Wait up to ``timeout`` seconds for in-flight requests to
+        complete; returns the number still running when the wait ends
+        (0: a clean drain).  A request that arrives on an accepted
+        keep-alive connection during the drain is served and told to
+        close the connection afterwards."""
+        deadline = time.monotonic() + timeout
+        with self._inflight_cv:
+            self._draining = True
+            while self._inflight > 0:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                self._inflight_cv.wait(left)
+            return self._inflight
 
 
 class QuietHandler(BaseHTTPRequestHandler):
@@ -117,6 +203,31 @@ class QuietHandler(BaseHTTPRequestHandler):
 
     def log_message(self, *args):
         pass
+
+    # drain accounting (PooledHTTPServer.drain): a request is in flight
+    # from the parse of its request line until the handler method returns
+    _drain_counted = False
+
+    def parse_request(self):
+        ok = super().parse_request()
+        if ok:
+            begin = getattr(self.server, "request_begin", None)
+            if begin is not None:
+                self._drain_counted = True
+                if begin():  # draining: no more keep-alive after this one
+                    self.close_connection = True
+        return ok
+
+    def handle_one_request(self):
+        self._drain_counted = False
+        try:
+            super().handle_one_request()
+        finally:
+            if self._drain_counted:
+                self._drain_counted = False
+                end = getattr(self.server, "request_end", None)
+                if end is not None:
+                    end()
 
     def server_span(self, name: str, service: str, **attrs):
         """Server span for this request, seeded from its ``traceparent``
@@ -159,7 +270,8 @@ class QuietHandler(BaseHTTPRequestHandler):
 
     def reply_ranged(self, size: int, ctype: str, fetch: Callable[[int, int], bytes] | None,
                      extra_headers: dict | None = None,
-                     stream: Callable[[int, int], Iterable[bytes]] | None = None) -> None:
+                     stream: Callable[[int, int], Iterable[bytes]] | None = None,
+                     splice: Callable[[int, int, int, dict | None], bool] | None = None) -> None:
         """Serve a body of ``size`` bytes honoring the request's Range
         header: 206 + Content-Range for a satisfiable range, 416 for an
         unsatisfiable one, 200 otherwise.  ``fetch(lo, hi)`` materializes
@@ -167,7 +279,12 @@ class QuietHandler(BaseHTTPRequestHandler):
         body goes out piece by piece instead (Content-Length framed: a
         multi-chunk file never materializes in server memory).  HEAD
         replies from ``size`` alone without calling either.
-        ``extra_headers`` ride on every non-416 response."""
+        ``extra_headers`` ride on every non-416 response.
+
+        ``splice(status, lo, hi, headers)`` is tried first on a GET: the
+        native zero-copy relay (filer/splice.py).  It returns True when it
+        handled the response (headers included), False when nothing was
+        sent and the Python path serves instead."""
         extra = extra_headers or {}
         try:
             rng = parse_range(self.headers.get("Range"), size)
@@ -187,6 +304,9 @@ class QuietHandler(BaseHTTPRequestHandler):
             lo, hi = rng
             status = 206
             headers = {**extra, "Content-Range": f"bytes {lo}-{hi}/{size}"}
+        if splice is not None and size and self.command == "GET":
+            if splice(status, lo, hi, headers):
+                return
         if stream is not None and size:
             self._reply_streamed(status, lo, hi, ctype, headers, stream)
             return

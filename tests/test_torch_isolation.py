@@ -1,7 +1,9 @@
 """The port stands alone: no module of seaweedfs_tpu_torch, and none of
 its chip scripts (chip_smoke.py, chip_table_variants.py), imports jax or
-anything of the JAX package; and its maintenance plane (``cli admin``,
-``cli worker``) never initialises CUDA."""
+anything of the JAX package, names a path into the JAX package's native
+library (``seaweedfs_tpu/native``), or loads that library at run time; and
+its maintenance plane (``cli admin``, ``cli worker``) never initialises
+CUDA."""
 
 from __future__ import annotations
 
@@ -120,7 +122,9 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/admin/tasks.py", "seaweedfs_tpu_torch/admin/scanner.py",
             "seaweedfs_tpu_torch/admin/worker.py", "seaweedfs_tpu_torch/admin/resources.py",
             "seaweedfs_tpu_torch/admin/dashboard.py", "seaweedfs_tpu_torch/admin/admin_server.py",
-            "seaweedfs_tpu_torch/commands/admin_cmd.py"} <= names
+            "seaweedfs_tpu_torch/commands/admin_cmd.py",
+            "seaweedfs_tpu_torch/native/__init__.py", "seaweedfs_tpu_torch/native/dataplane.py",
+            "seaweedfs_tpu_torch/filer/splice.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())
@@ -128,6 +132,61 @@ def test_no_jax_or_jax_package_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [n for n in _imported(tree) if n.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+_JAX_NATIVE = ("seaweedfs_tpu/native", "lib_seaweed_native")
+
+
+def _code_strings(tree: ast.AST) -> list[str]:
+    """Every string constant of a module but its docstrings."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs]
+
+
+@pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())
+def test_no_path_into_the_jax_native_library(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [s for s in _code_strings(tree) if any(j in s for j in _JAX_NATIVE)]
+    assert not bad, f"{path.name} names the JAX package's native library: {bad}"
+
+
+def test_the_native_path_scan_catches_one():
+    tree = ast.parse('"""seaweedfs_tpu/native is the JAX one."""\n'
+                     'import ctypes\nctypes.CDLL("seaweedfs_tpu/native/lib_seaweed_native.so")\n')
+    assert [s for s in _code_strings(tree) if any(j in s for j in _JAX_NATIVE)] == [
+        "seaweedfs_tpu/native/lib_seaweed_native.so"]
+
+
+def test_the_data_plane_loads_only_the_port_library(tmp_path):
+    """A fresh interpreter starts a port volume server with the native plane
+    on (the default) and loads the splice verbs: the process maps the
+    port's own build of csrc/dp.cpp and never the JAX package's library."""
+    script = textwrap.dedent(f"""
+        import os
+        os.environ.pop("SEAWEEDFS_TPU_NATIVE_DP", None)
+        os.environ.pop("SEAWEEDFS_TPU_NATIVE_PX", None)
+        from seaweedfs_tpu_torch.native import dataplane
+        from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+        vs = VolumeServer([{str(tmp_path)!r}], "", port=0, grpc_port=0, device="cpu")
+        vs.start()
+        assert vs._dp is not None and dataplane.px_lib() is not None
+        maps = open("/proc/self/maps").read()
+        vs.stop()
+        print("PORT", "build/kernels/libdp-" in maps)
+        print("JAX", any(j in maps for j in {_JAX_NATIVE!r}))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "PORT True" in proc.stdout and "JAX False" in proc.stdout
 
 
 def test_the_scan_catches_a_forbidden_import():
