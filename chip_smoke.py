@@ -116,7 +116,7 @@ Phases, each printing what it found; any failure exits non-zero:
    leaves 14 shards at the master over both racks, at most 4 on a node,
    each sha256-identical to phase 7's generate, the original volume gone,
    and server 0's K1 launches (its /metrics) equal to the generate's
-   batches (18 a GiB); about 1,150 needles are read here through Store
+   batches (18 a GiB); about 390 needles are read here through Store
    (one server's shards), EcVolume.read_needle and EcShardLocator(master)
    with remote EcShardRead answers and no reconstruction, then again after
    the server (other than the reader and server 1) holding the most
@@ -141,12 +141,12 @@ Phases, each printing what it found; any failure exits non-zero:
    read reports, native POSTs and GETs > 0; 9b: 1,250 writes at
    replication 001, then every needle read from both holders
    ``/dir/lookup`` names, sha256-equal, with native fan-outs by the
-   primaries > 0; 9c: ``cli benchmark -n 16384 -size 65536`` fills one
-   1 GiB volume, and 512 needles of seeded payloads go in through
+   primaries > 0; 9c: ``cli benchmark -n 8192 -size 65536`` fills one
+   512 MiB volume, and 512 needles of seeded payloads go in through
    MasterClient and the pool, every one a native POST; 9d: ``cli shell
    -c "lock; ec.encode -volumeId V -collection ec64k -streaming;
    unlock"`` of that natively written volume: K1 launches on the source
-   server equal its generate's batches (18), the first, a middle and the
+   server equal its generate's batches, the first, a middle and the
    last row of its shards equal the CPU plain version's (ReedSolomonTorch
    over the .dat read before), every shard lands once on its holder (14
    at the master, at most 4 a node, both racks), no .dat, .idx or .tmp
@@ -269,13 +269,13 @@ Phases, each printing what it found; any failure exits non-zero:
    -accessKey K -secretKey S -cacheMB 64 -kmsKeyFile F`` (SigV4 required;
    logs under ``s3/``); every request is signed by ``client_sign``.  Fill:
    16 clients put 256 objects of 1-64 KiB (a quarter as signed
-   aws-chunked bodies), and 4 of 8-64 MiB and one of 256 MiB go up as
+   aws-chunked bodies), and 4 of 8-64 MiB and one of 128 MiB go up as
    multipart in 8 MiB parts, 10 at a time (aws-cli's defaults); objects/s,
    MB/s and p50/p99 per class.  Mixed: MinIO warp mixed's 45% GET, 30%
-   HEAD, 15% PUT, 10% DELETE over the small objects, 16 clients, 625
+   HEAD, 15% PUT, 10% DELETE over the small objects, 16 clients, 320
    ops, every answer held to a model of key -> sha256 (404 for a deleted
    key, the ETag on HEAD); a ListObjectsV2 walk (max-keys 1000) equals the
-   model.  Features: CopyObject, 16 Range GETs across the 256 MiB object's
+   model.  Features: CopyObject, 16 Range GETs across the 128 MiB object's
    part boundaries, a presigned GET, three versions read by versionId,
    tagging, an anonymous 403 that a bucket policy turns into 200, SSE-S3
    and SSE-C of a 16 MiB object (501 where the card's machine lacks the
@@ -310,8 +310,8 @@ Phases, each printing what it found; any failure exits non-zero:
    (UNAVAILABLE on 2% of the volume servers' EcShardRead calls and of the
    gateway's LookupDirectoryEntry calls, a 2 ms delay on 5% of the filer's
    gRPC) and a ``WEED_SLO``; plaintext gRPC, plain HTTP and a client that
-   does not trust the CA are refused.  Over HTTPS, 512 objects of 1-64
-   KiB at 16 clients and one 256 MiB object as multipart; one PUT sent with
+   does not trust the CA are refused.  Over HTTPS, 256 objects of 1-64
+   KiB at 16 clients and one 128 MiB object as multipart; one PUT sent with
    a traceparent is one trace in the gateway (PutObject, its put_chunk),
    the filer (CreateEntry, the PutObject's child) and the volume server
    holding the chunk (the native plane's ``native_dp`` post span, replayed
@@ -339,7 +339,7 @@ Phases, each printing what it found; any failure exits non-zero:
    three ``cli filer -db`` shards on fixed ports and ``cli s3 -filer
    f1,f2,f3 -workers 4 -port <fixed> -cacheMB 64 -metricsPort <base>``
    (SigV4; logs under ``shard/``; every wait for a line has a deadline).
-   Routing: 512 objects of 1-64 KiB over 64 buckets and 4 of 8-64 MiB
+   Routing: 256 objects of 1-64 KiB over 64 buckets and 4 of 8-64 MiB
    as multipart (S3_PART parts, 10 at a time) by 16 clients; objects and
    entries per shard from ``filer.shard.status`` and each shard's hash
    share; every bucket and its entries sit on the shard ``ShardRing``
@@ -386,6 +386,34 @@ Phases, each printing what it found; any failure exits non-zero:
    answers 401 without credentials and 200 after a login; ``/status``
    counts every task completed and none failed; the dashboard renders; a
    policy edit survives an admin restart.  Its figures go on ``admin:``
+   lines.
+18. Replication, notification and remote storage: cluster A (``cli
+   master -volumeSizeLimitMB 256``, two ``cli volume`` on the default
+   device, ``cli filer -db redis://... -notify log:... -metaLogDir``) and
+   cluster B (phase 13's shape, ``cli filer -db etcd://...``, ``cli s3``
+   with one SigV4 identity); the Redis and etcd servers are
+   tests/mini_redis.py and tests/mini_etcd.py hosted in this process (logs
+   under ``sync/``).  /sync in collection syncdata is filled in phase 13's
+   classes (512 files of 1-64 KiB over 64 directories, 64 inline; 4 of
+   4-32 MiB; one of 256 MiB); ``cli filer.sync`` replays the history into
+   B, follows 64 overwrites, 32 deletes, 8 renames and an ``fs.rm -r``
+   (the source ack -> visible-at-B delay of 64 small writes, p50 and
+   p99), is SIGKILLed in the middle of 128 writes and resumes on its
+   checkpoint (the events applied again printed); B equals A in paths,
+   sizes and sha256s after the history and the resume (after the
+   mutations, paths and sizes, and the changed files' sha256s).  A's filer restarts on its store
+   (listings byte-identical, a sample equal) and the syncer follows it;
+   the ``-notify`` log holds exactly the timestamps ``cli
+   filer.meta.tail`` prints, in order; ``cli filer.backup -sink s3://...
+   -once`` fills bucket backup through B's gateway (every object equal by
+   a signed GET), run beside the ``-notify`` check, the remote.* commands
+   and the encode; ``remote.mount``, ``remote.meta.sync``, ``remote.cache``
+   (MB/s), ``remote.uncache`` and ``remote.unmount`` of a local-dir
+   remote (64 small objects and one of 64 MiB, then 8 more) print the JAX
+   shell's lines and read back equal; and ``ec.encode -collection
+   syncdata`` on B launches K1 once per stripe batch in B's servers, one
+   volume's 14 shards equal ReedSolomonTorch's on the card, and every
+   synced file reads back from the shards.  Its figures go on ``sync:``
    lines.
 
 Bounds: the larger of the bytes a function must move over the memory rate
@@ -1191,6 +1219,11 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         admin = phase_admin(args, tmp, ident, dev)
         lap("17")
+        for name in os.listdir(tmp):  # room for phase 18's clusters
+            path = os.path.join(tmp, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+        sync = phase_sync(args, tmp, ident, dev)
+        lap("18")
         print("phase walls (s, with the clean-up before each): " + ", ".join(
             f"{name} {t1 - t0:.3f}" for (_n, t0), (name, t1) in zip(laps, laps[1:])))
         degraded = {label: (r["p50_us"], r["p99_us"]) for label, r in ec_service["reads"].items()}
@@ -1200,7 +1233,8 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
                     encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
                     lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster, write=write,
                     failover=failover, maintenance=maintenance, storage=storage,
-                    host_codec=host_codec, filer=filer, s3=s3, tls=tls, shard=shard, admin=admin)
+                    host_codec=host_codec, filer=filer, s3=s3, tls=tls, shard=shard, admin=admin,
+                    sync=sync)
     finally:
         faulthandler.cancel_dump_traceback_later()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1720,15 +1754,20 @@ def make_needle_volume(directory: str, size: int, seed: int) -> dict:
                 ecx=live[np.argsort(live["id"].astype(np.uint64))].tobytes())
 
 
-def read_sample(vol: dict, seed: int, count: int = READ_SAMPLE) -> list[tuple[int, bytes]]:
+def read_sample(vol: dict, seed: int, count: int = READ_SAMPLE,
+                crossing: int | None = None) -> list[tuple[int, bytes]]:
     """(needle id, payload) of ``count`` seeded live 1 KiB needles, every
-    live needle that crosses a 1 MiB block boundary, and the big ones."""
+    live needle that crosses a 1 MiB block boundary (or ``crossing`` of
+    them, seeded), and the big ones."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     live = np.setdiff1d(np.arange(vol["n"]), np.fromiter(vol["dead"], np.int64))
     picked = set(int(i) for i in rng.choice(live, min(count, len(live)), replace=False))
-    picked |= set(int(i) for i in vol["crossing"]) - vol["dead"]
+    cross = sorted(set(int(i) for i in vol["crossing"]) - vol["dead"])
+    if crossing is not None and crossing < len(cross):
+        cross = [int(i) for i in rng.choice(cross, crossing, replace=False)]
+    picked |= set(cross)
     sample = [(int(vol["ids"][i]), vol["payload"][i].tobytes()) for i in sorted(picked)]
     sample += [(b["id"], b["data"]) for b in vol["big"]]
     return [sample[i] for i in rng.permutation(len(sample))]
@@ -2254,6 +2293,7 @@ def phase_ec_service(args, directory: str, ident: str, dev) -> dict:
 
 CLUSTER_SERVERS = 4
 CLUSTER_READ_SAMPLE = 125  # cut from 2,000 (500 before phase 16, 250 before 17) for the time limit
+CLUSTER_CROSSING_SAMPLE = 256  # of the ~1,000 block-crossing needles (all before phase 18)
 LRC_CLUSTER_GIB = 0.125  # the LRC volume of phase 8, cut to stay inside the time limit (0.25 before phase 17)
 PRUNE_WAIT_S = 60.0  # the master prunes after 15 s without a heartbeat, checked every 5 s
 
@@ -2265,6 +2305,35 @@ def _poll(predicate, what: str, timeout: float) -> float:
         check(time.perf_counter() - t < timeout, f"timed out after {timeout}s waiting for {what}")
         time.sleep(0.1)
     return time.perf_counter() - t
+
+
+class _Beside:
+    """``fn()`` on a thread of its own, for a step that needs nothing of
+    the cluster the caller is waiting on (the master's prune of a killed
+    server); ``result()`` joins it and raises what it raised."""
+
+    def __init__(self, fn):
+        self._out: dict = {}
+
+        def run():
+            try:
+                self._out["value"] = fn()
+            except BaseException as e:  # noqa: BLE001 — handed to result()
+                self._out["error"] = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def wait(self, timeout: float = 300.0) -> None:
+        """Joins, for a clean-up after the caller failed; raises nothing."""
+        self._thread.join(timeout)
+
+    def result(self, timeout: float = 300.0):
+        self._thread.join(timeout)
+        check(not self._thread.is_alive(), f"a step beside the wait ran past {timeout}s")
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
 
 
 def _ec_census(master_stub, vid: int) -> dict:
@@ -2470,7 +2539,7 @@ def phase_cluster(args, directory: str, svc: dict, ident: str, dev) -> dict:
               f"{len(copies)} balance copies, {balance_bytes} bytes in {walls['balance_copies']:.3f}s")
 
         # step 3: remote reads from the shards of one server, over the master
-        sample = read_sample(vol, args.seed, CLUSTER_READ_SAMPLE)
+        sample = read_sample(vol, args.seed, CLUSTER_READ_SAMPLE, CLUSTER_CROSSING_SAMPLE)
         victim_addr = max((a for a in holders if a != servers[1].addr), key=lambda a: len(holders[a]))
         reader_addr = max((a for a in holders if a != victim_addr), key=lambda a: len(holders[a]))
         reader = by_addr[reader_addr]
@@ -2623,7 +2692,7 @@ BENCH_N = 4096  # `weed benchmark` -n 1048576, cut 256x for the time limit (8,19
 BENCH_SIZE = 1024  # `weed benchmark` -size
 BENCH_C = 16  # `weed benchmark` -c
 REP_N = 1250  # DATA_PLANE.md's replicated-write row (5,000), quartered for the time limit (2,500 before phase 17)
-FILL_N, FILL_SIZE = 16384, 64 * 1024  # 1 GiB of DATA_PLANE.md's 64 KB payloads
+FILL_N, FILL_SIZE = 8192, 64 * 1024  # 512 MiB of DATA_PLANE.md's 64 KB payloads (1 GiB before phase 18)
 SEEDED_NEEDLES = 512  # 1,024 before phase 17
 EC_READ_SAMPLE = 512  # cut from 4,096 for the time limit (1,024 before phase 17)
 EC_DELETES = 64
@@ -2687,7 +2756,7 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
     """Phase 9: the write path.  One ``cli master`` and four ``cli volume
     -device cuda -max 8`` subprocesses (racks alternating), each with its
     HTTP port bound; ``cli benchmark`` writes and reads (9a), replicated
-    writes read back from both holders (9b), one 1 GiB volume filled by the
+    writes read back from both holders (9b), one 512 MiB volume filled by the
     benchmark and 512 seeded needles (9c), ``ec.encode -streaming`` of it
     through K1 on its server (9d), reads of the EC volume over HTTP (9e) and
     deletes (9f) (module docstring)."""
@@ -2803,7 +2872,7 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
         print(f"write path: {rep_fids} replicated needles in {len(rep_vids)} volume(s) read back "
               f"from both holders each, byte-identical, in {walls['rep_readback']:.3f}s")
 
-        # 9c: one real volume: the benchmark's 1 GiB and SEEDED_NEEDLES seeded ones
+        # 9c: one real volume: the benchmark's 512 MiB and SEEDED_NEEDLES seeded ones
         fill = _benchmark(maddr, FILL_N, FILL_SIZE, "ec64k", "000", bench_log)
         (vid,) = collection_vids("ec64k")
         mc = MasterClient(maddr)
@@ -4424,10 +4493,10 @@ def _class_figures(label: str, sizes: list, lat: list, wall: float) -> dict:
                 p99_ms=float(np.percentile(lat_ms, 99)))
 
 
-def _filer_read_all(faddr: str, files: list, want: dict, label: str) -> dict:
+def _filer_read_all(faddr: str, files: list, want: dict, label: str, tag: str = "filer") -> dict:
     """Every file GET through the filer, sha256-equal to what was
-    written; figures per class."""
-    classes = {"big": [f for f in files if f[1] == FILER_BIG_BYTES],
+    written; figures per class, printed on a ``tag:`` line."""
+    classes = {"big": [f for f in files if f[1] > 64 * 1024 and "/large/" not in f[0]],
                "large": [f for f in files if "/large/" in f[0]],
                "small": [f for f in files if f[1] <= 64 * 1024]}
     rec = {}
@@ -4445,7 +4514,7 @@ def _filer_read_all(faddr: str, files: list, want: dict, label: str) -> dict:
         t = time.perf_counter()
         lat = _filer_pool(faddr, items, one)
         rec[cls] = _class_figures(cls, [f[1] for f in items], lat, time.perf_counter() - t)
-    print(f"filer: read {label}: " + "; ".join(
+    print(f"{tag}: read {label}: " + "; ".join(
         f"{cls} {r['files']} files {r['files_per_s']:.1f}/s {r['mb_per_s']:.1f} MB/s p50 "
         f"{r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms" for cls, r in rec.items())
         + ", every one sha256-equal")
@@ -4607,7 +4676,7 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
     walls: dict = {}
     rec: dict = {}
     servers: list = []
-    filer = None
+    filer = side = None
     t_phase = time.perf_counter()
     pool = HttpConnectionPool(timeout=60.0, max_per_host=64)
     files = _filer_files(seed)
@@ -4879,12 +4948,49 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
         victim = max(servers, key=data_shards)  # the most data shards: reads must reconstruct
         victim_addr = f"127.0.0.1:{victim.grpc_port}"
         lost = {vid: h.get(victim_addr, []) for vid, h in census.items()}
+
+        def one_server() -> str:
+            """Step 10, beside the prune wait of step 9: ``cli server -filer``
+            on its own master, one upload and one read."""
+            srv_dir = os.path.join(root, "server")
+            os.makedirs(srv_dir)
+            t = time.perf_counter()
+            one = _Server("", "", os.path.join(root, "server.log"), wait=False, argv=[
+                "server", "-filer", "-device", dev.type, "-dir", srv_dir, "-masterPort", "0",
+                "-port", "0", "-filerPort", "0"])
+            try:
+                line = one.proc.stdout.readline().strip()
+                walls["server_up"] = time.perf_counter() - t
+                m = re.search(r"filer (127\.0\.0\.1:\d+) \(gRPC", line)
+                if m is None:
+                    raise SmokeFailure(f"cli server -filer did not start: {line!r}: "
+                                       f"{one.log_text()[-2000:]}")
+                body = b"".join(_filer_blocks(seed, 30_000, 3 * MIB + 5))
+                deadline = time.perf_counter() + 60
+                while True:
+                    status, reply = pool.request(m[1], "POST", "/one/x.bin", body=body)
+                    if status == 201 or time.perf_counter() > deadline:
+                        break
+                    time.sleep(0.2)  # until the volume server's first heartbeat
+                status2, got = pool.request(m[1], "GET", "/one/x.bin")
+                rc_one = one.stop()
+                check(status == 201 and status2 == 200 and got == body and rc_one == 0,
+                      f"cli server -filer: POST {status} {reply[:200]!r}, GET {status2} "
+                      f"({'equal' if got == body else 'differs'}), rc {rc_one}")
+            finally:
+                one.stop()
+            return (f"filer: cli server -filer -device {dev.type} up in "
+                    f"{walls['server_up']:.3f}s ({line}); one upload and one read equal; "
+                    f"SIGTERM rc 0")
+
         live = [s_ for s_ in servers if s_ is not victim]
         victim.proc.send_signal(signal.SIGKILL)
         victim.proc.wait()
+        side = _Beside(one_server)
         walls["prune_wait"] = _poll(lambda: victim.url not in nodes(),
                                     f"the master to prune {victim.url}", PRUNE_WAIT_S)
         print(f"filer: SIGKILL {victim.url} (shards {lost}); pruned after {walls['prune_wait']:.3f}s")
+        server_line = side.result()
         rec["read_degraded"] = _filer_read_all(filer.faddr, files, want, "degraded")
         rec["reconstructed_intervals"] = int(sum(
             metric(s_.metrics(), "weedtpu_ec_degraded_reads_total", mode="reconstruct")
@@ -4910,34 +5016,11 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
         print(f"filer: ec.rebuild -collection filerdata {walls['ec_rebuild']:.3f}s on {ident}; K1 "
               f"launches {k1_rebuild}; every volume has 14 shards on the live servers")
 
-        # 10. cli server -filer -device <dev>: one process
-        srv_dir = os.path.join(root, "server")
-        os.makedirs(srv_dir)
-        t = time.perf_counter()
-        one = _Server("", "", os.path.join(root, "server.log"), wait=False, argv=[
-            "server", "-filer", "-device", dev.type, "-dir", srv_dir, "-masterPort", "0",
-            "-port", "0", "-filerPort", "0"])
-        line = one.proc.stdout.readline().strip()
-        walls["server_up"] = time.perf_counter() - t
-        m = re.search(r"filer (127\.0\.0\.1:\d+) \(gRPC", line)
-        if m is None:
-            one.stop()
-            raise SmokeFailure(f"cli server -filer did not start: {line!r}: {one.log_text()[-2000:]}")
-        body = b"".join(_filer_blocks(seed, 30_000, 3 * MIB + 5))
-        deadline = time.perf_counter() + 60
-        while True:
-            status, reply = pool.request(m[1], "POST", "/one/x.bin", body=body)
-            if status == 201 or time.perf_counter() > deadline:
-                break
-            time.sleep(0.2)  # until the volume server's first heartbeat
-        status2, got = pool.request(m[1], "GET", "/one/x.bin")
-        rc_one = one.stop()
-        check(status == 201 and status2 == 200 and got == body and rc_one == 0,
-              f"cli server -filer: POST {status} {reply[:200]!r}, GET {status2} "
-              f"({'equal' if got == body else 'differs'}), rc {rc_one}")
-        print(f"filer: cli server -filer -device {dev.type} up in {walls['server_up']:.3f}s "
-              f"({line}); one upload and one read equal; SIGTERM rc 0")
+        # 10. cli server -filer -device <dev>, run beside step 9's prune wait
+        print(server_line)
     finally:
+        if side is not None:
+            side.wait()
         pool.close()
         rcs = {getattr(s_, "url", s_.proc.pid): s_.stop() for s_ in servers}
         if filer is not None:
@@ -4961,11 +5044,11 @@ S3_SMALL_N = 256  # 1-64 KiB objects (cut from 8,192; 1,024 before phase 16, 512
 S3_CHUNKED_EVERY = 4  # a quarter of them as signed aws-chunked bodies
 S3_STREAM_CHUNK = 64 * 1024  # the aws-chunked chunk size of botocore's streaming signer
 S3_LARGE_N = 4  # 8-64 MiB objects, multipart (cut from 16 for phase 15, 8 for phase 17)
-S3_BIG_BYTES = 256 * MIB  # one object of 32 parts (cut from 1 GiB for the time limit)
+S3_BIG_BYTES = 128 * MIB  # one object of 16 parts (cut from 1 GiB for the time limit, 256 MiB before phase 18)
 S3_PART = 8 * MIB  # aws-cli's multipart_chunksize default
 S3_PART_CONCURRENCY = 10  # aws-cli's max_concurrent_requests default
 S3_CLIENTS = 16
-S3_MIXED_OPS = 625  # MinIO warp mixed, cut for the time limit (20,000, then 2,500, then 1,250)
+S3_MIXED_OPS = 320  # MinIO warp mixed, cut for the time limit (20,000, then 2,500, 1,250, 625)
 S3_MIX = (("GET", 45), ("HEAD", 30), ("PUT", 15), ("DELETE", 10))  # warp mixed's defaults
 S3_LIST_PAGE = 1000
 S3_RANGE_READS = 16
@@ -4978,7 +5061,7 @@ S3_PROFILE = dict(small=256, part=16, reads=256)  # the in-process split of one 
 
 def _s3_objects(seed: int) -> list:
     """[(key, size, kind, body key)] of the fill: the small objects (a
-    quarter ``chunked``), the large ones and the 256 MiB one, sizes from
+    quarter ``chunked``), the large ones and the 128 MiB one, sizes from
     ``seed``."""
     import numpy as np
 
@@ -5481,7 +5564,7 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
     <the filer's gRPC> -accessKey K -secretKey S -cacheMB 64 -kmsKeyFile
     F`` (SigV4 required; every request is signed by ``client_sign``).
     Fill (16 clients): 256 objects of 1-64 KiB (a quarter as signed
-    aws-chunked bodies), 4 of 8-64 MiB and one of 256 MiB as multipart in
+    aws-chunked bodies), 4 of 8-64 MiB and one of 128 MiB as multipart in
     8 MiB parts, 10 parts at a time.  Mixed: MinIO warp mixed's 45/30/15/10
     GET/HEAD/PUT/DELETE over the small objects, every answer held to a
     model of key -> sha256, then a ListObjectsV2 walk equal to the model.
@@ -5523,7 +5606,7 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
     walls: dict = {}
     rec: dict = dict(cryptography=crypto)
     servers: list = []
-    filer = gw = None
+    filer = gw = side = None
     victim = None
     t_phase = time.perf_counter()
     pool = HttpConnectionPool(timeout=60.0, max_per_host=64)
@@ -5653,7 +5736,7 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
                 "GET", f"/{S3_BUCKET}/{big_key[0]}", headers={"Range": f"bytes={lo}-{hi}"})
             check(status == 206 and data == _s3_body(seed, big_key[3], big_key[1], lo, hi + 1)
                   and hdrs.get("content-range") == f"bytes {lo}-{hi}/{big_key[1]}",
-                  f"Range {lo}-{hi} of the 256 MiB object: {status}, {len(data)} B, {hdrs}")
+                  f"Range {lo}-{hi} of the 128 MiB object: {status}, {len(data)} B, {hdrs}")
         small_key = next(k for k in sorted(model) if k.startswith("small/"))
         status, (sha, n), _h, _dt = admin.request("GET", f"/{S3_BUCKET}/{small_key}",
                                                   mode="presign", sink=True)
@@ -5746,7 +5829,7 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
         status, _d, _h, _dt = admin.request("GET", "/quota/q0.bin")
         check(status == 200, f"a GET of the frozen bucket: {status}")
         print(f"s3: features on {ident}: CopyObject of a {large[1]} B object, {S3_RANGE_READS} "
-              f"Range GETs across the 256 MiB object's part boundaries, a presigned GET, 3 versions "
+              f"Range GETs across the 128 MiB object's part boundaries, a presigned GET, 3 versions "
               f"read by versionId, tagging, an anonymous 403 turned 200 by a bucket policy, "
               f"SSE {sse} (s, PUT + GET of {S3_SSE_BYTES} B), quota freeze by "
               f"s3.bucket.quota.check visible in {walls['quota_visible']:.3f}s")
@@ -5857,13 +5940,55 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
 
         victim = max(servers, key=data_shards)
         victim_addr = f"127.0.0.1:{victim.grpc_port}"
+        def one_server() -> str:
+            """Step 7, beside the prune wait of step 6: ``cli server -filer -s3``
+            on its own master, one signed PUT and GET."""
+            srv_dir = os.path.join(root, "server")
+            os.makedirs(srv_dir)
+            t = time.perf_counter()
+            one = _Server("", "", os.path.join(root, "server.log"), wait=False, argv=[
+                "server", "-filer", "-s3", "-device", dev.type, "-dir", srv_dir, "-masterPort", "0",
+                "-port", "0", "-filerPort", "0", "-s3Port", "0", "-s3AccessKey", S3_AK,
+                "-s3SecretKey", S3_SK])
+            try:
+                line = one.proc.stdout.readline().strip()
+                walls["server_up"] = time.perf_counter() - t
+                m = re.search(r"s3 (127\.0\.0\.1:\d+) \(sigv4\)", line)
+                if m is None:
+                    raise SmokeFailure(f"cli server -filer -s3 did not start: {line!r}: "
+                                       f"{one.log_text()[-2000:]}")
+                c1_ = _S3Client(m[1])
+                body = _s3_body(seed, 55_000, 3 * MIB + 5)
+                status0, _d, _h, _dt = c1_.request("PUT", "/one")
+                deadline = time.perf_counter() + 60
+                while True:
+                    status, reply, _h, _dt = c1_.request("PUT", "/one/x.bin", body=body)
+                    if status == 200 or time.perf_counter() > deadline:
+                        break
+                    time.sleep(0.2)  # until the volume server's first heartbeat
+                status2, got, _h, _dt = c1_.request("GET", "/one/x.bin")
+                c1_.close()
+                rc_one = one.stop()
+                check(status0 == 200 and status == 200 and status2 == 200 and got == body
+                      and rc_one == 0,
+                      f"cli server -filer -s3: CreateBucket {status0}, PUT {status} "
+                      f"{reply[:200]!r}, GET {status2} ({'equal' if got == body else 'differs'}), "
+                      f"rc {rc_one}")
+            finally:
+                one.stop()
+            return (f"s3: cli server -filer -s3 -device {dev.type} up in "
+                    f"{walls['server_up']:.3f}s ({line}); one signed PUT and GET equal; "
+                    f"SIGTERM rc 0")
+
         live = [s_ for s_ in servers if s_ is not victim]
         victim.proc.send_signal(signal.SIGKILL)
         victim.proc.wait()
+        side = _Beside(one_server)
         walls["prune_wait"] = _poll(lambda: victim.url not in nodes(),
                                     f"the master to prune {victim.url}", PRUNE_WAIT_S)
         print(f"s3: SIGKILL {victim.url} ({data_shards(victim)} data shards); pruned after "
               f"{walls['prune_wait']:.3f}s")
+        server_line = side.result()
         check(gw.stop() == 0, "the gateway did not stop cleanly")
         gw = start_gateway()
         rec["read_degraded"] = _s3_read_all(gw.addr, S3_BUCKET, model_etag, "degraded")
@@ -5895,39 +6020,11 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
         print(f"s3: ec.rebuild of {len(vols)} volumes {walls['ec_rebuild']:.3f}s on {ident}; K1 "
               f"launches {k1_rebuild}; every volume has 14 shards on the live servers")
 
-        # 7. cli server -filer -s3 -device <dev>: one process
-        srv_dir = os.path.join(root, "server")
-        os.makedirs(srv_dir)
-        t = time.perf_counter()
-        one = _Server("", "", os.path.join(root, "server.log"), wait=False, argv=[
-            "server", "-filer", "-s3", "-device", dev.type, "-dir", srv_dir, "-masterPort", "0",
-            "-port", "0", "-filerPort", "0", "-s3Port", "0", "-s3AccessKey", S3_AK,
-            "-s3SecretKey", S3_SK])
-        line = one.proc.stdout.readline().strip()
-        walls["server_up"] = time.perf_counter() - t
-        m = re.search(r"s3 (127\.0\.0\.1:\d+) \(sigv4\)", line)
-        if m is None:
-            one.stop()
-            raise SmokeFailure(f"cli server -filer -s3 did not start: {line!r}: "
-                               f"{one.log_text()[-2000:]}")
-        c1_ = _S3Client(m[1])
-        body = _s3_body(seed, 55_000, 3 * MIB + 5)
-        status0, _d, _h, _dt = c1_.request("PUT", "/one")
-        deadline = time.perf_counter() + 60
-        while True:
-            status, reply, _h, _dt = c1_.request("PUT", "/one/x.bin", body=body)
-            if status == 200 or time.perf_counter() > deadline:
-                break
-            time.sleep(0.2)  # until the volume server's first heartbeat
-        status2, got, _h, _dt = c1_.request("GET", "/one/x.bin")
-        c1_.close()
-        rc_one = one.stop()
-        check(status0 == 200 and status == 200 and status2 == 200 and got == body and rc_one == 0,
-              f"cli server -filer -s3: CreateBucket {status0}, PUT {status} {reply[:200]!r}, GET "
-              f"{status2} ({'equal' if got == body else 'differs'}), rc {rc_one}")
-        print(f"s3: cli server -filer -s3 -device {dev.type} up in {walls['server_up']:.3f}s "
-              f"({line}); one signed PUT and GET equal; SIGTERM rc 0")
+        # 7. cli server -filer -s3 -device <dev>, run beside step 6's prune wait
+        print(server_line)
     finally:
+        if side is not None:
+            side.wait()
         pool.close()
         rcs = {getattr(s_, "url", s_.proc.pid): s_.stop() for s_ in servers}
         if gw is not None:
@@ -5948,8 +6045,8 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
 
 # -- phase 15 -----------------------------------------------------------------
 
-TLS_SMALL_N = 512  # 1-64 KiB objects over HTTPS at S3_CLIENTS clients (2,048 before phase 16, 1,024 before 17)
-TLS_BIG_BYTES = 256 * MIB  # one object as multipart in S3_PART parts, S3_PART_CONCURRENCY at a time (cut from 1 GiB)
+TLS_SMALL_N = 256  # 1-64 KiB objects over HTTPS at S3_CLIENTS clients (2,048 before phase 16, 1,024 before 17, 512 before 18)
+TLS_BIG_BYTES = 128 * MIB  # one object as multipart in S3_PART parts, S3_PART_CONCURRENCY at a time (cut from 1 GiB, 256 MiB before phase 18)
 # one spec for every process: each fires the rules of its own side and
 # service; shares the retry budgets and the EC read chain absorb.  The
 # stub never replays a stream, but the EC locator asks a live holder
@@ -6003,7 +6100,7 @@ def phase_tls(args, directory: str, ident: str, dev) -> dict:
     and seed (UNAVAILABLE on a share of the volume servers' EcShardRead
     and the gateway's LookupDirectoryEntry calls, a delay on a share of
     the filer's gRPC) and a ``WEED_SLO`` spec.  Over HTTPS: TLS_SMALL_N
-    objects of 1-64 KiB at 16 clients and one 256 MiB object as multipart;
+    objects of 1-64 KiB at 16 clients and one 128 MiB object as multipart;
     a traced PUT is one trace across the gateway, the filer and the
     volume server; ``cluster.status`` merges the members' sketches (the
     s3.put count equals the members' sum and the PUTs sent);
@@ -6447,7 +6544,7 @@ def phase_tls(args, directory: str, ident: str, dev) -> dict:
 SHARD_FILERS = 3
 SHARD_WORKERS = 4  # cli s3 -workers
 SHARD_BUCKETS = 64
-SHARD_SMALL_N = 512  # 1-64 KiB objects over SHARD_BUCKETS buckets (1,024 before phase 17)
+SHARD_SMALL_N = 256  # 1-64 KiB objects over SHARD_BUCKETS buckets (1,024 before phase 17, 512 before 18)
 SHARD_LARGE_N = 4  # 8-64 MiB objects as multipart, S3_PART parts, S3_PART_CONCURRENCY at a time (8 before phase 17)
 SHARD_OVERWRITES = 32
 SHARD_STREAK = 4 * SHARD_WORKERS  # fresh-connection answers in a row that must carry the new ETag
@@ -6573,7 +6670,7 @@ def phase_shard(args, directory: str, ident: str, dev) -> dict:
     two racks, three ``cli filer -db <own dir>`` on fixed ports (the shard
     ring's members) and ``cli s3 -filer f1,f2,f3 -workers 4 -port <fixed>
     -cacheMB 64 -metricsPort <base>`` (SigV4).  Steps, one line each:
-    routing (512 small objects over 64 buckets and 4 multipart ones;
+    routing (256 small objects over 64 buckets and 4 multipart ones;
     objects and entries per shard from ``filer.shard.status``, every
     bucket on the shard ``ShardRing`` names); the worker group's PUT and
     GET rates and every worker's request count; coherence (32 overwrites,
@@ -7519,6 +7616,702 @@ def phase_admin(args, directory: str, ident: str, dev) -> dict:
     return rec
 
 
+# -- phase 18 -----------------------------------------------------------------
+
+SYNC_DIRS = 64
+SYNC_SMALL_N = 512  # 1-64 KiB files over SYNC_DIRS directories (phase 13's class)
+SYNC_INLINE_N = 64  # of them at most 2 KiB: one in 8, inlined in their entries
+SYNC_LARGE_N = 4  # 4-32 MiB files
+SYNC_BIG_BYTES = 256 * MIB  # one file of 64 chunks at -maxMB 4, as phase 13's
+SYNC_OVERWRITES = 64
+SYNC_DELETES = 32
+SYNC_RENAMES = 8
+SYNC_RM_DIR = 7  # /sync/d07: removed by fs.rm -r while the syncer runs
+SYNC_LATENCY_N = 64  # small writes whose source ack -> visible-at-B delay is sampled
+SYNC_RESUME_N = 128  # writes across which the syncer is SIGKILLed and restarted
+SYNC_KILL_AT = 48  # acknowledged writes of SYNC_RESUME_N before the SIGKILL
+SYNC_REMOTE_N = 64  # 1-64 KiB objects of the remote, plus one of SYNC_REMOTE_BIG
+SYNC_REMOTE_BIG = 64 * MIB
+SYNC_REMOTE_ADDED = 8  # objects added to the remote before remote.meta.sync
+SYNC_SAMPLE = 64  # files read back after the source filer's restart
+SYNC_WAIT_S = 180.0  # every wait for the syncer, a process or the notifier
+
+
+def _sync_files(seed: int) -> list:
+    """[(path, size, key)] of the fill: the 256 MiB file, the large ones and
+    the small ones (SYNC_INLINE_N of them inline), sizes from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 18])
+    files = [("/sync/big/one.bin", SYNC_BIG_BYTES, 0)]
+    for i in range(SYNC_LARGE_N):
+        files.append((f"/sync/large/l{i:02d}.bin", int(rng.integers(4 * MIB, 32 * MIB + 1)), 1 + i))
+    sizes = np.concatenate([rng.integers(1024, 2049, SYNC_INLINE_N),
+                            rng.integers(2049, 64 * 1024 + 1, SYNC_SMALL_N - SYNC_INLINE_N)])
+    rng.shuffle(sizes)
+    for i, size in enumerate(sizes):
+        files.append((f"/sync/d{i % SYNC_DIRS:02d}/f{i:05d}.bin", int(size), 100 + i))
+    return files
+
+
+def _sync_tree(pool, faddr: str, root: str) -> dict:
+    """{path: size} of every file under ``root``, from a filer's paged JSON
+    listings."""
+    out: dict = {}
+    stack = [root]
+    while stack:
+        d, last = stack.pop(), ""
+        while True:
+            status, body = pool.request(faddr, "GET", f"{urllib.parse.quote(d)}?limit=1000"
+                                                      f"&lastFileName={urllib.parse.quote(last)}")
+            if status == 404:
+                break
+            check(status == 200, f"listing {d} on {faddr}: {status}")
+            doc = json.loads(body)
+            for e in doc["Entries"]:
+                if e["IsDirectory"]:
+                    stack.append(e["FullPath"])
+                else:
+                    out[e["FullPath"]] = e["FileSize"]
+            if not doc["ShouldDisplayLoadMore"]:
+                break
+            last = doc["LastFileName"]
+    return out
+
+
+class _Syncer:
+    """``cli filer.sync`` in a subprocess (its lines and errors to ``log``)."""
+
+    def __init__(self, argv: list, log: str):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.log = log
+        self._log = open(log, "a")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get(
+            "PYTHONPATH")])))
+        self.proc = subprocess.Popen([sys.executable, "-m", "seaweedfs_tpu_torch.cli", *argv],
+                                     cwd=root, env=env, stdout=self._log, stderr=self._log)
+        _Server.live.add(self)
+
+    def log_text(self) -> str:
+        if not self._log.closed:
+            self._log.flush()
+        with open(self.log) as f:
+            return f.read()
+
+    def kill(self) -> int:
+        self.proc.send_signal(signal.SIGKILL)
+        return self.proc.wait()
+
+    def stop(self) -> int:
+        """SIGINT: the command's own stop (rc 0)."""
+        _Server.live.discard(self)
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._log.close()
+        return self.proc.returncode
+
+
+def phase_sync(args, directory: str, ident: str, dev) -> dict:
+    """Phase 18: replication, notification and remote storage.  Cluster A:
+    ``cli master -volumeSizeLimitMB 256``, two ``cli volume`` (the default
+    device, the card) and ``cli filer -db redis://... -notify log:...
+    -metaLogDir`` on fixed ports; cluster B: phase 13's shape (a master and
+    four ``cli volume -device cuda`` on two racks), ``cli filer -db
+    etcd://...`` and ``cli s3 -filer B`` with one SigV4 identity.  The
+    Redis and etcd servers are tests/mini_redis.py and tests/mini_etcd.py
+    hosted in this process (neither machine has one); the stores' clients
+    run for real.  ``fs.configure`` puts /sync/ in collection syncdata and
+    16 writers fill it in phase 13's classes; ``cli filer.sync`` replays
+    the history into B (every path size- and sha256-equal), follows 64
+    overwrites, 32 deletes, 8 renames and an ``fs.rm -r`` (the ack ->
+    visible-at-B delay of 64 writes printed), is SIGKILLed in the middle of
+    128 writes and resumes on its checkpoint (B equals A again); A's
+    filer restarts on its store and lists and reads the same, and the
+    syncer follows it; the ``-notify`` log holds exactly the events
+    ``cli filer.meta.tail`` prints, in order; ``cli filer.backup -sink
+    s3://...`` copies /sync into bucket backup through B's gateway (it
+    runs beside the notify check, the remote.* commands and the encode,
+    and is checked last); the
+    remote.* commands mount a local-dir remote on B, pick up new objects,
+    cache them (MB/s), uncache one and unmount; and ``ec.encode -collection
+    syncdata`` on B launches K1 once per stripe batch in B's servers, one
+    volume's 14 shards equal the plain torch version's, and every synced
+    file reads back from the shards.  Its figures go on ``sync:`` lines."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
+    from seaweedfs_tpu_torch.pb import filer_pb2 as f_pb
+    from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.util.http_pool import HttpConnectionPool
+
+    tests_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests_dir not in sys.path:
+        sys.path.insert(0, tests_dir)
+    import mini_etcd
+    from mini_redis import MiniRedisServer
+
+    class _EtcdHttpd(mini_etcd.ThreadingHTTPServer):
+        # a real etcd listens with the kernel's backlog; the double's stdlib
+        # default of 5 drops connects (a 1 s SYN retry) under 16 readers, each
+        # read a few etcd calls on fresh connections
+        request_queue_size = 128
+
+    mini_etcd.ThreadingHTTPServer = _EtcdHttpd
+    MiniEtcdServer = mini_etcd.MiniEtcdServer
+
+    seed = args.seed
+    root = os.path.join(directory, "sync")
+    a_dirs = [os.path.join(root, f"a{i}") for i in range(2)]
+    b_dirs = [os.path.join(root, f"b{i}") for i in range(4)]
+    remote_dir = os.path.join(root, "remote")
+    for d in a_dirs + b_dirs + [remote_dir]:
+        os.makedirs(d)
+    log = os.path.join(root, "shell.log")
+    events_log = os.path.join(root, "events.jsonl")
+    ckpt = os.path.join(root, "sync.ckpt")
+    walls: dict = {}
+    rec: dict = {}
+    procs: dict = {}
+    t_phase = time.perf_counter()
+    t_wall0 = time.time()
+    pool = HttpConnectionPool(timeout=120.0, max_per_host=64)
+    redis, etcd = MiniRedisServer().start(), MiniEtcdServer().start()
+    files = _sync_files(seed)
+    want: dict = {}  # path -> sha256 of what A holds
+    sizes: dict = {}
+    a_filer_ports = _free_ports(2)
+    syncer = backup_proc = None
+    try:
+        t = time.perf_counter()
+        procs["a_master"] = _Server("", "", os.path.join(root, "a_master.log"), argv=[
+            "master", "-port", "0", "-volumeSizeLimitMB", str(FILER_VOLUME_MB)])
+        procs["b_master"] = _Server("", "", os.path.join(root, "b_master.log"), argv=[
+            "master", "-port", "0", "-volumeSizeLimitMB", str(FILER_VOLUME_MB)])
+        a_m = f"127.0.0.1:{procs['a_master'].grpc_port}"
+        b_m = f"127.0.0.1:{procs['b_master'].grpc_port}"
+        a_dev = [] if dev.type == "cuda" else ["-device", dev.type]  # A: the default device
+        a_servers = [_Server(d, dev.type, os.path.join(root, f"a_v{i}.log"), wait=False, argv=[
+            "volume", "-dir", d, "-ip", "127.0.0.1", "-port", "0", "-grpcPort", "0",
+            "-metricsPort", "0", *a_dev, "-mserver", a_m, "-scrubInterval", "0",
+            "-scrubRateMB", "0"]) for i, d in enumerate(a_dirs)]
+        b_servers = [_Server(d, dev.type, os.path.join(root, f"b_v{i}.log"), wait=False, argv=[
+            "volume", "-dir", d, "-ip", "127.0.0.1", "-port", "0", "-grpcPort", "0",
+            "-metricsPort", "0", "-device", dev.type, "-mserver", b_m, "-rack", f"r{i % 2}",
+            "-scrubInterval", "0", "-scrubRateMB", "0"]) for i, d in enumerate(b_dirs)]
+        for i, s_ in enumerate(a_servers + b_servers):
+            procs[f"v{i}"] = s_
+
+        def start_a_filer(logname: str, wait: bool = True):
+            f = _Server("", "", os.path.join(root, logname), wait=wait, argv=[
+                "filer", "-master", a_m, "-port", str(a_filer_ports[0]), "-grpcPort",
+                str(a_filer_ports[1]), "-db", f"redis://127.0.0.1:{redis.port}/1", "-maxMB",
+                str(FILER_CHUNK_MB), "-notify", f"log:{events_log}", "-metaLogDir",
+                os.path.join(root, "a_metalog")])
+            f.faddr = f"127.0.0.1:{a_filer_ports[0]}"
+            f.gaddr = f"127.0.0.1:{a_filer_ports[1]}"
+            return f
+
+        # the filers need only their masters: they start beside the volume servers
+        procs["a_filer"] = a_filer = start_a_filer("a_filer.log", wait=False)
+        procs["b_filer"] = b_filer = _Server("", "", os.path.join(root, "b_filer.log"),
+                                             wait=False, argv=[
+            "filer", "-master", b_m, "-port", "0", "-db", f"etcd://127.0.0.1:{etcd.port}",
+            "-maxMB", str(FILER_CHUNK_MB)])
+        for s_ in a_servers + b_servers:
+            s_.ready()
+            s_.url = f"127.0.0.1:{s_.http_port}"
+        a_filer.ready()
+        b_filer.ready()
+        b_filer.faddr, b_filer.gaddr = (f"127.0.0.1:{b_filer.http_port}",
+                                        f"127.0.0.1:{b_filer.grpc_port}")
+        gw = procs["s3"] = _Server("", "", os.path.join(root, "s3.log"), wait=False, argv=[
+            "s3", "-master", b_m, "-filer", b_filer.gaddr, "-port", "0", "-accessKey", S3_AK,
+            "-secretKey", S3_SK])
+        line = gw.proc.stdout.readline().strip()
+        m = re.search(r"s3 gateway on (127\.0\.0\.1:\d+) \(auth=sigv4\)", line)
+        check(m is not None, f"cli s3 did not start: {line!r}: {gw.log_text()[-2000:]}")
+        gw.addr = m[1]
+        walls["servers_up"] = time.perf_counter() - t
+
+        def nodes(maddr: str) -> set:
+            topo = rpc.master_stub(maddr).VolumeList(m_pb.VolumeListRequest(),
+                                                     timeout=60).topology_info
+            return {dn.id for dc in topo.data_center_infos for r in dc.rack_infos
+                    for dn in r.data_node_infos}
+
+        _poll(lambda: nodes(a_m) == {s_.url for s_ in a_servers}, "A's two nodes", 60)
+        _poll(lambda: nodes(b_m) == {s_.url for s_ in b_servers}, "B's four nodes", 60)
+        print(f"sync: A = master {a_m}, volume servers {[s_.url for s_ in a_servers]}, filer "
+              f"{a_filer.faddr} (gRPC {a_filer.gaddr}, redis://127.0.0.1:{redis.port}/1, -notify "
+              f"log); B = master {b_m}, volume servers {[s_.url for s_ in b_servers]}, filer "
+              f"{b_filer.faddr} (gRPC {b_filer.gaddr}, etcd://127.0.0.1:{etcd.port}), s3 "
+              f"{gw.addr}; the stores' servers are tests/mini_redis.py and tests/mini_etcd.py in "
+              f"this process; up in {walls['servers_up']:.3f}s on {ident}")
+
+        def put(conn, f):
+            sha, dt = _filer_put(conn, seed, *f)
+            return sha, dt
+
+        def write(items, writers: int = FILER_WRITERS) -> list:
+            got = _filer_pool(a_filer.faddr, items, put, writers)
+            for f, (sha, _dt) in zip(items, got):
+                want[f[0]], sizes[f[0]] = sha, f[1]
+            return got
+
+        n_sentinel = [0]
+
+        def sentinel(label: str) -> float:
+            """A marker written to A last: the syncer applies events in
+            order, so once B has it, B has everything A acknowledged
+            before it.  Returns the seconds until B had it."""
+            n_sentinel[0] += 1
+            path = f"/sync/marker/{n_sentinel[0]:02d}.bin"
+            conn = _filer_conn(a_filer.faddr)
+            want[path], _dt = _filer_put(conn, seed, path, 100, 90_000 + n_sentinel[0])
+            conn.close()
+            sizes[path] = 100
+            return _poll(lambda: pool.request(b_filer.faddr, "GET", path)[0] == 200,
+                         f"the syncer to bring {path} ({label}) to B", SYNC_WAIT_S)
+
+        def converged(label: str) -> dict:
+            """B's /sync equals A's (paths and sizes) and equals what was
+            written (every file's sha256)."""
+            tree_a = _sync_tree(pool, a_filer.faddr, "/sync")
+            tree_b = _sync_tree(pool, b_filer.faddr, "/sync")
+            check(tree_a == tree_b == sizes,
+                  f"{label}: A holds {len(tree_a)} files, B {len(tree_b)}, {len(sizes)} written; "
+                  f"first differences {sorted(set(tree_a.items()) ^ set(tree_b.items()))[:4]}")
+            items = [(p, s_, 0) for p, s_ in sorted(sizes.items())]
+            return _filer_read_all(b_filer.faddr, items, want, f"B {label}", tag="sync")
+
+        # 1. fill A
+        _w, out = _shell(a_m, "fs.configure -locationPrefix /sync/ -collection syncdata "
+                              "-replication 000 -apply", log, filer=a_filer.gaddr)
+        check('"collection": "syncdata"' in out, f"fs.configure: {out!r}")
+        time.sleep(1.1)  # the filer's conf cache lives one second
+        t = time.perf_counter()
+        conn = _filer_conn(a_filer.faddr)
+        sha, dt = _filer_put(conn, seed, *files[0])
+        conn.close()
+        want[files[0][0]], sizes[files[0][0]] = sha, files[0][1]
+        fill = {"big": _class_figures("big", [files[0][1]], [dt], time.perf_counter() - t)}
+        for cls, items in (("large", files[1:1 + SYNC_LARGE_N]),
+                           ("small", files[1 + SYNC_LARGE_N:])):
+            t = time.perf_counter()
+            got = write(items)
+            fill[cls] = _class_figures(cls, [f[1] for f in items], [g[1] for g in got],
+                                       time.perf_counter() - t)
+        rec["fill"] = fill
+        print(f"sync: fill of A on {ident}: " + "; ".join(
+            f"{cls} {r['files']} files {r['files_per_s']:.1f}/s {r['mb_per_s']:.1f} MB/s p50 "
+            f"{r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms" for cls, r in fill.items())
+            + f"; {len(files)} files, {sum(f[1] for f in files)} bytes")
+
+        # 2. filer.sync replays the history into B
+        sync_argv = ["filer.sync", "-fromFiler", a_filer.gaddr, "-fromMaster", a_m, "-toFiler",
+                     b_filer.gaddr, "-fromPath", "/sync", "-toPath", "/sync", "-checkpoint", ckpt]
+        t = time.perf_counter()
+        syncer = _Syncer(sync_argv, os.path.join(root, "sync.1.log"))
+        sentinel("the history")
+        walls["history"] = time.perf_counter() - t
+        rec["read_history"] = converged("after the history")
+        print(f"sync: cli filer.sync replayed the history ({len(files)} files, "
+              f"{sum(f[1] for f in files)} bytes) into B in {walls['history']:.3f}s (process start "
+              f"included): every path size- and sha256-equal")
+
+        # 3. mutations while the syncer runs; the ack -> visible delay
+        rng = np.random.default_rng([seed, 1801])
+        small = [f for f in files if f[0].startswith("/sync/d")
+                 and not f[0].startswith(f"/sync/d{SYNC_RM_DIR:02d}/")]
+        picks = rng.choice(len(small), SYNC_OVERWRITES + SYNC_DELETES + SYNC_RENAMES,
+                           replace=False)
+        over = [small[i] for i in picks[:SYNC_OVERWRITES]]
+        dels = [small[i] for i in picks[SYNC_OVERWRITES:SYNC_OVERWRITES + SYNC_DELETES]]
+        moves = [small[i] for i in picks[SYNC_OVERWRITES + SYNC_DELETES:]]
+        t = time.perf_counter()
+        write([(p, int(rng.integers(1024, 64 * 1024 + 1)), 50_000 + k) for p, _s, k in over])
+        for p, _s, _k in dels:
+            status, _b = pool.request(a_filer.faddr, "DELETE", p)
+            check(status in (200, 202, 204), f"DELETE {p} on A: {status}")
+            want.pop(p), sizes.pop(p)
+        fstub = rpc.filer_stub(a_filer.gaddr)
+        renamed = []
+        for p, _s, _k in moves:
+            d, name = p.rsplit("/", 1)
+            resp = fstub.AtomicRenameEntry(f_pb.AtomicRenameEntryRequest(
+                old_directory=d, old_name=name, new_directory="/sync/moved", new_name=name))
+            check(not resp.error, f"rename {p}: {resp.error}")
+            q = f"/sync/moved/{name}"
+            want[q], sizes[q] = want.pop(p), sizes.pop(p)
+            renamed.append((p, q))
+        rm_dir = f"/sync/d{SYNC_RM_DIR:02d}"
+        _w, _out = _shell(a_m, f"fs.rm -r {rm_dir}", log, filer=a_filer.gaddr)
+        gone = [p for p in sizes if p.startswith(rm_dir + "/")]
+        for p in gone:
+            want.pop(p), sizes.pop(p)
+        delays = []
+        conn = _filer_conn(a_filer.faddr)
+        for i in range(SYNC_LATENCY_N):
+            path, size = f"/sync/latency/f{i:03d}.bin", int(rng.integers(1024, 64 * 1024 + 1))
+            want[path], _dt = _filer_put(conn, seed, path, size, 60_000 + i)
+            sizes[path] = size
+            t_ack = time.perf_counter()
+            while pool.request(b_filer.faddr, "HEAD", path)[0] != 200:
+                check(time.perf_counter() - t_ack < SYNC_WAIT_S, f"{path} never reached B")
+                time.sleep(0.002)
+            delays.append(time.perf_counter() - t_ack)
+        conn.close()
+        sentinel("the mutations")
+        walls["mutations"] = time.perf_counter() - t
+        for p, _s, _k in dels:
+            check(pool.request(b_filer.faddr, "GET", p)[0] == 404, f"deleted {p} is on B")
+        for p, q in renamed:
+            check(pool.request(b_filer.faddr, "GET", p)[0] == 404, f"renamed {p} is on B")
+        for p in gone:
+            check(pool.request(b_filer.faddr, "GET", p)[0] == 404, f"{p} of {rm_dir} is on B")
+        d_ms = np.array(delays) * 1e3
+        rec["delay_ms"] = dict(p50=float(np.percentile(d_ms, 50)),
+                               p99=float(np.percentile(d_ms, 99)), max=float(d_ms.max()))
+        changed = [(p, sizes[p], 0) for p in sorted(sizes)
+                   if p.startswith(("/sync/moved/", "/sync/latency/"))
+                   or p in {f[0] for f in over}]
+        tree_b = _sync_tree(pool, b_filer.faddr, "/sync")
+        check(tree_b == _sync_tree(pool, a_filer.faddr, "/sync") == sizes,
+              f"after the mutations B holds {len(tree_b)} files, {len(sizes)} written")
+        rec["read_mutations"] = _filer_read_all(b_filer.faddr, changed, want,
+                                                "B's changed files after the mutations", tag="sync")
+        print(f"sync: {SYNC_OVERWRITES} overwrites, {SYNC_DELETES} deletes, {SYNC_RENAMES} "
+              f"renames and fs.rm -r {rm_dir} ({len(gone)} files) followed in "
+              f"{walls['mutations']:.3f}s: deleted paths 404 on B; source ack -> visible at B of "
+              f"{SYNC_LATENCY_N} small writes p50 {rec['delay_ms']['p50']:.2f} ms p99 "
+              f"{rec['delay_ms']['p99']:.2f} ms (max {rec['delay_ms']['max']:.2f})")
+
+        # 4. SIGKILL the syncer in the middle of 128 writes; resume on the checkpoint
+        resume = [(f"/sync/resume/d{i % 8}/f{i:03d}.bin", int(rng.integers(1024, 64 * 1024 + 1)),
+                   70_000 + i) for i in range(SYNC_RESUME_N)]
+        acked = [0]
+        killed = threading.Event()
+
+        def put_counted(conn, f):
+            out = _filer_put(conn, seed, *f)
+            acked[0] += 1
+            if acked[0] >= SYNC_KILL_AT:  # the rest wait for the kill: it lands mid-stream
+                killed.wait(SYNC_WAIT_S)
+            return out
+
+        t = time.perf_counter()
+        with ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(_filer_pool, a_filer.faddr, resume, put_counted, 4)
+            try:
+                _poll(lambda: acked[0] >= SYNC_KILL_AT, f"{SYNC_KILL_AT} acked writes",
+                      SYNC_WAIT_S)
+                rc_kill = syncer.kill()
+                _Server.live.discard(syncer)
+                acked_at_kill = acked[0]
+            finally:
+                killed.set()
+            got = fut.result()
+        for f, (sha, _dt) in zip(resume, got):
+            want[f[0]], sizes[f[0]] = sha, f[1]
+        check(rc_kill == -signal.SIGKILL, f"the syncer exited {rc_kill} on SIGKILL")
+        with open(ckpt) as fh:
+            ckpt_ts = int(fh.read())
+        # the events after the checkpoint, and how many of them B already has:
+        # those the new process applies again
+        pending = []
+        stream = rpc.filer_stub(a_filer.gaddr).SubscribeMetadata(f_pb.SubscribeMetadataRequest(
+            client_name="chip_smoke", path_prefix="/sync", since_ts_ns=ckpt_ts), timeout=3)
+        try:
+            for ev in stream:
+                pending.append(ev)
+        except Exception as e:  # noqa: BLE001 — the deadline ends the pass
+            check("DEADLINE_EXCEEDED" in str(e), f"reading A's events: {e}")
+        again = 0
+        for ev in pending:
+            path = f"{ev.directory}/{ev.new_entry.name}" if ev.new_entry.name else ""
+            if not path or pool.request(b_filer.faddr, "GET", path)[0] != 200:
+                break
+            again += 1
+        syncer = _Syncer(sync_argv, os.path.join(root, "sync.2.log"))
+        sentinel("the resume")
+        walls["resume"] = time.perf_counter() - t
+        rec["resume"] = dict(acked_at_kill=acked_at_kill, pending=len(pending), applied_again=again)
+        rec["read_resume"] = converged("after the resume")
+        print(f"sync: SIGKILL of cli filer.sync after {acked_at_kill} of {SYNC_RESUME_N} writes; "
+              f"restarted on its checkpoint: {len(pending)} events after it, {again} of them "
+              f"already at B (applied again); B converged to A in {walls['resume']:.3f}s: "
+              f"{len(sizes)} files, the same paths, sizes and sha256s")
+
+        # 5. A's filer restarts on the same redis://
+        before = {d: pool.request(a_filer.faddr, "GET", f"/sync/d{d:02d}?limit=1000")[1]
+                  for d in range(SYNC_DIRS) if d != SYNC_RM_DIR}
+        check(a_filer.stop() == 0, "A's filer did not stop cleanly")
+        t = time.perf_counter()
+        procs["a_filer"] = a_filer = start_a_filer("a_filer.restart.log")
+        walls["a_restart"] = time.perf_counter() - t
+        after = {d: pool.request(a_filer.faddr, "GET", f"/sync/d{d:02d}?limit=1000")[1]
+                 for d in before}
+        check(after == before, "A's listings differ after its filer's restart")
+        paths = sorted(sizes)
+        sample = [(paths[i], sizes[paths[i]], 0)
+                  for i in np.random.default_rng([seed, 1805]).choice(len(paths), SYNC_SAMPLE,
+                                                                      replace=False)]
+        _filer_read_all(a_filer.faddr, sample, want, "A after its restart (a sample)", tag="sync")
+        walls["follow_restart"] = sentinel("after A's restart")
+        print(f"sync: A's filer restarted on redis:// in {walls['a_restart']:.3f}s: {len(before)} "
+              f"listings byte-identical, {SYNC_SAMPLE} sampled files equal; the syncer followed "
+              f"it ({walls['follow_restart']:.3f}s to the next write at B)")
+
+        # 7 (started here, checked after 9). filer.backup to S3 through B's
+        # gateway: it reads only A and writes only bucket backup, so it runs
+        # beside steps 6, 8 and 9, which read A's log and work on B's /rmt and
+        # syncdata
+        root_dir = os.path.dirname(os.path.abspath(__file__))
+        client = _S3Client(gw.addr)
+        status, body, _h, _dt = client.request("PUT", "/backup")
+        client.close()
+        check(status == 200, f"creating bucket backup: {status} {body[:200]!r}")
+        backup: dict = {}
+        t_backup = time.perf_counter()
+        backup_proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.cli", "filer.backup", "-filer",
+             a_filer.gaddr, "-master", a_m, "-path", "/sync", "-sink",
+             f"s3://{S3_AK}:{S3_SK}@{gw.addr}/backup", "-once"], cwd=root_dir,
+            env=dict(os.environ, PYTHONPATH=root_dir), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+        def wait_backup() -> None:
+            backup["out"], backup["err"] = backup_proc.communicate()
+            backup["wall"] = time.perf_counter() - t_backup
+
+        backup_thread = threading.Thread(target=wait_backup, daemon=True)
+        backup_thread.start()
+
+        # 6. the -notify log against cli filer.meta.tail
+        def notified() -> list:
+            with open(events_log) as fh:
+                lines = [json.loads(x) for x in fh]
+            return [d["ts_ns"] for d in lines if d["directory"] == "/sync"
+                    or d["directory"].startswith("/sync/")]
+
+        t = time.perf_counter()
+        since = int(time.time() - t_wall0) + 5
+        tail_out: list = []
+        tail_proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.cli", "filer.meta.tail", "-filer",
+             a_filer.gaddr, "-path", "/sync", "-sinceSeconds", str(since)], cwd=root_dir,
+            env=dict(os.environ, PYTHONPATH=root_dir), stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL)
+        import select
+
+        # the pipe is read with os.read, never readline: a buffered reader
+        # keeps lines that select() no longer sees, and the count came short
+        tail_fd = tail_proc.stdout.fileno()
+        pending = b""
+
+        def take(chunk: bytes) -> None:
+            nonlocal pending
+            *lines, pending = (pending + chunk).split(b"\n")
+            tail_out.extend(json.loads(x)["ts_ns"] for x in lines)
+
+        expected = len(notified())  # A is idle: its pump has drained by now
+        try:  # it follows the stream forever: read until every event and 1 s of quiet
+            last_line = time.perf_counter()
+            while time.perf_counter() - last_line < (1.0 if len(tail_out) >= expected else 3.0):
+                check(time.perf_counter() - t < SYNC_WAIT_S, "filer.meta.tail never went quiet")
+                if select.select([tail_fd], [], [], 0.5)[0]:
+                    chunk = os.read(tail_fd, 1 << 16)
+                    if not chunk:
+                        break
+                    take(chunk)
+                    last_line = time.perf_counter()
+        finally:
+            tail_proc.send_signal(signal.SIGINT)
+            try:
+                tail_proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                tail_proc.kill()
+                tail_proc.wait()
+            while chunk := os.read(tail_fd, 1 << 16):  # what it printed before the SIGINT
+                take(chunk)
+            tail_proc.stdout.close()
+        _poll(lambda: len(notified()) >= len(tail_out), "the notify log to catch up", 30)
+        logged = notified()
+        walls["meta_tail"] = time.perf_counter() - t
+        check(logged == tail_out and logged == sorted(logged) and len(logged) > len(files),
+              f"the notify log holds {len(logged)} /sync events, filer.meta.tail printed "
+              f"{len(tail_out)}; equal {logged == tail_out}, ordered {logged == sorted(logged)}")
+        rec["notify_events"] = len(logged)
+        print(f"sync: the -notify log holds {len(logged)} /sync events, one ordered JSON line "
+              f"each; cli filer.meta.tail -sinceSeconds {since} printed the same {len(tail_out)} "
+              f"timestamps in {walls['meta_tail']:.3f}s")
+
+        # 8. remote storage on B
+        rrng = np.random.default_rng([seed, 1808])
+        objs = {f"o/{i % 4}/r{i:03d}.bin": rrng.bytes(int(rrng.integers(1024, 64 * 1024 + 1)))
+                for i in range(SYNC_REMOTE_N)}
+        objs["big/r.bin"] = b"".join(_filer_blocks(seed, 80_000, SYNC_REMOTE_BIG))
+
+        def put_objects(items: dict) -> None:
+            for k, data in items.items():
+                p = os.path.join(remote_dir, k)
+                os.makedirs(os.path.dirname(p), exist_ok=True)
+                with open(p, "wb") as fh:
+                    fh.write(data)
+
+        put_objects(objs)
+        rshell = f"-filer {b_filer.gaddr} -dir /rmt"
+        walls["remote_mount"], out = _shell(
+            b_m, f"remote.mount {rshell} -remote local:{remote_dir}", log)
+        check(out.strip() == f"mounted local:{remote_dir} at /rmt: {len(objs)} entries synced",
+              f"remote.mount: {out!r}")
+        check(set(_sync_tree(pool, b_filer.faddr, "/rmt")) == {"/rmt/" + k for k in objs},
+              "the mounted listing differs from the remote's")
+        added = {f"o/new/n{i}.bin": rrng.bytes(int(rrng.integers(1024, 64 * 1024 + 1)))
+                 for i in range(SYNC_REMOTE_ADDED)}
+        put_objects(added)
+        objs.update(added)
+        walls["remote_meta_sync"], out = _shell(b_m, f"remote.meta.sync {rshell}", log)
+        check(out.strip() == f"synced {SYNC_REMOTE_ADDED} new entries into /rmt",
+              f"remote.meta.sync: {out!r}")
+        check(set(_sync_tree(pool, b_filer.faddr, "/rmt")) == {"/rmt/" + k for k in objs},
+              "the listing after remote.meta.sync differs from the remote's")
+        total = sum(len(v) for v in objs.values())
+        walls["remote_cache"], out = _shell(b_m, f"remote.cache {rshell}", log)
+        check(out.strip() == f"cached {len(objs)} files ({total} bytes) under /rmt",
+              f"remote.cache: {out!r}")
+        for k, data in objs.items():
+            status, body = pool.request(b_filer.faddr, "GET", "/rmt/" + k)
+            check(status == 200 and body == data, f"GET /rmt/{k} after remote.cache: {status}")
+        one = "o/0/r000.bin"
+        _w, out = _shell(b_m, f"remote.uncache {rshell} -path /rmt/{one}; "
+                              f"remote.unmount {rshell}", log)
+        check(out.splitlines() == [f"/rmt/{one}: chunks dropped",
+                                   f"unmounted /rmt: 1 placeholders dropped, "
+                                   f"{len(objs) - 1} local/cached entries kept"],
+              f"remote.uncache, remote.unmount: {out!r}")
+        bstub = rpc.filer_stub(b_filer.gaddr)
+        mount_entry = bstub.LookupDirectoryEntry(f_pb.LookupDirectoryEntryRequest(
+            directory="/", name="rmt")).entry
+        gone_one = bstub.LookupDirectoryEntry(f_pb.LookupDirectoryEntryRequest(
+            directory="/rmt/o/0", name="r000.bin"))
+        check("remote.mount" not in mount_entry.extended and bool(gone_one.error),
+              f"after remote.unmount: mount marker {dict(mount_entry.extended)}, the uncached "
+              f"placeholder {gone_one.error or 'still there'}")
+        rec["remote"] = dict(objects=len(objs), bytes=total,
+                             cache_mb_per_s=total / walls["remote_cache"] / 1e6)
+        print(f"sync: remote.mount of a local-dir remote ({SYNC_REMOTE_N} objects of 1-64 KiB and "
+              f"one of {SYNC_REMOTE_BIG // MIB} MiB) on B {walls['remote_mount']:.3f}s, the "
+              f"listing equal; remote.meta.sync picked up {SYNC_REMOTE_ADDED} new objects; "
+              f"remote.cache pulled {len(objs)} objects ({total} bytes) into B's volumes in "
+              f"{walls['remote_cache']:.3f}s ({rec['remote']['cache_mb_per_s']:.1f} MB/s, the "
+              f"shell's process start included), every read equal; remote.uncache and "
+              f"remote.unmount printed the JAX shell's lines")
+
+        # 9. ec.encode -collection syncdata on B: K1 in B's servers
+        vols: dict = {}
+        for d in b_dirs:
+            for n in os.listdir(d):
+                mm = re.fullmatch(r"syncdata_(\d+)\.dat", n)
+                if mm:
+                    vols[int(mm[1])] = os.path.join(d, n)
+        check(len(vols) > 0, "B holds no syncdata volume")
+        sampled = max(vols, key=lambda v: os.path.getsize(vols[v]))
+        ref_dir = os.path.join(root, "ref")
+        os.makedirs(ref_dir)
+        ref = os.path.join(ref_dir, f"syncdata_{sampled}")
+        os.link(vols[sampled], ref + ".dat")
+        tasks = sum(len(ec_encoder._plan_tasks(DEFAULT_SCHEME, os.path.getsize(p),
+                                               ec_encoder.DEFAULT_CHUNK)) for p in vols.values())
+        k1_before = {s_.url: metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply")
+                     for s_ in b_servers}
+        check(not any(k1_before.values()), f"K1 launched on B before the encode: {k1_before}")
+        syncer_rc = syncer.stop()
+        syncer = None
+        check(syncer_rc == 0, f"cli filer.sync stopped with rc {syncer_rc}")
+        walls["ec_encode"], _out = _shell(
+            b_m, "lock; ec.encode -collection syncdata -fullPercent 0 -quietFor 0; unlock", log)
+        bm_stub = rpc.master_stub(b_m)
+        by_grpc = {f"127.0.0.1:{s_.grpc_port}": d for s_, d in zip(b_servers, b_dirs)}
+        for vid in vols:
+            _poll(lambda: _ec_census(bm_stub, vid)["holders"] == _disk_shards(by_grpc,
+                                                                            f"syncdata_{vid}"),
+                  f"B's EC census of {vid} to match the disks", 60)
+        k1 = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply"))
+              for s_ in b_servers}
+        check(sum(k1.values()) == tasks and tasks > 0,
+              f"K1 launches by B's servers {k1}; the generates of {len(vols)} volumes have {tasks} "
+              f"batches")
+        t = time.perf_counter()
+        ec_encoder.write_ec_files(ref, codec=ReedSolomonTorch(10, 4, device=dev))
+        shards = {sid: os.path.join(by_grpc[a], f"syncdata_{sampled}.ec{sid:02d}")
+                  for a, sids in _disk_shards(by_grpc, f"syncdata_{sampled}").items()
+                  for sid in sids}
+        check(sorted(shards) == list(range(14)), f"volume {sampled}'s shards: {sorted(shards)}")
+        for sid, p in shards.items():
+            check(sha256(p) == sha256(ref + f".ec{sid:02d}"),
+                  f"volume {sampled} shard {sid} differs from the plain torch version's")
+        walls["plain_reference"] = time.perf_counter() - t
+        rec["read_ec"] = converged("from EC shards")
+        print(f"sync: ec.encode -collection syncdata on B {walls['ec_encode']:.3f}s on {ident}: "
+              f"{len(vols)} volumes, K1 launches by server {k1} (= {tasks} batches); volume "
+              f"{sampled}'s 14 shards sha256-equal to ReedSolomonTorch's on the card "
+              f"({walls['plain_reference']:.3f}s); every synced file reads back from the shards")
+
+        # 7. the backup, started before step 6
+        backup_thread.join(timeout=max(1.0, SYNC_WAIT_S - (time.perf_counter() - t_backup)))
+        check("wall" in backup, f"cli filer.backup passed {SYNC_WAIT_S}s")
+        walls["backup"] = backup["wall"]
+        with open(os.path.join(root, "backup.log"), "w") as fh:
+            fh.write(backup["out"] + backup["err"])
+        check(backup_proc.returncode == 0 and backup["out"].rstrip().endswith(", 0 errors"),
+              f"cli filer.backup exited {backup_proc.returncode}: {backup['out'][-400:]} "
+              f"{backup['err'][-2000:]}")
+        client = _S3Client(gw.addr)
+        listed, _pages = _s3_list(client, "backup")
+        client.close()
+        keys = {p[len("/sync/"):]: s_ for p, s_ in sizes.items()}
+        check({k: v[0] for k, v in listed.items()} == keys,
+              f"bucket backup holds {len(listed)} objects, /sync {len(keys)} files")
+
+        def s3_get(client, key):
+            status, (sha, n), _h, dt = client.request("GET", f"/backup/{key}", sink=True)
+            check(status == 200 and n == keys[key] and sha == want["/sync/" + key],
+                  f"GET backup/{key}: {status}, {n} bytes")
+            return dt
+
+        t2 = time.perf_counter()
+        _s3_pool(gw.addr, sorted(keys), s3_get)
+        walls["backup_read"] = time.perf_counter() - t2
+        print(f"sync: cli filer.backup -sink s3://.../backup -once in {walls['backup']:.3f}s "
+              f"beside steps 6, 8 and 9 ({backup['out'].strip()}); ListObjectsV2 names exactly "
+              f"the {len(keys)} files of /sync; every object sha256-equal by a signed GET through "
+              f"B's gateway ({walls['backup_read']:.3f}s)")
+    finally:
+        pool.close()
+        if syncer is not None:
+            syncer.stop()
+        if backup_proc is not None and backup_proc.poll() is None:
+            backup_proc.kill()
+            backup_proc.wait()
+        rcs = {name: p.stop() for name, p in procs.items()}
+        redis.stop()
+        etcd.stop()
+    check(all(rc == 0 for rc in rcs.values()), f"sync phase processes exited {rcs}")
+    walls["phase"] = time.perf_counter() - t_phase
+    rec.update(walls=walls, launches=tasks, volumes=len(vols), files=len(sizes))
+    print("sync: " + json.dumps(rec, sort_keys=True))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7784,6 +8577,17 @@ def main() -> int:
         admin_walls_s=admin["walls"],
         admin_encode=admin["encode"],
         admin_vacuum_reclaimed=admin["vacuum"]["reclaimed"],
+    )
+    sync = main_path["sync"]
+    record["kernels"][0]["launches"] += sync["launches"]
+    record["kernels"][0].update(
+        launches_sync=sync["launches"],
+        sync_walls_s=sync["walls"],
+        sync_delay_ms=sync["delay_ms"],
+        sync_fill={cls: {k: r[k] for k in ("files", "files_per_s", "mb_per_s", "p50_ms", "p99_ms")}
+                   for cls, r in sync["fill"].items()},
+        sync_remote_cache_mb_per_s=sync["remote"]["cache_mb_per_s"],
+        sync_resume=sync["resume"],
     )
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)

@@ -55,6 +55,7 @@ def _import_all() -> None:
         gateway_cmd,
         servers,
         shell_cmd,
+        sync_cmd,
         tier_cmd,
         tls_cmd,
         version,

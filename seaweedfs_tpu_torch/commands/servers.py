@@ -28,8 +28,8 @@ resolves its device at start: without CUDA, and without ``-device cpu``,
 it raises and exits.  ``filer`` takes ``-master``, ``-ip``, ``-port``,
 ``-grpcPort``, ``-db`` (the store: filer.make_store), ``-maxMB`` (the chunk
 size), ``-metricsPort`` (0: none), ``-metaLogDir`` and ``-tlsCert``/``-tlsKey``
-(HTTPS on its HTTP port); it runs no kernel and takes no device, and its
-``-notify`` raises (not ported).  ``s3`` runs the S3 gateway in one process: over an
+(HTTPS on its HTTP port) and ``-notify`` (a metadata event bus:
+replication/notification.make_bus); it runs no kernel and takes no device.  ``s3`` runs the S3 gateway in one process: over an
 embedded filer, or with ``-filer`` (one filer's gRPC address) over
 ``RemoteFiler`` and the metadata subscriber; it takes ``-master``,
 ``-ip``, ``-port`` (0 binds a free port), ``-accessKey``/``-secretKey``
@@ -263,11 +263,14 @@ def _filer_flags(p) -> None:
     p.add_argument("-grpcPort", type=int, default=0, help="default port+10000")
     p.add_argument("-db", default="",
                    help="store: *.db = sqlite, sqlite2:F, directory = LSM, leveldb2:D, "
-                   "leveldb3:D, btree:F or *.btree (default: in-memory)")
+                   "leveldb3:D, btree:F or *.btree, mysql://u:p@h/db, postgres://u:p@h/db, "
+                   "redis://host:port/0, etcd://host:port (default: in-memory)")
     p.add_argument("-maxMB", type=int, default=4, help="chunk size in MiB")
     p.add_argument("-metricsPort", type=int, default=0, help="Prometheus /metrics")
     p.add_argument("-metaLogDir", default="", help="persist the metadata event log here")
-    p.add_argument("-notify", default="", help="metadata event bus (not ported: raises)")
+    p.add_argument("-notify", default="",
+                   help="publish metadata events to a bus: log:/path, webhook:http://..., "
+                   "mq://broker:port/topic, kafka://... , sqs:...")
     _tls_flags(p)
 
 

@@ -29,15 +29,6 @@ from seaweedfs_tpu_torch.filer.leveldb_store import (
     RocksDbStore,
 )
 
-# URL schemes of the JAX package's network stores (its redis_store.py,
-# nosql_stores.py and sql_stores.py): refused by name until the port has them
-_NOT_PORTED_SCHEMES = (
-    "mysql", "mysql2", "postgres", "postgresql", "postgres2", "postgresql2", "redis",
-    "valkey", "etcd", "mongodb", "mongodb+srv", "cassandra", "tikv", "hbase", "ydb",
-    "arangodb", "elastic", "elastic7", "elasticsearch", "tarantool",
-)
-
-
 def make_store(spec: str) -> FilerStore:
     """Store factory for the ``-db`` flag (reference: the filer picks one of
     26 backends from filer.toml).  Specs:
@@ -45,22 +36,65 @@ def make_store(spec: str) -> FilerStore:
     - ``""``                  -> in-memory
     - ``path/ending/.db``     -> sqlite
     - ``sqlite2:path.db``     -> sqlite, one table per /buckets/<b>
-    - ``rocksdb:dir``         -> RocksDB (needs python-rocksdb; refused without it)
+    - ``mysql://u:p@h/db``    -> MySQL (needs pymysql)
+    - ``mysql2://u:p@h/db``   -> MySQL, one table per /buckets/<b>
+    - ``postgres://u:p@h/db`` -> Postgres (needs psycopg2)
+    - ``postgres2://u:p@h/db``-> Postgres, one table per /buckets/<b>
+    - ``redis://host:port/0`` -> Redis (stdlib RESP client)
+    - ``etcd://host:2379``    -> etcd (stdlib v3 JSON-gateway client)
+    - ``mongodb://h/db``      -> MongoDB (needs pymongo)
+    - ``cassandra://h/ks``    -> Cassandra (needs cassandra-driver)
+    - ``tikv://pd1,pd2``      -> TiKV (needs tikv_client)
+    - ``hbase://h:9090/table``-> HBase (needs happybase)
+    - ``ydb://h:2136/db``     -> YDB (needs ydb-dbapi)
+    - ``arangodb://u:p@h/db`` -> ArangoDB (needs python-arango)
+    - ``elastic://h:9200``    -> Elasticsearch (stdlib REST client)
+    - ``tarantool://h:3301``  -> Tarantool (needs tarantool)
+    - ``rocksdb:dir``         -> RocksDB (needs python-rocksdb)
     - ``btree:path`` / ``*.btree`` -> append-only COW B+tree file
     - ``leveldb2:dir``        -> generational LSM (8 md5-partitioned dbs)
     - ``leveldb3:dir``        -> leveldb2 + one instance per /buckets/<b>
     - any other path          -> LSM store in that directory
 
-    The SQL and NoSQL URLs of the JAX package (``mysql://``, ``postgres://``,
-    ``redis://``, ``etcd://``, ``elastic://``, ...) raise: their stores are
-    not ported yet (ROADMAP Queue A item 1)."""
+    A store whose driver is absent refuses with the JAX package's text."""
     if not spec:
         return MemoryStore()
     scheme = spec.split("://", 1)[0] if "://" in spec else ""
-    if scheme in _NOT_PORTED_SCHEMES:
-        raise NotImplementedError(
-            f"filer store {scheme}:// is not ported to seaweedfs_tpu_torch yet "
-            "(ROADMAP Queue A item 1: the redis, nosql and sql stores)")
+    if scheme == "mysql":
+        from seaweedfs_tpu_torch.filer.sql_stores import MySqlStore
+
+        return MySqlStore(spec)
+    if scheme == "mysql2":
+        from seaweedfs_tpu_torch.filer.sql_stores import Mysql2Store
+
+        return Mysql2Store(spec.replace("mysql2://", "mysql://", 1))
+    if scheme in ("postgres2", "postgresql2"):
+        from seaweedfs_tpu_torch.filer.sql_stores import Postgres2Store
+
+        return Postgres2Store(spec.replace(scheme + "://", "postgres://", 1))
+    if scheme in ("postgres", "postgresql"):
+        from seaweedfs_tpu_torch.filer.sql_stores import PostgresStore
+
+        return PostgresStore(spec)
+    if scheme in ("redis", "valkey"):
+        from seaweedfs_tpu_torch.filer.redis_store import RedisStore
+
+        return RedisStore(spec)
+    if scheme == "ydb":
+        from seaweedfs_tpu_torch.filer.sql_stores import YdbStore
+
+        return YdbStore(spec)
+    nosql = {
+        "etcd": "EtcdStore", "mongodb": "MongoStore", "mongodb+srv": "MongoStore",
+        "cassandra": "CassandraStore", "tikv": "TikvStore", "hbase": "HbaseStore",
+        "arangodb": "ArangodbStore", "elastic": "ElasticStore",
+        "elastic7": "ElasticStore", "elasticsearch": "ElasticStore",
+        "tarantool": "TarantoolStore",
+    }
+    if scheme in nosql:
+        from seaweedfs_tpu_torch.filer import nosql_stores
+
+        return getattr(nosql_stores, nosql[scheme])(spec)
     if scheme == "rocksdb" or spec.startswith("rocksdb:"):
         path = spec.split("://", 1)[1] if "://" in spec else spec[8:]
         return RocksDbStore(path)

@@ -4,9 +4,9 @@ The port's copy of seaweedfs_tpu/filer/filer.py.
 Counterpart of the reference's weed/filer/filer.go (CreateEntry with
 implicit parent mkdirs, FindEntry, DeleteEntryMetaAndData with recursion)
 and filer_notify.go (meta event log feeding subscribers — the hook
-filer.sync/backup replication rides on).  The JAX Filer's ``notifier``
-(the filer server's ``-notify`` bus) waits for the port's replication
-layer.
+filer.sync/backup replication rides on).  ``notifier`` (the filer
+server's ``-notify`` bus, replication/notification.py) sees every event
+before the meta log appends it.
 """
 
 from __future__ import annotations
@@ -87,6 +87,9 @@ class Filer:
         # synchronously on every mutation, the same seam the meta_log
         # subscription serves cross-process
         self.listeners: list = []
+        self.notifier = None  # optional replication.notification.Notifier
+        self._emit_lock = threading.Lock()  # event stamps follow append order
+        self._last_ts = 0
         self._lock = threading.Lock()
         self._link_lock = threading.Lock()  # hardlink refcount RMWs
 
@@ -376,10 +379,18 @@ class Filer:
         new: Entry | None,
         new_parent_path: str = "",
     ) -> None:
-        ev = MetaEvent(time.time_ns(), directory, old, new, new_parent_path)
-        if self.persist_log is not None:
-            self.persist_log.append(_to_pb_event(ev))
-        self.meta_log.append(ev)
+        # one stamp-and-append at a time, each stamp above the last: a
+        # subscriber resumes at "ts > the last it saw", so an event appended
+        # after a later-stamped one, or stamped alike, would never reach it
+        # (the JAX filer stamps outside any lock; ROADMAP Queue C item 20)
+        with self._emit_lock:
+            self._last_ts = max(time.time_ns(), self._last_ts + 1)
+            ev = MetaEvent(self._last_ts, directory, old, new, new_parent_path)
+            if self.persist_log is not None:
+                self.persist_log.append(_to_pb_event(ev))
+            if self.notifier is not None:
+                self.notifier.notify(ev)
+            self.meta_log.append(ev)
         for listener in list(self.listeners):
             try:
                 listener(ev)

@@ -8,10 +8,10 @@ same single-document model the reference uses — so every gateway
 replica sees one source of truth.
 
 The port's copy of seaweedfs_tpu/iam/credentials.py: ``_encode`` writes the
-JAX package's bytes, so either package reads the other's document.
-``PostgresCredentialStore`` keeps only the JAX refusal when ``psycopg2``
-is absent; with ``psycopg2`` present it raises "not ported" (ROADMAP Queue
-A item 1's network stores).
+JAX package's bytes, so either package reads the other's document.  The
+filer_etc store reaches its filer through filer/duck.py, and
+``PostgresCredentialStore`` gates on ``psycopg2`` and parses its DSN with
+filer/sql_stores.py's ``_parse_dsn``, as the JAX store does.
 """
 
 from __future__ import annotations
@@ -183,8 +183,10 @@ class MemoryCredentialStore(CredentialStore):
 class FilerEtcCredentialStore(CredentialStore):
     """Identities persisted inside the filer (reference credential/
     filer_etc): ``filer`` is an in-process Filer, a RemoteFiler or a
-    ShardedFilerClient (find_entry/create_entry/master_client) — every
-    gateway sharing that filer shares one identity document."""
+    ShardedFilerClient (find_entry/create_entry/master_client) or a
+    mount.FilerClient (lookup/create/master), reached through
+    filer/duck.py — every gateway sharing that filer shares one
+    identity document."""
 
     name = "filer_etc"
 
@@ -194,33 +196,36 @@ class FilerEtcCredentialStore(CredentialStore):
         self._lock = threading.Lock()
 
     def load(self) -> dict[str, User]:
+        from seaweedfs_tpu_torch.filer import duck
         from seaweedfs_tpu_torch.filer import reader as chunk_reader
 
-        entry = self.filer.find_entry(IDENTITY_PATH)
+        entry = duck.find_entry(self.filer, IDENTITY_PATH)
         if entry is None:
             return {}
         if entry.content:
             return _decode(bytes(entry.content))
-        return _decode(chunk_reader.read_entry(self.filer.master_client, entry))
+        return _decode(chunk_reader.read_entry(duck.master_of(self.filer), entry))
 
     def save(self, users: dict[str, User]) -> None:
+        from seaweedfs_tpu_torch.filer import duck
         from seaweedfs_tpu_torch.filer.entry import Attr, Entry
 
         with self._lock:
-            self.filer.create_entry(
+            duck.put_entry(
+                self.filer,
                 Entry(
                     IDENTITY_PATH,
                     attr=Attr.now(mime="application/json"),
                     content=_encode(users),
-                )
+                ),
             )
 
 
 class PostgresCredentialStore(CredentialStore):
     """Postgres-backed credential store (reference weed/credential/
-    postgres/).  Gated on psycopg2 with the JAX package's refusal; the
-    store itself waits for the filer's network stores (ROADMAP Queue A
-    item 1) and raises "not ported" when ``psycopg2`` is present."""
+    postgres/): one row per identity in ``iam_identities`` (name + the
+    identity's JSON doc); load reads all rows, save rewrites the table
+    in one transaction.  Gated on psycopg2."""
 
     name = "postgres"
 
@@ -232,18 +237,72 @@ class PostgresCredentialStore(CredentialStore):
                 "postgres credential store needs the 'psycopg2' driver "
                 "(pip install psycopg2-binary)"
             ) from e
-        raise NotImplementedError(
-            "postgres credential store: not ported to seaweedfs_tpu_torch "
-            "(ROADMAP Queue A item 1, the network stores)"
-        )
+        from seaweedfs_tpu_torch.filer.sql_stores import _parse_dsn
 
-    # never reached (the constructor raises); defined so that the class
-    # is concrete and the refusal above is what a caller sees
+        kw = _parse_dsn(dsn, 5432)
+        kw["dbname"] = kw.pop("database")
+        self._kw = kw
+        super().__init__()
+        with self._txn() as cur:
+            cur.execute(
+                "CREATE TABLE IF NOT EXISTS iam_identities ("
+                "name TEXT PRIMARY KEY, doc TEXT NOT NULL)"
+            )
+
+    def _txn(self):
+        """One closed-when-done connection wrapping one transaction —
+        psycopg2's `with connection` only ends the transaction and
+        would leak the socket per IAM op until max_connections."""
+        import contextlib
+
+        import psycopg2
+
+        @contextlib.contextmanager
+        def txn():
+            conn = psycopg2.connect(**self._kw)
+            try:
+                with conn, conn.cursor() as cur:
+                    yield cur
+            finally:
+                conn.close()
+
+        return txn()
+
     def load(self) -> dict[str, User]:
-        raise NotImplementedError
+        out: dict[str, User] = {}
+        with self._txn() as cur:
+            cur.execute("SELECT name, doc FROM iam_identities")
+            for name, doc in cur.fetchall():
+                ident = json.loads(doc)
+                out[name] = User(
+                    name=name,
+                    actions=list(ident.get("actions", [])),
+                    keys=[
+                        (c["accessKey"], c["secretKey"])
+                        for c in ident.get("credentials", [])
+                    ],
+                )
+        return out
 
     def save(self, users: dict[str, User]) -> None:
-        raise NotImplementedError
+        with self._txn() as cur:
+            cur.execute("DELETE FROM iam_identities")
+            for u in users.values():
+                cur.execute(
+                    "INSERT INTO iam_identities (name, doc) VALUES (%s, %s)",
+                    (
+                        u.name,
+                        json.dumps(
+                            {
+                                "actions": u.actions,
+                                "credentials": [
+                                    {"accessKey": a, "secretKey": s}
+                                    for a, s in u.keys
+                                ],
+                            }
+                        ),
+                    ),
+                )
 
 
 def make_credential_store(spec: str, filer_client_factory=None):

@@ -19,8 +19,9 @@ are set, as every server's; rpc.py).  A GET of a chunked file tries the
 native splice first (filer/splice.py: chunk views relayed volume->client by
 csrc/dp.cpp's px verbs; never over TLS, and not with
 ``SEAWEEDFS_TPU_NATIVE_PX=0``); a splice library that cannot be built or
-loaded fails ``start``.  Left for later work, refused when asked for rather
-than ignored: the ``notify`` bus (ROADMAP Queue A item 6).
+loaded fails ``start``.  ``notify`` names a replication bus
+(replication/notification.make_bus: ``log:<file>``, ``webhook:<url>``)
+that sees every metadata event in order; it is closed by ``stop``.
 """
 
 from __future__ import annotations
@@ -433,10 +434,6 @@ class FilerServer:
         tls_key: str = "",
         notify: str = "",
     ):
-        if notify:
-            raise NotImplementedError(
-                "the filer's -notify bus is not ported to seaweedfs_tpu_torch yet "
-                "(ROADMAP Queue A item 6)")
         if bool(tls_cert) != bool(tls_key):
             raise ValueError("the filer's HTTPS needs both tls_cert and tls_key")
         if tls_cert:
@@ -447,6 +444,11 @@ class FilerServer:
             server_ssl_context(tls_cert, tls_key)
         self.tls_cert, self.tls_key = tls_cert, tls_key
         self.master = MasterClient(master_address)
+        bus = None
+        if notify:
+            from seaweedfs_tpu_torch.replication.notification import make_bus
+
+            bus = make_bus(notify)  # an unknown bus refuses before any store opens
         if store is None and store_path:
             from seaweedfs_tpu_torch.filer import make_store
 
@@ -454,6 +456,11 @@ class FilerServer:
         self.filer = Filer(
             store=store, master_client=self.master, meta_log_dir=meta_log_dir
         )
+        self._notifier = None
+        if bus is not None:
+            from seaweedfs_tpu_torch.replication.notification import Notifier
+
+            self._notifier = self.filer.notifier = Notifier(bus)
         self.chunk_size = chunk_size
         # cross-request assign batching (filer/upload.FidPool)
         self.fid_pool = chunk_upload.FidPool(self.master)
@@ -502,6 +509,8 @@ class FilerServer:
 
     def stop(self) -> None:
         self._stopping.set()
+        if self._notifier is not None:
+            self._notifier.close()
         with self.filer.meta_log.lock:
             self.filer.meta_log.cond.notify_all()
         if self._httpd:

@@ -25,7 +25,9 @@ lock.  Commands self-register via @shell_command; the REPL and one-shot
 shell's ``-filer`` (a comma list of filers rides the shard router), and the observability commands (``trace.dump``,
 ``resilience.status``, ``fault.inject``, ``slo.status``,
 ``cluster.status``, ``events.dump``), which read this process or the
-``/debug/`` pages of the members they are given.  The
+``/debug/`` pages of the members they are given, and the remote-storage
+commands (``remote.mount``, ``remote.meta.sync``, ``remote.cache``,
+``remote.uncache``, ``remote.unmount``) against their own ``-filer``.  The
 shell runs no kernel and takes no device: the EC work happens inside the
 volume servers it drives."""
 
@@ -120,6 +122,7 @@ def _import_all() -> None:
         command_ec_balance,
         command_filer_shard,
         command_fs,
+        command_remote,
         command_resilience,
         command_s3,
         command_slo,

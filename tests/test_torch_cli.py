@@ -252,7 +252,7 @@ def test_cli_server_needs_a_gpu_without_device_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv, ported", [
     (["server", "-s3", "-webdav"], False), (["server", "-webdav"], False),
-    (["filer", "-notify", "log:/x", "-port", "0"], False),
+    (["filer", "-notify", "log:/nonexistent-dir/events.jsonl", "-port", "0"], True),
     (["filer", "-tlsCert", "c", "-tlsKey", "k", "-port", "0"], True),
     (["s3", "-workers", "2", "-port", "8334"], 2),
     (["s3", "-tlsCert", "c", "-tlsKey", "k", "-port", "0"], True),
@@ -260,9 +260,10 @@ def test_cli_server_needs_a_gpu_without_device_cpu(tmp_path):
     ids=["server-s3", "server-webdav", "filer-notify", "filer-tls", "s3-workers", "s3-tls",
          "s3-filer-list"])
 def test_cli_flags_that_wait_for_later_work_raise(argv, ported, capsys):
-    """Flags of later work raise "not ported".  ``-tlsCert``/``-tlsKey`` are
-    ported: a certificate that cannot be loaded fails the start loudly
-    (rc 1, the error on stderr) instead of serving plaintext.  ``-workers``
+    """Flags of later work raise "not ported".  ``-tlsCert``/``-tlsKey`` and
+    ``-notify`` are ported: a certificate that cannot be loaded, or a bus
+    log that cannot be opened, fails the start loudly (rc 1, the error on
+    stderr) instead of serving without it.  ``-workers``
     and a comma list in ``-filer`` are ported: a worker group without a
     fixed ``-port`` or without ``-filer`` is refused with the JAX
     package's message and rc 2, before anything forks."""

@@ -438,9 +438,18 @@ def test_reads_through_the_filer_after_ec_encode(clusters):
         assert status == 206 and body == data[10:3000]
 
 
-def test_flags_that_wait_for_later_work_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        filer_server.FilerServer("127.0.0.1:1", notify="log:/x")
+def test_flags_that_wait_for_later_work_raise(tmp_path):
+    # -notify is ported: an unknown bus is refused with the JAX text before
+    # any store opens, the mq bus waits for the message queue, and a log
+    # bus is attached to the filer and closed by stop()
+    with pytest.raises(ValueError, match="unknown notification bus spec"):
+        filer_server.FilerServer("127.0.0.1:1", notify="bogus:x")
+    with pytest.raises(NotImplementedError, match="not ported.*Queue A item 5"):
+        filer_server.FilerServer("127.0.0.1:1", notify="mq://127.0.0.1:1/t")
+    fs = filer_server.FilerServer("127.0.0.1:1", notify=f"log:{tmp_path / 'ev.jsonl'}")
+    assert fs.filer.notifier is fs._notifier and fs._notifier is not None
+    fs.stop()
+    assert not fs._notifier._worker.is_alive()
     # TLS is ported: a pair that does not load fails at once, before a
     # listener binds, and half a pair is refused
     with pytest.raises(OSError):

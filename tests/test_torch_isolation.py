@@ -78,6 +78,18 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/cluster/__init__.py", "seaweedfs_tpu_torch/cluster/raft.py",
             "seaweedfs_tpu_torch/cluster/election.py", "seaweedfs_tpu_torch/cluster/registry.py",
             "seaweedfs_tpu_torch/shell/command_cluster.py",
+            "seaweedfs_tpu_torch/filer/redis_store.py", "seaweedfs_tpu_torch/filer/nosql_stores.py",
+            "seaweedfs_tpu_torch/filer/sql_stores.py", "seaweedfs_tpu_torch/filer/duck.py",
+            "seaweedfs_tpu_torch/replication/__init__.py",
+            "seaweedfs_tpu_torch/replication/notification.py",
+            "seaweedfs_tpu_torch/replication/replicator.py",
+            "seaweedfs_tpu_torch/replication/sink.py", "seaweedfs_tpu_torch/replication/sync.py",
+            "seaweedfs_tpu_torch/commands/sync_cmd.py", "seaweedfs_tpu_torch/mount/__init__.py",
+            "seaweedfs_tpu_torch/mount/filer_client.py",
+            "seaweedfs_tpu_torch/remote_storage/__init__.py",
+            "seaweedfs_tpu_torch/remote_storage/client.py",
+            "seaweedfs_tpu_torch/remote_storage/mount.py",
+            "seaweedfs_tpu_torch/shell/command_remote.py",
             "seaweedfs_tpu_torch/stats/events.py", "seaweedfs_tpu_torch/storage/vacuum.py",
             "seaweedfs_tpu_torch/storage/scrub.py",
             "seaweedfs_tpu_torch/shell/command_volume_ops.py",

@@ -313,6 +313,17 @@ def _settled(cluster, vid: int) -> None:
           f"the master's census of volume {vid}")
 
 
+def _counts_settled(cluster) -> bool:
+    """Every volume row at the master holds its holder's file count."""
+    by_url = {vs.url: vs for vs in cluster["servers"]}
+    for node in list(cluster["master"].topology.nodes.values()):
+        for vid, rec in list(node.volumes.items()):
+            vol = by_url[node.id].store.find_volume(vid) if node.id in by_url else None
+            if vol is None or rec.file_count != vol.file_count():
+                return False
+    return True
+
+
 def _dat(vs, vid: int) -> bytes:
     with open(vs.store.find_volume(vid).base + ".dat", "rb") as f:
         return f.read()
@@ -443,6 +454,10 @@ def test_mark_unmount_mount_configure_and_grow(cluster):
     assert "grew volumes" in grown and cluster["master"].topology.max_volume_id >= before + 2
     empty = [v for v in range(before + 1, cluster["master"].topology.max_volume_id + 1)]
     _wait(lambda: all(_at_master(cluster, v) for v in empty), "the grown volumes at the master")
+    # the master learns a volume's file count from a full heartbeat (a new
+    # volume's delta carries the count at its creation, in both packages):
+    # an earlier test's volume filled under a second ago can still read 0
+    _wait(lambda: _counts_settled(cluster), "every volume's file count at the master")
     text = _shell(cluster, "port", "volume.deleteEmpty -force")
     assert all(f"delete empty volume {v} on" in text for v in empty)
     assert not any(_holders(cluster, v) for v in empty)
