@@ -3,9 +3,9 @@
 
     python3 chip_phase.py PHASE [--seed N]
 
-PHASE is one of 9-18 (the write path, failover, maintenance, storage, the
+PHASE is one of 9-19 (the write path, failover, maintenance, storage, the
 filer, S3, the RPC layers under TLS, the sharded filer, the maintenance
-plane, replication).  The kernels are
+plane, replication, the file gateways and the message queue).  The kernels are
 built as chip_smoke.py builds them, then the phase runs on cuda:0 in a
 temporary directory and prints its own lines; a failed check exits 1.
 Without CUDA it exits non-zero and prints no result.
@@ -23,7 +23,7 @@ import chip_smoke as cs
 
 PHASES = {9: cs.phase_write_path, 10: cs.phase_failover, 11: cs.phase_maintenance,
           12: cs.phase_storage, 13: cs.phase_filer, 14: cs.phase_s3, 15: cs.phase_tls,
-          16: cs.phase_shard, 17: cs.phase_admin, 18: cs.phase_sync}
+          16: cs.phase_shard, 17: cs.phase_admin, 18: cs.phase_sync, 19: cs.phase_gateways}
 
 
 def main() -> int:

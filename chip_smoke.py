@@ -141,8 +141,8 @@ Phases, each printing what it found; any failure exits non-zero:
    read reports, native POSTs and GETs > 0; 9b: 1,250 writes at
    replication 001, then every needle read from both holders
    ``/dir/lookup`` names, sha256-equal, with native fan-outs by the
-   primaries > 0; 9c: ``cli benchmark -n 8192 -size 65536`` fills one
-   512 MiB volume, and 512 needles of seeded payloads go in through
+   primaries > 0; 9c: ``cli benchmark -n 4096 -size 65536`` fills one
+   256 MiB volume, and 512 needles of seeded payloads go in through
    MasterClient and the pool, every one a native POST; 9d: ``cli shell
    -c "lock; ec.encode -volumeId V -collection ec64k -streaming;
    unlock"`` of that natively written volume: K1 launches on the source
@@ -152,7 +152,7 @@ Phases, each printing what it found; any failure exits non-zero:
    at the master, at most 4 a node, both racks), no .dat, .idx or .tmp
    remains, and the
    targets' received bytes, the generate's stage split and the balance's
-   moves are printed; 9e: the 512 seeded needles and 512 benchmark
+   moves are printed; 9e: the 512 seeded needles and 256 benchmark
    needles read over HTTP, each resolved through ``/dir/lookup``, equal to
    their payloads (p50, p99, and the intervals the serving holder had to
    read from others, counted from the .ecx and the census); 9f: 64
@@ -240,12 +240,12 @@ Phases, each printing what it found; any failure exits non-zero:
    ``cli filer -db <dir> -maxMB 4`` (the LSM store; logs under
    ``filer/``).  ``fs.configure`` puts /data/ in collection filerdata; 16
    writers fill it through the filer's HTTP API, bodies streamed from
-   --seed: one 256 MiB file (64 chunks), 4 of 4-32 MiB and 256 of 1-64
+   --seed: one 128 MiB file (32 chunks), 4 of 4-32 MiB and 256 of 1-64
    KiB over 64 directories (32 of them at most 2 KiB, inline), files/s,
    MB/s and p50/p99 per class; every file reads back sha256-equal, with
-   32 Range reads across chunk boundaries of the 256 MiB file, a 416, a
+   32 Range reads across chunk boundaries of the big file, a 416, a
    HEAD and paged JSON listings equal to the names written, and the
-   filer's RSS under FILER_RSS_LIMIT while it moves the 256 MiB file.  ``cli
+   filer's RSS under FILER_RSS_LIMIT while it moves the big file.  ``cli
    shell -filer``: fs.du equals the bytes written, fs.verify finds 0
    broken, fs.ls and fs.tree run; 64 needles written by ``cli upload`` are
    exactly the orphans ``volume.fsck`` finds (their bytes too), purges
@@ -268,7 +268,7 @@ Phases, each printing what it found; any failure exits non-zero:
    racks, ``cli filer -db <dir>`` and in front ``cli s3 -filer <its gRPC>
    -accessKey K -secretKey S -cacheMB 64 -kmsKeyFile F`` (SigV4 required;
    logs under ``s3/``); every request is signed by ``client_sign``.  Fill:
-   16 clients put 256 objects of 1-64 KiB (a quarter as signed
+   16 clients put 128 objects of 1-64 KiB (a quarter as signed
    aws-chunked bodies), and 4 of 8-64 MiB and one of 128 MiB go up as
    multipart in 8 MiB parts, 10 at a time (aws-cli's defaults); objects/s,
    MB/s and p50/p99 per class.  Mixed: MinIO warp mixed's 45% GET, 30%
@@ -310,7 +310,7 @@ Phases, each printing what it found; any failure exits non-zero:
    (UNAVAILABLE on 2% of the volume servers' EcShardRead calls and of the
    gateway's LookupDirectoryEntry calls, a 2 ms delay on 5% of the filer's
    gRPC) and a ``WEED_SLO``; plaintext gRPC, plain HTTP and a client that
-   does not trust the CA are refused.  Over HTTPS, 256 objects of 1-64
+   does not trust the CA are refused.  Over HTTPS, 128 objects of 1-64
    KiB at 16 clients and one 128 MiB object as multipart; one PUT sent with
    a traceparent is one trace in the gateway (PutObject, its put_chunk),
    the filer (CreateEntry, the PutObject's child) and the volume server
@@ -339,7 +339,7 @@ Phases, each printing what it found; any failure exits non-zero:
    three ``cli filer -db`` shards on fixed ports and ``cli s3 -filer
    f1,f2,f3 -workers 4 -port <fixed> -cacheMB 64 -metricsPort <base>``
    (SigV4; logs under ``shard/``; every wait for a line has a deadline).
-   Routing: 256 objects of 1-64 KiB over 64 buckets and 4 of 8-64 MiB
+   Routing: 128 objects of 1-64 KiB over 64 buckets and 4 of 8-64 MiB
    as multipart (S3_PART parts, 10 at a time) by 16 clients; objects and
    entries per shard from ``filer.shard.status`` and each shard's hash
    share; every bucket and its entries sit on the shard ``ShardRing``
@@ -394,11 +394,11 @@ Phases, each printing what it found; any failure exits non-zero:
    with one SigV4 identity); the Redis and etcd servers are
    tests/mini_redis.py and tests/mini_etcd.py hosted in this process (logs
    under ``sync/``).  /sync in collection syncdata is filled in phase 13's
-   classes (512 files of 1-64 KiB over 64 directories, 64 inline; 4 of
-   4-32 MiB; one of 256 MiB); ``cli filer.sync`` replays the history into
-   B, follows 64 overwrites, 32 deletes, 8 renames and an ``fs.rm -r``
+   classes (256 files of 1-64 KiB over 64 directories, 32 inline; 4 of
+   4-32 MiB; one of 128 MiB); ``cli filer.sync`` replays the history into
+   B, follows 32 overwrites, 32 deletes, 8 renames and an ``fs.rm -r``
    (the source ack -> visible-at-B delay of 64 small writes, p50 and
-   p99), is SIGKILLed in the middle of 128 writes and resumes on its
+   p99), is SIGKILLed in the middle of 64 writes and resumes on its
    checkpoint (the events applied again printed); B equals A in paths,
    sizes and sha256s after the history and the resume (after the
    mutations, paths and sizes, and the changed files' sha256s).  A's filer restarts on its store
@@ -415,6 +415,36 @@ Phases, each printing what it found; any failure exits non-zero:
    volume's 14 shards equal ReedSolomonTorch's on the card, and every
    synced file reads back from the shards.  Its figures go on ``sync:``
    lines.
+19. The file gateways and the message queue: phase 13's cluster shape,
+   its ``cli filer -db <lsm dir>`` with ``-notify mq://<broker>/filer-events``,
+   two ``cli mq.broker -master -filer`` (the JAX default ``-replication 2``)
+   started before the filer, and ``cli webdav`` (logs under
+   ``gateways/``).  WebDAV: MKCOL, PUT of phase 13's classes (128 files of
+   1-64 KiB over 16 directories, 16 inline; 2 of 4-32 MiB; one of 128 MiB)
+   by 16 writers, PROPFIND depth 1 sizes, every GET sha256-equal, a Range
+   read, MOVE of a directory, COPY, DELETE then 404.  The mount
+   (``WeedFS`` in the smoke's process, chunk 4 MiB; ``cli mount`` refuses
+   without FUSE): random-offset overlapping writes, a truncate to 0 and a
+   rename equal a numpy model; a file crosses mount -> WebDAV and WebDAV ->
+   mount; the delay from a WebDAV overwrite until the mount reads it
+   (p50, max) stays under the 5 s cache TTL.  The queue:
+   ``mq.topic.configure`` of 4 partitions; ``cli mq.benchmark`` at its
+   defaults (5,000 x 1 KiB, ``-c 8``) from the brokers' start until the
+   encode has run; 768 records of 64 KiB over 64 keys (records/s, MB/s), every
+   partition past one 8 MiB segment; ``mq.topic.compact`` beside the mount
+   and ``SealSegments(evict)``: every partition's archive in the filer's
+   /topics (collection mqtier), none left on its owner's disk.
+   ``ec.encode`` of the default and mqtier collections launches K1 once
+   per stripe batch in the servers.  The filer-events topic holds exactly
+   the filer's events (SubscribeMetadata from 0, each partition in stamp
+   order).  The owner broker of partition 0 is SIGKILLed after 64 of 256
+   more acknowledged records, and with it the holder of most of one
+   volume's shards: every acknowledged record reads back and the offsets
+   continue; after the prune, mount and WebDAV reads of a sample stay
+   sha256-equal and the volume's 14 shards equal ReedSolomonTorch's on the
+   card; a two-member ``GroupConsumer`` reads every record once, in
+   per-partition offset order, the evicted archives through the filer from
+   degraded EC shards.  Its figures go on ``gateways:`` lines.
 
 Bounds: the larger of the bytes a function must move over the memory rate
 and its operations at 64 32-bit logic ops a clock per SM, from the card's SM
@@ -1224,6 +1254,11 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         sync = phase_sync(args, tmp, ident, dev)
         lap("18")
+        for name in os.listdir(tmp):  # room for phase 19's cluster
+            path = os.path.join(tmp, name)
+            shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+        gateways = phase_gateways(args, tmp, ident, dev)
+        lap("19")
         print("phase walls (s, with the clean-up before each): " + ", ".join(
             f"{name} {t1 - t0:.3f}" for (_n, t0), (name, t1) in zip(laps, laps[1:])))
         degraded = {label: (r["p50_us"], r["p99_us"]) for label, r in ec_service["reads"].items()}
@@ -1234,7 +1269,7 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
                     lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster, write=write,
                     failover=failover, maintenance=maintenance, storage=storage,
                     host_codec=host_codec, filer=filer, s3=s3, tls=tls, shard=shard, admin=admin,
-                    sync=sync)
+                    sync=sync, gateways=gateways)
     finally:
         faulthandler.cancel_dump_traceback_later()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1652,7 +1687,7 @@ def phase_mesh(args, directory: str, hashes: dict, ident: str, dev, rates) -> di
 NEEDLE_PAYLOAD = 1024  # `weed benchmark`'s default -size
 BIG_NEEDLES = 8  # 256 KiB - 1 MiB payloads: reads of several intervals
 DEAD_NEEDLES = 64
-READ_SAMPLE = 1_500  # cut from 20,000 to leave phases 9-17 room in the time limit (3,000 before phase 17)
+READ_SAMPLE = 1_000  # cut from 20,000 to leave phases 9-19 room in the time limit (3,000 before phase 17, 1,500 before 19)
 LARGE_ROW_BLOCK = 64 * MIB  # the large-row pipeline's large blocks
 READ_STATES = [  # label, volume, shards removed
     ("RS healthy", "rs", ()),
@@ -2292,8 +2327,8 @@ def phase_ec_service(args, directory: str, ident: str, dev) -> dict:
                 launches_server=server["launches"]["gf_apply"], launches_local=launches["gf_apply"])
 
 CLUSTER_SERVERS = 4
-CLUSTER_READ_SAMPLE = 125  # cut from 2,000 (500 before phase 16, 250 before 17) for the time limit
-CLUSTER_CROSSING_SAMPLE = 256  # of the ~1,000 block-crossing needles (all before phase 18)
+CLUSTER_READ_SAMPLE = 64  # cut from 2,000 (500 before phase 16, 250 before 17, 125 before 19) for the time limit
+CLUSTER_CROSSING_SAMPLE = 64  # of the ~1,000 block-crossing needles (all before phase 18, 256 before 19)
 LRC_CLUSTER_GIB = 0.125  # the LRC volume of phase 8, cut to stay inside the time limit (0.25 before phase 17)
 PRUNE_WAIT_S = 60.0  # the master prunes after 15 s without a heartbeat, checked every 5 s
 
@@ -2692,9 +2727,9 @@ BENCH_N = 4096  # `weed benchmark` -n 1048576, cut 256x for the time limit (8,19
 BENCH_SIZE = 1024  # `weed benchmark` -size
 BENCH_C = 16  # `weed benchmark` -c
 REP_N = 1250  # DATA_PLANE.md's replicated-write row (5,000), quartered for the time limit (2,500 before phase 17)
-FILL_N, FILL_SIZE = 8192, 64 * 1024  # 512 MiB of DATA_PLANE.md's 64 KB payloads (1 GiB before phase 18)
+FILL_N, FILL_SIZE = 4096, 64 * 1024  # 256 MiB of DATA_PLANE.md's 64 KB payloads (1 GiB before phase 18, 512 MiB before 19)
 SEEDED_NEEDLES = 512  # 1,024 before phase 17
-EC_READ_SAMPLE = 512  # cut from 4,096 for the time limit (1,024 before phase 17)
+EC_READ_SAMPLE = 256  # cut from 4,096 for the time limit (1,024 before phase 17, 512 before 19)
 EC_DELETES = 64
 
 
@@ -2756,7 +2791,7 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
     """Phase 9: the write path.  One ``cli master`` and four ``cli volume
     -device cuda -max 8`` subprocesses (racks alternating), each with its
     HTTP port bound; ``cli benchmark`` writes and reads (9a), replicated
-    writes read back from both holders (9b), one 512 MiB volume filled by the
+    writes read back from both holders (9b), one 256 MiB volume filled by the
     benchmark and 512 seeded needles (9c), ``ec.encode -streaming`` of it
     through K1 on its server (9d), reads of the EC volume over HTTP (9e) and
     deletes (9f) (module docstring)."""
@@ -2872,7 +2907,7 @@ def phase_write_path(args, directory: str, ident: str, dev) -> dict:
         print(f"write path: {rep_fids} replicated needles in {len(rep_vids)} volume(s) read back "
               f"from both holders each, byte-identical, in {walls['rep_readback']:.3f}s")
 
-        # 9c: one real volume: the benchmark's 512 MiB and SEEDED_NEEDLES seeded ones
+        # 9c: one real volume: the benchmark's 256 MiB and SEEDED_NEEDLES seeded ones
         fill = _benchmark(maddr, FILL_N, FILL_SIZE, "ec64k", "000", bench_log)
         (vid,) = collection_vids("ec64k")
         mc = MasterClient(maddr)
@@ -4318,7 +4353,7 @@ FILER_DIRS = 64
 FILER_SMALL_N = 256  # 1-64 KiB files over FILER_DIRS directories (cut from 8,192; 1,024 before phase 16, 512 before 17)
 FILER_INLINE_N = 32  # of them at most 2 KiB: inlined in their entries (64 before phase 17)
 FILER_LARGE_N = 4  # 4-32 MiB files (cut from 16 for phase 15, 8 for phase 17)
-FILER_BIG_BYTES = 256 * MIB  # one file of 64 chunks at -maxMB 4 (cut from 1 GiB for the time limit)
+FILER_BIG_BYTES = 128 * MIB  # one file of 32 chunks at -maxMB 4 (cut from 1 GiB, 256 MiB before phase 19)
 FILER_CHUNK_MB = 4  # -maxMB: the default of upstream's `weed filer` and of the JAX CLI
 FILER_VOLUME_MB = 256  # -volumeSizeLimitMB: upstream's 30 GB cut 120x
 FILER_WRITERS = 16
@@ -4327,18 +4362,18 @@ FILER_ORPHANS = 64
 FILER_RM_DIR = 5  # /data/d05: one directory of FILER_SMALL_N / FILER_DIRS files
 FILER_RESTART_SAMPLE = 64  # halved for phase 16 and again for phase 17
 FILER_REBUILD_SAMPLE = 128  # halved for phase 16 and again for phase 17
-# the filer's peak RSS while it moves the 256 MiB file: its windows hold 8 x 4
+# the filer's peak RSS while it moves the big file: its windows hold 8 x 4
 # MiB up and 4 x 4 MiB down; the rest is the interpreter, the allocator's
 # retained arenas and the server threads (121 and 191 MiB measured on an H100
-# machine's host with a 1 GiB file).  Below the file's size plus the
-# interpreter, so a filer that held the whole body would fail (384 MiB with
-# the 1 GiB file)
-FILER_RSS_LIMIT = 288 * MIB
+# machine's host with a 1 GiB file, 110-123 MiB with a 256 MiB one).  Below
+# the file's size plus the interpreter, so a filer that held the whole body
+# would fail (384 MiB with the 1 GiB file, 288 MiB with the 256 MiB one)
+FILER_RSS_LIMIT = 200 * MIB
 FILER_PROFILE = dict(big=16, small=256, reads=256)  # the in-process split of one request
 
 
 def _filer_files(seed: int) -> list:
-    """[(path, size, key)] of the phase's files: the 256 MiB file, the large
+    """[(path, size, key)] of the phase's files: the big file, the large
     ones and the small ones (FILER_INLINE_N of them inline), sizes from
     ``seed``; ``key`` seeds the body."""
     import numpy as np
@@ -4639,10 +4674,10 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
     racks and one ``cli filer -db <dir> -maxMB 4`` (the LSM store).
     ``fs.configure`` puts /data/ in collection filerdata; 16 writers fill
     it through the filer's HTTP API (256 files of 1-64 KiB over 64
-    directories, 32 of them inline; 4 of 4-32 MiB; one of 256 MiB, 64
+    directories, 32 of them inline; 4 of 4-32 MiB; one of 128 MiB, 32
     chunks, streamed) and every file reads back sha256-equal, with Range
     reads, a 416, a HEAD and paged listings; the filer's RSS stays under
-    FILER_RSS_LIMIT while it moves the 256 MiB file.  ``cli shell -filer``:
+    FILER_RSS_LIMIT while it moves the big file.  ``cli shell -filer``:
     fs.du equals the bytes written, fs.verify finds 0 broken, fs.ls and
     fs.tree run; 64 needles from ``cli upload`` are the orphans
     ``volume.fsck`` finds, purges, and then finds 0 of; ``fs.rm -r`` of a
@@ -4724,7 +4759,7 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
         check("applied" in out and '"collection": "filerdata"' in out, f"fs.configure: {out!r}")
         time.sleep(1.1)  # the filer's conf cache lives one second
 
-        # 2. the fill: the 256 MiB file alone (its RSS sampled), then the
+        # 2. the fill: the big file alone (its RSS sampled), then the
         # large files and the small ones, 16 writers each
         want: dict = {}
         big = files[0]
@@ -4747,13 +4782,13 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
             f"{cls} {r['files']} files {r['files_per_s']:.1f}/s {r['mb_per_s']:.1f} MB/s p50 "
             f"{r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms" for cls, r in fill.items())
             + f"; {len(files)} files, {total_bytes} bytes; the filer's peak RSS while it took the "
-            f"256 MiB file {rss_up.peak / MIB:.1f} MiB")
+            f"big file {rss_up.peak / MIB:.1f} MiB")
         fstub = rpc.filer_stub(filer.gaddr)
         big_entry = fstub.LookupDirectoryEntry(f_pb.LookupDirectoryEntryRequest(
             directory="/data/big", name="one.bin")).entry
         check(len(big_entry.chunks) == FILER_BIG_BYTES // (FILER_CHUNK_MB * MIB)
               and big_entry.attributes.collection == "filerdata",
-              f"the 256 MiB file's entry: {len(big_entry.chunks)} chunks, collection "
+              f"the big file's entry: {len(big_entry.chunks)} chunks, collection "
               f"{big_entry.attributes.collection!r}")
         inline = [f for f in files if f[1] <= 2048]
         sample = fstub.LookupDirectoryEntry(f_pb.LookupDirectoryEntryRequest(
@@ -4763,10 +4798,10 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
 
         # 3. read everything back; ranges, 416, HEAD, paged listings
         with _RssPeak(filer.proc.pid) as rss_down:
-            rec["read"] = _filer_read_all(filer.faddr, files[:1], want, "the 256 MiB file")
+            rec["read"] = _filer_read_all(filer.faddr, files[:1], want, "the big file")
         rec["read"].update(_filer_read_all(filer.faddr, files[1:], want, "the rest"))
         check(rss_up.peak < FILER_RSS_LIMIT and rss_down.peak < FILER_RSS_LIMIT,
-              f"the filer's peak RSS moving the 256 MiB file: {rss_up.peak} B up, "
+              f"the filer's peak RSS moving the big file: {rss_up.peak} B up, "
               f"{rss_down.peak} B down (limit {FILER_RSS_LIMIT})")
         rng = np.random.default_rng([seed, 1313])
         conn = _filer_conn(filer.faddr)
@@ -4779,7 +4814,7 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
             expect = hashlib.sha256(b"".join(_filer_blocks(seed, 0, big[1], lo, hi + 1))).hexdigest()
             check(status == 206 and n == hi - lo + 1 and sha == expect
                   and hdrs.get("Content-Range") == f"bytes {lo}-{hi}/{big[1]}",
-                  f"Range {lo}-{hi} of the 256 MiB file: {status}, {n} bytes, {hdrs}")
+                  f"Range {lo}-{hi} of the big file: {status}, {n} bytes, {hdrs}")
         status, _sha, n, hdrs, _dt = _filer_get(conn, big[0], {"Range": f"bytes={big[1]}-"})
         check(status == 416 and n == 0 and hdrs.get("Content-Range") == f"bytes */{big[1]}",
               f"an unsatisfiable Range answered {status} {hdrs}")
@@ -4787,7 +4822,7 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
         resp = conn.getresponse()
         resp.read()
         check(resp.status == 200 and resp.getheader("Content-Length") == str(big[1]),
-              f"HEAD of the 256 MiB file: {resp.status} {resp.getheader('Content-Length')}")
+              f"HEAD of the big file: {resp.status} {resp.getheader('Content-Length')}")
         listed: dict = {}
         pages = 0
         for d in range(FILER_DIRS):
@@ -4807,10 +4842,10 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
         check(listed == written, f"the paged listings hold {len(listed)} names, "
                                  f"{len(written)} were written")
         conn.close()
-        print(f"filer: {FILER_RANGE_READS} Range reads across chunk boundaries of the 256 MiB file "
+        print(f"filer: {FILER_RANGE_READS} Range reads across chunk boundaries of the big file "
               f"equal, a 416 and a HEAD answered; {pages} listing pages of {FILER_DIRS} "
               f"directories name exactly the {len(written)} files written; the filer's peak RSS "
-              f"reading the 256 MiB file {rss_down.peak / MIB:.1f} MiB")
+              f"reading the big file {rss_down.peak / MIB:.1f} MiB")
         rec["rss_mib"] = dict(upload_big=rss_up.peak / MIB, read_big=rss_down.peak / MIB)
 
         # 4. shell checks
@@ -5040,7 +5075,7 @@ def phase_filer(args, directory: str, ident: str, dev) -> dict:
 
 S3_AK, S3_SK = "AKIDSMOKE", "smoke-secret-key"
 S3_BUCKET = "bench"
-S3_SMALL_N = 256  # 1-64 KiB objects (cut from 8,192; 1,024 before phase 16, 512 before 17)
+S3_SMALL_N = 128  # 1-64 KiB objects (cut from 8,192; 1,024 before phase 16, 512 before 17, 256 before 19)
 S3_CHUNKED_EVERY = 4  # a quarter of them as signed aws-chunked bodies
 S3_STREAM_CHUNK = 64 * 1024  # the aws-chunked chunk size of botocore's streaming signer
 S3_LARGE_N = 4  # 8-64 MiB objects, multipart (cut from 16 for phase 15, 8 for phase 17)
@@ -5286,12 +5321,13 @@ def _s3_splice(maddr: str, filer_grpc: str, gw_metrics: str, root: str, seed: in
     return dict(mode=mode, main=main, open=st, open_mode=open_mode, put_s=put_s, get_s=get_s)
 
 
-def _plain_http(addr: str, method: str, path: str, body: bytes = b""):
+def _plain_http(addr: str, method: str, path: str, body: bytes = b"",
+                headers: dict | None = None):
     """One unsigned request on a fresh connection: (status, headers, body)."""
     host, port = addr.rsplit(":", 1)
     conn = http.client.HTTPConnection(host, int(port), timeout=120)
     try:
-        conn.request(method, path, body=body or None)
+        conn.request(method, path, body=body or None, headers=headers or {})
         resp = conn.getresponse()
         return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
     finally:
@@ -5563,7 +5599,7 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
     racks, one ``cli filer -db <dir>`` and, in front, one ``cli s3 -filer
     <the filer's gRPC> -accessKey K -secretKey S -cacheMB 64 -kmsKeyFile
     F`` (SigV4 required; every request is signed by ``client_sign``).
-    Fill (16 clients): 256 objects of 1-64 KiB (a quarter as signed
+    Fill (16 clients): 128 objects of 1-64 KiB (a quarter as signed
     aws-chunked bodies), 4 of 8-64 MiB and one of 128 MiB as multipart in
     8 MiB parts, 10 parts at a time.  Mixed: MinIO warp mixed's 45/30/15/10
     GET/HEAD/PUT/DELETE over the small objects, every answer held to a
@@ -6045,7 +6081,7 @@ def phase_s3(args, directory: str, ident: str, dev) -> dict:
 
 # -- phase 15 -----------------------------------------------------------------
 
-TLS_SMALL_N = 256  # 1-64 KiB objects over HTTPS at S3_CLIENTS clients (2,048 before phase 16, 1,024 before 17, 512 before 18)
+TLS_SMALL_N = 128  # 1-64 KiB objects over HTTPS at S3_CLIENTS clients (2,048 before phase 16, 1,024 before 17, 512 before 18, 256 before 19)
 TLS_BIG_BYTES = 128 * MIB  # one object as multipart in S3_PART parts, S3_PART_CONCURRENCY at a time (cut from 1 GiB, 256 MiB before phase 18)
 # one spec for every process: each fires the rules of its own side and
 # service; shares the retry budgets and the EC read chain absorb.  The
@@ -6544,7 +6580,7 @@ def phase_tls(args, directory: str, ident: str, dev) -> dict:
 SHARD_FILERS = 3
 SHARD_WORKERS = 4  # cli s3 -workers
 SHARD_BUCKETS = 64
-SHARD_SMALL_N = 256  # 1-64 KiB objects over SHARD_BUCKETS buckets (1,024 before phase 17, 512 before 18)
+SHARD_SMALL_N = 128  # 1-64 KiB objects over SHARD_BUCKETS buckets (1,024 before phase 17, 512 before 18, 256 before 19)
 SHARD_LARGE_N = 4  # 8-64 MiB objects as multipart, S3_PART parts, S3_PART_CONCURRENCY at a time (8 before phase 17)
 SHARD_OVERWRITES = 32
 SHARD_STREAK = 4 * SHARD_WORKERS  # fresh-connection answers in a row that must carry the new ETag
@@ -6670,7 +6706,7 @@ def phase_shard(args, directory: str, ident: str, dev) -> dict:
     two racks, three ``cli filer -db <own dir>`` on fixed ports (the shard
     ring's members) and ``cli s3 -filer f1,f2,f3 -workers 4 -port <fixed>
     -cacheMB 64 -metricsPort <base>`` (SigV4).  Steps, one line each:
-    routing (256 small objects over 64 buckets and 4 multipart ones;
+    routing (128 small objects over 64 buckets and 4 multipart ones;
     objects and entries per shard from ``filer.shard.status``, every
     bucket on the shard ``ShardRing`` names); the worker group's PUT and
     GET rates and every worker's request count; coherence (32 overwrites,
@@ -7619,17 +7655,17 @@ def phase_admin(args, directory: str, ident: str, dev) -> dict:
 # -- phase 18 -----------------------------------------------------------------
 
 SYNC_DIRS = 64
-SYNC_SMALL_N = 512  # 1-64 KiB files over SYNC_DIRS directories (phase 13's class)
-SYNC_INLINE_N = 64  # of them at most 2 KiB: one in 8, inlined in their entries
+SYNC_SMALL_N = 256  # 1-64 KiB files over SYNC_DIRS directories (phase 13's class; 512 before phase 19)
+SYNC_INLINE_N = 32  # of them at most 2 KiB: one in 8, inlined in their entries
 SYNC_LARGE_N = 4  # 4-32 MiB files
-SYNC_BIG_BYTES = 256 * MIB  # one file of 64 chunks at -maxMB 4, as phase 13's
-SYNC_OVERWRITES = 64
+SYNC_BIG_BYTES = 128 * MIB  # one file of 32 chunks at -maxMB 4 (256 MiB, phase 13's, before phase 19)
+SYNC_OVERWRITES = 32  # 64 before phase 19
 SYNC_DELETES = 32
 SYNC_RENAMES = 8
 SYNC_RM_DIR = 7  # /sync/d07: removed by fs.rm -r while the syncer runs
 SYNC_LATENCY_N = 64  # small writes whose source ack -> visible-at-B delay is sampled
-SYNC_RESUME_N = 128  # writes across which the syncer is SIGKILLed and restarted
-SYNC_KILL_AT = 48  # acknowledged writes of SYNC_RESUME_N before the SIGKILL
+SYNC_RESUME_N = 64  # writes across which the syncer is SIGKILLed and restarted (128 before phase 19)
+SYNC_KILL_AT = 24  # acknowledged writes of SYNC_RESUME_N before the SIGKILL (48 before phase 19)
 SYNC_REMOTE_N = 64  # 1-64 KiB objects of the remote, plus one of SYNC_REMOTE_BIG
 SYNC_REMOTE_BIG = 64 * MIB
 SYNC_REMOTE_ADDED = 8  # objects added to the remote before remote.meta.sync
@@ -7638,7 +7674,7 @@ SYNC_WAIT_S = 180.0  # every wait for the syncer, a process or the notifier
 
 
 def _sync_files(seed: int) -> list:
-    """[(path, size, key)] of the fill: the 256 MiB file, the large ones and
+    """[(path, size, key)] of the fill: the big file, the large ones and
     the small ones (SYNC_INLINE_N of them inline), sizes from ``seed``."""
     import numpy as np
 
@@ -7727,10 +7763,10 @@ def phase_sync(args, directory: str, ident: str, dev) -> dict:
     hosted in this process (neither machine has one); the stores' clients
     run for real.  ``fs.configure`` puts /sync/ in collection syncdata and
     16 writers fill it in phase 13's classes; ``cli filer.sync`` replays
-    the history into B (every path size- and sha256-equal), follows 64
+    the history into B (every path size- and sha256-equal), follows 32
     overwrites, 32 deletes, 8 renames and an ``fs.rm -r`` (the ack ->
     visible-at-B delay of 64 writes printed), is SIGKILLed in the middle of
-    128 writes and resumes on its checkpoint (B equals A again); A's
+    64 writes and resumes on its checkpoint (B equals A again); A's
     filer restarts on its store and lists and reads the same, and the
     syncer follows it; the ``-notify`` log holds exactly the events
     ``cli filer.meta.tail`` prints, in order; ``cli filer.backup -sink
@@ -7994,7 +8030,7 @@ def phase_sync(args, directory: str, ident: str, dev) -> dict:
               f"{SYNC_LATENCY_N} small writes p50 {rec['delay_ms']['p50']:.2f} ms p99 "
               f"{rec['delay_ms']['p99']:.2f} ms (max {rec['delay_ms']['max']:.2f})")
 
-        # 4. SIGKILL the syncer in the middle of 128 writes; resume on the checkpoint
+        # 4. SIGKILL the syncer in the middle of 64 writes; resume on the checkpoint
         resume = [(f"/sync/resume/d{i % 8}/f{i:03d}.bin", int(rng.integers(1024, 64 * 1024 + 1)),
                    70_000 + i) for i in range(SYNC_RESUME_N)]
         acked = [0]
@@ -8312,6 +8348,715 @@ def phase_sync(args, directory: str, ident: str, dev) -> dict:
     return rec
 
 
+GW_DIRS = 16
+GW_SMALL_N = 128  # 1-64 KiB files over GW_DIRS directories, one in 8 inline (phase 13's class)
+GW_LARGE_N = 2  # 4-32 MiB files
+GW_BIG_BYTES = 128 * MIB  # one file, as phases 14-15's big object
+GW_WRITERS = 16
+GW_MOUNT_FILES = 4  # files written through WeedFS at random offsets
+GW_MOUNT_WRITES = 24  # writes of 1 B-1 MiB into each, overlapping, over 12 MiB
+GW_DELAY_N = 8  # WebDAV overwrites whose mount-visible delay is sampled
+GW_CACHE_TTL_S = 5.0  # WeedFS's metadata cache TTL, the JAX default
+GW_MQ_PARTITIONS = 4
+GW_MQ_KEYS = 64
+GW_MQ_N = 768  # records of GW_MQ_SIZE over GW_MQ_KEYS keys: every partition past one segment
+GW_MQ_SIZE = 64 * 1024
+GW_MQ_PUBLISHERS = 8
+GW_OWNER_LOSS_N = 256  # records published across the owner broker's SIGKILL
+GW_OWNER_LOSS_SIZE = 4096
+GW_OWNER_KILL_AT = 64  # acknowledged records of GW_OWNER_LOSS_N before the SIGKILL
+GW_SAMPLE = 16  # small files (and one large) read through the mount and WebDAV while degraded
+GW_WAIT_S = 120.0  # every wait for a process, the notifier or the queue
+
+
+def _timed(fn) -> tuple:
+    """(fn(), its seconds)."""
+    t0 = time.perf_counter()
+    return fn(), time.perf_counter() - t0
+
+
+def _gw_files(seed: int) -> list:
+    """[(path, size, key)]: the big file, the large ones and the small ones
+    (one in 8 at most 2 KiB, inlined in their entries)."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 19])
+    files = [("/gw/big/one.bin", GW_BIG_BYTES, 0)]
+    for i in range(GW_LARGE_N):
+        files.append((f"/gw/large/l{i:02d}.bin", int(rng.integers(4 * MIB, 32 * MIB + 1)), 1 + i))
+    n_inline = GW_SMALL_N // 8
+    sizes = np.concatenate([rng.integers(1024, 2049, n_inline),
+                            rng.integers(2049, 64 * 1024 + 1, GW_SMALL_N - n_inline)])
+    rng.shuffle(sizes)
+    for i, size in enumerate(sizes):
+        files.append((f"/gw/d{i % GW_DIRS:02d}/f{i:05d}.bin", int(size), 100 + i))
+    return files
+
+
+def _dav_put(conn, seed: int, path: str, size: int, key: int) -> tuple:
+    """PUT one file streamed from its blocks; (sha256, seconds)."""
+    sha = hashlib.sha256()
+
+    def body():
+        for piece in _filer_blocks(seed, key, size):
+            sha.update(piece)
+            yield piece
+
+    t0 = time.perf_counter()
+    conn.request("PUT", path, body=body(), headers={"Content-Length": str(size),
+                                                    "Content-Type": "application/octet-stream"})
+    resp = conn.getresponse()
+    reply = resp.read()
+    dt = time.perf_counter() - t0
+    check(resp.status in (201, 204), f"WebDAV PUT {path}: {resp.status} {reply[:200]!r}")
+    return sha.hexdigest(), dt
+
+
+def _propfind_sizes(addr: str, path: str) -> dict:
+    """{href: getcontentlength} of a PROPFIND at depth 1 (files only)."""
+    import xml.etree.ElementTree as ET
+
+    status, _h, body = _plain_http(addr, "PROPFIND", path, headers={"Depth": "1"})
+    check(status == 207, f"PROPFIND {path}: {status}")
+    out = {}
+    for r in ET.fromstring(body).findall("{DAV:}response"):
+        length = r.find(".//{DAV:}getcontentlength")
+        if length is not None:
+            out[r.find("{DAV:}href").text] = int(length.text)
+    return out
+
+
+def _mount_write_script(fs, seed: int) -> dict:
+    """Writes at random offsets with overlaps, a flush between them, a
+    truncate to 0 and a rename across directories through WeedFS; returns
+    {path: the numpy model's bytes}."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 1902])
+    model: dict = {}
+    fs.mkdir("/mnt")
+    fs.mkdir("/mnt/sub")
+    for i in range(GW_MOUNT_FILES):
+        path = f"/mnt/m{i}.bin"
+        buf = bytearray()
+        fh = fs.create(path)
+        for w in range(GW_MOUNT_WRITES):
+            off = int(rng.integers(0, 12 * MIB))
+            data = rng.bytes(int(rng.integers(1, MIB + 1)))
+            check(fs.write(fh, off, data) == len(data), f"mount write {path}@{off}")
+            if len(buf) < off + len(data):
+                buf.extend(b"\0" * (off + len(data) - len(buf)))
+            buf[off:off + len(data)] = data
+            if w == GW_MOUNT_WRITES // 2:
+                fs.flush(fh)  # half the writes committed, the rest buffered over them
+        fs.release(fh)
+        model[path] = buf
+    fs.truncate("/mnt/m0.bin", 0)
+    fh = fs.open("/mnt/m0.bin")
+    data = rng.bytes(3 * MIB)
+    fs.write(fh, 100, data)
+    fs.release(fh)
+    model["/mnt/m0.bin"] = bytearray(100) + data
+    fs.rename("/mnt/m1.bin", "/mnt/sub/m1.bin")
+    model["/mnt/sub/m1.bin"] = model.pop("/mnt/m1.bin")
+    return {p: bytes(b) for p, b in model.items()}
+
+
+def _mount_read(fs, path: str) -> bytes:
+    fh = fs.open(path)
+    try:
+        return fs.read(fh, 0, fs.getattr(path)["size"])
+    finally:
+        fs.release(fh)
+
+
+def phase_gateways(args, directory: str, ident: str, dev) -> dict:
+    """Phase 19: the file gateways and the message queue.  Phase 13's
+    cluster (``cli master -volumeSizeLimitMB 256``, four ``cli volume
+    -device cuda`` on two racks, ``cli filer -db <lsm dir> -maxMB 4``) with
+    ``-notify mq://<broker>/filer-events``, two ``cli mq.broker -master
+    -filer`` at the JAX default ``-replication 2`` started before the
+    filer, and ``cli webdav``.  WebDAV: MKCOL, PUT of phase 13's classes
+    (128 files of 1-64 KiB over 16 directories, 16 inline; 2 of 4-32 MiB;
+    one of 128 MiB) by 16 writers, PROPFIND depth 1 sizes, every GET
+    sha256-equal, a Range read, MOVE of a directory, COPY, DELETE then 404.
+    The mount (``WeedFS`` in this process: ``cli mount`` refuses without
+    FUSE): random-offset overlapping writes, a truncate and a rename equal
+    a numpy model; a file crosses mount -> WebDAV and WebDAV -> mount; the
+    delay from a WebDAV overwrite until the mount reads it stays under the
+    cache TTL.  The queue: ``mq.topic.configure`` of 4 partitions, ``cli
+    mq.benchmark`` at its defaults, 768 records of 64 KiB over 64 keys
+    (every partition past one 8 MiB segment), ``mq.topic.compact`` and
+    ``SealSegments(evict)``: every partition's archive in the filer's
+    /topics (collection mqtier), none left on its owner's disk.
+    ``ec.encode`` of the default and mqtier collections launches K1 once
+    per batch in the servers, one volume's 14 shards equal the plain torch
+    version's; a shard holder is SIGKILLed and a two-member
+    ``GroupConsumer`` reads every record once, in order, equal, the
+    archives read back from degraded EC shards.  The filer-events topic
+    holds exactly the filer's events (SubscribeMetadata from 0, stamp
+    order).  The owner broker of a partition is SIGKILLed while 256 more
+    records are published: every acknowledged record reads back and the
+    offsets continue; meanwhile mount and WebDAV reads of a sample stay
+    sha256-equal, degraded.  Its figures go on ``gateways:`` lines."""
+    import numpy as np
+
+    from seaweedfs_tpu_torch import rpc
+    from seaweedfs_tpu_torch.mount import WeedFS
+    from seaweedfs_tpu_torch.mq import GroupConsumer, MqClient
+    from seaweedfs_tpu_torch.mq.agent import MqError
+    from seaweedfs_tpu_torch.mq.balancer import hash_key_to_partition, partition_owner
+    from seaweedfs_tpu_torch.mq.tier import FilerSegmentTier
+    from seaweedfs_tpu_torch.ops.rs_torch import ReedSolomonTorch
+    from seaweedfs_tpu_torch.pb import filer_pb2 as f_pb
+    from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
+    from seaweedfs_tpu_torch.pb import mq_pb2
+    from seaweedfs_tpu_torch.storage.erasure_coding import ec_encoder
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME
+
+    import grpc
+
+    seed = args.seed
+    root = os.path.join(directory, "gateways")
+    dirs = [os.path.join(root, f"v{i}") for i in range(4)]
+    bdirs = [os.path.join(root, f"broker{i}") for i in range(2)]
+    for d in dirs + bdirs:
+        os.makedirs(d)
+    log = os.path.join(root, "shell.log")
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    walls: dict = {}
+    rec: dict = {}
+    procs: dict = {}
+    brokers: dict = {}  # advertise -> _Server
+    fs = side = bench = compact = ref_side = group = None
+    killed: set = set()
+    t_phase = time.perf_counter()
+    files = _gw_files(seed)
+    want: dict = {}  # path -> sha256 of what was written
+    sizes: dict = {p: s for p, s, _k in files}
+    fport, gport, *bports = _free_ports(4)
+    faddr, gaddr = f"127.0.0.1:{fport}", f"127.0.0.1:{gport}"
+
+    def first_line(p, pattern: str, what: str) -> re.Match:
+        line = _readline_within(p.proc, GW_WAIT_S).strip()
+        m = re.search(pattern, line)
+        check(m is not None, f"{what} did not start: {line!r}: {p.log_text()[-2000:]}")
+        print(f"server subprocess pid {p.proc.pid}: {line}")
+        return m
+
+    try:
+        # the cluster: the master, then every other process at once (the brokers
+        # first, on fixed ports the filer's -notify names); the benchmark starts
+        # as soon as both brokers are registered and runs beside steps 1-4
+        t = time.perf_counter()
+        procs["master"] = master = _Server("", "", os.path.join(root, "master.log"), argv=[
+            "master", "-port", "0", "-volumeSizeLimitMB", str(FILER_VOLUME_MB)])
+        maddr = f"127.0.0.1:{master.grpc_port}"
+        mhttp = f"127.0.0.1:{master.http_port}"
+        for i, (d, port) in enumerate(zip(bdirs, bports)):
+            b = procs[f"broker{i}"] = _Server("", "", os.path.join(root, f"broker{i}.log"),
+                                              wait=False, argv=[
+                "mq.broker", "-dir", d, "-master", mhttp, "-port", str(port), "-filer", faddr])
+            b.dir, b.is_broker, b.addr = d, True, f"127.0.0.1:{port}"
+            brokers[b.addr] = b
+        b0 = procs["broker0"].addr
+        servers = [_Server(d, dev.type, os.path.join(root, f"v{i}.log"), wait=False, argv=[
+            "volume", "-dir", d, "-ip", "127.0.0.1", "-port", "0", "-grpcPort", "0",
+            "-metricsPort", "0", "-device", dev.type, "-mserver", maddr, "-rack", f"r{i % 2}",
+            "-scrubInterval", "0", "-scrubRateMB", "0"]) for i, d in enumerate(dirs)]
+        for i, s_ in enumerate(servers):
+            procs[f"v{i}"] = s_
+        procs["filer"] = filer = _Server("", "", os.path.join(root, "filer.log"), wait=False, argv=[
+            "filer", "-master", maddr, "-port", str(fport), "-grpcPort", str(gport), "-db",
+            os.path.join(root, "db"), "-maxMB", str(FILER_CHUNK_MB), "-notify",
+            f"mq://{b0}/filer-events"])
+        procs["webdav"] = dav = _Server("", "", os.path.join(root, "webdav.log"), wait=False,
+                                        argv=["webdav", "-filer", gaddr, "-master", maddr,
+                                              "-port", "0"])
+        for b in brokers.values():
+            check(first_line(b, r"mq broker on (127\.0\.0\.1:\d+) \(data ", "cli mq.broker")[1]
+                  == b.addr, f"cli mq.broker did not bind {b.addr}")
+
+        def registered() -> set:
+            got = _http_json(mhttp, "/cluster/nodes?type=broker")
+            return {n["address"] for n in got[1]["nodes"]} if got and got[0] == 200 else set()
+
+        _poll(lambda: registered() == set(brokers), "both brokers at the master", GW_WAIT_S)
+        bench = _Beside(lambda: _timed(lambda: subprocess.run(
+            [sys.executable, "-m", "seaweedfs_tpu_torch.cli", "mq.benchmark", "-broker", b0],
+            cwd=root_dir, capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=root_dir),
+            timeout=GW_WAIT_S)))  # at its defaults
+        for s_ in servers:
+            s_.ready()
+            s_.url = f"127.0.0.1:{s_.http_port}"
+        filer.ready()
+        dav.addr = first_line(dav, r"webdav on (127\.0\.0\.1:\d+) \(root /\)", "cli webdav")[1]
+        walls["servers_up"] = time.perf_counter() - t
+        mstub = rpc.master_stub(maddr)
+
+        def nodes() -> set:
+            topo = mstub.VolumeList(m_pb.VolumeListRequest(), timeout=60).topology_info
+            return {dn.id for dc in topo.data_center_infos for r in dc.rack_infos
+                    for dn in r.data_node_infos}
+
+        _poll(lambda: nodes() == {s_.url for s_ in servers}, "the four nodes", 60)
+        print(f"gateways: master {maddr}, volume servers {[s_.url for s_ in servers]}, brokers "
+              f"{sorted(brokers)} (-replication 2, -filer {faddr}), filer {faddr} (gRPC {gaddr}, "
+              f"-notify mq://{b0}/filer-events), webdav {dav.addr}; up in "
+              f"{walls['servers_up']:.3f}s on {ident}")
+        # the tier's collection and the topic, beside the WebDAV step
+        side = _Beside(lambda: _shell(
+            maddr, "fs.configure -locationPrefix /topics/ -collection mqtier -replication 000 "
+                   f"-apply; mq.topic.configure -topic events -partitionCount {GW_MQ_PARTITIONS}",
+            log, filer=gaddr))
+
+        # 1. WebDAV
+        t = time.perf_counter()
+        for d in ["/gw", "/gw/big", "/gw/large"] + [f"/gw/d{i:02d}" for i in range(GW_DIRS)]:
+            status, _h, _b = _plain_http(dav.addr, "MKCOL", d)
+            check(status == 201, f"MKCOL {d}: {status}")
+        walls["mkcol"] = time.perf_counter() - t
+        fill: dict = {}
+        for cls, items in (("big", files[:1]), ("large", files[1:1 + GW_LARGE_N]),
+                           ("small", files[1 + GW_LARGE_N:])):
+            t = time.perf_counter()
+            got = _filer_pool(dav.addr, items, lambda conn, f: _dav_put(conn, seed, *f),
+                              GW_WRITERS)
+            for f, (sha, _dt) in zip(items, got):
+                want[f[0]] = sha
+            fill[cls] = _class_figures(cls, [f[1] for f in items], [g[1] for g in got],
+                                       time.perf_counter() - t)
+        rec["fill"] = fill
+        print("gateways: WebDAV PUT by 16 writers: " + "; ".join(
+            f"{cls} {r['files']} files {r['files_per_s']:.1f}/s {r['mb_per_s']:.1f} MB/s p50 "
+            f"{r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms" for cls, r in fill.items()))
+        side.result()  # /topics/ in mqtier, the topic configured
+        side = None
+
+        # 3. the queue (the benchmark runs beside steps 1-3)
+        keys: list = []
+        per: dict = {p: 0 for p in range(GW_MQ_PARTITIONS)}
+        for i in range(100_000):
+            k = b"key-%05d" % i
+            p = hash_key_to_partition(k, GW_MQ_PARTITIONS)
+            if per[p] < GW_MQ_KEYS // GW_MQ_PARTITIONS:
+                per[p] += 1
+                keys.append(k)
+            if len(keys) == GW_MQ_KEYS:
+                break
+        values = [np.random.default_rng([seed, 1904, i]).bytes(GW_MQ_SIZE) for i in range(GW_MQ_N)]
+        published: dict = {}  # (partition, offset) -> (key, value)
+        plock = threading.Lock()
+
+        def publisher(j: int) -> None:
+            c = MqClient(b0)
+            for i in range(j, GW_MQ_N, GW_MQ_PUBLISHERS):
+                k = keys[i % GW_MQ_KEYS]
+                p, off = c.publish("events", k, values[i])
+                with plock:
+                    published[(p, off)] = (k, values[i])
+
+        t = time.perf_counter()
+        pubs = [_Beside(lambda j=j: publisher(j)) for j in range(GW_MQ_PUBLISHERS)]
+        for b in pubs:
+            b.result(GW_WAIT_S)
+        walls["mq_publish"] = time.perf_counter() - t
+        check(len(published) == GW_MQ_N, f"{len(published)} of {GW_MQ_N} records acknowledged")
+        nexts = {p: 1 + max(o for q, o in published if q == p) for p in range(GW_MQ_PARTITIONS)}
+        check(all(nexts[p] == sum(1 for q, _o in published if q == p) for p in nexts),
+              f"the acknowledged offsets have holes: {nexts}")
+        rec["mq_publish"] = dict(records_per_s=GW_MQ_N / walls["mq_publish"],
+                                 mb_per_s=GW_MQ_N * GW_MQ_SIZE / walls["mq_publish"] / 1e6)
+        segs = {p: sum(1 for n in os.listdir(os.path.join(bdirs[0], "default", "events",
+                                                          f"p{p:04d}")) if n.endswith(".log"))
+                for p in range(GW_MQ_PARTITIONS)}
+        check(all(n >= 2 for n in segs.values()), f"segments per partition on broker0: {segs}")
+        print(f"gateways: {GW_MQ_N} x 64 KiB over {GW_MQ_KEYS} keys by {GW_MQ_PUBLISHERS} "
+              f"publishers: {rec['mq_publish']['records_per_s']:.1f} records/s, "
+              f"{rec['mq_publish']['mb_per_s']:.1f} MB/s acknowledged at -replication 2; "
+              f"partitions' next offsets {nexts}, segments on broker0 {segs}")
+        compact = _Beside(lambda: _shell(maddr, "lock; mq.topic.compact; unlock", log))
+
+        # 1, continued beside the compaction: listings, reads, Range, MOVE, COPY, DELETE
+        t = time.perf_counter()
+        listed: dict = {}
+        for d in ["/gw/big", "/gw/large"] + [f"/gw/d{i:02d}" for i in range(GW_DIRS)]:
+            listed.update(_propfind_sizes(dav.addr, d))
+        check(listed == sizes, f"PROPFIND depth 1 lists {len(listed)} files, {len(sizes)} written; "
+                               f"first differences {sorted(set(listed.items()) ^ set(sizes.items()))[:4]}")
+        walls["propfind"] = time.perf_counter() - t
+        rec["read"] = _filer_read_all(dav.addr, files, want, "through WebDAV", tag="gateways")
+        big = files[0]
+        lo, hi = big[1] * 37 // 128 + 11, big[1] * 101 // 128 + 7
+        status, _h, body = _plain_http(dav.addr, "GET", big[0],
+                                       headers={"Range": f"bytes={lo}-{hi}"})
+        check(status == 206 and body == b"".join(_filer_blocks(seed, big[2], big[1], lo, hi + 1)),
+              f"WebDAV Range GET of {big[0]}: {status}, {len(body)} bytes")
+        moved = [f for f in files if f[0].startswith("/gw/d15/")]
+        status, _h, _b = _plain_http(dav.addr, "MOVE", "/gw/d15",
+                          headers={"Destination": f"http://{dav.addr}/gw/moved15"})
+        check(status == 201, f"MOVE /gw/d15: {status}")
+        for f in moved:
+            new = f[0].replace("/gw/d15/", "/gw/moved15/")
+            want[new], sizes[new] = want.pop(f[0]), sizes.pop(f[0])
+        one = moved[0][0].replace("/gw/d15/", "/gw/moved15/")
+        status, _h, body = _plain_http(dav.addr, "GET", one)
+        check(status == 200 and hashlib.sha256(body).hexdigest() == want[one],
+              f"GET {one} after the MOVE: {status}")
+        check(_plain_http(dav.addr, "GET", moved[0][0])[0] == 404,
+              "the moved path still answers")
+        large = files[1]
+        status, _h, _b = _plain_http(dav.addr, "COPY", large[0],
+                          headers={"Destination": f"http://{dav.addr}/gw/copy.bin"})
+        check(status == 201, f"COPY {large[0]}: {status}")
+        status, _h, body = _plain_http(dav.addr, "GET", "/gw/copy.bin")
+        check(status == 200 and hashlib.sha256(body).hexdigest() == want[large[0]],
+              f"GET of the COPY: {status}")
+        check(_plain_http(dav.addr, "DELETE", "/gw/copy.bin")[0] == 204, "DELETE /gw/copy.bin")
+        check(_plain_http(dav.addr, "GET", "/gw/copy.bin")[0] == 404, "GET after DELETE answers")
+        print(f"gateways: PROPFIND depth 1 lists every file with its size ({walls['propfind']:.3f}s); "
+              f"Range GET of {hi - lo + 1} bytes of the big file equal; MOVE of a directory of "
+              f"{len(moved)} files, COPY of a {large[1]}-byte file, DELETE then 404")
+        # 2. the mount, in this process, beside the compaction
+        t = time.perf_counter()
+        fs = WeedFS(gaddr, maddr, chunk_size=FILER_CHUNK_MB * MIB, cache_ttl=GW_CACHE_TTL_S)
+        model = _mount_write_script(fs, seed)
+        walls["mount_write"] = time.perf_counter() - t
+        for path, data in model.items():
+            check(_mount_read(fs, path) == data, f"mount read of {path} differs from the model")
+            check(fs.getattr(path)["size"] == len(data), f"mount getattr of {path}")
+            want[path], sizes[path] = hashlib.sha256(data).hexdigest(), len(data)
+        status, _h, body = _plain_http(dav.addr, "GET", "/mnt/sub/m1.bin")
+        check(status == 200 and body == model["/mnt/sub/m1.bin"],
+              "a file written through the mount differs through WebDAV")
+        drng = np.random.default_rng([seed, 1903])
+        data = drng.bytes(6 * MIB)
+        check(_plain_http(dav.addr, "PUT", "/mnt/from-dav.bin", data)[0] == 201,
+              "WebDAV PUT into /mnt")
+        check(_mount_read(fs, "/mnt/from-dav.bin") == data,
+              "a file written through WebDAV differs through the mount")
+        delays, stale = [], 0
+        for i in range(GW_DELAY_N):
+            data = drng.bytes(MIB)
+            check(_plain_http(dav.addr, "PUT", "/mnt/from-dav.bin", data)[0] == 204,
+                  "WebDAV overwrite")
+            t0 = time.perf_counter()
+            while True:
+                try:
+                    if _mount_read(fs, "/mnt/from-dav.bin") == data:
+                        break
+                except OSError:
+                    stale += 1  # the cached entry named the overwritten chunks
+                check(time.perf_counter() - t0 < GW_CACHE_TTL_S,
+                      f"overwrite {i}: the mount still reads the old bytes after "
+                      f"{GW_CACHE_TTL_S}s")
+                time.sleep(0.005)
+            delays.append((time.perf_counter() - t0) * 1e3)
+        want["/mnt/from-dav.bin"], sizes["/mnt/from-dav.bin"] = hashlib.sha256(data).hexdigest(), MIB
+        walls["mount"] = time.perf_counter() - t
+        rec["mount_delay_ms"] = dict(p50=float(np.percentile(delays, 50)), max=max(delays),
+                                     stale_reads=stale)
+        print(f"gateways: mount: {GW_MOUNT_FILES} files of {GW_MOUNT_WRITES} random overlapping "
+              f"writes, a truncate and a rename equal the numpy model "
+              f"({walls['mount_write']:.3f}s); mount -> WebDAV and WebDAV -> mount equal; "
+              f"WebDAV overwrite -> mount reads it: p50 {rec['mount_delay_ms']['p50']:.2f} ms, "
+              f"max {rec['mount_delay_ms']['max']:.2f} ms over {GW_DELAY_N} (TTL "
+              f"{GW_CACHE_TTL_S:.0f} s; {stale} reads of the old entry failed on its chunks)")
+        fs.close()
+        fs = None
+
+        walls["compact"], out = compact.result(GW_WAIT_S)
+        compact = None
+        check(re.search(r"^(\d+) messages moved", out, re.M) is not None
+              and int(re.search(r"^(\d+) messages moved", out, re.M)[1]) > 0,
+              f"mq.topic.compact: {out!r}")
+        evicted = {a: rpc.make_stub(a, mq_pb2, "MqBroker").SealSegments(
+            mq_pb2.SealSegmentsRequest(evict=True), timeout=GW_WAIT_S).sealed_count
+            for a in sorted(brokers)}
+        tier = FilerSegmentTier(faddr)
+        owners = {p: partition_owner(sorted(brokers), "default", "events", p)
+                  for p in range(GW_MQ_PARTITIONS)}
+        archives = {}
+        for p in range(GW_MQ_PARTITIONS):
+            listed_p = tier.list(f"default/events/p{p:04d}")
+            archives[p] = sorted(n for n in listed_p if n.endswith(".npz"))
+            check(archives[p], f"partition {p} has no archive in the filer's /topics")
+            local = os.listdir(os.path.join(brokers[owners[p]].dir, "default", "events",
+                                            f"p{p:04d}"))
+            check(not [n for n in local if n.endswith(".npz")],
+                  f"partition {p}'s owner {owners[p]} kept its archive after the eviction")
+        print(f"gateways: mq.topic.compact {walls['compact']:.3f}s beside the mount "
+              f"({out.strip().splitlines()[-1]}); "
+              f"SealSegments(evict) {evicted}: every partition's archive in the filer "
+              f"{ {p: a for p, a in archives.items()} }, none on its owner's disk")
+
+        # 4. ec.encode of the gateways' and the tier's collections: K1
+        vols: dict = {}
+        for d in dirs:
+            for n in os.listdir(d):
+                mm = re.fullmatch(r"(?:(mqtier)_)?(\d+)\.dat", n)
+                if mm:
+                    vols[(mm[1] or "", int(mm[2]))] = os.path.join(d, n)
+        check({c for c, _v in vols} == {"", "mqtier"}, f"collections on disk: {sorted(vols)}")
+        sampled = max((k for k in vols if k[0] == ""), key=lambda k: os.path.getsize(vols[k]))
+        ref = os.path.join(root, "ref", str(sampled[1]))
+        os.makedirs(os.path.dirname(ref))
+        os.link(vols[sampled], ref + ".dat")
+        tasks = sum(len(ec_encoder._plan_tasks(DEFAULT_SCHEME, os.path.getsize(p),
+                                               ec_encoder.DEFAULT_CHUNK)) for p in vols.values())
+        k1_before = {s_.url: metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply")
+                     for s_ in servers}
+        check(not any(k1_before.values()), f"K1 launched before the encode: {k1_before}")
+        walls["ec_encode"], _out = _shell(
+            maddr, "lock; ec.encode -fullPercent 0 -quietFor 0; ec.encode -collection mqtier "
+                   "-fullPercent 0 -quietFor 0; unlock", log)
+        by_grpc = {f"127.0.0.1:{s_.grpc_port}": d for s_, d in zip(servers, dirs)}
+        for (coll, vid) in vols:
+            name = f"{coll}_{vid}" if coll else str(vid)
+            _poll(lambda: _ec_census(mstub, vid)["holders"] == _disk_shards(by_grpc, name),
+                  f"the EC census of {name} to match the disks", 60)
+        k1 = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches", kernel="gf_apply"))
+              for s_ in servers}
+        check(sum(k1.values()) == tasks and tasks > 0,
+              f"K1 launches by server {k1}; the generates of {len(vols)} volumes have {tasks} "
+              f"batches")
+        shards = {sid: os.path.join(by_grpc[a], f"{sampled[1]}.ec{sid:02d}")
+                  for a, sids in _disk_shards(by_grpc, str(sampled[1])).items() for sid in sids}
+        check(sorted(shards) == list(range(14)), f"volume {sampled[1]}'s shards: {sorted(shards)}")
+        print(f"gateways: ec.encode of the default and mqtier collections {walls['ec_encode']:.3f}s "
+              f"on {ident}: {len(vols)} volumes, K1 launches by server {k1} (= {tasks} batches)")
+
+        def plain_reference() -> float:
+            t0 = time.perf_counter()
+            ec_encoder.write_ec_files(ref, codec=ReedSolomonTorch(10, 4, device=dev))
+            for sid, p in shards.items():
+                check(sha256(p) == sha256(ref + f".ec{sid:02d}"),
+                      f"volume {sampled[1]} shard {sid} differs from the plain torch version's")
+            return time.perf_counter() - t0
+
+        # 6. the filer-events topic against SubscribeMetadata from 0
+        t = time.perf_counter()
+        meta: list = []
+        stream = rpc.filer_stub(gaddr).SubscribeMetadata(
+            f_pb.SubscribeMetadataRequest(client_name="smoke", path_prefix="/", since_ts_ns=0),
+            timeout=1.0)
+        try:
+            for ev in stream:
+                old = f"{ev.directory.rstrip('/')}/{ev.old_entry.name}" if ev.old_entry.name else None
+                new_dir = ev.new_parent_path or ev.directory
+                new = f"{new_dir.rstrip('/')}/{ev.new_entry.name}" if ev.new_entry.name else None
+                meta.append((ev.ts_ns, ev.directory, old, new))
+        except grpc.RpcError as e:
+            check(e.code() == grpc.StatusCode.DEADLINE_EXCEEDED, f"SubscribeMetadata: {e.code()}")
+        check(meta == sorted(meta), "SubscribeMetadata from 0 is out of stamp order")
+        reader = MqClient(b0)
+
+        def topic_events() -> list:
+            return [json.loads(m.value) for m in reader.consume_all("filer-events")]
+
+        _poll(lambda: len(topic_events()) >= len(meta), "the notifier to publish every event",
+              GW_WAIT_S)
+        evs = topic_events()
+        look = reader.lookup("filer-events", refresh=True)
+        for a in look.assignments:
+            stamps = [json.loads(m.value)["ts_ns"]
+                      for m in reader.subscribe_partition("filer-events", a.partition, 0)]
+            check(stamps == sorted(stamps), f"filer-events partition {a.partition} out of order")
+        from_topic = sorted((d["ts_ns"], d["directory"], d["old_path"], d["new_path"]) for d in evs)
+        check(from_topic == meta and len(meta) > len(files),
+              f"the filer-events topic holds {len(from_topic)} events, SubscribeMetadata from 0 "
+              f"{len(meta)}; first differences {sorted(set(from_topic) ^ set(meta))[:3]}")
+        walls["filer_events"] = time.perf_counter() - t
+        rec["filer_events"] = len(meta)
+        print(f"gateways: the filer-events topic ({look.partition_count} partitions keyed by "
+              f"directory, each in stamp order) holds exactly the {len(meta)} events "
+              f"SubscribeMetadata gives from 0 ({walls['filer_events']:.3f}s)")
+
+        # the benchmark, beside steps 1-4 and 6, ends before a broker dies
+        bench_run, walls["mq_benchmark"] = bench.result(GW_WAIT_S)
+        bench = None
+        with open(os.path.join(root, "mq_benchmark.log"), "w") as fh:
+            fh.write(bench_run.stdout + bench_run.stderr)
+        check(bench_run.returncode == 0, f"cli mq.benchmark exited {bench_run.returncode}: "
+                                         f"{bench_run.stderr[-2000:]}")
+        reports = [json.loads(x) for x in bench_run.stdout.splitlines() if x.startswith("{")]
+        check([(r["phase"], r["requests"], r["errors"]) for r in reports]
+              == [("publish", 5000, 0), ("consume", 5000, 0)], f"cli mq.benchmark: {reports}")
+        rec["mq_benchmark"] = {r["phase"]: {k: r[k] for k in ("req_per_sec", "p50_ms", "p99_ms")}
+                               for r in reports}
+        print(f"gateways: cli mq.benchmark (5,000 x 1 KiB, -c 8, 4 partitions) beside steps 1-4 and 6: "
+              f"publish {rec['mq_benchmark']['publish']['req_per_sec']:.1f}/s p99 "
+              f"{rec['mq_benchmark']['publish']['p99_ms']:.2f} ms, consume "
+              f"{rec['mq_benchmark']['consume']['req_per_sec']:.1f}/s ({walls['mq_benchmark']:.3f}s "
+              f"with its start)")
+
+        # 5. the owner broker of partition 0 dies while 256 more records go in;
+        # with it, the holder of most of the sampled volume's shards
+        target = owners[0]
+        survivor = next(a for a in brokers if a != target)
+        victim = max(servers, key=lambda s_: len(
+            _disk_shards({s_.url: dirs[servers.index(s_)]}, str(sampled[1])).get(s_.url, [])))
+        acked: dict = {}
+        failures = [0]
+        reached = threading.Event()
+        orng = np.random.default_rng([seed, 1905])
+        more = [(keys[i % GW_MQ_KEYS], orng.bytes(GW_OWNER_LOSS_SIZE))
+                for i in range(GW_OWNER_LOSS_N)]
+
+        def publish_across() -> float:
+            c = MqClient(survivor)
+            t0 = time.perf_counter()
+            for i, (k, v) in enumerate(more):
+                while True:
+                    check(time.perf_counter() - t0 < GW_WAIT_S, f"record {i} never acknowledged")
+                    try:
+                        acked[c.publish("events", k, v)] = (k, v)
+                        break
+                    except (MqError, grpc.RpcError):
+                        failures[0] += 1
+                        time.sleep(0.2)
+                if len(acked) == GW_OWNER_KILL_AT:
+                    reached.set()
+            return time.perf_counter() - t0
+
+        t = time.perf_counter()
+        pub = _Beside(publish_across)
+        check(reached.wait(GW_WAIT_S), "the publisher never reached the kill point")
+        for p_ in (brokers[target], victim):
+            p_.proc.send_signal(signal.SIGKILL)
+            p_.proc.wait()
+            killed.add(p_)
+        ref_side = _Beside(plain_reference)  # this process, the card: beside the prune wait
+        walls["prune_wait"] = _poll(lambda: victim.url not in nodes(),
+                                    f"the master to prune {victim.url}", PRUNE_WAIT_S)
+        print(f"gateways: SIGKILL of broker {target} (owner of partition 0) after "
+              f"{GW_OWNER_KILL_AT} of {GW_OWNER_LOSS_N} acknowledged records, and of volume "
+              f"server {victim.url} (most of volume {sampled[1]}'s shards), pruned after "
+              f"{walls['prune_wait']:.3f}s")
+
+        def degraded_reads() -> dict:
+            """A sample through the mount and WebDAV, from degraded shards."""
+            t0 = time.perf_counter()
+            sample = [f[0] for f in files if f[1] <= 64 * 1024][:GW_SAMPLE] + [files[1][0]]
+            sample = [p_ if p_ in want else p_.replace("/gw/d15/", "/gw/moved15/")
+                      for p_ in sample]
+            mfs = WeedFS(gaddr, maddr, chunk_size=FILER_CHUNK_MB * MIB, subscribe=False)
+            try:
+                for path in sample:
+                    check(hashlib.sha256(_mount_read(mfs, path)).hexdigest() == want[path],
+                          f"degraded mount read of {path}")
+                    status, _h, body = _plain_http(dav.addr, "GET", path)
+                    check(status == 200 and hashlib.sha256(body).hexdigest() == want[path],
+                          f"degraded WebDAV read of {path}: {status}")
+                for path, data in model.items():
+                    check(_mount_read(mfs, path) == data, f"degraded mount read of {path}")
+            finally:
+                mfs.close()
+            return dict(files=len(sample) + len(model), s=time.perf_counter() - t0)
+
+        def group_read() -> tuple:
+            """A two-member group reads every record from offset 0: (records
+            per partition, the members' partitions, seconds).  It joins once
+            the publisher is done: the dead broker has left every view."""
+            pub.result(GW_WAIT_S)
+            t0 = time.perf_counter()
+            go = threading.Event()
+            got: dict = {p: [] for p in range(GW_MQ_PARTITIONS)}
+            glock = threading.Lock()
+
+            def on_message(p: int, msg) -> None:
+                if not go.is_set():
+                    # until both members hold their share: not delivered, so the
+                    # cursor stays and no generation sees a record twice
+                    raise RuntimeError("the group is still forming")
+                with glock:
+                    got[p].append((msg.offset, msg.key, msg.value))
+
+            members = [GroupConsumer(MqClient(survivor), "events", "smoke-readers", on_message,
+                                     heartbeat_interval=0.5) for _ in range(2)]
+            for c in members:
+                c.start()
+            try:
+                _poll(lambda: members[0].generation == members[1].generation
+                      and sorted(members[0].partitions + members[1].partitions)
+                      == list(range(GW_MQ_PARTITIONS)) and all(c.partitions for c in members),
+                      "the group's two members", GW_WAIT_S)
+                go.set()
+                want_n = GW_MQ_N + len(acked)
+                _poll(lambda: sum(len(v) for v in got.values()) >= want_n,
+                      "the group to read every record", GW_WAIT_S)
+                time.sleep(0.5)  # a record read twice would land by now
+            finally:
+                for c in members:
+                    c.stop()
+            return got, [c.partitions for c in members], time.perf_counter() - t0
+
+        group = _Beside(group_read)  # after the prune, beside the degraded reads
+        rec["degraded"] = degraded_reads()
+        walls["plain_reference"] = ref_side.result(GW_WAIT_S)
+        ref_side = None
+        print(f"gateways: mount and WebDAV reads of {rec['degraded']['files']} files sha256-equal "
+              f"from degraded shards ({rec['degraded']['s']:.3f}s); volume {sampled[1]}'s 14 "
+              f"shards sha256-equal to ReedSolomonTorch's on the card "
+              f"({walls['plain_reference']:.3f}s, beside the prune wait); both beside the publisher")
+        walls["owner_loss_publish"] = pub.result(GW_WAIT_S)
+        walls["owner_loss"] = time.perf_counter() - t
+        got, split, walls["group_read"] = group.result(GW_WAIT_S)
+        group = None
+
+        acks = {**published, **acked}
+        extra = 0
+        for p in range(GW_MQ_PARTITIONS):
+            offs = [o for o, _k, _v in got[p]]
+            check(offs == list(range(len(offs))),
+                  f"partition {p}: the group read offsets {offs[:8]}... ({len(offs)}): a record "
+                  f"twice, out of order, or a hole")
+            for o, k, v in got[p]:
+                if (p, o) in acks:
+                    check(acks[(p, o)] == (k, v), f"partition {p} offset {o} differs")
+                else:  # a publish retried after its append had landed
+                    check((k, v) in more, f"partition {p} offset {o}: nobody published it")
+                    extra += 1
+        check(all(o < len(got[p]) for p, o in acks), "an acknowledged record was not read back")
+        c = MqClient(survivor)
+        p_after, o_after = c.publish("events", keys[0], b"after the owner loss")
+        check(o_after == len(got[p_after]), f"the offsets did not resume: {o_after} after "
+                                            f"{len(got[p_after])} records of partition {p_after}")
+        rec["group_read"] = dict(records=sum(len(v) for v in got.values()), s=walls["group_read"],
+                                 split=split)
+        rec["owner_loss"] = dict(acked=len(acked), publish_failures=failures[0], duplicates=extra,
+                                 wall_s=walls["owner_loss_publish"])
+        print(f"gateways: {len(acked)} records acknowledged across the broker's SIGKILL in "
+              f"{walls['owner_loss_publish']:.3f}s ({failures[0]} publish attempts failed and were "
+              f"retried, {extra} stored twice); a two-member GroupConsumer on {survivor} "
+              f"(partitions {rec['group_read']['split']}) read all "
+              f"{rec['group_read']['records']} records once, in per-partition offset order, "
+              f"every acknowledged one equal, in {walls['group_read']:.3f}s, the evicted archives "
+              f"through the filer from degraded EC shards; the next offset {o_after} continues "
+              f"partition {p_after}")
+    finally:
+        for b in (side, bench, compact, ref_side, group):
+            if b is not None:
+                b.wait()
+        if fs is not None:
+            fs.close()
+        for p in procs.values():
+            if getattr(p, "is_broker", False) and p.proc.poll() is None:
+                p.proc.send_signal(signal.SIGINT)  # the broker's clean stop
+                try:
+                    p.proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    pass
+        rcs = {name: p.stop() for name, p in procs.items()}
+    bad = {name: rc for name, rc in rcs.items()
+           if rc != 0 and not (procs[name] in killed and rc == -signal.SIGKILL)}
+    check(not bad, f"gateway phase processes exited {rcs}")
+    walls["phase"] = time.perf_counter() - t_phase
+    rec.update(walls=walls, launches=tasks, volumes=len(vols), files=len(sizes))
+    print("gateways: " + json.dumps(rec, sort_keys=True))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8588,6 +9333,19 @@ def main() -> int:
                    for cls, r in sync["fill"].items()},
         sync_remote_cache_mb_per_s=sync["remote"]["cache_mb_per_s"],
         sync_resume=sync["resume"],
+    )
+    gateways = main_path["gateways"]
+    record["kernels"][0]["launches"] += gateways["launches"]
+    record["kernels"][0].update(
+        launches_gateways=gateways["launches"],
+        gateways_walls_s=gateways["walls"],
+        gateways_webdav_fill={cls: {k: r[k] for k in ("files", "files_per_s", "mb_per_s", "p50_ms",
+                                                      "p99_ms")}
+                              for cls, r in gateways["fill"].items()},
+        gateways_mount_delay_ms=gateways["mount_delay_ms"],
+        gateways_mq_benchmark=gateways["mq_benchmark"],
+        gateways_mq_publish=gateways["mq_publish"],
+        gateways_owner_loss=gateways["owner_loss"],
     )
     print(f"total {time.perf_counter() - t_start:.3f}s")
     print(ident)

@@ -10,10 +10,8 @@ session/basic auth (admin/dash/auth_middleware.go), policy edits
 persisted to disk (admin/config_persistence.go), manual task creation,
 and pending-task cancellation.  Auth is enabled by configuring a
 password (or WEED_ADMIN_PASSWORD); sessions are HMAC-signed cookies
-derived from it.  The MQ pages answer an empty inventory while no broker
-is registered; the port has no MQ client yet (ROADMAP Queue A item 5), so
-with a broker registered they answer 502.  The admin runs no kernel and
-never touches CUDA.
+derived from it.  The MQ pages ask the first live broker over the port's
+``MqBroker`` stub.  The admin runs no kernel and never touches CUDA.
 """
 
 from __future__ import annotations
@@ -42,12 +40,6 @@ from seaweedfs_tpu_torch.util.httpd import PooledHTTPServer, QuietHandler
 
 SESSION_COOKIE = "weedtpu_admin_session"
 SESSION_TTL_S = 12 * 3600.0
-
-
-def _mq_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "the MQ pages' broker client is not ported to seaweedfs_tpu_torch yet "
-        "(ROADMAP Queue A item 5)")
 
 
 def _policy_fields() -> set[str]:
@@ -571,20 +563,64 @@ class AdminServer:
 
     def mq_topics(self) -> dict:
         """Topic inventory: every topic with its partition count and
-        per-partition owner (reference GetTopics).  With no broker
-        registered it is empty, as in the JAX package."""
+        per-partition owner (reference GetTopics)."""
+        from seaweedfs_tpu_torch import rpc
+        from seaweedfs_tpu_torch.pb import mq_pb2 as mq
+
         brokers = self._live_brokers()
         if not brokers:
             return {"brokers": [], "topics": []}
-        raise _mq_not_ported()
+        stub = rpc.make_stub(brokers[0], mq, "MqBroker")
+        topics = []
+        for info in stub.ListTopics(mq.ListTopicsRequest()).topics:
+            look = stub.LookupTopic(mq.LookupTopicRequest(topic=info.topic))
+            topics.append(
+                {
+                    "namespace": info.topic.namespace or "default",
+                    "name": info.topic.name,
+                    "partitions": info.partition_count,
+                    "schema": bool(info.record_type_json),
+                    "replication": info.replication,
+                    "owners": {
+                        a.partition: a.broker for a in look.assignments
+                    },
+                }
+            )
+        return {"brokers": brokers, "topics": topics}
 
     def mq_topic_details(self, namespace: str, name: str) -> dict:
         """One topic: per-partition offsets and committed group offsets
         (reference GetTopicDetails + GetConsumerGroupOffsets)."""
+        from seaweedfs_tpu_torch import rpc
+        from seaweedfs_tpu_torch.pb import mq_pb2 as mq
+
         brokers = self._live_brokers()
         if not brokers:
             raise ValueError("no live brokers")
-        raise _mq_not_ported()
+        stub = rpc.make_stub(brokers[0], mq, "MqBroker")
+        topic = mq.Topic(namespace=namespace or "default", name=name)
+        look = stub.LookupTopic(mq.LookupTopicRequest(topic=topic))
+        if look.error:
+            raise ValueError(look.error)
+        parts = []
+        for a in look.assignments:
+            off = stub.PartitionOffsets(
+                mq.PartitionOffsetsRequest(topic=topic, partition=a.partition)
+            )
+            parts.append(
+                {
+                    "partition": a.partition,
+                    "broker": a.broker,
+                    "earliest": off.earliest,
+                    "next": off.next,
+                    "group_offsets": dict(off.group_offsets),
+                }
+            )
+        return {
+            "namespace": topic.namespace,
+            "name": name,
+            "partitions": parts,
+        }
 
     # ---- named IAM policies (reference admin/dash/policies_management.go:
     # policy documents beside the identities in the filer) -----------------

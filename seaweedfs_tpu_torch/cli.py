@@ -4,7 +4,9 @@ The counterpart of seaweedfs_tpu/cli.py for the commands ported so far
 (``ec.encode.local``, ``ec.rebuild.local``, ``ec.decode.local``, for the RS
 and LRC storage classes; ``master``, ``volume``, ``filer``, ``s3``,
 ``server``, ``iam``, ``shell`` and ``benchmark``; ``admin`` and ``worker``,
-the maintenance plane; ``upload``, ``download`` and
+the maintenance plane; the file gateways ``webdav``, ``sftp`` and
+``mount``; the message queue's ``mq.broker``, ``mq.benchmark``,
+``mq.topic.configure`` and ``mq.topic.list``; ``upload``, ``download`` and
 ``filer.copy``; ``volume.tier.local`` and ``backup``; ``tls.gen``;
 ``version``);
 ``<cmd> -h`` shows each command's flags.  A

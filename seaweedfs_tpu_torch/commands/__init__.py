@@ -53,6 +53,8 @@ def _import_all() -> None:
         client_cmd,
         ec_local,
         gateway_cmd,
+        mount_cmd,
+        mq_cmd,
         servers,
         shell_cmd,
         sync_cmd,

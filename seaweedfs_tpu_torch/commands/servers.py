@@ -45,7 +45,8 @@ a missing ``-filer`` with exit code 2.
 ``server`` runs a master, one volume server (its ``-device`` as
 ``volume``'s) and, with ``-filer``, a filer, and with ``-s3`` a gateway over
 that filer, in one process (``-tlsCert``/``-tlsKey`` put the filer's and
-the gateway's HTTP ports behind TLS); its ``-webdav`` raises (not ported).
+the gateway's HTTP ports behind TLS), and with ``-webdav`` a WebDAV gateway
+over that filer on ``-webdavPort``.
 SIGINT or SIGTERM stops any of them.
 
 Every process honours the environment as the JAX package's do:
@@ -479,13 +480,9 @@ def _s3_flags(p) -> None:
 run_s3.configure = _s3_flags
 
 
-@command("server", "run master + volume (+ filer, s3) in one process")
+@command("server", "run master + volume (+ filer, s3, webdav) in one process")
 def run_server(args) -> int:
-    """All-in-one node (reference `weed server -filer -s3`)."""
-    if args.webdav:
-        raise NotImplementedError(
-            "server -webdav is not ported to seaweedfs_tpu_torch yet "
-            "(ROADMAP Queue A item 4)")
+    """All-in-one node (reference `weed server -filer -s3 -webdav`)."""
     from seaweedfs_tpu_torch.server.master_server import MasterServer
     from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 
@@ -501,7 +498,7 @@ def run_server(args) -> int:
         services.append(vs)
         parts = [f"master {ms.advertise} (gRPC {ms.grpc_address})",
                  f"volume {vs.url} (gRPC {vs.ip}:{vs.grpc_port}, device {vs.device})"]
-        if args.filer or args.s3:
+        if args.filer or args.s3 or args.webdav:
             from seaweedfs_tpu_torch.server.filer_server import FilerServer
 
             fs = FilerServer(ms.grpc_address, ip=args.ip, port=args.filerPort,
@@ -526,6 +523,14 @@ def run_server(args) -> int:
             gw.start()
             services.append(gw)
             parts.append(f"s3 {gw.url} ({'sigv4' if identities else 'open'})")
+        if args.webdav:
+            from seaweedfs_tpu_torch.server.webdav_server import WebDavServer
+
+            dav = WebDavServer(fs.grpc_address, ms.grpc_address, ip=args.ip,
+                               port=args.webdavPort)
+            dav.start()
+            services.append(dav)
+            parts.append(f"webdav {dav.url}")
         print("server: " + ", ".join(parts), flush=True)
         _wait_forever()
     finally:
@@ -555,7 +560,8 @@ def _server_flags(p) -> None:
     p.add_argument("-s3AccessKey", default="",
                    help="require SigV4 with this key (default: OPEN, unauthenticated)")
     p.add_argument("-s3SecretKey", default="")
-    p.add_argument("-webdav", action="store_true", help="WebDAV (not ported: raises)")
+    p.add_argument("-webdav", action="store_true", help="also run WebDAV")
+    p.add_argument("-webdavPort", type=int, default=7333)
     _tls_flags(p)
 
 

@@ -6,8 +6,8 @@ the bus interface is a single ``send(event_dict)``; shipped backends are
 the ones that work with zero egress: a JSONL log file and a loopback
 HTTP webhook.  Events are queued and delivered by a background worker so
 filer mutations never block on a slow bus.  The port's copy of
-seaweedfs_tpu/replication/notification.py; the ``mq://`` bus waits for the
-port's message queue.
+seaweedfs_tpu/replication/notification.py; the ``mq://`` bus publishes
+through the port's ``mq.MqClient``.
 """
 
 from __future__ import annotations
@@ -81,18 +81,32 @@ class WebhookBus(NotificationBus):
 
 
 class MqBus(NotificationBus):
-    """Publish events into the cluster's own message queue (``mq://``).
-    The port has no message queue yet (ROADMAP Queue A item 5): refused."""
+    """Publish events into the cluster's own message queue — the
+    native bus (the reference's notification interface is literally its
+    MessageQueue type; here the cluster's partitioned MQ is a first-class
+    target, keyed by directory so one path's events stay ordered)."""
 
     name = "mq"
 
     def __init__(self, broker_address: str, topic: str = "filer-events"):
-        raise NotImplementedError(
-            "the mq notification bus is not ported to seaweedfs_tpu_torch yet "
-            "(ROADMAP Queue A item 5: the message queue)")
+        from seaweedfs_tpu_torch.mq import MqClient
+
+        self.client = MqClient(broker_address)
+        self.topic = topic
+        self._configured = False
 
     def send(self, event: dict) -> None:
-        raise NotImplementedError("the mq notification bus is not ported")
+        if not self._configured:
+            # only a SUCCESSFUL configure sticks: a transient broker
+            # outage here must not condemn every later publish to
+            # "unknown topic" until the filer restarts
+            self.client.configure_topic(self.topic, partitions=4)
+            self._configured = True
+        self.client.publish(
+            self.topic,
+            (event.get("directory") or "/").encode(),
+            json.dumps(event, separators=(",", ":")).encode(),
+        )
 
 
 class KafkaBus(NotificationBus):

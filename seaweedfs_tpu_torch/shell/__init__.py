@@ -27,7 +27,10 @@ shell's ``-filer`` (a comma list of filers rides the shard router), and the obse
 ``cluster.status``, ``events.dump``), which read this process or the
 ``/debug/`` pages of the members they are given, and the remote-storage
 commands (``remote.mount``, ``remote.meta.sync``, ``remote.cache``,
-``remote.uncache``, ``remote.unmount``) against their own ``-filer``.  The
+``remote.uncache``, ``remote.unmount``) against their own ``-filer``, and
+the message queue's (``mq.topic.list``, ``mq.topic.desc``,
+``mq.topic.configure``, ``mq.topic.compact``, ``mq.balance``,
+``mq.group.desc``) against the brokers the master lists.  The
 shell runs no kernel and takes no device: the EC work happens inside the
 volume servers it drives."""
 
@@ -122,6 +125,7 @@ def _import_all() -> None:
         command_ec_balance,
         command_filer_shard,
         command_fs,
+        command_mq,
         command_remote,
         command_resilience,
         command_s3,

@@ -251,7 +251,7 @@ def test_cli_server_needs_a_gpu_without_device_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv, ported", [
-    (["server", "-s3", "-webdav"], False), (["server", "-webdav"], False),
+    (["server", "-s3", "-webdav"], "gpu"), (["server", "-webdav"], "gpu"),
     (["filer", "-notify", "log:/nonexistent-dir/events.jsonl", "-port", "0"], True),
     (["filer", "-tlsCert", "c", "-tlsKey", "k", "-port", "0"], True),
     (["s3", "-workers", "2", "-port", "8334"], 2),
@@ -259,8 +259,10 @@ def test_cli_server_needs_a_gpu_without_device_cpu(tmp_path):
     (["s3", "-filer", "127.0.0.1:1,127.0.0.1:2", "-workers", "2", "-port", "0"], 2)],
     ids=["server-s3", "server-webdav", "filer-notify", "filer-tls", "s3-workers", "s3-tls",
          "s3-filer-list"])
-def test_cli_flags_that_wait_for_later_work_raise(argv, ported, capsys):
-    """Flags of later work raise "not ported".  ``-tlsCert``/``-tlsKey`` and
+def test_cli_flags_that_wait_for_later_work_raise(argv, ported, capsys, tmp_path):
+    """Flags of later work raise "not ported".  ``server -webdav`` is
+    ported: like any ``server`` without ``-device cpu`` it reaches the volume
+    server, which raises without a CUDA device.  ``-tlsCert``/``-tlsKey`` and
     ``-notify`` are ported: a certificate that cannot be loaded, or a bus
     log that cannot be opened, fails the start loudly (rc 1, the error on
     stderr) instead of serving without it.  ``-workers``
@@ -270,6 +272,12 @@ def test_cli_flags_that_wait_for_later_work_raise(argv, ported, capsys):
     if not ported:
         with pytest.raises(NotImplementedError, match="not ported"):
             cli.main(argv)
+        return
+    if ported == "gpu":
+        _no_cuda()
+        with pytest.raises(RuntimeError, match="no CUDA device available"):
+            cli.main(argv + ["-dir", str(tmp_path), "-masterPort", "0", "-port", "0",
+                             "-filerPort", "0", "-s3Port", "0", "-webdavPort", "0"])
         return
     if ported == 2:
         assert cli.main(argv) == 2

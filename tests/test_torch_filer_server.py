@@ -440,12 +440,14 @@ def test_reads_through_the_filer_after_ec_encode(clusters):
 
 def test_flags_that_wait_for_later_work_raise(tmp_path):
     # -notify is ported: an unknown bus is refused with the JAX text before
-    # any store opens, the mq bus waits for the message queue, and a log
-    # bus is attached to the filer and closed by stop()
+    # any store opens, the mq bus publishes through the port's MqClient, and
+    # a log bus is attached to the filer and closed by stop()
     with pytest.raises(ValueError, match="unknown notification bus spec"):
         filer_server.FilerServer("127.0.0.1:1", notify="bogus:x")
-    with pytest.raises(NotImplementedError, match="not ported.*Queue A item 5"):
-        filer_server.FilerServer("127.0.0.1:1", notify="mq://127.0.0.1:1/t")
+    mq_fs = filer_server.FilerServer("127.0.0.1:1", notify="mq://127.0.0.1:1/t")
+    assert type(mq_fs._notifier.bus).__name__ == "MqBus"
+    assert mq_fs._notifier.bus.topic == "t"
+    mq_fs.stop()
     fs = filer_server.FilerServer("127.0.0.1:1", notify=f"log:{tmp_path / 'ev.jsonl'}")
     assert fs.filer.notifier is fs._notifier and fs._notifier is not None
     fs.stop()

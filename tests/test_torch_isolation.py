@@ -2,8 +2,9 @@
 its chip scripts (chip_smoke.py, chip_table_variants.py), imports jax or
 anything of the JAX package, names a path into the JAX package's native
 library (``seaweedfs_tpu/native``), or loads that library at run time; and
-its maintenance plane (``cli admin``, ``cli worker``) never initialises
-CUDA."""
+its maintenance plane (``cli admin``, ``cli worker``), its file gateways
+(``cli webdav``, ``cli sftp``, ``cli mount``) and its message queue
+(``cli mq.broker``) never initialise CUDA."""
 
 from __future__ import annotations
 
@@ -136,7 +137,16 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/admin/dashboard.py", "seaweedfs_tpu_torch/admin/admin_server.py",
             "seaweedfs_tpu_torch/commands/admin_cmd.py",
             "seaweedfs_tpu_torch/native/__init__.py", "seaweedfs_tpu_torch/native/dataplane.py",
-            "seaweedfs_tpu_torch/filer/splice.py"} <= names
+            "seaweedfs_tpu_torch/filer/splice.py", "seaweedfs_tpu_torch/mount/page_writer.py",
+            "seaweedfs_tpu_torch/mount/meta_cache.py", "seaweedfs_tpu_torch/mount/weedfs.py",
+            "seaweedfs_tpu_torch/mount/fuse_adapter.py", "seaweedfs_tpu_torch/commands/mount_cmd.py",
+            "seaweedfs_tpu_torch/server/webdav_server.py", "seaweedfs_tpu_torch/sftpd/__init__.py",
+            "seaweedfs_tpu_torch/sftpd/sftp_adapter.py", "seaweedfs_tpu_torch/pb/mq_pb2.py",
+            "seaweedfs_tpu_torch/mq/__init__.py", "seaweedfs_tpu_torch/mq/balancer.py",
+            "seaweedfs_tpu_torch/mq/schema.py", "seaweedfs_tpu_torch/mq/log_store.py",
+            "seaweedfs_tpu_torch/mq/tier.py", "seaweedfs_tpu_torch/mq/groups.py",
+            "seaweedfs_tpu_torch/mq/broker.py", "seaweedfs_tpu_torch/mq/agent.py",
+            "seaweedfs_tpu_torch/commands/mq_cmd.py", "seaweedfs_tpu_torch/shell/command_mq.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())
@@ -268,6 +278,44 @@ def test_admin_and_worker_initialise_no_cuda(tmp_path):
         w.stop()
         srv.stop()
         assert list(srv.status()["workers_seen_ago"]) == [w.worker_id]
+        print("CUDA", calls, torch.cuda.is_initialized())
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "CUDA [] False" in proc.stdout
+
+
+def test_gateways_and_broker_initialise_no_cuda(tmp_path):
+    """The file gateways and the message queue never touch CUDA: a fresh
+    interpreter runs ``cli webdav -h`` and ``cli mq.broker -h``, lets ``cli
+    sftp`` and ``cli mount`` refuse without paramiko and FUSE (rc 1), starts
+    a WebDavServer and an MqBroker (against a master and a filer nobody
+    serves), publishes nothing and stops both; torch.cuda's lazy
+    initialisation is never called."""
+    script = textwrap.dedent(f"""
+        import torch
+        calls = []
+        real = torch.cuda._lazy_init
+        torch.cuda._lazy_init = lambda: calls.append(1) or real()
+        from seaweedfs_tpu_torch import cli
+        from seaweedfs_tpu_torch.mq import MqBroker
+        from seaweedfs_tpu_torch.server.webdav_server import WebDavServer
+        for argv in (["webdav", "-h"], ["mq.broker", "-h"]):
+            try:
+                cli.main(argv)
+            except SystemExit as e:
+                assert e.code == 0, e.code
+        assert cli.main(["sftp"]) == 1
+        assert cli.main(["mount", "-dir", {str(tmp_path / "mnt")!r}]) == 1
+        dav = WebDavServer("127.0.0.1:1", "127.0.0.1:1", port=0)
+        dav.start()
+        b = MqBroker({str(tmp_path / "mq")!r}, "127.0.0.1:1", register_interval=0.1)
+        b.start()
+        b.stop()
+        dav.stop()
         print("CUDA", calls, torch.cuda.is_initialized())
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -285,12 +285,6 @@ def test_make_bus_answers_as_jax(tmp_path):
                 out.append(type(nmod.make_bus(spec)).__name__)
             except Exception as e:  # noqa: BLE001 — the refusal is the outcome
                 out.append((type(e).__name__, str(e)))
-        if spec.startswith("mq:"):
-            # the port has no message queue yet: a refusal in place of the bus
-            assert out[0] == ("NotImplementedError", "the mq notification bus is not ported "
-                              "to seaweedfs_tpu_torch yet (ROADMAP Queue A item 5: the "
-                              "message queue)")
-            continue
         assert out[0] == out[1], spec
     for nmod in (notification, jax_notification):
         b = nmod.make_bus(f"log:{tmp_path / 'x.jsonl'}")

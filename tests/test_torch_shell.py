@@ -103,7 +103,9 @@ def test_shell_rules():
         "ec.balance", "ec.decode", "ec.encode", "ec.rebuild", "events.dump", "fault.inject",
         "filer.shard.status", "fs.cat", "fs.cd", "fs.configure", "fs.du", "fs.log",
         "fs.ls", "fs.meta.cat", "fs.meta.load", "fs.meta.save", "fs.mkdir", "fs.mv", "fs.pwd",
-        "fs.rm", "fs.tree", "fs.verify", "help", "lock", "remote.cache", "remote.meta.sync",
+        "fs.rm", "fs.tree", "fs.verify", "help", "lock", "mq.balance", "mq.group.desc",
+        "mq.topic.compact", "mq.topic.configure", "mq.topic.desc", "mq.topic.list",
+        "remote.cache", "remote.meta.sync",
         "remote.mount", "remote.uncache", "remote.unmount", "resilience.status",
         "s3.bucket.create", "s3.bucket.delete",
         "s3.bucket.list", "s3.bucket.quota", "s3.bucket.quota.check", "s3.circuitbreaker",
