@@ -7196,6 +7196,8 @@ ADMIN_QUIET_S = 3.0  # -ecQuietSeconds, cut from upstream's 3600 s for the run's
 ADMIN_SAMPLE = 64  # needles of each volume read back after each step
 ADMIN_WAIT_S = 120.0  # every wait for the maintenance plane
 ADMIN_PASSWORD = "smoke-admin-pw"
+ADMIN_TELEMETRY_FILE_S = 300  # telemetryInterval in the master's TOML file (the JAX default)
+ADMIN_TELEMETRY_S = 1  # WEEDTPU_MASTER_TELEMETRYINTERVAL, which beats the file
 ADMIN_COOKIE = 0x5EED17AD
 
 
@@ -7208,8 +7210,12 @@ def _admin_fid(vid: int, key: int) -> str:
 
 
 def phase_admin(args, directory: str, ident: str, dev) -> dict:
-    """Phase 17: the maintenance plane, with no shell command.  One ``cli
-    master -volumeSizeLimitMB 256``, four ``cli volume -device cuda`` on
+    """Phase 17: the maintenance plane, with no shell command, reported to
+    a telemetry collector.  One ``cli -config FILE -v 1 master -port 0``
+    whose FILE is ``cli scaffold``'s text with ``volumeSizeLimitMB = 256``,
+    ``mdir``, ``telemetryUrl`` and ``telemetryInterval = 300`` (which
+    ``WEEDTPU_MASTER_TELEMETRYINTERVAL=1`` beats), ``cli telemetry``
+    started beside it, four ``cli volume -device cuda`` on
     two racks, ``cli admin -adminPassword -configFile -scanInterval 1
     -ecQuietSeconds 3`` (upstream's -ecFullPercent 95 and
     -garbageThreshold 0.3) and two ``cli worker -adminPassword``, none of
@@ -7224,7 +7230,10 @@ def phase_admin(args, directory: str, ident: str, dev) -> dict:
     vacuum runs on both holders (bytes reclaimed; live needles 200, deleted
     404).  One shard holder is SIGKILLed: the master drops it, the scanner
     sees the volumes degraded on two scans and EC_REBUILD restores 14
-    shards each, sha256-equal.  Then the admin API: 401 without
+    shards each, sha256-equal.  The collector's ``/api/instances`` then
+    holds the master's server, volume and EC shard counts and the
+    ``cluster.id`` of its ``mdir``, within three report intervals.  Then
+    the admin API: 401 without
     credentials, a login, ``/status`` with every task completed and none
     failed, the dashboard, and a policy edit kept across an admin restart.
     Figures on ``admin:`` lines."""
@@ -7253,9 +7262,42 @@ def phase_admin(args, directory: str, ident: str, dev) -> dict:
     pool = HttpConnectionPool(timeout=60.0, max_per_host=64)
     basic = {"Authorization": "Basic " + base64.b64encode(
         f"admin:{ADMIN_PASSWORD}".encode()).decode()}
-    master = _Server("", "", os.path.join(root, "master.log"),
-                     argv=["master", "-port", "0", "-volumeSizeLimitMB", str(FILER_VOLUME_MB)])
+    # the master's settings in a TOML file made from `cli scaffold`'s text,
+    # whose telemetryInterval loses to the environment's.  The collector
+    # starts beside the master on a port the file names first.
+    tport = _free_ports(1)[0]
+    config_path = os.path.join(root, "weed-tpu.toml")
+    mdir = os.path.join(root, "mdir")
+    t = time.perf_counter()
+    scaffold = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch.cli", "scaffold"],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                              text=True, timeout=120)
+    check(scaffold.returncode == 0 and "[master]\n" in scaffold.stdout,
+          f"cli scaffold: rc {scaffold.returncode}, {scaffold.stderr[-500:]!r}")
+    text = scaffold.stdout
+    for old_line, new_line in (
+            ("# volumeSizeLimitMB = 30720", f"volumeSizeLimitMB = {FILER_VOLUME_MB}"),
+            ('# mdir = "/var/lib/weed-tpu/master"',
+             f'mdir = "{mdir}"\ntelemetryUrl = "http://127.0.0.1:{tport}/api/collect"\n'
+             f"telemetryInterval = {ADMIN_TELEMETRY_FILE_S}")):
+        check(text.count(old_line + "\n") == 1, f"cli scaffold's text has no {old_line!r}")
+        text = text.replace(old_line + "\n", new_line + "\n")
+    with open(config_path, "w") as f:
+        f.write(text)
+    telemetry = _Server("", "", os.path.join(root, "telemetry.log"), wait=False,
+                        argv=["telemetry", "-port", str(tport)])
+    telemetry.lines = _Lines(telemetry.proc)
     try:
+        master = _Server("", "", os.path.join(root, "master.log"),
+                         argv=["-config", config_path, "-v", "1", "master", "-port", "0"],
+                         env={"WEEDTPU_MASTER_TELEMETRYINTERVAL": str(ADMIN_TELEMETRY_S)})
+    except BaseException:
+        telemetry.stop()
+        raise
+    t_master = time.perf_counter()
+    try:
+        telemetry.lines.wait_for(re.escape(f"telemetry collector on http://127.0.0.1:{tport} "))
+        walls["scaffold_to_up"] = time.perf_counter() - t  # the file, the collector, the master
         maddr = f"127.0.0.1:{master.grpc_port}"
         mhttp = f"127.0.0.1:{master.http_port}"
         mstub = rpc.master_stub(maddr)
@@ -7319,15 +7361,15 @@ def phase_admin(args, directory: str, ident: str, dev) -> dict:
                 with open(f"/proc/{pid}/maps") as f:
                     return "libcuda.so" in f.read()
 
-            plane = [admin.proc.pid, *(w.proc.pid for w in workers)]
+            plane = [admin.proc.pid, *(w.proc.pid for w in workers), telemetry.proc.pid]
             out = dict(smi=sorted(int(p) for p in run.stdout.split() if p.isdigit()),
                        servers={s_.proc.pid: libcuda(s_.proc.pid) for s_ in servers
                                 if s_.proc.poll() is None},
                        plane={pid: libcuda(pid) for pid in plane})
             check(not set(out["smi"]) & set(plane) and not any(out["plane"].values())
                   and all(out["servers"].values()) == (dev.type == "cuda"),
-                  f"CUDA contexts: {out} (the volume servers hold one, the admin and the "
-                  f"workers never)")
+                  f"CUDA contexts: {out} (the volume servers hold one, the admin, the "
+                  f"workers and the collector never)")
             return out
 
         rec["cuda_contexts"] = [cuda_contexts()]
@@ -7571,6 +7613,7 @@ def phase_admin(args, directory: str, ident: str, dev) -> dict:
             check(sorted(files) == list(range(14)), f"volume {v} after the rebuild: {sorted(files)}")
             for sid, p in files.items():
                 check(sha256(p) == shard_sha[v][sid], f"volume {v} shard {sid} rebuilt differently")
+        t_census = time.perf_counter()  # the master's counts are final from here
         k1_after = {s_.url: int(metric(s_.metrics(), "weedtpu_cuda_kernel_launches",
                                        kernel="gf_apply")) for s_ in survivors}
         k1_rebuild = sum(k1_after.values()) - sum(k1_before.values())
@@ -7593,7 +7636,54 @@ def phase_admin(args, directory: str, ident: str, dev) -> dict:
               f"launches in the rebuilds {k1_rebuild}; the sample reads back in "
               f"{walls['sample_rebuilt']:.3f}s")
 
-        # 5. the admin API
+        # 5. the collector: the leader's reports, at the environment's 1 s
+        # interval, carry the master's counts after the encode and rebuild
+        def master_counts() -> dict:
+            dns = [dn for dc in topo().data_center_infos for r in dc.rack_infos
+                   for dn in r.data_node_infos]
+            disks = [d for dn in dns for d in dn.disk_infos.values()]
+            return dict(volume_servers=len(dns),
+                        volumes=sum(len(d.volume_infos) for d in disks),
+                        ec_shards=sum(bin(e.shard_bits).count("1") for d in disks
+                                      for e in d.ec_shard_infos))
+
+        with open(os.path.join(mdir, "cluster.id")) as f:
+            cluster_id = f.read().strip()
+        seen_report: dict = {}
+
+        def reported() -> bool:
+            want = master_counts()
+            status, body = pool.request(f"127.0.0.1:{tport}", "GET", "/api/instances")
+            check(status == 200, f"collector /api/instances: {status} {body[:200]!r}")
+            inst = json.loads(body)["instances"]
+            check(len(inst) == 1 and inst[0]["cluster_id"] == cluster_id,
+                  f"collector instances {inst}; cluster.id in -mdir {cluster_id!r}")
+            seen_report.update(inst[0], want=want)
+            return all(inst[0][k] == v for k, v in want.items())
+
+        _poll(reported, "the collector to hold the master's counts", 3 * ADMIN_TELEMETRY_S)
+        walls["census_to_collector"] = time.perf_counter() - t_census
+        status, body = pool.request(f"127.0.0.1:{tport}", "GET", "/api/stats")
+        tstats = json.loads(body)
+        since_master = time.perf_counter() - t_master
+        check(status == 200 and tstats["clusters"] == 1
+              and tstats["reports_received"] >= since_master / (2 * ADMIN_TELEMETRY_S),
+              f"collector /api/stats {tstats} after {since_master:.1f}s of the master: the "
+              f"environment's {ADMIN_TELEMETRY_S}s interval is not in force")
+        rec["telemetry"] = dict(counts=seen_report["want"], cluster_id=cluster_id,
+                                census_to_collector_s=walls["census_to_collector"],
+                                reports=tstats["reports_received"], master_s=since_master,
+                                launches=sum(k1.values()) + k1_rebuild)
+        print(f"admin: collector (cli telemetry on 127.0.0.1:{tport}) holds the master's counts "
+              f"{seen_report['want']} after the EC_ENCODE and EC_REBUILD, "
+              f"{walls['census_to_collector']:.3f}s after the master's census settled (interval "
+              f"{ADMIN_TELEMETRY_S}s from WEEDTPU_MASTER_TELEMETRYINTERVAL over the file's "
+              f"{ADMIN_TELEMETRY_FILE_S}s; {tstats['reports_received']} reports in "
+              f"{since_master:.1f}s); cluster_id {cluster_id} = -mdir's cluster.id; the phase's "
+              f"K1 launches {sum(k1.values()) + k1_rebuild} = encode "
+              f"{sum(k1.values())} + rebuild {k1_rebuild}")
+
+        # 6. the admin API
         status, _body = pool.request(aaddr, "GET", "/status")
         check(status == 401, f"/status without credentials: {status}")
         status, hdrs, body = pool.request_meta(aaddr, "POST", "/login", body=json.dumps(
@@ -7641,6 +7731,7 @@ def phase_admin(args, directory: str, ident: str, dev) -> dict:
             rcs["admin"] = admin.stop()
         rcs.update({getattr(s_, "url", s_.proc.pid): s_.stop() for s_ in servers})
         rcs["master"] = master.stop()
+        rcs["telemetry"] = telemetry.stop()
     killed = [u for u, rc in rcs.items() if rc == -signal.SIGKILL]
     check(len(killed) == 1 and all(rc == 0 for u, rc in rcs.items() if u not in killed),
           f"admin phase processes exited {rcs}")

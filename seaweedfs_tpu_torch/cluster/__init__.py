@@ -13,8 +13,8 @@ Two HA modes, as in the JAX package:
   * ``lease`` (cluster/election.py): lease-style liveness probing; the
     lowest-addressed live master leads.
 
-Not ported: the telemetry collector and its server (``telemetry.py``,
-``telemetry_server.py``).
+Telemetry: the leader master's opt-in reporter (``telemetry.py``) and the
+collector it reports to (``telemetry_server.py``, ``cli telemetry``).
 """
 
 from seaweedfs_tpu_torch.cluster.election import LeaderElection

@@ -51,6 +51,7 @@ def _import_all() -> None:
         backup_cmd,
         benchmark_cmd,
         client_cmd,
+        config_cmd,
         ec_local,
         gateway_cmd,
         mount_cmd,

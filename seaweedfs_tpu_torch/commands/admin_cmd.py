@@ -1,10 +1,12 @@
 """``cli admin`` and ``cli worker``: the maintenance daemons (reference
-weed/command/admin.go / worker.go); the port's copy of
-seaweedfs_tpu/commands/admin_cmd.py, with its flags and defaults.
+weed/command/admin.go / worker.go), and ``cli telemetry``, the collector
+that masters started with ``-telemetryUrl`` report to (reference
+telemetry/server); the port's copy of seaweedfs_tpu/commands/admin_cmd.py,
+with its flags and defaults.
 
-Neither takes ``-device``: they run no kernel and never touch CUDA.  The
+None takes ``-device``: they run no kernel and never touch CUDA.  The
 EC encode and rebuild a worker drives run in the volume servers, which
-keep their own ``-device``.  ``cli telemetry`` is not ported yet.
+keep their own ``-device``.
 """
 
 from __future__ import annotations
@@ -121,9 +123,20 @@ run_worker.configure = _worker_flags
 
 @command("telemetry", "run a telemetry collector server (reference telemetry/server)")
 def run_telemetry(args) -> int:
-    raise NotImplementedError(
-        "telemetry is not ported to seaweedfs_tpu_torch yet "
-        "(ROADMAP Queue A item 8)")
+    from seaweedfs_tpu_torch.cluster.telemetry_server import TelemetryServer
+    from seaweedfs_tpu_torch.commands.servers import _wait_forever
+
+    srv = TelemetryServer(ip=args.ip, port=args.port, stale_after=args.staleAfterSec).start()
+    print(
+        f"telemetry collector on {srv.url} "
+        f"(POST /api/collect; /api/stats /api/instances /metrics)",
+        flush=True,
+    )
+    try:
+        _wait_forever()
+    finally:
+        srv.stop()
+    return 0
 
 
 def _telemetry_flags(p):

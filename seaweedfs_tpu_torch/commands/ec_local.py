@@ -1,7 +1,8 @@
-"""Local (offline) EC commands: encode, rebuild or decode a volume in place.
+"""Local (offline) EC commands: encode, rebuild or decode a volume in place,
+and ``fix``, which rebuilds a volume's .idx from its .dat log.
 
 The port of seaweedfs_tpu/commands/ec_local.py's ``ec.encode.local``,
-``ec.rebuild.local`` and ``ec.decode.local``, with the same flags
+``ec.rebuild.local``, ``ec.decode.local`` and ``fix``, with the same flags
 (``-code lrc`` / ``-localGroups N`` select the LRC storage class; a
 flag-less rebuild or decode reads the class and geometry from the .vif)
 plus ``-device`` (default ``cuda``; ``cpu`` runs the plain PyTorch codec on
@@ -171,3 +172,24 @@ def ec_decode_local(args) -> int:
 
 
 ec_decode_local.configure = _common_flags
+
+
+@command("fix", "rebuild a volume's .idx from its .dat log")
+def fix(args) -> int:
+    from seaweedfs_tpu_torch.storage.volume import Volume
+
+    v = Volume(args.dir, args.volume_id, args.collection, create=False)
+    v.rebuild_index()
+    count = v.file_count()
+    v.close()
+    print(f"rebuilt index: {count} live needles")
+    return 0
+
+
+def _fix_flags(p) -> None:
+    p.add_argument("-dir", dest="dir", default=".")
+    p.add_argument("-collection", dest="collection", default="")
+    p.add_argument("-volumeId", dest="volume_id", type=int, required=True)
+
+
+fix.configure = _fix_flags

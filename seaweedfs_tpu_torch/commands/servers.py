@@ -104,7 +104,9 @@ def run_master(args) -> int:
                       volume_size_limit_mb=args.volumeSizeLimitMB,
                       default_replication=args.defaultReplication,
                       peers=[p.strip() for p in args.peers.split(",") if p.strip()],
-                      meta_dir=args.mdir, ha=args.ha, jwt_key=args.jwtKey)
+                      meta_dir=args.mdir, ha=args.ha, jwt_key=args.jwtKey,
+                      telemetry_url=args.telemetryUrl,
+                      telemetry_interval=args.telemetryInterval)
     ms.start()
     if args.metricsPort:
         from seaweedfs_tpu_torch import stats
@@ -130,6 +132,10 @@ def _master_flags(p) -> None:
                    help="HA mode: lease probing or raft consensus (needs -mdir; "
                    "empty -peers joins passively via cluster.raft.add)")
     p.add_argument("-jwtKey", default="", help="sign per-fid write JWTs (or WEED_JWT_KEY)")
+    p.add_argument("-telemetryUrl", default="",
+                   help="opt-in: leader POSTs cluster stats here periodically")
+    p.add_argument("-telemetryInterval", type=float, default=300.0,
+                   help="seconds between telemetry reports")
     p.add_argument("-metricsPort", type=int, default=0,
                    help="standalone Prometheus /metrics + /debug listener (0: none)")
 

@@ -25,7 +25,10 @@ predecessor could have issued and serves assigns and growth only once
 that jump has committed (the sequence barrier).  Unlike the JAX master, a
 leader does not re-apply its own committed watermarks (``_raft_apply``).
 
-Not ported: the telemetry collector (``-telemetryUrl``).
+Telemetry (``telemetry_url``, cluster/telemetry.py): the leader POSTs a
+cluster snapshot every ``telemetry_interval`` seconds under one cluster id,
+kept in ``cluster.id`` beside ``master.meta.json`` when there is a
+``meta_dir``, so a restart or a failover reports the same cluster.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import grpc
 from seaweedfs_tpu_torch import rpc, stats
 from seaweedfs_tpu_torch.cluster import ClusterRegistry, LeaderElection
 from seaweedfs_tpu_torch.cluster.raft import HttpRaftTransport, RaftNode, raft_token
+from seaweedfs_tpu_torch.cluster.telemetry import TelemetryCollector
 from seaweedfs_tpu_torch.pb import master_pb2 as m_pb
 from seaweedfs_tpu_torch.security import sign_fid
 from seaweedfs_tpu_torch.storage.erasure_coding.shard_bits import ShardBits
@@ -560,6 +564,8 @@ class MasterServer:
         ha: str = "lease",
         election_interval: float = 1.0,
         jwt_key: str = "",
+        telemetry_url: str = "",
+        telemetry_interval: float = 300.0,
     ):
         self.ip = ip
         self.port = port
@@ -584,6 +590,10 @@ class MasterServer:
         self.raft: RaftNode | None = None  # built in start() when ha == "raft"
         if ha == "raft" and not meta_dir:
             raise ValueError("ha='raft' requires a meta_dir for the raft log")
+        self.telemetry: TelemetryCollector | None = None
+        if telemetry_url:
+            self.telemetry = TelemetryCollector(self, telemetry_url, interval=telemetry_interval,
+                                                cluster_id=self._durable_cluster_id())
         self._grpc_server = None
         self._http_server = None
         self._stop = threading.Event()
@@ -676,6 +686,8 @@ class MasterServer:
                                            on_peer_state=self._adopt_peer_watermarks,
                                            on_leader=self._on_lease_leader)
             self.election.start()
+        if self.telemetry:
+            self.telemetry.start()
 
     def _start_raft(self) -> None:
         """Consensus-backed HA (reference raft_hashicorp.go): the log
@@ -847,6 +859,8 @@ class MasterServer:
 
     def stop(self) -> None:
         self._stop.set()
+        if self.telemetry:
+            self.telemetry.stop()
         if self.raft is not None:
             self.raft.stop()
             for f in ("term", "is_leader", "commit_index"):

@@ -1,7 +1,8 @@
 """Leveled logging — the glog analogue (reference weed/glog/); the port's
 copy of seaweedfs_tpu/util/wlog.py.
 
-`V(level)` gates verbose logs on the process verbosity (``WEEDTPU_V``);
+`V(level)` gates verbose logs on the process verbosity (the CLI's ``-v``
+through ``set_verbosity``, else ``WEEDTPU_V``);
 ``info`` prints with the glog-style single-letter prefix, timestamp, and
 source location.  Only the calls the port makes so far are ported.
 """
@@ -15,6 +16,12 @@ import time
 
 _verbosity = int(os.environ.get("WEEDTPU_V", "0") or 0)
 _lock = threading.Lock()
+
+
+def set_verbosity(v: int) -> None:
+    """The CLI's ``-v``: beats ``WEEDTPU_V`` for this process."""
+    global _verbosity
+    _verbosity = v
 
 
 def V(level: int) -> bool:

@@ -2,8 +2,8 @@
 with a password and a config file, two workers with Basic auth, over a port
 cluster (in process, ``device="cpu"``), EC-encode a filled volume with no
 shell; every worker is seen and the admin's status counts one completed
-encode; SIGTERM stops each with rc 0.  ``cli telemetry`` refuses as not
-ported.  Every read of a subprocess's output and every wait has a
+encode; SIGTERM stops each with rc 0.  ``cli telemetry`` serves reports.
+Every read of a subprocess's output and every wait has a
 deadline."""
 
 from __future__ import annotations
@@ -157,10 +157,26 @@ def test_cli_admin_and_two_workers_encode_a_filled_volume(tmp_path):
 
 
 def test_cli_telemetry_is_not_ported(tmp_path):
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(REPO)
-    run = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch.cli", "telemetry"],
-                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
-    assert run.returncode != 0
-    assert ("telemetry is not ported to seaweedfs_tpu_torch yet (ROADMAP Queue A item 8)"
-            in run.stderr)
+    """``cli telemetry`` serves: started as a subprocess on a free port, it
+    names its address on its first line, takes a report at POST
+    /api/collect, counts it at GET /api/stats and stops on SIGTERM with rc
+    0.  (The test keeps the name it had while the command still refused.)"""
+    port = _free_port()
+    proc = _Proc(["telemetry", "-port", str(port)], tmp_path / "telemetry.log")
+    try:
+        assert proc.first_line() == (f"telemetry collector on http://127.0.0.1:{port} "
+                                     f"(POST /api/collect; /api/stats /api/instances /metrics)")
+        status, body = _http(f"127.0.0.1:{port}", "GET", "/api/stats")
+        assert status == 200 and json.loads(body) == {
+            "clusters": 0, "reports_received": 0, "total_volume_servers": 0, "total_volumes": 0,
+            "total_ec_shards": 0, "total_filers": 0, "total_brokers": 0}
+        report = {"cluster_id": "c1", "version": "weed-tpu", "volume_servers": 4, "volumes": 9,
+                  "ec_shards": 14}
+        assert _http(f"127.0.0.1:{port}", "POST", "/api/collect",
+                     json.dumps(report).encode())[0] == 200
+        status, body = _http(f"127.0.0.1:{port}", "GET", "/api/stats")
+        assert json.loads(body) == {
+            "clusters": 1, "reports_received": 1, "total_volume_servers": 4, "total_volumes": 9,
+            "total_ec_shards": 14, "total_filers": 0, "total_brokers": 0}
+    finally:
+        assert proc.stop() == 0

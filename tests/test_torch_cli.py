@@ -147,6 +147,23 @@ def test_rebuild_of_an_lrc_volume_is_not_ported(volume_dir, tmp_path):
         assert len(wrong[name]) == len(encoded[name]) and wrong[name] != encoded[name]
 
 
+def test_fix_rebuilds_the_idx_as_the_jax_cli(volume_dir, tmp_path, capsys):
+    """``cli fix`` (ROADMAP Queue C item 21: the JAX CLI had it, the port's
+    refused it as an unknown command) rebuilds a lost .idx from the .dat log
+    into the same bytes as the JAX command, and prints the same line."""
+    out = {}
+    for name, main in (("jax", jax_cli.main), ("port", cli.main)):
+        d = tmp_path / name
+        shutil.copytree(volume_dir, d)
+        idx = d / "pics_5.idx"
+        idx.unlink()
+        assert main(["fix", *_flags(d)]) == 0
+        out[name] = (capsys.readouterr().out, idx.read_bytes())
+    assert out["jax"] == out["port"]
+    assert out["port"][0] == "rebuilt index: 184 live needles\n"
+    assert len(out["port"][1]) == 184 * 16  # one 16-byte entry per live needle
+
+
 def test_missing_volume_is_a_clean_error(tmp_path, capsys):
     assert cli.main(["ec.encode.local", *_flags(tmp_path, "-device", "cpu")]) == 1
     assert "error:" in capsys.readouterr().err

@@ -146,7 +146,10 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/mq/schema.py", "seaweedfs_tpu_torch/mq/log_store.py",
             "seaweedfs_tpu_torch/mq/tier.py", "seaweedfs_tpu_torch/mq/groups.py",
             "seaweedfs_tpu_torch/mq/broker.py", "seaweedfs_tpu_torch/mq/agent.py",
-            "seaweedfs_tpu_torch/commands/mq_cmd.py", "seaweedfs_tpu_torch/shell/command_mq.py"} <= names
+            "seaweedfs_tpu_torch/commands/mq_cmd.py", "seaweedfs_tpu_torch/shell/command_mq.py",
+            "seaweedfs_tpu_torch/util/config.py", "seaweedfs_tpu_torch/commands/config_cmd.py",
+            "seaweedfs_tpu_torch/cluster/telemetry.py",
+            "seaweedfs_tpu_torch/cluster/telemetry_server.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())
