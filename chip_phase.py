@@ -8,7 +8,9 @@ filer, S3, the RPC layers under TLS, the sharded filer, the maintenance
 plane, replication, the file gateways and the message queue).  The kernels are
 built as chip_smoke.py builds them, then the phase runs on cuda:0 in a
 temporary directory and prints its own lines; a failed check exits 1.
-Without CUDA it exits non-zero and prints no result.
+Phase 12 ends, as in chip_smoke.py, with the host codec and K1 from racing
+threads under the port's checkers.  Without CUDA it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -21,8 +23,15 @@ import time
 
 import chip_smoke as cs
 
+
+def phase_12(args, directory: str, ident: str, dev) -> None:
+    cs.phase_storage(args, directory, ident, dev)
+    cs.phase_host_codec(ident)
+    cs.phase_racing_k1(ident, dev)
+
+
 PHASES = {9: cs.phase_write_path, 10: cs.phase_failover, 11: cs.phase_maintenance,
-          12: cs.phase_storage, 13: cs.phase_filer, 14: cs.phase_s3, 15: cs.phase_tls,
+          12: phase_12, 13: cs.phase_filer, 14: cs.phase_s3, 15: cs.phase_tls,
           16: cs.phase_shard, 17: cs.phase_admin, 18: cs.phase_sync, 19: cs.phase_gateways}
 
 

@@ -234,7 +234,19 @@ Phases, each printing what it found; any failure exits non-zero:
    plain version's.  Its figures go on a ``storage:`` JSON line.  Then the
    host codec (``ReedSolomonCPU`` on csrc/gf256.cpp, which phases 7 and 11
    decode on and name) is held byte-equal to the plain torch codec on a
-   10 x 1 MiB encode and a 4-loss rebuild, each timed in µs.
+   10 x 1 MiB encode and a 4-loss rebuild, each timed in µs.  Last, K1
+   from racing threads under the port's checkers: racecheck (scoped to
+   ops/rs_cuda, sched_cache, select and _build) and lockcheck installed,
+   three threads each take ``select.pipeline_codec_for`` (RS(10,4) twice,
+   LRC(10,2,2) once) with the codec caches emptied and encode a seeded
+   10 x 1 MiB batch on the card: 8 schedules of the weedrace explorer,
+   which runs one thread at a time and interleaves them at their lock
+   points, then 4 free rounds that release the three together, so K1 is
+   launched concurrently.  Every parity byte-equal to the plain version,
+   K1's count up by exactly 3 a round, no race, no lock-order cycle, no
+   deadlock; then the six protocol scenarios of the port's weedrace at
+   tier-1's bound and run cap (bound 2, 12 runs each); the step's wall is
+   printed.
 13. The filer: a fresh ``cli master -volumeSizeLimitMB 256``, four ``cli
    volume -device cuda -scrubInterval 0 -scrubRateMB 0`` on two racks and
    ``cli filer -db <dir> -maxMB 4`` (the LSM store; logs under
@@ -1223,6 +1235,7 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
             shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
         storage = phase_storage(args, tmp, ident, dev)
         host_codec = phase_host_codec(ident)
+        racing = phase_racing_k1(ident, dev)
         lap("12")
         for name in os.listdir(tmp):  # room for phase 13's volumes
             path = os.path.join(tmp, name)
@@ -1268,8 +1281,8 @@ def phase_main_path(args, ident: str, dev, rates) -> dict:
                     encode_gbs=enc_gbs, rebuild_gbs=reb_gbs, hop=hop, decode_s=decode_s,
                     lrc=lrc, mesh=mesh, ec_service=ec_service, cluster=cluster, write=write,
                     failover=failover, maintenance=maintenance, storage=storage,
-                    host_codec=host_codec, filer=filer, s3=s3, tls=tls, shard=shard, admin=admin,
-                    sync=sync, gateways=gateways)
+                    host_codec=host_codec, racing=racing, filer=filer, s3=s3, tls=tls,
+                    shard=shard, admin=admin, sync=sync, gateways=gateways)
     finally:
         faulthandler.cancel_dump_traceback_later()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4020,6 +4033,184 @@ def phase_host_codec(ident: str) -> dict:
           f"byte-equal to the plain torch codec; 10 x 1 MiB -> 4 encode {rec['encode_us']:.1f} us "
           f"(plain {rec['plain_encode_us']:.1f} us), 4-loss reconstruct "
           f"{rec['reconstruct_us']:.1f} us (plain {rec['plain_reconstruct_us']:.1f} us)")
+    return rec
+
+
+# phase 12's card step: K1 from racing threads under the port's checkers
+RACE_SCOPE = "ops.rs_cuda,ops.sched_cache,ops.select,ops._build"
+RACE_RUNS = 8  # explored schedules of the three K1 threads
+RACE_BOUND = 2  # preemptions a schedule may take
+FREE_ROUNDS = 4  # rounds of the same three threads with no gate, released together
+PROTOCOL_RUNS = 12  # a protocol scenario's schedules, as tier-1 explores them
+
+
+def phase_racing_k1(ident: str, dev) -> dict:
+    """K1 launched from racing threads under the port's checkers (part of
+    phase 12).  racecheck (scoped to RACE_SCOPE) and lockcheck installed,
+    the cuda schedule cache and select's codec caches emptied before every
+    round, three threads each take select.pipeline_codec_for (RS(10,4)
+    twice, LRC(10,2,2) once) and encode their own seeded 10 x 1 MiB batch
+    on the card, racing the first upload of the matrices.  First the
+    weedrace explorer interleaves them at their lock points: its gate runs
+    one thread at a time and switches only at a sync operation, through
+    RACE_RUNS schedules.  Then FREE_ROUNDS rounds with no gate, the three
+    threads released together by a barrier, so K1 is launched concurrently
+    as a volume server's RPC pool launches it.  On every round: each parity
+    byte-equal to rs_torch's plain version on the card, K1's launch count
+    up by exactly one a thread (none on the CPU, where the wrapper runs the
+    plain version), no deadlock; over the step no unsuppressed race and no
+    lock-order cycle.  Then the six protocol scenarios of the port's
+    weedrace at tier-1's bound and run cap, each scoped to the module it
+    drives (how many runs that explores depends on which module locks were
+    made before install).  The module globals that count launches are not
+    traced by racecheck: the launch invariant checks them.  The module
+    locks swapped for instrumented ones are put back at the end."""
+    import _thread
+
+    import numpy as np
+    import torch
+
+    from seaweedfs_tpu_torch.ops import _build, rs_cuda, sched_cache, select
+    from seaweedfs_tpu_torch.ops.rs_torch import apply_matrix_reference
+    from seaweedfs_tpu_torch.storage.erasure_coding.lrc import DEFAULT_LRC_SCHEME
+    from seaweedfs_tpu_torch.storage.erasure_coding.scheme import DEFAULT_SCHEME
+    from seaweedfs_tpu_torch.util import lockcheck, racecheck, sync_seam
+    from seaweedfs_tpu_torch.weedrace import race_violation
+    from seaweedfs_tpu_torch.weedrace.cli import run_scenarios
+    from seaweedfs_tpu_torch.weedrace.scenarios import SCENARIOS, SCOPES
+    from seaweedfs_tpu_torch.weedrace.sched import explore
+
+    t0 = time.perf_counter()
+    schemes = (DEFAULT_SCHEME, DEFAULT_SCHEME, DEFAULT_LRC_SCHEME)
+    batches, want = [], []
+    for i, scheme in enumerate(schemes):
+        data = np.random.default_rng(1200 + i).integers(0, 256, (10, MIB), dtype=np.uint8)
+        batches.append(torch.from_numpy(data).to(dev))
+        codec = select.pipeline_codec_for(scheme, dev)
+        want.append(apply_matrix_reference(codec.matrix[codec.data_shards:], batches[-1]))
+    per_run = len(schemes) if dev.type == "cuda" else 0
+    caches = (select._bulk_codec, select._mesh_codec, select._lrc_codec,
+              select.small_read_codec, select._lrc_host_codec)
+
+    def clear() -> int:
+        sched_cache.cache_clear("cuda")
+        for fn in caches:
+            fn.cache_clear()
+        return rs_cuda.launches
+
+    def encoder(i: int, got: list):
+        def body():
+            codec = select.pipeline_codec_for(schemes[i], dev)
+            got[i] = codec.encode_device(batches[i])
+        return body
+
+    def verify(before: int, got: list) -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        assert rs_cuda.launches - before == per_run, (
+            f"K1 launches rose by {rs_cuda.launches - before}, not {per_run}")
+        for i, w in enumerate(want):
+            assert got[i] is not None, f"thread {i} made no parity"
+            assert torch.equal(got[i].view(torch.uint8)[:, :MIB], w), (
+                f"thread {i}'s parity differs from the plain version")
+
+    def scenario(gate):
+        before, got = clear(), [None] * len(schemes)
+        for i in range(len(schemes)):
+            gate.spawn(encoder(i, got), f"k1-{i}")
+        return lambda: verify(before, got)
+
+    def free_round(n: int) -> None:
+        before, got, errors = clear(), [None] * len(schemes), []
+        start = threading.Barrier(len(schemes))
+
+        def run(body):
+            try:
+                start.wait()
+                body()
+            except BaseException as e:  # reported by the check below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=run, args=(encoder(i, got),), name=f"k1-free-{i}")
+                   for i in range(len(schemes))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        check(not errors, f"free round {n}: {errors}")
+        try:
+            verify(before, got)
+        except AssertionError as e:
+            raise SmokeFailure(f"free round {n}: {e}") from None
+
+    owners = (sched_cache, _build, *sched_cache._caches.values())
+    raw = (type(_thread.allocate_lock()), type(_thread.RLock()))
+    saved = [(o, name, v) for o in owners for name, v in vars(o).items() if type(v) in raw]
+    zero_launch_counts()
+    lockcheck.install()
+    racecheck.install(modules=RACE_SCOPE)
+    try:
+        # module and cache locks made before install bypass the seam: swap
+        # them for instrumented ones while no thread can hold them
+        rearmed = sum(sync_seam.rearm_module_locks(owner) for owner in owners)
+        lockcheck.reset()
+        racecheck.reset()
+        results = explore(scenario, bound=RACE_BOUND, max_runs=RACE_RUNS)
+        t_free = time.perf_counter()
+        for n in range(FREE_ROUNDS):
+            free_round(n)
+        free_wall = time.perf_counter() - t_free
+        k1_wall = time.perf_counter() - t0
+        launches = rs_cuda.launches
+        k1_report = racecheck.report()
+        t1 = time.perf_counter()
+        violations, protocol_runs, protocol_suppressed = [], 0, 0
+        for name in sorted(SCENARIOS):  # each in its module's scope, as tier-1
+            racecheck.uninstall()
+            racecheck.install(modules=SCOPES[name])
+            racecheck.reset()
+            found, stats = run_scenarios([name], 2, PROTOCOL_RUNS)
+            violations += found
+            protocol_runs += stats["runs"]
+            protocol_suppressed += stats["suppressed"]
+        protocol_wall = time.perf_counter() - t1
+        cycles = lockcheck.cycles()
+    finally:
+        racecheck.uninstall()
+        lockcheck.uninstall()
+        for owner, name, lock in saved:
+            setattr(owner, name, lock)
+    for r in results:
+        sched = ",".join(map(str, r.schedule_used)) or "-"
+        check(not r.deadlock, f"K1 threads deadlocked under schedule [{sched}]: {r.deadlock}")
+        check(not r.errors, f"K1 threads under schedule [{sched}]: {r.errors}")
+    races = [str(race_violation(r)) for r in k1_report["races"]]
+    check(not races, f"racecheck over {RACE_SCOPE}: {races[:5]}")
+    check(k1_report["bare_directives"] == 0, "a bare racecheck directive in ops/")
+    check(not cycles, f"lock-order cycles: {cycles}")
+    rounds = len(results) + FREE_ROUNDS
+    check(launches == per_run * rounds,
+          f"K1 launched {launches} times over {rounds} rounds, not {per_run} a round")
+    check(not violations, f"weedrace protocol scenarios: {[str(v) for v in violations][:5]}")
+    wall = time.perf_counter() - t0
+    rec = dict(runs=len(results), schedules=len({r.schedule_used for r in results}),
+               free_rounds=FREE_ROUNDS, free_wall_s=free_wall,
+               launches=launches, races=len(races), suppressed=len(k1_report["suppressed"]),
+               cells=k1_report["cells"],
+               cycles=len(cycles), rearmed_locks=rearmed, k1_wall_s=k1_wall,
+               protocol_runs=protocol_runs, protocol_findings=len(violations),
+               protocol_suppressed=protocol_suppressed, protocol_wall_s=protocol_wall,
+               wall_s=wall)
+    print(f"racing K1 on {ident}: {rec['runs']} explored runs ({rec['schedules']} distinct "
+          f"schedules, interleaved at lock points) and {FREE_ROUNDS} free rounds "
+          f"({free_wall:.3f}s) of 3 threads x 10 x 1 MiB through select.pipeline_codec_for, "
+          f"every parity byte-equal to the plain version; K1 launches={launches}; "
+          f"{rec['cells']} cells watched, races={rec['races']} "
+          f"(suppressed {rec['suppressed']}), lock-order cycles={rec['cycles']}, "
+          f"{rearmed} locks rearmed and put back; {k1_wall:.3f}s. weedrace: "
+          f"{rec['protocol_runs']} runs of {len(SCENARIOS)} protocol scenarios, "
+          f"{len(violations)} findings, {rec['protocol_suppressed']} suppressed, "
+          f"{protocol_wall:.3f}s. Step wall {wall:.3f}s")
     return rec
 
 
@@ -9363,6 +9554,9 @@ def main() -> int:
         storage_tiered_reads=storage["tiered_reads"],
         host_codec=main_path["host_codec"],
     )
+    racing = main_path["racing"]
+    record["kernels"][0]["launches"] += racing["launches"]
+    record["kernels"][0].update(launches_racing_threads=racing["launches"], racing_threads=racing)
     filer = main_path["filer"]
     record["kernels"][0]["launches"] += filer["launches"]
     record["kernels"][0].update(

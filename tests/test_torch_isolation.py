@@ -1,7 +1,9 @@
 """The port stands alone: no module of seaweedfs_tpu_torch, and none of
 its chip scripts (chip_smoke.py, chip_table_variants.py), imports jax or
-anything of the JAX package, names a path into the JAX package's native
-library (``seaweedfs_tpu/native``), or loads that library at run time; and
+anything of the JAX package or of the repo's analysis tools (weedrace,
+nativelint, weedlint, gfcheck), names a path into the JAX package's native
+library (``seaweedfs_tpu/native``), or loads that library at run time; its
+concurrency checkers and weedrace explorer run without any of them; and
 its maintenance plane (``cli admin``, ``cli worker``), its file gateways
 (``cli webdav``, ``cli sftp``, ``cli mount``) and its message queue
 (``cli mq.broker``) never initialise CUDA."""
@@ -18,7 +20,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "seaweedfs_tpu")
+FORBIDDEN = ("jax", "jaxlib", "seaweedfs_tpu", "weedrace", "nativelint", "weedlint", "gfcheck")
 
 
 def port_sources() -> list[Path]:
@@ -149,7 +151,14 @@ def test_scan_finds_the_port():
             "seaweedfs_tpu_torch/commands/mq_cmd.py", "seaweedfs_tpu_torch/shell/command_mq.py",
             "seaweedfs_tpu_torch/util/config.py", "seaweedfs_tpu_torch/commands/config_cmd.py",
             "seaweedfs_tpu_torch/cluster/telemetry.py",
-            "seaweedfs_tpu_torch/cluster/telemetry_server.py"} <= names
+            "seaweedfs_tpu_torch/cluster/telemetry_server.py",
+            "seaweedfs_tpu_torch/util/sync_seam.py", "seaweedfs_tpu_torch/util/lockcheck.py",
+            "seaweedfs_tpu_torch/util/racecheck.py",
+            "seaweedfs_tpu_torch/util/checkers_pytest.py",
+            "seaweedfs_tpu_torch/weedrace/__init__.py",
+            "seaweedfs_tpu_torch/weedrace/__main__.py", "seaweedfs_tpu_torch/weedrace/cli.py",
+            "seaweedfs_tpu_torch/weedrace/sarif.py", "seaweedfs_tpu_torch/weedrace/sched.py",
+            "seaweedfs_tpu_torch/weedrace/scenarios.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())
@@ -212,6 +221,29 @@ def test_the_data_plane_loads_only_the_port_library(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "PORT True" in proc.stdout and "JAX False" in proc.stdout
+
+
+def test_the_checkers_and_explorer_load_no_jax_and_no_tool(tmp_path):
+    """A fresh interpreter installs the port's lockcheck and racecheck and
+    explores a scenario through ``python -m seaweedfs_tpu_torch.weedrace``'s
+    main: neither jax, nor the JAX package, nor a tool package loads."""
+    script = textwrap.dedent("""
+        import sys
+        from seaweedfs_tpu_torch.util import lockcheck
+        from seaweedfs_tpu_torch.weedrace import cli
+        lockcheck.install()
+        rc = cli.main(["breaker_probe", "--max-runs", "4"])
+        lockcheck.uninstall()
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                        ("jax", "jaxlib", "seaweedfs_tpu", "weedrace", "nativelint"))
+        print("RC", rc, "LOADED", loaded)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "RC 0 LOADED []" in proc.stdout, proc.stdout
 
 
 def test_the_scan_catches_a_forbidden_import():
